@@ -12,13 +12,23 @@ Phases, each fatal on failure:
      shape, with times (CUDA events, median of 7 after warm-up);
   4. fit: KernelKMeans on n = 100,000 points of the segmentation proxy
      (p = 19, K = 7, r = 2, l = 5, polynomial d = 2, onepass-srht,
-     block 512) through the fused fit_sketch kernel, cross-checked against
-     the canonical plain fit with the same sketch and init (sketch state,
-     eigenvalues, subspace, labels), with the fit's own step times;
+     block 512) through the fused fit_sketch kernel, its eigensolve through
+     the fwht kernel, cross-checked against the canonical plain fit with
+     the same sketch and init (sketch state, eigenvalues, subspace, labels),
+     with the fit's own step times;
   5. serve: a MicroBatcher answers requests of 1 .. 2,500 held-out queries
      through extend_embed and kmeans_assign, checked against the two-pass
      plain Extender on the card;
-then prints the `kernels` JSON line, the nvidia-smi line and, last,
+  6. stream: the same configuration as a streaming fit on the canonical
+     SRHT path with every FWHT through the fwht kernel: ten partial_fit
+     chunks of 10,000 columns (a minibatch re-eig after the fifth), the
+     model saved after the fifth and resumed from disk, both streams fed
+     the last five chunks; resumed == live and chunked == one-shot fit bit
+     for bit, the stream within 2e-3 of phase 4's canonical plain fit,
+     exact fwht launch counts, and bf16 / int8 artifacts serving the
+     held-out queries;
+then prints the `main_path` and `kernels` JSON lines, the nvidia-smi line
+and, last,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result line,
 without a CUDA card or without the repository around it.
 """
@@ -29,12 +39,15 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
+BUILD = ROOT / "build"                  # git-ignored: builds, artifacts
+DEVICE = "cuda"
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): fp32 outside the
 # tensor cores and HBM3 bandwidth. bound = max(ops / FP32, bytes / HBM).
@@ -44,15 +57,19 @@ HBM_BYTES_PER_S = 3.35e12
 # The port's configuration: the paper's Fig. 3 widths at n = 100,000.
 N_TRAIN, N_QUERY, P, K, R, OVERSAMPLING, BLOCK = 100_000, 4096, 19, 7, 2, 5, 512
 RP = R + OVERSAMPLING
+N_PAD = 1 << (N_TRAIN - 1).bit_length()         # the SRHT's padded rows
 KERNEL = {"kind": "polynomial", "gamma": 0.0, "degree": 2}
 REQUESTS = (1, 7, 64, 300, 1024, 2500)
 SEED = 0
 
 TOL = 2e-3           # registry tolerance of the fused kernels
+STREAM_CHUNK = 10_000                          # partial_fit chunk width
+SAVED_AGREEMENT = 0.95   # tests/test_stream.py::test_int8_artifact_serves
+LIBRARY_FWHT_N = 8192    # rows of the materialized H timed as torch.mm
 
 # Kernels the main path launches; no path of the JAX package calls gram,
 # which is ported for its tile and checked against its plain version.
-MAIN_PATH = ("kmeans_assign", "extend_embed", "fit_sketch")
+MAIN_PATH = ("kmeans_assign", "extend_embed", "fit_sketch", "fwht")
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -63,6 +80,8 @@ SOURCES = {
                      "src/repro/kernels/extend_embed/extend_embed.py:30"),
     "fit_sketch": ("src/repro_torch/kernels/csrc/fit_sketch.cu",
                    "src/repro/kernels/fit_sketch/fit_sketch.py:42"),
+    "fwht": ("src/repro_torch/kernels/csrc/fwht.cu",
+             "src/repro/kernels/fwht/fwht.py:28"),
 }
 
 
@@ -146,6 +165,11 @@ def fit_bound(p, m, b, rp, kind, degree, masked=False):
                       + b * rp + m * rp + m + b + m * int(masked)))
 
 
+def fwht_bound(n, c):
+    """One read and one write of x; n c log2(n) adds."""
+    return bound(n * c * (n.bit_length() - 1), 8 * n * c)
+
+
 # -- phases -------------------------------------------------------------------
 
 def phase_env(torch) -> str:
@@ -183,7 +207,11 @@ def main_shape_inputs(torch, dev, X):
     Yq = torch.randn((1024, R), generator=gen, device=dev)
     cents = torch.randn((K, R), generator=gen, device=dev)
     kw = dict(KERNEL)
+    # The SRHT block update's padded stripe and the eigensolve's Omega^T Q.
+    block_stripe = torch.randn((N_PAD, BLOCK), generator=gen, device=dev)
+    eig_slab = torch.randn((N_PAD, RP), generator=gen, device=dev)
     return {
+        "fwht": [((block_stripe,), {}), ((eig_slab,), {})],
         "gram_stripe": [((X, Xb), kw)],
         "fit_sketch": [((X, Omega, Xb, Omega[N_TRAIN - BLOCK:].contiguous()),
                         kw),
@@ -240,6 +268,9 @@ def phase_kernels(torch, dev, X) -> dict:
             res.update(fit_bound(P, N_TRAIN, BLOCK, RP, "polynomial", 2))
         elif entry.name == "extend_embed":
             res.update(extend_bound(P, N_TRAIN, R, BLOCK, "polynomial", 2))
+        elif entry.name == "fwht":
+            res.update(fwht_bound(N_PAD, BLOCK))
+            res.update(fwht_extra(torch, dev, entry, main["fwht"][1][0]))
         else:
             res.update(assign_bound(1024, R, K))
         log(f"[kernels] {entry.name} main shape: kernel {res['ms']:.4f} ms, "
@@ -247,6 +278,37 @@ def phase_kernels(torch, dev, X) -> dict:
             f"({res['bound_by']})")
         results[entry.name] = res
     return results
+
+
+def fwht_extra(torch, dev, entry, eig_args) -> dict:
+    """fwht beside its bound at the eigensolve's shape, and beside the one
+    PyTorch call that computes a Hadamard transform: torch.mm with a
+    materialized H (256 MB at n = 8,192; 68 GB at the main path's n, so
+    no library time there)."""
+    from repro_torch.kernels import registry
+    (x,) = eig_args
+    out = {"eig_shape": list(x.shape),
+           "eig_ms": cuda_ms(torch, lambda: entry.op(x)),
+           "eig_plain_ms": cuda_ms(torch, lambda: entry.ref(x)),
+           "eig_bound_ms": fwht_bound(N_PAD, RP)["bound_ms"]}
+    n = LIBRARY_FWHT_N
+    H = entry.ref(torch.eye(n, device=dev))
+    xs = torch.randn((n, BLOCK), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(3))
+    registry.compare(entry, torch.mm(H, xs), entry.op(xs))
+    out.update({"library_shape": [n, BLOCK],
+                "library_ms_at_library_shape": cuda_ms(
+                    torch, lambda: torch.mm(H, xs)),
+                "ms_at_library_shape": cuda_ms(torch, lambda: entry.op(xs)),
+                "bound_ms_at_library_shape":
+                    fwht_bound(n, BLOCK)["bound_ms"]})
+    del H
+    log(f"[kernels] fwht at the eigensolve shape {out['eig_shape']}: kernel "
+        f"{out['eig_ms']:.4f} ms, plain {out['eig_plain_ms']:.4f} ms, bound "
+        f"{out['eig_bound_ms']:.5f} ms; at ({n}, {BLOCK}) kernel "
+        f"{out['ms_at_library_shape']:.4f} ms vs torch.mm with a "
+        f"materialized H {out['library_ms_at_library_shape']:.4f} ms")
+    return out
 
 
 def subspace_gap(torch, U1, U2) -> float:
@@ -257,30 +319,36 @@ def subspace_gap(torch, U1, U2) -> float:
     return float(torch.sqrt(torch.clamp(2 * r - 2 * g, min=0.0)))
 
 
-def estimator_args():
+def estimator_args(fwht_kernel: bool = False):
+    """The configuration's estimator arguments; fwht_kernel runs every FWHT
+    of the fit through the fwht kernel (backend_params fwht_fn)."""
+    params = {"oversampling": OVERSAMPLING}
+    if fwht_kernel:
+        from repro_torch.kernels import fwht_op
+        params["fwht_fn"] = fwht_op
     return dict(k=K, r=R, kernel="polynomial",
                 kernel_params={"gamma": KERNEL["gamma"],
                                "degree": KERNEL["degree"]},
-                backend="onepass-srht",
-                backend_params={"oversampling": OVERSAMPLING}, block=BLOCK,
-                device="cuda")
+                backend="onepass-srht", backend_params=params, block=BLOCK,
+                device=DEVICE)
 
 
 def phase_fit(torch, X, y) -> tuple:
-    """The main path's fit through the fused fit_sketch kernel, checked
-    against the canonical plain fit with the same sketch and init."""
+    """The main path's fit through the fused fit_sketch kernel (its
+    eigensolve through fwht), checked against the canonical plain fit with
+    the same sketch and init."""
     from repro_torch.api import KernelKMeans
     from repro_torch.core.metrics import clustering_accuracy
     from repro_torch.core.sketch import SRHT
     from repro_torch.kernels import OPS, reset_launches
     from repro_torch.serve import ComputePolicy
     # First use of cuBLAS / cuSOLVER on a small fit, outside the count.
-    KernelKMeans(**estimator_args(), policy=ComputePolicy()).fit(
+    KernelKMeans(**estimator_args(True), policy=ComputePolicy()).fit(
         X[:, :4096], seed=1)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    est = KernelKMeans(**estimator_args(), policy=ComputePolicy()).fit(
+    est = KernelKMeans(**estimator_args(True), policy=ComputePolicy()).fit(
         X, seed=SEED)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
@@ -289,6 +357,9 @@ def phase_fit(torch, X, y) -> tuple:
     if launches["fit_sketch"] != updates:
         raise AssertionError(f"fit_sketch launched {launches['fit_sketch']} "
                              f"times for {updates} block updates")
+    if launches["fwht"] != 1:
+        raise AssertionError(f"the fused fit's eigensolve launched fwht "
+                             f"{launches['fwht']} times, not once")
     if not (bool(torch.isfinite(est.embedding_).all())
             and tuple(est.embedding_.shape) == (R, N_TRAIN)):
         raise AssertionError("fit embedding is not finite (r, n)")
@@ -322,6 +393,7 @@ def phase_fit(torch, X, y) -> tuple:
     acc = clustering_accuracy(y, est.labels_, K)
     info = {"fit_s": fit_s, "canonical_fit_s": canon_s,
             "fit_sketch_launches": launches["fit_sketch"],
+            "fwht_launches": launches["fwht"],
             "block_updates": updates, "eigvals": est.eigvals_.tolist(),
             "eigval_max_abs_err_vs_canonical": eig_err,
             "subspace_gap_vs_canonical": gap,
@@ -331,7 +403,7 @@ def phase_fit(torch, X, y) -> tuple:
             "accuracy_vs_generating_labels": acc,
             "breakdown_s": est.fit_times_}
     log(f"[fit] n={N_TRAIN} fused fit {fit_s:.3f} s ({updates} fit_sketch "
-        f"launches), canonical plain fit {canon_s:.3f} s; eigvals "
+        f"launches, {launches['fwht']} fwht), canonical plain fit {canon_s:.3f} s; eigvals "
         f"{est.eigvals_.tolist()} (max abs diff {eig_err:.2e}), subspace gap "
         f"{gap:.2e}, stream_w / stream_row_norms2 max abs diff "
         f"{state_err['stream_w']:.2e} / {state_err['stream_row_norms2']:.2e}"
@@ -340,7 +412,7 @@ def phase_fit(torch, X, y) -> tuple:
     log("[fit] breakdown of the fused fit (KernelKMeans.fit_times_, CUDA "
         "events) " + ", ".join(f"{k} {v:.4f} s"
                                for k, v in est.fit_times_.items()))
-    return est, launches, info
+    return est, canon, launches, info
 
 
 def phase_serve(torch, model, Xq) -> tuple:
@@ -400,6 +472,177 @@ def phase_serve(torch, model, Xq) -> tuple:
     return launches, info
 
 
+def fwht_launches(n_applied: int, n_to: int, reeigs) -> int:
+    """fwht launches of a canonical SRHT stream from n_applied applied
+    columns to n_to added: one per full-block update, and at each re-eig
+    (at n columns added) one for the staged tail, if any, and one for the
+    eigensolve's Omega^T Q."""
+    blocks = n_to // BLOCK - n_applied // BLOCK
+    return blocks + sum(int(n % BLOCK != 0) + 1 for n in reeigs)
+
+
+def phase_stream(torch, X, Xq, canon) -> tuple:
+    """The streaming fit on the canonical SRHT path, every FWHT through the
+    fwht kernel: chunked, saved, resumed, against the one-shot fit and
+    phase 4's canonical plain fit, and its saved models served."""
+    from repro_torch.api import KernelKMeans
+    from repro_torch.core.metrics import clustering_accuracy
+    from repro_torch.kernels import OPS, reset_launches
+    from repro_torch.serve import ComputePolicy, MicroBatcher
+
+    def counts():
+        return {name: op.launches for name, op in OPS.items()}
+
+    def check_counts(what, got, fwht):
+        want = {name: 0 for name in OPS}
+        want["fwht"] = fwht
+        if got != want:
+            raise AssertionError(f"{what} launched {got}, expected {want}")
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    policy = ComputePolicy(fit_fused=False)
+    args = estimator_args(fwht_kernel=True)
+    n_chunks = N_TRAIN // STREAM_CHUNK
+    half = n_chunks // 2
+    chunks = [X[:, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK]
+              for i in range(n_chunks)]
+    BUILD.mkdir(parents=True, exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=BUILD)
+    f32_dir = str(pathlib.Path(work.name) / "f32")
+
+    # The live stream: chunks 1..5 (a minibatch re-eig after the fifth,
+    # then save), chunks 6..10 (a full re-eig after the last).
+    reset_launches()
+    live = KernelKMeans(**args, policy=policy)
+    chunk_s, reeig_s = [], {}
+    for i, chunk in enumerate(chunks):
+        chunk_s.append(timed(lambda: live.partial_fit(
+            chunk, seed=SEED, capacity=N_TRAIN, reeig=False)))
+        if i == half - 1:
+            reeig_s["minibatch"] = timed(
+                lambda: live.reeig_now(kmeans_mode="minibatch"))
+            save_s = timed(lambda: live.save(f32_dir))
+        elif i == n_chunks - 1:
+            reeig_s["full"] = timed(lambda: live.reeig_now())
+    live_counts = counts()
+    check_counts("the live stream", live_counts, fwht_launches(
+        0, N_TRAIN, (half * STREAM_CHUNK, N_TRAIN)))
+
+    # The resumed stream: load the artifact of chunk 5, feed chunks 6..10.
+    reset_launches()
+    t0 = time.perf_counter()
+    resumed = KernelKMeans.load(f32_dir, device=live.device, policy=policy,
+                                backend_params=args["backend_params"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    resumed_s = [timed(lambda: resumed.partial_fit(
+        chunk, seed=SEED, reeig=(i == n_chunks - 1)))
+        for i, chunk in enumerate(chunks) if i >= half]
+    resumed_counts = counts()
+    applied = (half * STREAM_CHUNK) // BLOCK * BLOCK
+    check_counts("the resumed stream", resumed_counts,
+                 fwht_launches(applied, N_TRAIN, (N_TRAIN,)))
+
+    # The one-shot fit on the same path.
+    reset_launches()
+    one = KernelKMeans(**args, policy=policy)
+    one_s = timed(lambda: one.fit(X, seed=SEED))
+    one_counts = counts()
+    check_counts("the one-shot fit", one_counts,
+                 fwht_launches(0, N_TRAIN, (N_TRAIN,)))
+
+    def bits(a, b, what):
+        for name in ("stream_w", "stream_row_norms2", "eigvals", "U",
+                     "centroids"):
+            if not torch.equal(getattr(a.model_, name),
+                               getattr(b.model_, name)):
+                raise AssertionError(f"{what}: {name} differs")
+        if not torch.equal(a.labels_, b.labels_):
+            raise AssertionError(f"{what}: labels differ")
+
+    bits(resumed, live, "resumed vs live")
+    bits(live, one, "chunked vs one-shot")
+
+    m, c = live.model_, canon.model_
+    err = {name: max_err(torch, getattr(m, name), getattr(c, name))
+           for name in ("stream_w", "stream_row_norms2", "eigvals")}
+    for name in err:
+        if not torch.allclose(getattr(m, name), getattr(c, name), rtol=TOL,
+                              atol=TOL):
+            raise AssertionError(f"stream vs canonical plain fit: {name} "
+                                 f"differs by up to {err[name]}")
+    gap = subspace_gap(torch, m.U, c.U)
+    if not gap < TOL:
+        raise AssertionError(f"stream vs canonical subspace gap {gap}")
+    agree = clustering_accuracy(canon.labels_, live.labels_, K)
+    if agree < 0.99:
+        raise AssertionError(f"stream vs canonical labels agree on {agree}")
+
+    # The final model saved in bf16 and int8, loaded, served.
+    serve_policy = ComputePolicy()
+    reset_launches()
+    want = MicroBatcher(m, policy=serve_policy).assign_batch(Xq)[0]
+    saved = {}
+    for dtype in ("bf16", "int8"):
+        path = str(pathlib.Path(work.name) / dtype)
+        s_save = timed(lambda: live.save(path, dtype=dtype))
+        t0 = time.perf_counter()
+        model = KernelKMeans.load(path, device=live.device).model_
+        torch.cuda.synchronize()
+        s_load = time.perf_counter() - t0
+        got = MicroBatcher(model, policy=serve_policy).assign_batch(Xq)[0]
+        agree_q = float(np.mean(got == want))
+        if agree_q < SAVED_AGREEMENT:
+            raise AssertionError(f"{dtype} artifact labels agree with the "
+                                 f"f32 model on {agree_q}")
+        saved[dtype] = {"save_s": s_save, "load_s": s_load,
+                        "label_agreement_vs_f32": agree_q}
+    serve_counts = counts()
+    for name in ("extend_embed", "kmeans_assign"):
+        if serve_counts[name] == 0:
+            raise AssertionError(f"serving the saved models never launched "
+                                 f"{name}")
+    work.cleanup()
+
+    launches = {name: live_counts[name] + resumed_counts[name]
+                + one_counts[name] + serve_counts[name] for name in OPS}
+    info = {"chunks": n_chunks, "chunk_columns": STREAM_CHUNK,
+            "partial_fit_s": chunk_s, "reeig_s": reeig_s,
+            "save_f32_s": save_s, "load_f32_s": load_s,
+            "resumed_partial_fit_s": resumed_s, "one_shot_fit_s": one_s,
+            "fwht_launches": {"live": live_counts["fwht"],
+                              "resumed": resumed_counts["fwht"],
+                              "one_shot": one_counts["fwht"]},
+            "resumed_equals_live": True, "chunked_equals_one_shot": True,
+            **{f"{k}_max_abs_err_vs_canonical_plain": v
+               for k, v in err.items()},
+            "subspace_gap_vs_canonical_plain": gap,
+            "label_agreement_vs_canonical_plain": agree,
+            "saved": saved}
+    log("[stream] partial_fit s per chunk " + ", ".join(
+        f"{t:.4f}" for t in chunk_s) + f"; re-eig s: minibatch "
+        f"{reeig_s['minibatch']:.4f} (after chunk {half}), full "
+        f"{reeig_s['full']:.4f}; save f32 {save_s:.4f} s, load {load_s:.4f}"
+        f" s")
+    log("[stream] resumed partial_fit s per chunk " + ", ".join(
+        f"{t:.4f}" for t in resumed_s) + f"; one-shot fit {one_s:.4f} s; "
+        f"fwht launches live {live_counts['fwht']}, resumed "
+        f"{resumed_counts['fwht']}, one-shot {one_counts['fwht']}")
+    log(f"[stream] resumed == live and chunked == one-shot bit for bit; vs "
+        f"the canonical plain fit: stream_w {err['stream_w']:.2e}, row norms"
+        f" {err['stream_row_norms2']:.2e}, eigvals {err['eigvals']:.2e}, "
+        f"subspace gap {gap:.2e}, labels {agree:.4f}")
+    log("[stream] saved models: " + ", ".join(
+        f"{d} save {v['save_s']:.4f} s, load {v['load_s']:.4f} s, labels vs "
+        f"f32 {v['label_agreement_vs_f32']:.4f}" for d, v in saved.items()))
+    return launches, info
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -420,11 +663,15 @@ def main() -> int:
     X = Xall[:, :N_TRAIN].contiguous()
     kernels = phase_kernels(torch, dev, X)
     summary = {}
-    est, fit_launches, summary["fit"] = phase_fit(torch, X, yall[:N_TRAIN])
-    serve_launches, summary["serve"] = phase_serve(
-        torch, est.model_, Xall[:, N_TRAIN:].contiguous())
+    Xq = Xall[:, N_TRAIN:].contiguous()
+    est, canon, fit_launches, summary["fit"] = phase_fit(
+        torch, X, yall[:N_TRAIN])
+    serve_launches, summary["serve"] = phase_serve(torch, est.model_, Xq)
+    stream_launches, summary["stream"] = phase_stream(torch, X, Xq, canon)
     launches = {name: fit_launches[name] + serve_launches[name]
-                for name in SOURCES}
+                + stream_launches[name] for name in SOURCES}
+    summary["launches"] = {"fit": fit_launches, "serve": serve_launches,
+                           "stream": stream_launches}
     log(f"[main path] launches {launches}")
     line = []
     for name, (source, replaces) in SOURCES.items():
@@ -442,8 +689,9 @@ def main() -> int:
                      "bound_us": res.get("bound_us"),
                      "bound_by": res.get("bound_by"),
                      "library_ms": res["library_ms"],
-                     **{k: res[k] for k in ("linear_ms", "linear_library_ms")
-                        if k in res}})
+                     **{k: v for k, v in res.items()
+                        if k.startswith(("linear_", "eig_"))
+                        or k.endswith("library_shape")}})
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"kernels": line}))
     log(smi)

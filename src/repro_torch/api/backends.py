@@ -77,17 +77,21 @@ def fit_memory_bytes(name: str, n: int, r: int, **params) -> int:
 
 def _onepass(sketch_type: str):
     def fit(generator, kernel, X, r, *, block=512, oversampling=10,
-            capacity=None, sketch=None, policy=None,
-            kernel_statics=None, clock=None) -> Embedding:
+            fwht_fn=None, truncate_basis=False, capacity=None, sketch=None,
+            policy=None, kernel_statics=None, clock=None) -> Embedding:
         # One-shot fit is a single-chunk pass through the streaming
         # accumulator: the same block-granular update sequence a chunked
         # ingest replays. `sketch` hands in ready draws (another
         # implementation's SRHT or Omega) in place of the generator's;
-        # `clock` (a StepClock) marks the end of each step.
+        # `fwht_fn` (e.g. the CUDA kernel fwht_op) runs the FWHTs of the
+        # canonical update and of the eigensolve; `clock` (a StepClock)
+        # marks the end of each step.
         acc = SketchAccumulator(kernel, capacity or X.shape[1], r,
                                 generator=generator, sketch=sketch,
                                 oversampling=oversampling, block=block,
-                                sketch_type=sketch_type, policy=policy,
+                                sketch_type=sketch_type, fwht_fn=fwht_fn,
+                                truncate_basis=truncate_basis,
+                                policy=policy,
                                 kernel_statics=kernel_statics)
         acc.add(X)
         if clock is not None:

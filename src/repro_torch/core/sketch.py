@@ -12,16 +12,21 @@ Alg. 1 lines 1-6:
     Y     = Sigma^{1/2} V^T Q^T  in R^{r x n}
 
 `H` is the normalized Walsh-Hadamard transform; `fwht` here is the plain
-PyTorch version. Random draws (SRHT signs/rows, the Gaussian Omega) come
-from an explicit torch.Generator, or from outside: SRHT and GaussianSketch
-are plain tuples of tensors, so a caller can hand in the draws of another
-implementation.
+PyTorch version (kernels/fwht/ref.py), and every SRHT apply takes a
+`fwht_fn=` hook for the CUDA kernel (kernels/fwht/ops.py::fwht_op), as
+the JAX package's does for its Pallas kernel. Random draws (SRHT
+signs/rows, the Gaussian Omega) come from an explicit torch.Generator, or
+from outside: SRHT and GaussianSketch are plain tuples of tensors, so a
+caller can hand in the draws of another implementation.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.core.kernels_fn import KernelFn, stripe_iterator
+from repro_torch.kernels.fwht.ref import fwht_ref as fwht
 
 
 def next_pow2(n: int) -> int:
@@ -29,30 +34,6 @@ def next_pow2(n: int) -> int:
     while p < n:
         p <<= 1
     return p
-
-
-def fwht(x: torch.Tensor, normalize: bool = True) -> torch.Tensor:
-    """Fast Walsh-Hadamard transform along dim 0. x: (n, ...), n = 2^m.
-
-    Iterative radix-2 butterflies, log2(n) stages; normalize=True applies
-    1/sqrt(n) so H is orthonormal.
-    """
-    n = x.shape[0]
-    if n & (n - 1):
-        raise ValueError(f"FWHT needs power-of-two length, got {n}")
-    orig_shape = x.shape
-    x = x.reshape(n, -1)
-    h = 1
-    while h < n:
-        x = x.reshape(n // (2 * h), 2, h, -1)
-        a, b = x[:, 0], x[:, 1]
-        x = torch.stack([a + b, a - b], dim=1)
-        h *= 2
-    x = x.reshape(orig_shape)
-    if normalize:
-        x = x / torch.sqrt(torch.tensor(float(n), dtype=x.dtype,
-                                        device=x.device))
-    return x
 
 
 class SRHT(NamedTuple):
@@ -85,26 +66,31 @@ def make_srht(n: int, r_prime: int, generator: torch.Generator,
     return SRHT(signs=signs, rows=rows, n=int(n), n_pad=n_pad)
 
 
-def srht_apply_t(srht: SRHT, M: torch.Tensor) -> torch.Tensor:
+def srht_apply_t(srht: SRHT, M: torch.Tensor,
+                 fwht_fn: Optional[Callable] = None) -> torch.Tensor:
     """Omega^T M = R^T H (D M) for M of shape (n, b) -> (r', b).
 
     Scale rows by D, FWHT over the zero-padded row axis, gather the
-    sampled rows.
+    sampled rows. `fwht_fn` swaps in the CUDA kernel (fwht_op).
     """
+    fwht_fn = fwht_fn or fwht
     n = M.shape[0]
     if n != srht.n:
         raise ValueError(f"expected {srht.n} rows, got {n}")
     Mp = torch.nn.functional.pad(M, (0, 0, 0, srht.n_pad - n))
-    Mp = fwht(Mp * srht.signs[:, None])
+    # Row-major for the kernel: a QR factor on the card is column-major.
+    Mp = fwht_fn((Mp * srht.signs[:, None]).contiguous())
     return Mp[srht.rows]
 
 
-def srht_apply(srht: SRHT, V: torch.Tensor) -> torch.Tensor:
+def srht_apply(srht: SRHT, V: torch.Tensor,
+               fwht_fn: Optional[Callable] = None) -> torch.Tensor:
     """Omega V for V of shape (r', b) -> (n, b). (D H R V; H, D symmetric.)"""
+    fwht_fn = fwht_fn or fwht
     scatter = torch.zeros((srht.n_pad, V.shape[1]), dtype=V.dtype,
                           device=V.device)
     scatter[srht.rows] = V
-    out = fwht(scatter) * srht.signs[:, None]
+    out = fwht_fn(scatter) * srht.signs[:, None]
     return out[:srht.n]
 
 
@@ -184,3 +170,81 @@ def one_pass_core(W: torch.Tensor, omega_t_q_fn, r: int) -> LowRankEig:
     U = Q @ V[:, :r]
     Y = torch.sqrt(evals[:r])[:, None] * U.T
     return LowRankEig(Y=Y, Q=Q[:, :r], eigvals=evals[:r], U=U)
+
+
+class SketchedEig(NamedTuple):
+    """randomized_eig's result with the sketch state it consumed (SRHT
+    or GaussianSketch), which with X fully determines the fit."""
+    eig: LowRankEig
+    sketch: Tuple
+
+
+def sketch_stream(kernel: KernelFn, X: torch.Tensor, srht: SRHT,
+                  block: int = 512,
+                  fwht_fn: Optional[Callable] = None) -> torch.Tensor:
+    """W = K Omega in one streaming pass over column stripes of K: stripe
+    j of K gives rows j of W. K is never materialized."""
+    W = torch.zeros((srht.n, srht.r_prime), dtype=torch.float32,
+                    device=X.device)
+    for start, stripe in stripe_iterator(kernel, X, block):
+        W[start:start + stripe.shape[1]] = srht_apply_t(srht, stripe,
+                                                        fwht_fn).T
+    return W
+
+
+def truncate_sketch(W: torch.Tensor, r: int) -> torch.Tensor:
+    """Alg. 1 line 3 read literally: W projected onto its r leading left
+    singular vectors before the core solve (the truncate_basis ablation;
+    it loses the oversampling benefit, see one_pass_core)."""
+    U, S, Vt = torch.linalg.svd(W, full_matrices=False)
+    return (U[:, :r] * S[None, :r]) @ Vt[:r]
+
+
+def randomized_eig_with_state(kernel: KernelFn, X: torch.Tensor, r: int,
+                              oversampling: int = 10, block: int = 512,
+                              sketch_type: str = "srht",
+                              fwht_fn: Optional[Callable] = None,
+                              truncate_basis: bool = False, *,
+                              generator: Optional[torch.Generator] = None,
+                              sketch=None) -> SketchedEig:
+    """One-pass randomized eigendecomposition of K = kappa(X, X), with the
+    sketch it drew from `generator` or was handed (`sketch`)."""
+    n = X.shape[1]
+    r_prime = r + oversampling
+    if sketch is None:
+        if generator is None:
+            raise ValueError("randomized_eig needs a generator or a sketch")
+        if sketch_type == "srht":
+            sketch = make_srht(n, r_prime, generator, device=X.device)
+        elif sketch_type == "gaussian":
+            sketch = make_gaussian(n, r_prime, generator, device=X.device)
+        else:
+            raise ValueError(f"unknown sketch_type {sketch_type!r}")
+    if isinstance(sketch, SRHT):
+        W = sketch_stream(kernel, X, sketch, block, fwht_fn)
+
+        def omega_t_q(Q):
+            return srht_apply_t(sketch, Q, fwht_fn)
+    else:
+        W = torch.zeros((n, r_prime), dtype=torch.float32, device=X.device)
+        for start, stripe in stripe_iterator(kernel, X, block):
+            W[start:start + stripe.shape[1]] = stripe.T @ sketch.omega
+
+        def omega_t_q(Q):
+            return sketch.omega.T @ Q
+    if truncate_basis:
+        W = truncate_sketch(W, r)
+    return SketchedEig(eig=one_pass_core(W, omega_t_q, r), sketch=sketch)
+
+
+def randomized_eig(kernel: KernelFn, X: torch.Tensor, r: int,
+                   oversampling: int = 10, block: int = 512,
+                   sketch_type: str = "srht",
+                   fwht_fn: Optional[Callable] = None,
+                   truncate_basis: bool = False, *,
+                   generator: Optional[torch.Generator] = None,
+                   sketch=None) -> LowRankEig:
+    """randomized_eig_with_state without the sketch state."""
+    return randomized_eig_with_state(
+        kernel, X, r, oversampling, block, sketch_type, fwht_fn,
+        truncate_basis, generator=generator, sketch=sketch).eig

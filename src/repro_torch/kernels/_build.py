@@ -43,6 +43,7 @@ SIGNATURES = {
                         _I, _I, _I, _P, _P, _P),
     "rt_fit_sketch": (_P, _LL, _I, _P, _I, _P, _LL, _I, _P, _P, _I, _I, _F,
                       _I, _I, _I, _P, _P, _P, _P, _P),
+    "rt_fwht_pass": (_P, _P, _LL, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -17,6 +17,8 @@ from repro_torch.kernels.extend_embed.ops import extend_embed_op
 from repro_torch.kernels.extend_embed.ref import extend_embed_ref
 from repro_torch.kernels.fit_sketch.ops import fit_sketch_op
 from repro_torch.kernels.fit_sketch.ref import fit_sketch_ref
+from repro_torch.kernels.fwht.ops import fwht_op
+from repro_torch.kernels.fwht.ref import fwht_ref
 from repro_torch.kernels.gram.ops import gram_stripe_op
 from repro_torch.kernels.gram.ref import gram_stripe_ref
 from repro_torch.kernels.kmeans_assign.ops import assign_op
@@ -82,6 +84,10 @@ def _fit_sketch_build(rng, case):
     return (X, Omega, C, Ocr, V), _kw(case)
 
 
+def _fwht_build(rng, case):
+    return (_normal(rng, case["n"], case["c"]),), {}
+
+
 def assign_compare(got, want, rtol, atol):
     """Distances within tolerance; labels may differ only on ties, on
     fewer than 1% of rows (repro.kernels.kmeans_assign.ops rule)."""
@@ -122,6 +128,11 @@ ENTRIES: Tuple[KernelEntry, ...] = (
              "gamma": 1.0, "degree": 3, "valid": 123},
         ),
         build=_fit_sketch_build, rtol=2e-3, atol=2e-3),
+    KernelEntry(
+        name="fwht", op=fwht_op, ref=fwht_ref,
+        cases=({"n": 8, "c": 3}, {"n": 512, "c": 128}, {"n": 4096, "c": 1},
+               {"n": 1 << 14, "c": 2}),
+        build=_fwht_build, rtol=2e-4, atol=2e-4),
     KernelEntry(
         name="gram_stripe", op=gram_stripe_op, ref=gram_stripe_ref,
         cases=(

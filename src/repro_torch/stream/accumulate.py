@@ -28,14 +28,15 @@ functional, the port updates W, the row norms and a preallocated
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
 from repro_torch.core.kernels_fn import KernelFn
 from repro_torch.core.sketch import (GaussianSketch, LowRankEig, SRHT,
                                      make_gaussian, make_srht, one_pass_core,
-                                     srht_apply_t, srht_rows)
+                                     srht_apply_t, srht_rows,
+                                     truncate_sketch)
 from repro_torch.kernels.fit_sketch.ops import fit_sketch_op
 
 Sketch = Union[SRHT, GaussianSketch]
@@ -57,8 +58,10 @@ class SketchAccumulator:
                  accumulator's device; or
     sketch:      a ready SRHT / GaussianSketch (the draws of another
                  implementation), whose device the state then lives on
-    oversampling/block/sketch_type: the one-pass backend knobs
-                 (api/backends.py)
+    oversampling/block/sketch_type/fwht_fn/truncate_basis: the one-pass
+                 backend knobs (api/backends.py); fwht_fn (e.g. the CUDA
+                 kernel fwht_op) runs every FWHT of the canonical update
+                 and of the eigensolve, the plain version when None
     policy:      optional ComputePolicy; fit_fused routes every block
                  update through the fused fit_sketch kernel.
     kernel_statics: (kind, gamma, degree) for the fused kernel; required
@@ -69,6 +72,8 @@ class SketchAccumulator:
                  generator: Optional[torch.Generator] = None,
                  sketch: Optional[Sketch] = None, oversampling: int = 10,
                  block: int = 512, sketch_type: str = "srht",
+                 fwht_fn: Optional[Callable] = None,
+                 truncate_basis: bool = False,
                  policy=None, kernel_statics=None):
         capacity = int(capacity)
         if capacity < 1:
@@ -90,11 +95,13 @@ class SketchAccumulator:
                    torch.zeros((capacity, r_prime), dtype=torch.float32,
                                device=dev),
                    torch.zeros((capacity,), dtype=torch.float32, device=dev),
-                   0, None, block=block, policy=policy,
+                   0, None, block=block, fwht_fn=fwht_fn,
+                   truncate_basis=truncate_basis, policy=policy,
                    kernel_statics=kernel_statics)
 
     def _bind(self, kernel, r, sketch, W, row_norms2, n_applied, X, *,
-              block, policy=None, kernel_statics=None) -> None:
+              block, fwht_fn=None, truncate_basis=False, policy=None,
+              kernel_statics=None) -> None:
         self.kernel = kernel
         self.r = int(r)
         self.sketch = sketch
@@ -106,6 +113,8 @@ class SketchAccumulator:
         self._n_added = 0
         self._omega: Optional[torch.Tensor] = None
         self.block = int(block)
+        self.fwht_fn = fwht_fn
+        self.truncate_basis = bool(truncate_basis)
         self.reeigs = 0
         self.last_fro2 = 0.0
         self.last_approx_err = 0.0
@@ -127,8 +136,9 @@ class SketchAccumulator:
     def from_arrays(cls, kernel: KernelFn, r: int, sketch: Sketch,
                     W: torch.Tensor, row_norms2: torch.Tensor,
                     n_applied: int, X: Optional[torch.Tensor], *,
-                    block: int = 512, policy=None, kernel_statics=None
-                    ) -> "SketchAccumulator":
+                    block: int = 512, fwht_fn: Optional[Callable] = None,
+                    truncate_basis: bool = False, policy=None,
+                    kernel_statics=None) -> "SketchAccumulator":
         """Rebuild an accumulator around existing state (W, row norms and
         the data added so far), on the sketch's device."""
         dev = _sketch_device(sketch)
@@ -138,7 +148,8 @@ class SketchAccumulator:
                                   device=dev).clone(),
                   torch.as_tensor(row_norms2, dtype=torch.float32,
                                   device=dev).clone(),
-                  n_applied, X, block=block, policy=policy,
+                  n_applied, X, block=block, fwht_fn=fwht_fn,
+                  truncate_basis=truncate_basis, policy=policy,
                   kernel_statics=kernel_statics)
         _check_sketch(sketch, int(acc.W.shape[0]), int(acc.W.shape[1]))
         if acc.n_added < acc.n_applied or acc.n_added > acc.capacity:
@@ -146,6 +157,47 @@ class SketchAccumulator:
                 f"inconsistent stream state: {acc.n_added} columns of data "
                 f"for n_applied={acc.n_applied}, capacity={acc.capacity}")
         return acc
+
+    @classmethod
+    def from_model(cls, model, *, device=None,
+                   fwht_fn: Optional[Callable] = None, policy=None,
+                   kernel_statics=None) -> "SketchAccumulator":
+        """Resume accumulation from a FittedModel with streaming state.
+
+        The stream_* leaves carry the applied sketch state; the columns
+        of X_train past stream_counts[0] are the staged tail and re-enter
+        the buffer, so resume-then-eig reproduces the saved model's eig.
+        The state lands on `device` (the model's when None).
+        """
+        spec = model.spec
+        if getattr(model, "stream_counts", None) is None:
+            raise ValueError(
+                "model carries no streaming state (stream_counts is "
+                "missing): only one-pass fits made through "
+                "SketchAccumulator can resume partial_fit")
+        dev = torch.device(device) if device is not None else model.device
+        n_applied, capacity = (int(v) for v in model.stream_counts)
+
+        def on(t, dtype=torch.float32):
+            return torch.as_tensor(t, device=dev).to(dtype)
+
+        if spec.sketch_type == "srht":
+            sketch: Sketch = SRHT(signs=on(model.sketch_signs),
+                                  rows=on(model.sketch_rows, torch.int64),
+                                  n=capacity,
+                                  n_pad=int(model.sketch_signs.shape[0]))
+        elif spec.sketch_type == "gaussian":
+            sketch = GaussianSketch(omega=on(model.sketch_omega))
+        else:
+            raise ValueError(
+                f"backend {spec.backend!r} has no streaming sketch state")
+        return cls.from_arrays(
+            model.kernel_fn(), spec.r, sketch, model.stream_w,
+            model.stream_row_norms2, n_applied, on(model.X_train),
+            block=spec.block, fwht_fn=fwht_fn,
+            truncate_basis=bool(
+                spec.backend_params.get("truncate_basis", False)),
+            policy=policy, kernel_statics=kernel_statics)
 
     # -- views -----------------------------------------------------------
 
@@ -219,7 +271,7 @@ class SketchAccumulator:
             Kp = torch.zeros((self.capacity, b), dtype=torch.float32,
                              device=self.device)
             Kp[:q + b] = Kc
-            new_rows = srht_apply_t(self.sketch, Kp).T
+            new_rows = srht_apply_t(self.sketch, Kp, self.fwht_fn).T
             cross = srht_rows(self.sketch, q, q + b)
         else:
             new_rows = Kc.T @ self.sketch.omega[:q + b]
@@ -280,12 +332,14 @@ class SketchAccumulator:
         if n_eff < 1:
             raise RuntimeError("no data accumulated; call add() first")
         Wn = W[:n_eff]
+        if self.truncate_basis:
+            Wn = truncate_sketch(Wn, r)
         if isinstance(self.sketch, SRHT):
             def omega_t_q(Q):
                 if n_eff < self.capacity:
                     Q = torch.nn.functional.pad(
                         Q, (0, 0, 0, self.capacity - n_eff))
-                return srht_apply_t(self.sketch, Q)
+                return srht_apply_t(self.sketch, Q, self.fwht_fn)
         else:
             def omega_t_q(Q):
                 return self.sketch.omega[:n_eff].T @ Q

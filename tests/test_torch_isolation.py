@@ -39,9 +39,12 @@ def test_port_covers_the_slice_modules():
                 "kernels/registry.py", "serve/policy.py",
                 "stream/accumulate.py", "api/backends.py",
                 "serve/artifact.py", "serve/extend.py", "serve/batcher.py",
-                "api/estimator.py", "data/synthetic.py"):
+                "api/estimator.py", "data/synthetic.py",
+                "stream/minibatch.py", "distributed/checkpoint.py",
+                "distributed/compression.py"):
         assert (port / rel).is_file(), rel
-    for name in ("gram", "kmeans_assign", "extend_embed", "fit_sketch"):
+    for name in ("gram", "kmeans_assign", "extend_embed", "fit_sketch",
+                 "fwht"):
         assert (port / "kernels" / f"{name}" / "ops.py").is_file()
         assert (port / "kernels" / f"{name}" / "ref.py").is_file()
         assert (port / "kernels" / "csrc" / f"{name}.cu").is_file()

@@ -3,8 +3,8 @@
 Each case's inputs are made once with numpy and handed to both packages:
 the port's plain version (what a wrapper runs for CPU tensors) must match
 the JAX ref.py and the JAX op in Pallas interpret mode, within the
-registry's tolerances (2e-3; 1e-4 for kmeans_assign, whose labels may
-differ only on ties). The `cuda` cases hold each kernel against its plain
+registry's tolerances (2e-3; 2e-4 for fwht; 1e-4 for kmeans_assign,
+whose labels may differ only on ties). The `cuda` cases hold each kernel against its plain
 version on the card; this file imports JAX only inside the tests that
 need it, so those run where JAX is not installed:
 
@@ -25,10 +25,12 @@ def jax_side():
     from repro.kernels import registry as jax_registry
     from repro.kernels.extend_embed.ref import extend_embed_ref
     from repro.kernels.fit_sketch.ref import fit_sketch_ref
+    from repro.kernels.fwht.ref import fwht_ref
     from repro.kernels.gram.ref import gram_stripe_ref
     from repro.kernels.kmeans_assign.ref import assign_ref
     refs = {"gram_stripe": gram_stripe_ref, "kmeans_assign": assign_ref,
-            "extend_embed": extend_embed_ref, "fit_sketch": fit_sketch_ref}
+            "extend_embed": extend_embed_ref, "fit_sketch": fit_sketch_ref,
+            "fwht": fwht_ref}
 
     def jax_args(name, args):
         """The JAX package's layout of the same inputs: fit_sketch takes
@@ -129,3 +131,21 @@ def test_fit_sketch_is_deterministic_on_card():
     for _ in range(3):
         for g, w in zip(entry.op(*targs, **kw), first):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_fwht_is_deterministic_on_card():
+    """No atomics and a fixed stage order: the same bits on every run, at
+    the main path's two shapes (the SRHT block update and the
+    eigensolve's Omega^T Q) and a strided case with a masked column tile."""
+    dev = _card()
+    op = registry.get_kernel("fwht").op
+    rng = np.random.default_rng(9)
+    for n, c in ((1 << 17, 512), (1 << 17, 7), (1 << 11, 37)):
+        x = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32)
+                             ).to(dev)
+        first = op(x)
+        for _ in range(3):
+            assert torch.equal(op(x), first)
+        registry.compare(registry.get_kernel("fwht"), first,
+                         registry.get_kernel("fwht").ref(x))
