@@ -9,24 +9,30 @@ Phases, each fatal on failure:
   2. build the CUDA kernels of src/repro_torch/kernels/csrc;
   3. each kernel against its plain PyTorch version on the card, at every
      parity case of repro_torch.kernels.registry and at its main-path
-     shape, with times (CUDA events, median of 7 after warm-up);
+     shape, with times (CUDA events, median of 7 after warm-up); fwht and
+     srht_t must equal theirs exactly; srht_t is also timed against the
+     unfused pad / sign / fwht kernel / gather composition and against
+     torch.mm with a materialized Omega (its library time);
   4. fit: KernelKMeans on n = 100,000 points of the segmentation proxy
      (p = 19, K = 7, r = 2, l = 5, polynomial d = 2, onepass-srht,
      block 512) through the fused fit_sketch kernel, its eigensolve through
-     the fwht kernel, cross-checked against the canonical plain fit with
-     the same sketch and init (sketch state, eigenvalues, subspace, labels),
-     with the fit's own step times;
+     the srht_t kernel (the default route), cross-checked against the
+     canonical plain fit (fwht_fn=fwht_ref) with the same sketch and init
+     (sketch state, eigenvalues, subspace, labels), with the fit's own step
+     times;
   5. serve: a MicroBatcher answers requests of 1 .. 2,500 held-out queries
      through extend_embed and kmeans_assign, checked against the two-pass
      plain Extender on the card;
   6. stream: the same configuration as a streaming fit on the canonical
-     SRHT path with every FWHT through the fwht kernel: ten partial_fit
-     chunks of 10,000 columns (a minibatch re-eig after the fifth), the
-     model saved after the fifth and resumed from disk, both streams fed
-     the last five chunks; resumed == live and chunked == one-shot fit bit
-     for bit, the stream within 2e-3 of phase 4's canonical plain fit,
-     exact fwht launch counts, and bf16 / int8 artifacts serving the
-     held-out queries;
+     SRHT path, its default route (every Omega^T M through the srht_t
+     kernel): ten partial_fit chunks of 10,000 columns (a minibatch re-eig
+     after the fifth), the model saved after the fifth and resumed from
+     disk, both streams fed the last five chunks; resumed == live and
+     chunked == one-shot fit bit for bit, the stream equal to phase 4's
+     canonical plain fit, a one-shot fit through the unfused fwht kernel
+     (fwht_fn=fwht_op) equal to both, exact srht_t and fwht launch counts,
+     bf16 / int8 artifacts serving the held-out queries, and a breakdown
+     of one canonical block update by part on both routes;
 then prints the `main_path` and `kernels` JSON lines, the nvidia-smi line
 and, last,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result line,
@@ -36,6 +42,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -69,7 +76,10 @@ LIBRARY_FWHT_N = 8192    # rows of the materialized H timed as torch.mm
 
 # Kernels the main path launches; no path of the JAX package calls gram,
 # which is ported for its tile and checked against its plain version.
-MAIN_PATH = ("kmeans_assign", "extend_embed", "fit_sketch", "fwht")
+MAIN_PATH = ("kmeans_assign", "extend_embed", "fit_sketch", "fwht", "srht_t")
+# Kernels that must equal their plain versions exactly (by value: srht_t
+# may give +0 where the plain version gives -0).
+EXACT = ("fwht", "srht_t")
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -82,6 +92,10 @@ SOURCES = {
                    "src/repro/kernels/fit_sketch/fit_sketch.py:42"),
     "fwht": ("src/repro_torch/kernels/csrc/fwht.cu",
              "src/repro/kernels/fwht/fwht.py:28"),
+    # The fwht kernel's SRHT form: the same TPU kernel with the pad, sign
+    # and gather of src/repro/core/sketch.py:104 (srht_apply_t) fused in.
+    "srht_t": ("src/repro_torch/kernels/csrc/fwht.cu",
+               "src/repro/kernels/fwht/fwht.py:28"),
 }
 
 
@@ -112,6 +126,22 @@ def cuda_ms(torch, fn, reps: int = 7, warm: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def cuda_ms_back_to_back(torch, fn, calls: int = 10) -> float:
+    """Device time per call of `calls` calls enqueued back to back, by CUDA
+    events: the host's work per call hides behind the card's, where
+    cuda_ms counts it whenever it exceeds the card's."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
 
 
 def max_err(torch, got, want) -> float:
@@ -170,6 +200,15 @@ def fwht_bound(n, c):
     return bound(n * c * (n.bit_length() - 1), 8 * n * c)
 
 
+def srht_t_bound(m, c, rows, n_pad):
+    """One read of M's m rows and of the signs, one write of the (r', c)
+    result; the adds of the blocks this sketch's plan runs (its sampled
+    rows decide which)."""
+    from repro_torch.kernels.fwht.ops import srht_plan
+    adds = sum(len(p.bases) * (p.k << p.k) for p in srht_plan(rows, n_pad))
+    return bound(adds * c, 4 * (m * c + n_pad + len(rows) * c))
+
+
 # -- phases -------------------------------------------------------------------
 
 def phase_env(torch) -> str:
@@ -190,9 +229,24 @@ def phase_build() -> None:
     _build.library()
     log(f"[build] {len(_build.sources())} sources -> {lib_path.name} in "
         f"{time.perf_counter() - t0:.1f} s")
+    # ptxas's registers, shared memory and spills of each kernel, under
+    # the kernel's name and template arguments (fwht_pass_kernel<3, 4>).
+    name = ""
     for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "Used" in line or "spill" in line and "0 bytes spill" not in line:
-            log(f"[build] {line.strip()}")
+        if "Compiling entry function" in line:
+            name = kernel_label(line.split("'")[1])
+        elif "Used" in line or "spill" in line and "0 bytes spill" not in line:
+            log(f"[build] {name}: {line.split(':', 1)[-1].strip()}")
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's name and integer template arguments from its mangled
+    name: the last <length><name> that spells a lowercase identifier."""
+    names = [m[2] for m in re.finditer(r"(?=(\d+)([a-z][a-z_]*[a-z]))",
+                                       mangled) if int(m[1]) == len(m[2])]
+    args = re.search(r"ILi(\d+)ELi(\d+)E", mangled)
+    return ((names[-1] if names else mangled)
+            + (f"<{args[1]}, {args[2]}>" if args else ""))
 
 
 def main_shape_inputs(torch, dev, X):
@@ -207,11 +261,16 @@ def main_shape_inputs(torch, dev, X):
     Yq = torch.randn((1024, R), generator=gen, device=dev)
     cents = torch.randn((K, R), generator=gen, device=dev)
     kw = dict(KERNEL)
-    # The SRHT block update's padded stripe and the eigensolve's Omega^T Q.
+    # The SRHT block update's padded stripe and the eigensolve's Omega^T Q;
+    # srht_t takes their m = 100,000 rows (Kc of the last block, q + b =
+    # n; the padded Q) with the sketch's signs and rows.
     block_stripe = torch.randn((N_PAD, BLOCK), generator=gen, device=dev)
     eig_slab = torch.randn((N_PAD, RP), generator=gen, device=dev)
+    sk = {"n_pad": N_PAD}
     return {
         "fwht": [((block_stripe,), {}), ((eig_slab,), {})],
+        "srht_t": [((block_stripe[:N_TRAIN], srht.signs, srht.rows), sk),
+                   ((eig_slab[:N_TRAIN], srht.signs, srht.rows), sk)],
         "gram_stripe": [((X, Xb), kw)],
         "fit_sketch": [((X, Omega, Xb, Omega[N_TRAIN - BLOCK:].contiguous()),
                         kw),
@@ -236,6 +295,7 @@ def phase_kernels(torch, dev, X) -> dict:
             torch.cuda.synchronize()
             want = entry.ref(*targs, **kw)
             registry.compare(entry, got, want)
+            exact(torch, entry.name, got, want)
             worst_case = max(worst_case, max_err(torch, got, want))
             log(f"[kernels] {entry.name} case {case} ok "
                 f"max_abs_err {max_err(torch, got, want):.3e}")
@@ -244,6 +304,12 @@ def phase_kernels(torch, dev, X) -> dict:
             torch.cuda.synchronize()
             want = entry.ref(*args, **kw)
             registry.compare(entry, got, want)
+            exact(torch, entry.name, got, want)
+            if entry.name in EXACT:
+                again = entry.op(*args, **kw)
+                if not torch.equal(again.view(torch.int32),
+                                   got.view(torch.int32)):
+                    raise AssertionError(f"{entry.name}: two launches differ")
             worst_main = max(worst_main, max_err(torch, got, want))
             shapes = [tuple(a.shape) for a in args]
             log(f"[kernels] {entry.name} main shape {shapes} ok "
@@ -270,7 +336,9 @@ def phase_kernels(torch, dev, X) -> dict:
             res.update(extend_bound(P, N_TRAIN, R, BLOCK, "polynomial", 2))
         elif entry.name == "fwht":
             res.update(fwht_bound(N_PAD, BLOCK))
-            res.update(fwht_extra(torch, dev, entry, main["fwht"][1][0]))
+            res.update(fwht_extra(torch, dev, entry, main["fwht"]))
+        elif entry.name == "srht_t":
+            res.update(srht_t_extra(torch, entry, main["srht_t"]))
         else:
             res.update(assign_bound(1024, R, K))
         log(f"[kernels] {entry.name} main shape: kernel {res['ms']:.4f} ms, "
@@ -280,14 +348,26 @@ def phase_kernels(torch, dev, X) -> dict:
     return results
 
 
-def fwht_extra(torch, dev, entry, eig_args) -> dict:
+def exact(torch, name, got, want) -> None:
+    """fwht and srht_t must equal their plain versions exactly."""
+    if name in EXACT and not torch.equal(got, want):
+        raise AssertionError(f"{name} differs from its plain version by up "
+                             f"to {max_err(torch, got, want)}")
+
+
+def fwht_extra(torch, dev, entry, main) -> dict:
     """fwht beside its bound at the eigensolve's shape, and beside the one
     PyTorch call that computes a Hadamard transform: torch.mm with a
     materialized H (256 MB at n = 8,192; 68 GB at the main path's n, so
-    no library time there)."""
+    no library time there); at the block shape, back to back."""
     from repro_torch.kernels import registry
-    (x,) = eig_args
-    out = {"eig_shape": list(x.shape),
+    ((xb,), _), ((x,), _) = main
+    out = {"ms_back_to_back": cuda_ms_back_to_back(torch,
+                                                   lambda: entry.op(xb)),
+           # A pass reads and writes the slab once: a device copy of it is
+           # the yardstick of one pass.
+           "copy_ms": cuda_ms(torch, lambda: xb.clone()),
+           "eig_shape": list(x.shape),
            "eig_ms": cuda_ms(torch, lambda: entry.op(x)),
            "eig_plain_ms": cuda_ms(torch, lambda: entry.ref(x)),
            "eig_bound_ms": fwht_bound(N_PAD, RP)["bound_ms"]}
@@ -311,6 +391,51 @@ def fwht_extra(torch, dev, entry, eig_args) -> dict:
     return out
 
 
+def srht_t_extra(torch, entry, main) -> dict:
+    """srht_t beside its bound; beside the one PyTorch call that computes
+    Omega^T M, torch.mm with Omega materialized once (outside the timing,
+    TF32 off), as its library time; and, as its yardstick, beside the
+    unfused composition it replaces on the canonical path (zero pad, sign
+    scaling, the fwht kernel, row gather); at the block shape and at the
+    eigensolve's."""
+    from repro_torch.core.sketch import SRHT, srht_rows
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.fwht.ops import fwht_op
+
+    def unfused(M, signs, rows, n_pad):
+        Mp = torch.nn.functional.pad(M, (0, 0, 0, n_pad - M.shape[0]))
+        return fwht_op((Mp * signs[:, None]).contiguous())[rows]
+
+    out = {}
+    for tag, (args, kw) in zip(("", "eig_"), main):
+        M, signs, rows = args
+        m = M.shape[0]
+        b = srht_t_bound(m, M.shape[1], rows.cpu().numpy(), N_PAD)
+        Omega = srht_rows(SRHT(signs, rows, m, N_PAD), 0, m)    # (m, r')
+        registry.compare(entry, torch.mm(Omega.T, M), entry.op(*args, **kw))
+        out[f"{tag}library_ms"] = cuda_ms(torch, lambda: torch.mm(Omega.T, M))
+        del Omega
+        if tag:
+            out.update({"eig_shape": list(M.shape),
+                        "eig_ms": cuda_ms(torch, lambda: entry.op(*args, **kw)),
+                        "eig_plain_ms": cuda_ms(
+                            torch, lambda: entry.ref(*args, **kw)),
+                        "eig_bound_ms": b["bound_ms"]})
+        else:
+            out.update(b)
+            out["ms_back_to_back"] = cuda_ms_back_to_back(
+                torch, lambda: entry.op(*args, **kw))
+            # One read of M, the kernel's HBM traffic, as torch.sum does it.
+            out["read_ms"] = cuda_ms(torch, lambda: M.sum())
+        out[f"{tag}unfused_ms"] = cuda_ms(torch, lambda: unfused(*args, **kw))
+        log(f"[kernels] srht_t at {list(M.shape)}: torch.mm with a "
+            f"materialized Omega {out[f'{tag}library_ms']:.4f} ms, unfused "
+            f"composition through fwht_op {out[f'{tag}unfused_ms']:.4f} ms, "
+            f"bound {b['bound_ms']:.5f} ms ({b['bound_by']})"
+            + (f", kernel {out['eig_ms']:.4f} ms" if tag else ""))
+    return out
+
+
 def subspace_gap(torch, U1, U2) -> float:
     """||U1 U1^T - U2 U2^T||_F for orthonormal (n, r) bases, without the
     n x n products: 2r - 2 ||U1^T U2||_F^2 under the square root."""
@@ -319,13 +444,14 @@ def subspace_gap(torch, U1, U2) -> float:
     return float(torch.sqrt(torch.clamp(2 * r - 2 * g, min=0.0)))
 
 
-def estimator_args(fwht_kernel: bool = False):
-    """The configuration's estimator arguments; fwht_kernel runs every FWHT
-    of the fit through the fwht kernel (backend_params fwht_fn)."""
+def estimator_args(fwht_fn=None):
+    """The configuration's estimator arguments. Unset, fwht_fn leaves every
+    Omega^T M of the fit to the srht_t kernel (the default route); given
+    (fwht_op, or the plain fwht_ref), it runs the unfused composition
+    through that transform (backend_params fwht_fn)."""
     params = {"oversampling": OVERSAMPLING}
-    if fwht_kernel:
-        from repro_torch.kernels import fwht_op
-        params["fwht_fn"] = fwht_op
+    if fwht_fn is not None:
+        params["fwht_fn"] = fwht_fn
     return dict(k=K, r=R, kernel="polynomial",
                 kernel_params={"gamma": KERNEL["gamma"],
                                "degree": KERNEL["degree"]},
@@ -335,20 +461,21 @@ def estimator_args(fwht_kernel: bool = False):
 
 def phase_fit(torch, X, y) -> tuple:
     """The main path's fit through the fused fit_sketch kernel (its
-    eigensolve through fwht), checked against the canonical plain fit with
-    the same sketch and init."""
+    eigensolve through srht_t), checked against the canonical plain fit
+    (fwht_fn=fwht_ref) with the same sketch and init."""
     from repro_torch.api import KernelKMeans
     from repro_torch.core.metrics import clustering_accuracy
     from repro_torch.core.sketch import SRHT
     from repro_torch.kernels import OPS, reset_launches
+    from repro_torch.kernels.fwht.ref import fwht_ref
     from repro_torch.serve import ComputePolicy
     # First use of cuBLAS / cuSOLVER on a small fit, outside the count.
-    KernelKMeans(**estimator_args(True), policy=ComputePolicy()).fit(
+    KernelKMeans(**estimator_args(), policy=ComputePolicy()).fit(
         X[:, :4096], seed=1)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    est = KernelKMeans(**estimator_args(True), policy=ComputePolicy()).fit(
+    est = KernelKMeans(**estimator_args(), policy=ComputePolicy()).fit(
         X, seed=SEED)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
@@ -357,9 +484,10 @@ def phase_fit(torch, X, y) -> tuple:
     if launches["fit_sketch"] != updates:
         raise AssertionError(f"fit_sketch launched {launches['fit_sketch']} "
                              f"times for {updates} block updates")
-    if launches["fwht"] != 1:
-        raise AssertionError(f"the fused fit's eigensolve launched fwht "
-                             f"{launches['fwht']} times, not once")
+    if launches["srht_t"] != 1 or launches["fwht"] != 0:
+        raise AssertionError(f"the fused fit's eigensolve launched srht_t "
+                             f"{launches['srht_t']} and fwht "
+                             f"{launches['fwht']} times, not once and never")
     if not (bool(torch.isfinite(est.embedding_).all())
             and tuple(est.embedding_.shape) == (R, N_TRAIN)):
         raise AssertionError("fit embedding is not finite (r, n)")
@@ -367,7 +495,7 @@ def phase_fit(torch, X, y) -> tuple:
     sketch = SRHT(signs=m.sketch_signs, rows=m.sketch_rows, n=N_TRAIN,
                   n_pad=int(m.sketch_signs.shape[0]))
     t0 = time.perf_counter()
-    canon = KernelKMeans(**estimator_args(), policy=None).fit(
+    canon = KernelKMeans(**estimator_args(fwht_ref), policy=None).fit(
         X, seed=SEED, sketch=sketch, init=est.kmeans_init_)
     torch.cuda.synchronize()
     canon_s = time.perf_counter() - t0
@@ -393,6 +521,7 @@ def phase_fit(torch, X, y) -> tuple:
     acc = clustering_accuracy(y, est.labels_, K)
     info = {"fit_s": fit_s, "canonical_fit_s": canon_s,
             "fit_sketch_launches": launches["fit_sketch"],
+            "srht_t_launches": launches["srht_t"],
             "fwht_launches": launches["fwht"],
             "block_updates": updates, "eigvals": est.eigvals_.tolist(),
             "eigval_max_abs_err_vs_canonical": eig_err,
@@ -403,7 +532,8 @@ def phase_fit(torch, X, y) -> tuple:
             "accuracy_vs_generating_labels": acc,
             "breakdown_s": est.fit_times_}
     log(f"[fit] n={N_TRAIN} fused fit {fit_s:.3f} s ({updates} fit_sketch "
-        f"launches, {launches['fwht']} fwht), canonical plain fit {canon_s:.3f} s; eigvals "
+        f"launches, {launches['srht_t']} srht_t), canonical plain fit "
+        f"{canon_s:.3f} s; eigvals "
         f"{est.eigvals_.tolist()} (max abs diff {eig_err:.2e}), subspace gap "
         f"{gap:.2e}, stream_w / stream_row_norms2 max abs diff "
         f"{state_err['stream_w']:.2e} / {state_err['stream_row_norms2']:.2e}"
@@ -472,30 +602,77 @@ def phase_serve(torch, model, Xq) -> tuple:
     return launches, info
 
 
-def fwht_launches(n_applied: int, n_to: int, reeigs) -> int:
-    """fwht launches of a canonical SRHT stream from n_applied applied
-    columns to n_to added: one per full-block update, and at each re-eig
-    (at n columns added) one for the staged tail, if any, and one for the
-    eigensolve's Omega^T Q."""
+def transforms(n_applied: int, n_to: int, reeigs) -> int:
+    """Omega^T M transforms of a canonical SRHT stream from n_applied
+    applied columns to n_to added: one per full-block update, and at each
+    re-eig (at n columns added) one for the staged tail, if any, and one
+    for the eigensolve's Omega^T Q. The default route launches srht_t for
+    each, fwht_fn=fwht_op the fwht kernel."""
     blocks = n_to // BLOCK - n_applied // BLOCK
     return blocks + sum(int(n % BLOCK != 0) + 1 for n in reeigs)
 
 
+def block_breakdown(torch, X, sketch) -> dict:
+    """One canonical block update (the last full block, q + b = 99,840)
+    by part, called as SketchAccumulator._apply calls them, with the SRHT
+    part on both routes: srht_t on Kc, and the unfused pad + signs + fwht
+    kernel + gather. CUDA events, median of 7."""
+    from repro_torch.core.kernels_fn import make_kernel
+    from repro_torch.core.sketch import srht_apply_t_prefix, srht_rows
+    from repro_torch.kernels.fwht.ops import fwht_op
+    from repro_torch.stream.accumulate import SketchAccumulator
+    kern = make_kernel("polynomial", gamma=KERNEL["gamma"],
+                       degree=KERNEL["degree"])
+    q, b = (N_TRAIN // BLOCK - 1) * BLOCK, BLOCK
+    Kc = kern(X[:, :q + b], X[:, q:q + b])
+    W = torch.zeros((N_TRAIN, RP), device=X.device)
+
+    def cross():
+        W[:q] += Kc[:q] @ srht_rows(sketch, q, q + b)
+
+    def norms():
+        torch.sum(Kc * Kc, dim=0)
+        torch.sum(Kc[:q] * Kc[:q], dim=1)
+
+    parts = {
+        "gram_block": cuda_ms(torch, lambda: kern(X[:, :q + b],
+                                                  X[:, q:q + b])),
+        "srht_fused": cuda_ms(torch, lambda: srht_apply_t_prefix(
+            sketch, Kc).T),
+        "srht_unfused": cuda_ms(torch, lambda: srht_apply_t_prefix(
+            sketch, Kc, fwht_op).T),
+        "row_norms": cuda_ms(torch, norms),
+        "cross_term": cuda_ms(torch, cross)}
+    acc = SketchAccumulator(kern, N_TRAIN, R, sketch=sketch,
+                            oversampling=OVERSAMPLING, block=BLOCK)
+    acc.add(X)
+    for route, fwht_fn in (("fused", None), ("unfused", fwht_op)):
+        acc.fwht_fn = fwht_fn
+        parts[f"whole_block_{route}"] = cuda_ms(
+            torch, lambda: acc._apply(acc.W, acc.row_norms2, q, b))
+    log("[stream] canonical block update at q + b = "
+        f"{q + b} by part, ms: " + ", ".join(f"{k} {v:.4f}"
+                                             for k, v in parts.items()))
+    return parts
+
+
 def phase_stream(torch, X, Xq, canon) -> tuple:
-    """The streaming fit on the canonical SRHT path, every FWHT through the
-    fwht kernel: chunked, saved, resumed, against the one-shot fit and
-    phase 4's canonical plain fit, and its saved models served."""
+    """The streaming fit on the canonical SRHT path's default route (every
+    Omega^T M through srht_t): chunked, saved, resumed, against the
+    one-shot fit, the one-shot fit through the unfused fwht kernel and
+    phase 4's canonical plain fit; its saved models served."""
     from repro_torch.api import KernelKMeans
     from repro_torch.core.metrics import clustering_accuracy
-    from repro_torch.kernels import OPS, reset_launches
+    from repro_torch.core.sketch import SRHT
+    from repro_torch.kernels import OPS, fwht_op, reset_launches
     from repro_torch.serve import ComputePolicy, MicroBatcher
 
     def counts():
         return {name: op.launches for name, op in OPS.items()}
 
-    def check_counts(what, got, fwht):
+    def check_counts(what, got, srht_t=0, fwht=0):
         want = {name: 0 for name in OPS}
-        want["fwht"] = fwht
+        want["srht_t"], want["fwht"] = srht_t, fwht
         if got != want:
             raise AssertionError(f"{what} launched {got}, expected {want}")
 
@@ -506,7 +683,7 @@ def phase_stream(torch, X, Xq, canon) -> tuple:
         return time.perf_counter() - t0
 
     policy = ComputePolicy(fit_fused=False)
-    args = estimator_args(fwht_kernel=True)
+    args = estimator_args()
     n_chunks = N_TRAIN // STREAM_CHUNK
     half = n_chunks // 2
     chunks = [X[:, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK]
@@ -530,7 +707,7 @@ def phase_stream(torch, X, Xq, canon) -> tuple:
         elif i == n_chunks - 1:
             reeig_s["full"] = timed(lambda: live.reeig_now())
     live_counts = counts()
-    check_counts("the live stream", live_counts, fwht_launches(
+    check_counts("the live stream", live_counts, srht_t=transforms(
         0, N_TRAIN, (half * STREAM_CHUNK, N_TRAIN)))
 
     # The resumed stream: load the artifact of chunk 5, feed chunks 6..10.
@@ -546,39 +723,46 @@ def phase_stream(torch, X, Xq, canon) -> tuple:
     resumed_counts = counts()
     applied = (half * STREAM_CHUNK) // BLOCK * BLOCK
     check_counts("the resumed stream", resumed_counts,
-                 fwht_launches(applied, N_TRAIN, (N_TRAIN,)))
+                 srht_t=transforms(applied, N_TRAIN, (N_TRAIN,)))
 
-    # The one-shot fit on the same path.
+    # The one-shot fit on the same path, then through the unfused fwht
+    # kernel (fwht_fn=fwht_op), timed in turns.
     reset_launches()
     one = KernelKMeans(**args, policy=policy)
     one_s = timed(lambda: one.fit(X, seed=SEED))
     one_counts = counts()
     check_counts("the one-shot fit", one_counts,
-                 fwht_launches(0, N_TRAIN, (N_TRAIN,)))
+                 srht_t=transforms(0, N_TRAIN, (N_TRAIN,)))
+    reset_launches()
+    unfused = KernelKMeans(**estimator_args(fwht_op), policy=policy)
+    unfused_s = timed(lambda: unfused.fit(X, seed=SEED))
+    unfused_counts = counts()
+    check_counts("the one-shot fit through fwht_op", unfused_counts,
+                 fwht=transforms(0, N_TRAIN, (N_TRAIN,)))
+    one_again_s = timed(lambda: KernelKMeans(**args, policy=policy).fit(
+        X, seed=SEED))
 
-    def bits(a, b, what):
-        for name in ("stream_w", "stream_row_norms2", "eigvals", "U",
-                     "centroids"):
+    state = ("stream_w", "stream_row_norms2", "eigvals", "U")
+
+    def bits(a, b, what, names=state + ("centroids",), labels=True):
+        for name in names:
             if not torch.equal(getattr(a.model_, name),
                                getattr(b.model_, name)):
                 raise AssertionError(f"{what}: {name} differs")
-        if not torch.equal(a.labels_, b.labels_):
+        if labels and not torch.equal(a.labels_, b.labels_):
             raise AssertionError(f"{what}: labels differ")
 
     bits(resumed, live, "resumed vs live")
     bits(live, one, "chunked vs one-shot")
+    bits(unfused, one, "unfused fwht_op vs srht_t one-shot fit")
 
+    # Phase 4's canonical plain fit had the same sketch and another
+    # K-means init: its sketch state and eigendecomposition must be equal.
     m, c = live.model_, canon.model_
     err = {name: max_err(torch, getattr(m, name), getattr(c, name))
            for name in ("stream_w", "stream_row_norms2", "eigvals")}
-    for name in err:
-        if not torch.allclose(getattr(m, name), getattr(c, name), rtol=TOL,
-                              atol=TOL):
-            raise AssertionError(f"stream vs canonical plain fit: {name} "
-                                 f"differs by up to {err[name]}")
+    bits(live, canon, "stream vs the canonical plain fit", state, False)
     gap = subspace_gap(torch, m.U, c.U)
-    if not gap < TOL:
-        raise AssertionError(f"stream vs canonical subspace gap {gap}")
     agree = clustering_accuracy(canon.labels_, live.labels_, K)
     if agree < 0.99:
         raise AssertionError(f"stream vs canonical labels agree on {agree}")
@@ -608,35 +792,47 @@ def phase_stream(torch, X, Xq, canon) -> tuple:
             raise AssertionError(f"serving the saved models never launched "
                                  f"{name}")
     work.cleanup()
+    sketch = SRHT(signs=m.sketch_signs, rows=m.sketch_rows, n=N_TRAIN,
+                  n_pad=int(m.sketch_signs.shape[0]))
+    breakdown = block_breakdown(torch, X, sketch)
 
     launches = {name: live_counts[name] + resumed_counts[name]
-                + one_counts[name] + serve_counts[name] for name in OPS}
+                + one_counts[name] + unfused_counts[name]
+                + serve_counts[name] for name in OPS}
     info = {"chunks": n_chunks, "chunk_columns": STREAM_CHUNK,
             "partial_fit_s": chunk_s, "reeig_s": reeig_s,
             "save_f32_s": save_s, "load_f32_s": load_s,
             "resumed_partial_fit_s": resumed_s, "one_shot_fit_s": one_s,
-            "fwht_launches": {"live": live_counts["fwht"],
-                              "resumed": resumed_counts["fwht"],
-                              "one_shot": one_counts["fwht"]},
+            "one_shot_fit_again_s": one_again_s,
+            "one_shot_fit_unfused_fwht_op_s": unfused_s,
+            "srht_t_launches": {"live": live_counts["srht_t"],
+                                "resumed": resumed_counts["srht_t"],
+                                "one_shot": one_counts["srht_t"]},
+            "fwht_launches_unfused_one_shot": unfused_counts["fwht"],
             "resumed_equals_live": True, "chunked_equals_one_shot": True,
+            "unfused_equals_fused_route": True,
+            "equals_canonical_plain": True,
             **{f"{k}_max_abs_err_vs_canonical_plain": v
                for k, v in err.items()},
             "subspace_gap_vs_canonical_plain": gap,
             "label_agreement_vs_canonical_plain": agree,
-            "saved": saved}
+            "saved": saved, "block_breakdown_ms": breakdown}
     log("[stream] partial_fit s per chunk " + ", ".join(
         f"{t:.4f}" for t in chunk_s) + f"; re-eig s: minibatch "
         f"{reeig_s['minibatch']:.4f} (after chunk {half}), full "
         f"{reeig_s['full']:.4f}; save f32 {save_s:.4f} s, load {load_s:.4f}"
         f" s")
     log("[stream] resumed partial_fit s per chunk " + ", ".join(
-        f"{t:.4f}" for t in resumed_s) + f"; one-shot fit {one_s:.4f} s; "
-        f"fwht launches live {live_counts['fwht']}, resumed "
-        f"{resumed_counts['fwht']}, one-shot {one_counts['fwht']}")
-    log(f"[stream] resumed == live and chunked == one-shot bit for bit; vs "
-        f"the canonical plain fit: stream_w {err['stream_w']:.2e}, row norms"
-        f" {err['stream_row_norms2']:.2e}, eigvals {err['eigvals']:.2e}, "
-        f"subspace gap {gap:.2e}, labels {agree:.4f}")
+        f"{t:.4f}" for t in resumed_s) + f"; one-shot fit {one_s:.4f} s, "
+        f"through the unfused fwht_op {unfused_s:.4f} s, again "
+        f"{one_again_s:.4f} s; srht_t launches live "
+        f"{live_counts['srht_t']}, resumed {resumed_counts['srht_t']}, "
+        f"one-shot {one_counts['srht_t']}")
+    log(f"[stream] resumed == live, chunked == one-shot and fwht_op == "
+        f"srht_t bit for bit; vs the canonical plain fit (equal): stream_w "
+        f"{err['stream_w']:.2e}, row norms {err['stream_row_norms2']:.2e}, "
+        f"eigvals {err['eigvals']:.2e}, subspace gap {gap:.2e}, labels "
+        f"{agree:.4f}")
     log("[stream] saved models: " + ", ".join(
         f"{d} save {v['save_s']:.4f} s, load {v['load_s']:.4f} s, labels vs "
         f"f32 {v['label_agreement_vs_f32']:.4f}" for d, v in saved.items()))
@@ -673,6 +869,9 @@ def main() -> int:
     summary["launches"] = {"fit": fit_launches, "serve": serve_launches,
                            "stream": stream_launches}
     log(f"[main path] launches {launches}")
+    idle = [name for name in MAIN_PATH if launches[name] == 0]
+    if idle:
+        raise AssertionError(f"the main path never launched {idle}")
     line = []
     for name, (source, replaces) in SOURCES.items():
         res = kernels[name]
@@ -691,7 +890,9 @@ def main() -> int:
                      "library_ms": res["library_ms"],
                      **{k: v for k, v in res.items()
                         if k.startswith(("linear_", "eig_"))
-                        or k.endswith("library_shape")}})
+                        or k.endswith("library_shape")
+                        or k in ("unfused_ms", "ms_back_to_back",
+                                 "copy_ms", "read_ms")}})
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -84,7 +84,8 @@ def _onepass(sketch_type: str):
         # ingest replays. `sketch` hands in ready draws (another
         # implementation's SRHT or Omega) in place of the generator's;
         # `fwht_fn` (e.g. the CUDA kernel fwht_op) runs the FWHTs of the
-        # canonical update and of the eigensolve; `clock` (a StepClock)
+        # canonical update and of the eigensolve, unfused (the srht_t
+        # kernel when None); `clock` (a StepClock)
         # marks the end of each step.
         acc = SketchAccumulator(kernel, capacity or X.shape[1], r,
                                 generator=generator, sketch=sketch,

@@ -118,13 +118,15 @@ class KernelKMeans:
     Parameters mirror `ClusteringSpec`; `policy` is an optional
     ComputePolicy choosing the compute paths of fit (fit_fused) and serve
     (embed_fused / assign_fused). Without a policy the fit takes the
-    canonical plain path and serving the default policy (the kernels on
-    the card), as in the JAX package.
+    canonical path (its SRHT applies through the srht_t kernel on the
+    card) and serving the default policy (the kernels on the card), as in
+    the JAX package.
 
     `backend_params` carries the backend's knobs: oversampling,
     truncate_basis (the Alg. 1 line 3 ablation), capacity, and fwht_fn
-    (e.g. the CUDA kernel kernels.fwht_op for every FWHT of the canonical
-    SRHT path; runtime-only, it never lands in the spec).
+    (a transform for the unfused SRHT composition of the canonical path,
+    e.g. kernels.fwht_op, or the plain fwht_ref; runtime-only, it never
+    lands in the spec).
 
     Fitted attributes: labels_ (n,), embedding_ (r, n), eigvals_ (r,),
     centroids_ (k, r), inertia_ (float), kmeans_init_ the K-means starting

@@ -12,9 +12,12 @@ Alg. 1 lines 1-6:
     Y     = Sigma^{1/2} V^T Q^T  in R^{r x n}
 
 `H` is the normalized Walsh-Hadamard transform; `fwht` here is the plain
-PyTorch version (kernels/fwht/ref.py), and every SRHT apply takes a
-`fwht_fn=` hook for the CUDA kernel (kernels/fwht/ops.py::fwht_op), as
-the JAX package's does for its Pallas kernel. Random draws (SRHT
+PyTorch version (kernels/fwht/ref.py). By default an SRHT apply runs the
+kernels (kernels/fwht/ops.py: srht_t_op for Omega^T M, fwht_op for
+Omega V), which take the plain versions for CPU tensors; a `fwht_fn=`
+hook, as the JAX package's takes its Pallas kernel, runs the unfused
+pad / sign / transform / gather composition through that transform
+instead (fwht_fn=fwht for the plain path on the card). Random draws (SRHT
 signs/rows, the Gaussian Omega) come from an explicit torch.Generator, or
 from outside: SRHT and GaussianSketch are plain tuples of tensors, so a
 caller can hand in the draws of another implementation.
@@ -26,6 +29,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.kernels_fn import KernelFn, stripe_iterator
+from repro_torch.kernels.fwht.ops import fwht_op, srht_t_op
 from repro_torch.kernels.fwht.ref import fwht_ref as fwht
 
 
@@ -71,13 +75,26 @@ def srht_apply_t(srht: SRHT, M: torch.Tensor,
     """Omega^T M = R^T H (D M) for M of shape (n, b) -> (r', b).
 
     Scale rows by D, FWHT over the zero-padded row axis, gather the
-    sampled rows. `fwht_fn` swaps in the CUDA kernel (fwht_op).
+    sampled rows: in one kernel (srht_t_op) by default, or composed around
+    `fwht_fn` when one is given.
     """
-    fwht_fn = fwht_fn or fwht
     n = M.shape[0]
     if n != srht.n:
         raise ValueError(f"expected {srht.n} rows, got {n}")
-    Mp = torch.nn.functional.pad(M, (0, 0, 0, srht.n_pad - n))
+    return srht_apply_t_prefix(srht, M, fwht_fn)
+
+
+def srht_apply_t_prefix(srht: SRHT, M: torch.Tensor,
+                        fwht_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Omega[:m]^T M for M of shape (m, b), m <= n: srht_apply_t of M with
+    zero rows below it, which neither route reads or stores."""
+    m = M.shape[0]
+    if m > srht.n:
+        raise ValueError(f"expected at most {srht.n} rows, got {m}")
+    if fwht_fn is None:
+        # Row-major for the kernel: a QR factor on the card is column-major.
+        return srht_t_op(M.contiguous(), srht.signs, srht.rows, srht.n_pad)
+    Mp = torch.nn.functional.pad(M, (0, 0, 0, srht.n_pad - m))
     # Row-major for the kernel: a QR factor on the card is column-major.
     Mp = fwht_fn((Mp * srht.signs[:, None]).contiguous())
     return Mp[srht.rows]
@@ -85,8 +102,9 @@ def srht_apply_t(srht: SRHT, M: torch.Tensor,
 
 def srht_apply(srht: SRHT, V: torch.Tensor,
                fwht_fn: Optional[Callable] = None) -> torch.Tensor:
-    """Omega V for V of shape (r', b) -> (n, b). (D H R V; H, D symmetric.)"""
-    fwht_fn = fwht_fn or fwht
+    """Omega V for V of shape (r', b) -> (n, b). (D H R V; H, D symmetric.)
+    The transform is fwht_fn, the kernel fwht_op by default."""
+    fwht_fn = fwht_fn or fwht_op
     scatter = torch.zeros((srht.n_pad, V.shape[1]), dtype=V.dtype,
                           device=V.device)
     scatter[srht.rows] = V

@@ -43,7 +43,9 @@ SIGNATURES = {
                         _I, _I, _I, _P, _P, _P),
     "rt_fit_sketch": (_P, _LL, _I, _P, _I, _P, _LL, _I, _P, _P, _I, _I, _F,
                       _I, _I, _I, _P, _P, _P, _P, _P),
-    "rt_fwht_pass": (_P, _P, _LL, _I, _I, _I, _F, _P),
+    "rt_fwht": (_P, _P, _LL, _I, _P, _P, _I, _I, _F, _P),
+    "rt_srht_t_pass": (_P, _LL, _P, _P, _I, _LL, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,93 +1,421 @@
-// Walsh-Hadamard transform along dim 0 of x (n, c), n = 2^m, f32.
+// Walsh-Hadamard transform along dim 0 of x (n, c), n = 2^m, f32, and its
+// SRHT form Omega^T M = R^T H D M, both on one pass kernel.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/fwht/fwht.py
-// (_fwht_kernel / fwht_1level) and the two-sweep wrapper fwht_pallas of
-// src/repro/kernels/fwht/ops.py.
+// (_fwht_kernel, :28 / fwht_1level, :42) and its two-sweep wrapper
+// src/repro/kernels/fwht/ops.py:54 (fwht_pallas); the SRHT form replaces
+// the pad / sign / transform / gather composition around it,
+// src/repro/core/sketch.py:104 (srht_apply_t).
 //
-// Bound on this card: each of the n c log2(n) butterfly adds touches data
-// that has to come from and go back to HBM once, so one read and one
-// write of x (8 n c bytes) bound it; at (131072, 512) that is 0.160 ms,
-// against 0.017 ms for the adds at the fp32 rate.
-// Design: the Pallas kernel kept a (2^13, 128) slab (4 MiB) in VMEM; a
-// Hopper block has at most 227 KB. So the log2(n) stages run in passes of
-// at most 10 stages (the wrapper splits them evenly, low bits first: at
-// n = 2^17 two passes of 9 and 8 stages). In a pass that starts at stage
-// bit `lo_bits`, a block owns the 2^k rows hi * 2^(lo_bits+k) + j * s + lo
-// (s = 2^lo_bits, j < 2^k) for one tile of up to 32 columns: every row is
-// one coalesced segment of the tile's columns, and the strided pass
-// addresses its rows directly, so no transpose is ever materialized. The
-// rows sit in dynamic shared memory (2^k x tile x 4 B <= 128 KB), the k
-// stages run there in the plain version's order (h = 1, 2, 4, ...) and the
-// block writes them back; columns past c are masked. The last pass divides
-// by sqrt(n) as the plain version does (the same f32 divisor, IEEE
-// division), and nothing is summed in a data-dependent order, so the
-// result equals the plain version's bit for bit and is the same on every
-// run (chunked == one-shot ingest rests on it).
+// Bound on this card. fwht: one read and one write of x (8 n c bytes); at
+// (131072, 512) 0.160 ms at 3.35 TB/s, against 0.017 ms for the
+// n c log2(n) adds at the fp32 rate. srht_t: one read of the m rows of M,
+// of the signs and one write of the (r', c) result, (m c + n + r' c) 4
+// bytes; at m = 100,000, c = 512: 0.061 ms.
+//
+// Design. The log2(n) stages run in passes of at most 10 (the wrapper
+// plans them: 9 + 8 at n = 2^17). In a pass that starts at stage bit
+// `done`, a block owns 2^k rows base + j * stride (j < 2^k; stride 2^done
+// for fwht) of one tile of 8 lanes x VEC columns, VEC = 4 (16-byte loads
+// and stores) when c allows it; column tiles vary fastest across blocks,
+// so the blocks in flight read whole rows. Each thread holds one lane's
+// 2^G rows in registers (G = 3, 64 registers), issues all
+// their loads before the first stage, runs G stages there, and the block
+// exchanges the tile through shared memory once per further G stages
+// (twice at k = 9). Loads of data read once are evict-first and the last
+// pass's stores streaming. HBM sees two reads and two writes of the slab,
+// and a pass runs at about the rate of a device-to-device copy: running
+// the passes of 16 MB column chunks back to back, so that the
+// intermediate could stay in L2, did not pay on the H100 (the column
+// segments it reads are short, and a pass is bound by loads in flight,
+// not by HBM traffic).
+// srht_t reads only the rows of M below m, scales them by the signs in
+// its first pass (rows past m are zero; a block past m reads nothing and
+// writes zeros), and every pass writes only the rows whose transformed
+// low bits equal a sampled row's: the host plans those rows once per
+// sketch (bases, write lists; the short pass first, 8 + 9 stages at
+// n = 2^17, so the pass that reads M has more, smaller blocks in flight),
+// and the second pass runs the <= r' blocks that hold a sampled row, on
+// a compact scratch of <= r' rows per 256 that stays in L2.
+//
+// Same bits as the plain version: the stages run in its order (h = 1, 2,
+// 4, ..., each a + b, a - b), the last pass divides by the same f32
+// sqrt(n) with __fdiv_rn, and nothing is summed in a data-dependent order,
+// so every launch gives the same result (chunked == one-shot ingest rests
+// on it). srht_t equals its plain version by value: a row past m is +0
+// here where the plain version's 0 * -1 is -0.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxTile = 32;      // columns per block
-constexpr int kMaxBits = 10;      // stages per pass
+constexpr int kLanes = 8;        // threads across one row of a tile
+constexpr int kMaxBits = 10;     // stages per pass
+constexpr int kMaxRegBits = 3;   // rows a thread may hold: 2^G, G <= 3
+constexpr int kMaxThreads = 1024;
 
-__global__ void __launch_bounds__(kThreads)
-    fwht_pass_kernel(const float* x, float* out, int c, int lo_bits, int k, int tile_log2,
-                     float divisor) {
-  extern __shared__ float sm[];
-  const int tile = 1 << tile_log2;
-  const int rows = 1 << k;
-  const long long s = 1LL << lo_bits;
-  const long long g = blockIdx.x;
-  const long long lo = g & (s - 1), hi = g >> lo_bits;
-  const long long row0 = (hi << (lo_bits + k)) + lo;
-  const int col0 = blockIdx.y * tile;
-  const int total = rows << tile_log2;
-  for (int e = threadIdx.x; e < total; e += kThreads) {
-    const int j = e >> tile_log2, col = col0 + (e & (tile - 1));
-    sm[e] = col < c ? x[(row0 + j * s) * c + col] : 0.f;
+template <int VEC>
+struct Vec {
+  float e[VEC];
+};
+
+// Loads: evict-first for data read once, L2-only for the intermediate.
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> load(const float* p, bool once) {
+  Vec<VEC> r;
+  if constexpr (VEC == 4) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    const float4 t = once ? __ldcs(q) : __ldcg(q);
+    r.e[0] = t.x; r.e[1] = t.y; r.e[2] = t.z; r.e[3] = t.w;
+  } else {
+    r.e[0] = once ? __ldcs(p) : __ldcg(p);
   }
-  __syncthreads();
-  const int pairs = total >> 1;
-  for (int h = 1; h < rows; h <<= 1) {
-    for (int p = threadIdx.x; p < pairs; p += kThreads) {
-      const int q = p >> tile_log2, col = p & (tile - 1);
-      const int i = ((q & ~(h - 1)) << 1) | (q & (h - 1));
-      const int ia = (i << tile_log2) | col, ib = ia + (h << tile_log2);
-      const float a = sm[ia], b = sm[ib];
-      sm[ia] = a + b;
-      sm[ib] = a - b;
+  return r;
+}
+
+template <int VEC>
+__device__ __forceinline__ void store(float* p, Vec<VEC> v, bool last) {
+  if constexpr (VEC == 4) {
+    const float4 t = make_float4(v.e[0], v.e[1], v.e[2], v.e[3]);
+    if (last) __stcs(reinterpret_cast<float4*>(p), t);
+    else *reinterpret_cast<float4*>(p) = t;
+  } else {
+    if (last) __stcs(p, v.e[0]);
+    else *p = v.e[0];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> divide(Vec<VEC> v, float divisor) {
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) v.e[e] = __fdiv_rn(v.e[e], divisor);
+  return v;
+}
+
+// Tile row of a thread's register i when its G register bits are the
+// pass-local bits [w, w + G): the thread's group index fills the others.
+template <int G>
+__device__ __forceinline__ int tile_row(int i, int group, int w) {
+  return (group & ((1 << w) - 1)) | (i << w) | ((group >> w) << (w + G));
+}
+
+// The register rounds of a pass of k stages: round r runs the stages
+// [r G, min(r G + G, k)) in the register window that starts at
+// min(r G, k - G); between rounds the block exchanges the tile through
+// shared memory. On return each thread holds the rows of the window
+// final_window(k).
+template <int G>
+__device__ __forceinline__ int rounds(int k) {
+  return G == 0 ? 1 : (k + G - 1) / G;
+}
+
+template <int G>
+__device__ __forceinline__ int window(int r, int k) {
+  return min(r * G, k - G);
+}
+
+template <int G, int VEC>
+__device__ __forceinline__ void butterflies(Vec<VEC> (&v)[1 << G], int lo,
+                                            int hi, int w) {
+#pragma unroll
+  for (int lb = 0; lb < G; ++lb) {
+    const int bit = w + lb;
+    if (bit < lo || bit >= hi) continue;
+#pragma unroll
+    for (int i = 0; i < (1 << G); ++i) {
+      if (i & (1 << lb)) continue;
+      const int i2 = i | (1 << lb);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float a = v[i].e[e], b = v[i2].e[e];
+        v[i].e[e] = a + b;
+        v[i2].e[e] = a - b;
+      }
     }
-    __syncthreads();
   }
-  for (int e = threadIdx.x; e < total; e += kThreads) {
-    const int j = e >> tile_log2, col = col0 + (e & (tile - 1));
-    if (col < c) out[(row0 + j * s) * c + col] = __fdiv_rn(sm[e], divisor);
+}
+
+template <int G, int VEC>
+__device__ __forceinline__ void to_smem(float* sm, const Vec<VEC> (&v)[1 << G],
+                                        int group, int lane, int w) {
+  constexpr int tc = kLanes * VEC;
+#pragma unroll
+  for (int i = 0; i < (1 << G); ++i) {
+    float* p = sm + tile_row<G>(i, group, w) * tc + lane * VEC;
+    if constexpr (VEC == 4)
+      *reinterpret_cast<float4*>(p) =
+          make_float4(v[i].e[0], v[i].e[1], v[i].e[2], v[i].e[3]);
+    else
+      *p = v[i].e[0];
+  }
+}
+
+template <int G, int VEC>
+__device__ __forceinline__ void from_smem(const float* sm, Vec<VEC> (&v)[1 << G],
+                                          int group, int lane, int w) {
+  constexpr int tc = kLanes * VEC;
+#pragma unroll
+  for (int i = 0; i < (1 << G); ++i) {
+    const float* p = sm + tile_row<G>(i, group, w) * tc + lane * VEC;
+    if constexpr (VEC == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p);
+      v[i].e[0] = t.x; v[i].e[1] = t.y; v[i].e[2] = t.z; v[i].e[3] = t.w;
+    } else {
+      v[i].e[0] = *p;
+    }
+  }
+}
+
+// All k stages of a pass on the tile whose window-0 rows v holds; on
+// return v holds the rows of the last window.
+template <int G, int VEC>
+__device__ __forceinline__ void run_pass(float* sm, Vec<VEC> (&v)[1 << G],
+                                         int k, int group, int lane) {
+  const int nr = rounds<G>(k);
+  for (int r = 0; r < nr; ++r) {
+    if (r > 0) {
+      if (r > 1) __syncthreads();
+      to_smem<G, VEC>(sm, v, group, lane, window<G>(r - 1, k));
+      __syncthreads();
+      from_smem<G, VEC>(sm, v, group, lane, window<G>(r, k));
+    }
+    butterflies<G, VEC>(v, r * G, min(r * G + G, k), window<G>(r, k));
+  }
+}
+
+constexpr int launch_bound(int g) {
+  return (kLanes << (kMaxBits - g)) < kMaxThreads ? (kLanes << (kMaxBits - g))
+                                                  : kMaxThreads;
+}
+
+// One fwht pass over x (n rows of c columns): stages done .. done + k - 1.
+// out may alias x.
+template <int G, int VEC>
+__global__ void __launch_bounds__(launch_bound(G))
+    fwht_pass_kernel(const float* x, float* out, int c, int tiles, int done,
+                     int k, float divisor, int first, int last) {
+  extern __shared__ float sm[];
+  const int lane = threadIdx.x % kLanes, group = threadIdx.x / kLanes;
+  const long long s = 1LL << done;
+  const long long g = blockIdx.x / tiles;
+  const long long row0 = ((g >> done) << (done + k)) + (g & (s - 1));
+  const int col = (blockIdx.x % tiles) * kLanes * VEC + lane * VEC;
+  const bool active = col < c;
+  Vec<VEC> v[1 << G];
+#pragma unroll
+  for (int i = 0; i < (1 << G); ++i) {
+    const long long row = row0 + tile_row<G>(i, group, 0) * s;
+    if (active) {
+      v[i] = load<VEC>(x + row * c + col, first);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) v[i].e[e] = 0.f;
+    }
+  }
+  run_pass<G, VEC>(sm, v, k, group, lane);
+  if (!active) return;
+  const int w = window<G>(rounds<G>(k) - 1, k);
+#pragma unroll
+  for (int i = 0; i < (1 << G); ++i) {
+    const long long row = row0 + tile_row<G>(i, group, w) * s;
+    store<VEC>(out + row * c + col, last ? divide<VEC>(v[i], divisor) : v[i],
+               last);
+  }
+}
+
+// One srht_t pass. Block b owns the rows bases[b] + j * stride of src
+// (j < 2^k); in the first pass (signs != null) rows >= m_src are zero and
+// the rest are scaled by signs[row]. After the k stages the block writes
+// its tile rows wj[wptr[b] .. wptr[b + 1]) to the dst rows wdst[...].
+template <int G, int VEC>
+__global__ void __launch_bounds__(launch_bound(G))
+    srht_pass_kernel(const float* src, long long m_src, const float* signs,
+                     const long long* bases, long long stride,
+                     const int* wptr, const int* wj, const long long* wdst,
+                     float* dst, int c, int tiles, int k, float divisor,
+                     int last) {
+  extern __shared__ float sm[];
+  constexpr int tc = kLanes * VEC;
+  const int lane = threadIdx.x % kLanes, group = threadIdx.x / kLanes;
+  const int b = blockIdx.x / tiles, col0 = (blockIdx.x % tiles) * tc;
+  const long long base = bases[b];
+  const int col = col0 + lane * VEC;
+  const bool active = col < c;
+  const int w0 = wptr[b], nw = wptr[b + 1] - w0;
+  if (signs != nullptr && base >= m_src) {
+    // Every row of the tile lies past m: its transform is +0 throughout.
+    for (int e = threadIdx.x; e < nw * kLanes; e += blockDim.x) {
+      const int cl = col0 + (e % kLanes) * VEC;
+      if (cl < c) store<VEC>(dst + wdst[w0 + e / kLanes] * c + cl, Vec<VEC>{},
+                             last);
+    }
+    return;
+  }
+  Vec<VEC> v[1 << G];
+#pragma unroll
+  for (int i = 0; i < (1 << G); ++i) {
+    const long long row = base + tile_row<G>(i, group, 0) * stride;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v[i].e[e] = 0.f;
+    if (active && row < m_src) {
+      v[i] = load<VEC>(src + row * c + col, signs != nullptr);
+      if (signs != nullptr) {
+        const float sg = __ldg(signs + row);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) v[i].e[e] = v[i].e[e] * sg;
+      }
+    }
+  }
+  run_pass<G, VEC>(sm, v, k, group, lane);
+  if (rounds<G>(k) > 1) __syncthreads();
+  to_smem<G, VEC>(sm, v, group, lane, window<G>(rounds<G>(k) - 1, k));
+  __syncthreads();
+  for (int e = threadIdx.x; e < nw * kLanes; e += blockDim.x) {
+    const int l = e % kLanes, cl = col0 + l * VEC;
+    if (cl >= c) continue;
+    Vec<VEC> t;
+    const float* p = sm + wj[w0 + e / kLanes] * tc + l * VEC;
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) t.e[q] = p[q];
+    store<VEC>(dst + wdst[w0 + e / kLanes] * c + cl,
+               last ? divide<VEC>(t, divisor) : t, last);
+  }
+}
+
+template <typename Kernel>
+cudaError_t raise_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+size_t tile_smem(int k, int vec) { return (sizeof(float) * kLanes * vec) << k; }
+
+bool valid_pass(int k, int g, int vec) {
+  return k >= 0 && k <= kMaxBits && g >= 0 && g <= kMaxRegBits && g <= k &&
+         (g > 0 || k == 0) && (kLanes << (k - g)) <= kMaxThreads &&
+         (vec == 1 || vec == 4);
+}
+
+template <int G, int VEC>
+cudaError_t fwht_launch(const float* x, float* out, long long n, int c,
+                        int done, int k, float divisor, int first, int last,
+                        cudaStream_t stream) {
+  const size_t smem = tile_smem(k, VEC);
+  cudaError_t err = raise_smem(fwht_pass_kernel<G, VEC>, smem);
+  if (err != cudaSuccess) return err;
+  // Column tiles vary fastest across blocks, so the blocks in flight read
+  // whole rows of x, not one tile's segment of many rows.
+  const int tc = kLanes * VEC, tiles = (c + tc - 1) / tc;
+  const long long blocks = (n >> k) * tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  fwht_pass_kernel<G, VEC><<<(unsigned)blocks, kLanes << (k - G), smem,
+                             stream>>>(x, out, c, tiles, done, k, divisor,
+                                       first, last);
+  return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t fwht_dispatch(int g, const float* x, float* out, long long n,
+                          int c, int done, int k, float divisor, int first,
+                          int last, cudaStream_t st) {
+  switch (g) {
+    case 0: return fwht_launch<0, VEC>(x, out, n, c, done, k, divisor, first, last, st);
+    case 1: return fwht_launch<1, VEC>(x, out, n, c, done, k, divisor, first, last, st);
+    case 2: return fwht_launch<2, VEC>(x, out, n, c, done, k, divisor, first, last, st);
+    case 3: return fwht_launch<3, VEC>(x, out, n, c, done, k, divisor, first, last, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int G, int VEC>
+cudaError_t srht_launch(const float* src, long long m_src, const float* signs,
+                        const long long* bases, int nblocks, long long stride,
+                        const int* wptr, const int* wj, const long long* wdst,
+                        float* dst, int c, int k, float divisor, int last,
+                        cudaStream_t stream) {
+  const size_t smem = tile_smem(k, VEC);
+  cudaError_t err = raise_smem(srht_pass_kernel<G, VEC>, smem);
+  if (err != cudaSuccess) return err;
+  const int tc = kLanes * VEC, tiles = (c + tc - 1) / tc;
+  const long long blocks = (long long)nblocks * tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  srht_pass_kernel<G, VEC><<<(unsigned)blocks, kLanes << (k - G), smem,
+                             stream>>>(src, m_src, signs, bases, stride, wptr,
+                                       wj, wdst, dst, c, tiles, k, divisor,
+                                       last);
+  return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t srht_dispatch(int g, const float* src, long long m_src,
+                          const float* signs, const long long* bases,
+                          int nblocks, long long stride, const int* wptr,
+                          const int* wj, const long long* wdst, float* dst,
+                          int c, int k, float divisor, int last,
+                          cudaStream_t st) {
+  switch (g) {
+    case 0: return srht_launch<0, VEC>(src, m_src, signs, bases, nblocks, stride, wptr, wj, wdst, dst, c, k, divisor, last, st);
+    case 1: return srht_launch<1, VEC>(src, m_src, signs, bases, nblocks, stride, wptr, wj, wdst, dst, c, k, divisor, last, st);
+    case 2: return srht_launch<2, VEC>(src, m_src, signs, bases, nblocks, stride, wptr, wj, wdst, dst, c, k, divisor, last, st);
+    case 3: return srht_launch<3, VEC>(src, m_src, signs, bases, nblocks, stride, wptr, wj, wdst, dst, c, k, divisor, last, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// One pass: stages lo_bits .. lo_bits + k - 1 of the transform of x (n, c)
-// into out (which may alias x: every block reads all of its elements
-// before it writes them). divisor is sqrt(n) on the last pass of a
-// normalized transform, else 1.
-extern "C" int rt_fwht_pass(const float* x, float* out, long long n, int c,
-                            int lo_bits, int k, float divisor,
-                            void* stream) {
-  if (k < 0 || k > kMaxBits || c <= 0) return (int)cudaErrorInvalidValue;
-  int tile_log2 = 0;
-  while ((1 << tile_log2) < c && (1 << tile_log2) < kMaxTile) ++tile_log2;
-  const size_t smem = (sizeof(float) << k) << tile_log2;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fwht_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+// The whole transform of x (n, c) into out (not aliasing x), as the
+// wrapper plans it: bits[0 .. npass) stages per pass (host array),
+// reg_bits[p] register stages per round of pass p, vec columns per thread
+// (4 needs c % 4 == 0 and 16-byte aligned x and out). divisor (sqrt(n),
+// or 1) divides on the last pass.
+extern "C" int rt_fwht(const float* x, float* out, long long n, int c,
+                       const int* bits, const int* reg_bits, int npass,
+                       int vec, float divisor, void* stream) {
+  if (c <= 0 || npass <= 0 || (vec == 4 && c % 4))
+    return (int)cudaErrorInvalidValue;
+  long long total = 0;
+  for (int p = 0; p < npass; ++p) {
+    if (!valid_pass(bits[p], reg_bits[p], vec))
+      return (int)cudaErrorInvalidValue;
+    total += bits[p];
   }
-  const dim3 grid((unsigned)(n >> k),
-                  (unsigned)((c + (1 << tile_log2) - 1) >> tile_log2));
-  fwht_pass_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, out, c, lo_bits, k, tile_log2, divisor);
-  return (int)cudaGetLastError();
+  if ((1LL << total) != n) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int done = 0;
+  for (int p = 0; p < npass; ++p) {
+    const int first = p == 0, last = p == npass - 1;
+    const float d = last ? divisor : 1.f;
+    const cudaError_t err =
+        vec == 4 ? fwht_dispatch<4>(reg_bits[p], first ? x : out, out, n, c,
+                                    done, bits[p], d, first, last, st)
+                 : fwht_dispatch<1>(reg_bits[p], first ? x : out, out, n, c,
+                                    done, bits[p], d, first, last, st);
+    if (err != cudaSuccess) return (int)err;
+    done += bits[p];
+  }
+  return (int)cudaSuccess;
+}
+
+// One pass of the SRHT form (see srht_pass_kernel): src rows of c columns
+// (row stride c), nblocks blocks, the plan's device arrays, dst of c
+// columns. signs is null after the first pass.
+extern "C" int rt_srht_t_pass(const float* src, long long m_src,
+                              const float* signs, const long long* bases,
+                              int nblocks, long long stride, const int* wptr,
+                              const int* wj, const long long* wdst,
+                              float* dst, int c, int k, int reg_bits, int vec,
+                              float divisor, int last, void* stream) {
+  if (c <= 0 || nblocks <= 0 || !valid_pass(k, reg_bits, vec) ||
+      (vec == 4 && c % 4))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(vec == 4
+                   ? srht_dispatch<4>(reg_bits, src, m_src, signs, bases,
+                                      nblocks, stride, wptr, wj, wdst, dst, c,
+                                      k, divisor, last, st)
+                   : srht_dispatch<1>(reg_bits, src, m_src, signs, bases,
+                                      nblocks, stride, wptr, wj, wdst, dst, c,
+                                      k, divisor, last, st));
 }

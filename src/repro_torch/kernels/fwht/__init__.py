@@ -1,1 +1,2 @@
-"""FWHT: the normalized Walsh-Hadamard transform along dim 0 (csrc/fwht.cu)."""
+"""FWHT: the normalized Walsh-Hadamard transform along dim 0, and its SRHT
+form Omega^T M (csrc/fwht.cu)."""

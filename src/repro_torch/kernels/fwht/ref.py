@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the FWHT kernel."""
+"""Plain PyTorch versions of the FWHT kernel and its SRHT form."""
 import torch
 
 
@@ -24,3 +24,11 @@ def fwht_ref(x: torch.Tensor, normalize: bool = True) -> torch.Tensor:
         x = x / torch.sqrt(torch.tensor(float(n), dtype=x.dtype,
                                         device=x.device))
     return x
+
+
+def srht_t_ref(M: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
+               n_pad: int, normalize: bool = True) -> torch.Tensor:
+    """Omega^T M = R^T H D M for M (m, c), m <= n_pad -> (r', c): zero-pad
+    to n_pad rows, scale by the signs, transform, gather the sampled rows."""
+    Mp = torch.nn.functional.pad(M, (0, 0, 0, n_pad - M.shape[0]))
+    return fwht_ref(Mp * signs[:, None], normalize)[rows]

@@ -2,9 +2,10 @@
 
 The cases and tolerances are those of the JAX package's kernel registry
 (repro.kernels.registry), copied so that the port imports nothing of it;
-tests/test_torch_kernels.py asserts that the two agree. `build` makes one
-case's inputs with numpy from a seed, so the same arrays can be handed to
-both packages.
+tests/test_torch_kernels.py asserts that the two agree. srht_t, the SRHT
+form of fwht, has no entry there: its cases are the port's own. `build`
+makes one case's inputs with numpy from a seed, so the same arrays can be
+handed to both packages.
 """
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ from repro_torch.kernels.extend_embed.ops import extend_embed_op
 from repro_torch.kernels.extend_embed.ref import extend_embed_ref
 from repro_torch.kernels.fit_sketch.ops import fit_sketch_op
 from repro_torch.kernels.fit_sketch.ref import fit_sketch_ref
-from repro_torch.kernels.fwht.ops import fwht_op
-from repro_torch.kernels.fwht.ref import fwht_ref
+from repro_torch.kernels.fwht.ops import fwht_op, srht_t_op
+from repro_torch.kernels.fwht.ref import fwht_ref, srht_t_ref
 from repro_torch.kernels.gram.ops import gram_stripe_op
 from repro_torch.kernels.gram.ref import gram_stripe_ref
 from repro_torch.kernels.kmeans_assign.ops import assign_op
@@ -88,6 +89,13 @@ def _fwht_build(rng, case):
     return (_normal(rng, case["n"], case["c"]),), {}
 
 
+def _srht_t_build(rng, case):
+    n_pad = case["n_pad"]
+    signs = (rng.integers(0, 2, n_pad) * 2 - 1).astype(np.float32)
+    rows = rng.permutation(n_pad)[:case["r"]].astype(np.int64)
+    return (_normal(rng, case["m"], case["c"]), signs, rows), {"n_pad": n_pad}
+
+
 def assign_compare(got, want, rtol, atol):
     """Distances within tolerance; labels may differ only on ties, on
     fewer than 1% of rows (repro.kernels.kmeans_assign.ops rule)."""
@@ -149,6 +157,17 @@ ENTRIES: Tuple[KernelEntry, ...] = (
                {"n": 513, "r": 16, "k": 100}, {"n": 31, "r": 5, "k": 3}),
         build=_assign_build, rtol=1e-4, atol=1e-4,
         compare=assign_compare),
+    # The SRHT form of fwht (Omega^T M, repro.core.sketch.srht_apply_t in
+    # the JAX package, which has no registry entry for it): m = n_pad,
+    # n_pad - 1 and ragged, one and two passes, at the fwht tolerances.
+    KernelEntry(
+        name="srht_t", op=srht_t_op, ref=srht_t_ref,
+        cases=({"n_pad": 8, "m": 8, "c": 1, "r": 3},
+               {"n_pad": 1 << 10, "m": (1 << 10) - 1, "c": 7, "r": 7},
+               {"n_pad": 1 << 11, "m": 1500, "c": 512, "r": 7},
+               {"n_pad": 1 << 17, "m": 100_000, "c": 7, "r": 7},
+               {"n_pad": 1 << 17, "m": (1 << 17) - 1, "c": 1, "r": 12}),
+        build=_srht_t_build, rtol=2e-4, atol=2e-4),
 )
 
 

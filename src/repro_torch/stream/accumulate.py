@@ -35,8 +35,8 @@ import torch
 from repro_torch.core.kernels_fn import KernelFn
 from repro_torch.core.sketch import (GaussianSketch, LowRankEig, SRHT,
                                      make_gaussian, make_srht, one_pass_core,
-                                     srht_apply_t, srht_rows,
-                                     truncate_sketch)
+                                     srht_apply_t, srht_apply_t_prefix,
+                                     srht_rows, truncate_sketch)
 from repro_torch.kernels.fit_sketch.ops import fit_sketch_op
 
 Sketch = Union[SRHT, GaussianSketch]
@@ -59,9 +59,12 @@ class SketchAccumulator:
     sketch:      a ready SRHT / GaussianSketch (the draws of another
                  implementation), whose device the state then lives on
     oversampling/block/sketch_type/fwht_fn/truncate_basis: the one-pass
-                 backend knobs (api/backends.py); fwht_fn (e.g. the CUDA
-                 kernel fwht_op) runs every FWHT of the canonical update
-                 and of the eigensolve, the plain version when None
+                 backend knobs (api/backends.py). When fwht_fn is None,
+                 every Omega^T M of the canonical update and of the
+                 eigensolve runs the srht_t kernel (the plain version for
+                 CPU tensors); a given fwht_fn (the kernel fwht_op, or the
+                 plain fwht_ref) runs the unfused pad / sign / transform /
+                 gather composition through it
     policy:      optional ComputePolicy; fit_fused routes every block
                  update through the fused fit_sketch kernel.
     kernel_statics: (kind, gamma, degree) for the fused kernel; required
@@ -261,17 +264,15 @@ class SketchAccumulator:
                b: int) -> None:
         """One block update, in place: fold columns [q, q+b) of the data
         into (W, row_norms2). The fit_fused policy routes it through the
-        fused fit_sketch kernel; otherwise the canonical plain update."""
+        fused fit_sketch kernel; otherwise the canonical update."""
         if self._fit_fused:
             self._apply_fused(W, row_norms2, q, b)
             return
         X = self._Xbuf
         Kc = self.kernel(X[:, :q + b], X[:, q:q + b])      # (q+b, b)
         if isinstance(self.sketch, SRHT):
-            Kp = torch.zeros((self.capacity, b), dtype=torch.float32,
-                             device=self.device)
-            Kp[:q + b] = Kc
-            new_rows = srht_apply_t(self.sketch, Kp, self.fwht_fn).T
+            # Rows past q + b of the capacity stripe are zero.
+            new_rows = srht_apply_t_prefix(self.sketch, Kc, self.fwht_fn).T
             cross = srht_rows(self.sketch, q, q + b)
         else:
             new_rows = Kc.T @ self.sketch.omega[:q + b]

@@ -3,10 +3,13 @@
 Each case's inputs are made once with numpy and handed to both packages:
 the port's plain version (what a wrapper runs for CPU tensors) must match
 the JAX ref.py and the JAX op in Pallas interpret mode, within the
-registry's tolerances (2e-3; 2e-4 for fwht; 1e-4 for kmeans_assign,
-whose labels may differ only on ties). The `cuda` cases hold each kernel against its plain
-version on the card; this file imports JAX only inside the tests that
-need it, so those run where JAX is not installed:
+registry's tolerances (2e-3; 2e-4 for fwht and srht_t; 1e-4 for
+kmeans_assign, whose labels may differ only on ties). srht_t, the SRHT
+form of fwht, is held against the JAX package's srht_apply_t, with its
+plain transform and with fwht_pallas in interpret mode. The `cuda` cases
+hold each kernel against its plain version on the card; this file
+imports JAX only inside the tests that need it, so those run where JAX
+is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -30,7 +33,7 @@ def jax_side():
     from repro.kernels.kmeans_assign.ref import assign_ref
     refs = {"gram_stripe": gram_stripe_ref, "kmeans_assign": assign_ref,
             "extend_embed": extend_embed_ref, "fit_sketch": fit_sketch_ref,
-            "fwht": fwht_ref}
+            "fwht": fwht_ref, "srht_t": _jax_srht_t()}
 
     def jax_args(name, args):
         """The JAX package's layout of the same inputs: fit_sketch takes
@@ -43,6 +46,27 @@ def jax_side():
         return [jnp.asarray(a) for a in args]
 
     return jax_registry, refs, jax_args
+
+
+def _jax_srht_t(fwht_fn=None):
+    """The JAX package's Omega^T M (repro.core.sketch.srht_apply_t) for the
+    srht_t registry signature (M, signs, rows, n_pad)."""
+    from repro.core import sketch as jsk
+
+    def srht_t(M, signs, rows, n_pad):
+        srht = jsk.SRHT(signs=signs, rows=rows, n=M.shape[0], n_pad=n_pad)
+        return jsk.srht_apply_t(srht, M, fwht_fn)
+    return srht_t
+
+
+def _jax_op(jax_registry, name):
+    """The JAX op of an entry, called in Pallas interpret mode; srht_t runs
+    srht_apply_t through fwht_pallas."""
+    if name == "srht_t":
+        from repro.kernels.fwht.ops import fwht_pallas
+        op = _jax_srht_t(lambda x: fwht_pallas(x, interpret=True))
+        return lambda *args, interpret, **kw: op(*args, **kw)
+    return jax_registry.get_kernel(name).op
 
 
 def _card():
@@ -65,7 +89,12 @@ def _inputs(name, i):
 
 def test_cases_and_tolerances_equal_the_jax_registry(jax_side):
     jax_registry = jax_side[0]
+    jax_names = {entry.name for entry in jax_registry.kernel_entries()}
+    port_names = {entry.name for entry in registry.kernel_entries()}
+    assert port_names - jax_names == {"srht_t"}     # the port's own entry
     for entry in registry.kernel_entries():
+        if entry.name == "srht_t":
+            continue
         ref = jax_registry.get_kernel(entry.name)
         assert entry.cases == ref.cases, entry.name
         assert (entry.rtol, entry.atol) == (ref.rtol, ref.atol), entry.name
@@ -86,8 +115,8 @@ def test_plain_matches_jax_op_interpret(jax_side, name, i):
     jax_registry, _, jax_args = jax_side
     entry, args, kw = _inputs(name, i)
     got = entry.op(*[torch.from_numpy(a) for a in args], **kw)
-    want = jax_registry.get_kernel(name).op(*jax_args(name, args),
-                                            interpret=True, **kw)
+    want = _jax_op(jax_registry, name)(*jax_args(name, args),
+                                       interpret=True, **kw)
     registry.compare(entry, got, want)
 
 
@@ -149,3 +178,34 @@ def test_fwht_is_deterministic_on_card():
             assert torch.equal(op(x), first)
         registry.compare(registry.get_kernel("fwht"), first,
                          registry.get_kernel("fwht").ref(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_bits", [10, 6])
+@pytest.mark.parametrize("c", [512, 7, 36])
+def test_fwht_and_srht_t_equal_plain_and_repeat_on_card(monkeypatch,
+                                                         max_bits, c):
+    """The redesigned pass kernel: fwht equals fwht_ref bit for bit and
+    srht_t equals srht_t_ref by value, at n = 2^17 in two passes (the main
+    path's plan) and three (max_bits 6), for the main path's m = 100,000
+    and for m = n; two launches give the same bits."""
+    from repro_torch.kernels.fwht import ops
+    dev = _card()
+    monkeypatch.setattr(ops, "MAX_PASS_BITS", max_bits)
+    n = 1 << 17
+    g = torch.Generator(device=dev).manual_seed(c)
+    x = torch.randn((n, c), generator=g, device=dev)
+    first = ops.fwht_op(x)
+    assert torch.equal(first.view(torch.int32),
+                       ops.fwht_op(x).view(torch.int32))
+    assert torch.equal(first.view(torch.int32),
+                       registry.get_kernel("fwht").ref(x).view(torch.int32))
+    signs = (torch.randint(0, 2, (n,), generator=g, device=dev) * 2 - 1
+             ).float()
+    rows = torch.randperm(n, generator=g, device=dev)[:7]
+    for m in (100_000, n):
+        M = x[:m]
+        first = ops.srht_t_op(M, signs, rows, n)
+        assert torch.equal(first.view(torch.int32),
+                           ops.srht_t_op(M, signs, rows, n).view(torch.int32))
+        assert torch.equal(first, ops.srht_t_ref(M, signs, rows, n))
