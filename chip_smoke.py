@@ -10,16 +10,20 @@ Phases, each fatal on failure:
   3. each kernel against its plain PyTorch version on the card, at every
      parity case of repro_torch.kernels.registry and at its main-path
      shape, with times (CUDA events, median of 7 after warm-up); fwht and
-     srht_t must equal theirs exactly; srht_t is also timed against the
-     unfused pad / sign / fwht kernel / gather composition and against
-     torch.mm with a materialized Omega (its library time);
+     srht_t must equal theirs exactly, and they and fit_sketch give the
+     same bits on two launches; srht_t is also timed against the unfused
+     pad / sign / fwht kernel / gather composition and against torch.mm
+     with a materialized Omega (its library time); fit_sketch also at the
+     ragged tail block and with the rbf kind, beside its tensor-core and
+     its fp32 bounds, with its registers, shared memory and HMMA count;
   4. fit: KernelKMeans on n = 100,000 points of the segmentation proxy
      (p = 19, K = 7, r = 2, l = 5, polynomial d = 2, onepass-srht,
      block 512) through the fused fit_sketch kernel, its eigensolve through
      the srht_t kernel (the default route), cross-checked against the
      canonical plain fit (fwht_fn=fwht_ref) with the same sketch and init
      (sketch state, eigenvalues, subspace, labels), with the fit's own step
-     times;
+     times; then the same fused fit in ten partial_fit chunks, whose
+     sketch state must equal the one-shot fit's bit for bit;
   5. serve: a MicroBatcher answers requests of 1 .. 2,500 held-out queries
      through extend_embed and kmeans_assign, checked against the two-pass
      plain Extender on the card;
@@ -43,6 +47,7 @@ from __future__ import annotations
 import json
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -57,8 +62,12 @@ BUILD = ROOT / "build"                  # git-ignored: builds, artifacts
 DEVICE = "cuda"
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): fp32 outside the
-# tensor cores and HBM3 bandwidth. bound = max(ops / FP32, bytes / HBM).
+# tensor cores, TF32 on the tensor cores and HBM3 bandwidth.
+# bound = max(ops / FP32, bytes / HBM); for fit_sketch, whose products run
+# on the tensor cores, max(bytes / HBM, 3 x tensor flops / TF32, the rest
+# of its flops / FP32).
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
 # The port's configuration: the paper's Fig. 3 widths at n = 100,000.
@@ -80,6 +89,9 @@ MAIN_PATH = ("kmeans_assign", "extend_embed", "fit_sketch", "fwht", "srht_t")
 # Kernels that must equal their plain versions exactly (by value: srht_t
 # may give +0 where the plain version gives -0).
 EXACT = ("fwht", "srht_t")
+# Kernels that must give the same bits on two launches at the main shapes.
+REPEAT = EXACT + ("fit_sketch",)
+RBF_GAMMA = 0.5          # the registry's rbf cases
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -185,14 +197,35 @@ def extend_bound(p, n, r, w, kind, degree):
                  4 * (p * n + r * n + p * w + r * w))
 
 
-def fit_bound(p, m, b, rp, kind, degree, masked=False):
-    """Per (m, b) entry: the tile, 2r' each for new_rows and delta, and 3
-    for the norms (one square shared by rn_rows and rn_cols, two adds),
-    plus the V weight when a mask is passed (the main path passes none)."""
-    per_entry = 2 * p + kappa_ops(kind, degree) + 4 * rp + 3 + int(masked)
-    return bound(m * b * per_entry,
-                 4 * (p * m + m * rp + p * b + b * rp
-                      + b * rp + m * rp + m + b + m * int(masked)))
+def fit_bytes(p, m, b, rp):
+    """X, Omega, C, Ocross read once; new_rows, delta and the norms written
+    once (the main path passes no V)."""
+    return 4 * (p * m + m * rp + p * b + b * rp + b * rp + m * rp + m + b)
+
+
+def fit_bound(p, m, b, rp, kind, degree):
+    """fp32 on the CUDA cores. Per (m, b) entry: the tile, 2r' each for
+    new_rows and delta, and 3 for the norms (one square shared by rn_rows
+    and rn_cols, two adds)."""
+    per_entry = 2 * p + kappa_ops(kind, degree) + 4 * rp + 3
+    return bound(m * b * per_entry, fit_bytes(p, m, b, rp))
+
+
+def fit_tc_bound(p, m, b, rp, kind, degree):
+    """The kernel's own bound: its three products (2p + 4r' flops per
+    entry, unpadded) on the tensor cores at three TF32 products each, the
+    rest (kappa, the norms) on the CUDA cores, the bytes over HBM; the
+    largest of the three."""
+    terms = {"bytes": fit_bytes(p, m, b, rp) / HBM_BYTES_PER_S,
+             "tensor cores (3xTF32)":
+                 3 * m * b * (2 * p + 4 * rp) / TF32_FLOPS,
+             "CUDA cores": m * b * (kappa_ops(kind, degree) + 3) / FP32_FLOPS}
+    term = max(terms, key=terms.get)
+    return {"bound_ms": terms[term] * 1e3,
+            "bound_us": terms[term] * 1e6,
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term,
+            "bound_terms_ms": {k: v * 1e3 for k, v in terms.items()}}
 
 
 def fwht_bound(n, c):
@@ -222,7 +255,9 @@ def phase_env(torch) -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build the kernels; returns ptxas's lines of each fit_sketch kernel
+    and the HMMA (tensor-core) instructions cuobjdump finds in its SASS."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -231,12 +266,37 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.1f} s")
     # ptxas's registers, shared memory and spills of each kernel, under
     # the kernel's name and template arguments (fwht_pass_kernel<3, 4>).
-    name = ""
+    name, ptxas = "", {}
     for line in (lib_path.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             name = kernel_label(line.split("'")[1])
         elif "Used" in line or "spill" in line and "0 bytes spill" not in line:
-            log(f"[build] {name}: {line.split(':', 1)[-1].strip()}")
+            msg = line.split(":", 1)[-1].strip()
+            log(f"[build] {name}: {msg}")
+            if name.startswith("fit_sketch_kernel"):
+                ptxas[name] = (ptxas.get(name, "") + " " + msg).strip()
+    info = {"fit_sketch_ptxas": ptxas,
+            "fit_sketch_dynamic_smem_bytes":
+                _build.library().rt_fit_sketch_smem_bytes()}
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if pathlib.Path(cuobjdump).exists():
+        sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        hmma = {}
+        for fn in sass.split("Function : ")[1:]:
+            label = kernel_label(fn.split()[0])
+            if label.startswith("fit_sketch_kernel"):
+                hmma[label] = fn.count("HMMA")
+        if not hmma or min(hmma.values()) == 0:
+            raise AssertionError(f"fit_sketch SASS without HMMA: {hmma}")
+        info["fit_sketch_sass_hmma"] = hmma
+    else:
+        info["fit_sketch_sass_hmma"] = "no cuobjdump in the toolkit"
+    log(f"[build] fit_sketch: dynamic shared memory "
+        f"{info['fit_sketch_dynamic_smem_bytes']} bytes; HMMA instructions "
+        f"in the SASS {info['fit_sketch_sass_hmma']}")
+    return info
 
 
 def kernel_label(mangled: str) -> str:
@@ -244,9 +304,9 @@ def kernel_label(mangled: str) -> str:
     name: the last <length><name> that spells a lowercase identifier."""
     names = [m[2] for m in re.finditer(r"(?=(\d+)([a-z][a-z_]*[a-z]))",
                                        mangled) if int(m[1]) == len(m[2])]
-    args = re.search(r"ILi(\d+)ELi(\d+)E", mangled)
+    args = re.search(r"ILi(n?\d+)ELi(n?\d+)E", mangled)
     return ((names[-1] if names else mangled)
-            + (f"<{args[1]}, {args[2]}>" if args else ""))
+            + (f"<{args[1]}, {args[2]}>".replace("n", "-") if args else ""))
 
 
 def main_shape_inputs(torch, dev, X):
@@ -305,11 +365,8 @@ def phase_kernels(torch, dev, X) -> dict:
             want = entry.ref(*args, **kw)
             registry.compare(entry, got, want)
             exact(torch, entry.name, got, want)
-            if entry.name in EXACT:
-                again = entry.op(*args, **kw)
-                if not torch.equal(again.view(torch.int32),
-                                   got.view(torch.int32)):
-                    raise AssertionError(f"{entry.name}: two launches differ")
+            if entry.name in REPEAT:
+                same_bits(torch, entry.name, got, entry.op(*args, **kw))
             worst_main = max(worst_main, max_err(torch, got, want))
             shapes = [tuple(a.shape) for a in args]
             log(f"[kernels] {entry.name} main shape {shapes} ok "
@@ -331,7 +388,8 @@ def phase_kernels(torch, dev, X) -> dict:
             res["linear_library_ms"] = cuda_ms(
                 torch, lambda: torch.mm(Xa.T, Xba))
         elif entry.name == "fit_sketch":
-            res.update(fit_bound(P, N_TRAIN, BLOCK, RP, "polynomial", 2))
+            res.update(fit_tc_bound(P, N_TRAIN, BLOCK, RP, "polynomial", 2))
+            res.update(fit_sketch_extra(torch, entry, main["fit_sketch"]))
         elif entry.name == "extend_embed":
             res.update(extend_bound(P, N_TRAIN, R, BLOCK, "polynomial", 2))
         elif entry.name == "fwht":
@@ -343,9 +401,57 @@ def phase_kernels(torch, dev, X) -> dict:
             res.update(assign_bound(1024, R, K))
         log(f"[kernels] {entry.name} main shape: kernel {res['ms']:.4f} ms, "
             f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-            f"({res['bound_by']})")
+            f"({res.get('bound_term', res['bound_by'])})")
         results[entry.name] = res
     return results
+
+
+def same_bits(torch, name, first, again) -> None:
+    """Two launches on the same inputs must give the same bits."""
+    first = first if isinstance(first, tuple) else (first,)
+    again = again if isinstance(again, tuple) else (again,)
+    for a, b in zip(first, again):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"{name}: two launches differ")
+
+
+def fit_sketch_extra(torch, entry, main) -> dict:
+    """fit_sketch back to back, at the ragged tail block (b = 160), with
+    the rbf kind at the main shape (the tile's cancellation, held against
+    the plain version), and beside its fp32 CUDA-core bound. No one
+    PyTorch call computes its four outputs: no library time."""
+    from repro_torch.kernels import registry
+    (args, kw), (targs, tkw) = main
+    rbf = {"kind": "rbf", "gamma": RBF_GAMMA}
+    got = entry.op(*args, **rbf)
+    torch.cuda.synchronize()
+    want = entry.ref(*args, **rbf)
+    registry.compare(entry, got, want)
+    same_bits(torch, "fit_sketch (rbf)", got, entry.op(*args, **rbf))
+    b_tail = targs[2].shape[1]
+    out = {"ms_back_to_back": cuda_ms_back_to_back(
+               torch, lambda: entry.op(*args, **kw)),
+           "fp32_bound_ms": fit_bound(P, N_TRAIN, BLOCK, RP, "polynomial",
+                                      2)["bound_ms"],
+           "tail_shape": [N_TRAIN, b_tail],
+           "tail_ms": cuda_ms(torch, lambda: entry.op(*targs, **tkw)),
+           "tail_ms_back_to_back": cuda_ms_back_to_back(
+               torch, lambda: entry.op(*targs, **tkw)),
+           "tail_plain_ms": cuda_ms(torch, lambda: entry.ref(*targs, **tkw)),
+           "tail_bound_ms": fit_tc_bound(P, N_TRAIN, b_tail, RP, "polynomial",
+                                         2)["bound_ms"],
+           "rbf_max_abs_err": max_err(torch, got, want),
+           "rbf_ms": cuda_ms(torch, lambda: entry.op(*args, **rbf)),
+           "library_note": "no single PyTorch call computes new_rows, "
+                           "delta, rn_rows and rn_cols"}
+    log(f"[kernels] fit_sketch back to back {out['ms_back_to_back']:.4f} ms;"
+        f" tail b={b_tail}: kernel {out['tail_ms']:.4f} ms (back to back "
+        f"{out['tail_ms_back_to_back']:.4f}), plain "
+        f"{out['tail_plain_ms']:.4f} ms, bound {out['tail_bound_ms']:.4f} "
+        f"ms; rbf (gamma {RBF_GAMMA}) max abs err "
+        f"{out['rbf_max_abs_err']:.3e}, {out['rbf_ms']:.4f} ms; fp32 "
+        f"CUDA-core bound {out['fp32_bound_ms']:.4f} ms")
+    return out
 
 
 def exact(torch, name, got, want) -> None:
@@ -519,6 +625,7 @@ def phase_fit(torch, X, y) -> tuple:
     if agree < 0.99:
         raise AssertionError(f"fused and canonical labels agree on {agree}")
     acc = clustering_accuracy(y, est.labels_, K)
+    chunked = fused_chunked(torch, X, est)
     info = {"fit_s": fit_s, "canonical_fit_s": canon_s,
             "fit_sketch_launches": launches["fit_sketch"],
             "srht_t_launches": launches["srht_t"],
@@ -530,7 +637,7 @@ def phase_fit(torch, X, y) -> tuple:
                for k, v in state_err.items()},
             "label_agreement_vs_canonical": agree,
             "accuracy_vs_generating_labels": acc,
-            "breakdown_s": est.fit_times_}
+            "breakdown_s": est.fit_times_, **chunked}
     log(f"[fit] n={N_TRAIN} fused fit {fit_s:.3f} s ({updates} fit_sketch "
         f"launches, {launches['srht_t']} srht_t), canonical plain fit "
         f"{canon_s:.3f} s; eigvals "
@@ -543,6 +650,37 @@ def phase_fit(torch, X, y) -> tuple:
         "events) " + ", ".join(f"{k} {v:.4f} s"
                                for k, v in est.fit_times_.items()))
     return est, canon, launches, info
+
+
+def fused_chunked(torch, X, est) -> dict:
+    """The fused route in ten partial_fit chunks of 10,000 columns: its
+    sketch state equals the fused one-shot fit's bit for bit (every block
+    update is the same fit_sketch call, and the kernel's sums run in one
+    order)."""
+    from repro_torch.api import KernelKMeans
+    from repro_torch.kernels import OPS
+    from repro_torch.serve import ComputePolicy
+    before = OPS["fit_sketch"].launches
+    live = KernelKMeans(**estimator_args(), policy=ComputePolicy())
+    t0 = time.perf_counter()
+    for i in range(N_TRAIN // STREAM_CHUNK):
+        live.partial_fit(X[:, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK],
+                         seed=SEED, capacity=N_TRAIN, reeig=False)
+    live.reeig_now()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for name in ("stream_w", "stream_row_norms2"):
+        if not torch.equal(getattr(live.model_, name),
+                           getattr(est.model_, name)):
+            raise AssertionError(f"fused chunked and one-shot {name} differ")
+    launches = OPS["fit_sketch"].launches - before
+    log(f"[fit] fused route in {N_TRAIN // STREAM_CHUNK} partial_fit chunks"
+        f" of {STREAM_CHUNK} columns and a re-eig: {seconds:.3f} s, "
+        f"{launches} fit_sketch launches; stream_w and stream_row_norms2 "
+        f"equal the one-shot fused fit's bit for bit")
+    return {"fused_chunked_s": seconds,
+            "fused_chunked_fit_sketch_launches": launches,
+            "fused_chunked_equals_one_shot": True}
 
 
 def phase_serve(torch, model, Xq) -> tuple:
@@ -852,12 +990,16 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     dev = torch.device("cuda", 0)
     smi = phase_env(torch)
-    phase_build()
+    build = phase_build()
     from repro_torch.data.synthetic import segmentation_proxy
     gen = torch.Generator(device=dev).manual_seed(0)
     Xall, yall = segmentation_proxy(gen, n=N_TRAIN + N_QUERY, p=P, k=K)
     X = Xall[:, :N_TRAIN].contiguous()
     kernels = phase_kernels(torch, dev, X)
+    kernels["fit_sketch"].update(
+        ptxas=build["fit_sketch_ptxas"],
+        sass_hmma=build["fit_sketch_sass_hmma"],
+        dynamic_smem_bytes=build["fit_sketch_dynamic_smem_bytes"])
     summary = {}
     Xq = Xall[:, N_TRAIN:].contiguous()
     est, canon, fit_launches, summary["fit"] = phase_fit(
@@ -891,8 +1033,11 @@ def main() -> int:
                      **{k: v for k, v in res.items()
                         if k.startswith(("linear_", "eig_"))
                         or k.endswith("library_shape")
+                        or k.startswith(("tail_", "rbf_", "bound_t",
+                                         "fp32_", "sass_", "ptxas"))
                         or k in ("unfused_ms", "ms_back_to_back",
-                                 "copy_ms", "read_ms")}})
+                                 "copy_ms", "read_ms", "library_note",
+                                 "dynamic_smem_bytes")}})
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -42,7 +42,8 @@ SIGNATURES = {
     "rt_extend_embed": (_P, _LL, _I, _P, _LL, _I, _P, _LL, _I, _I, _I, _F,
                         _I, _I, _I, _P, _P, _P),
     "rt_fit_sketch": (_P, _LL, _I, _P, _I, _P, _LL, _I, _P, _P, _I, _I, _F,
-                      _I, _I, _I, _P, _P, _P, _P, _P),
+                      _I, _I, _I, _P, _P, _P, _P),
+    "rt_fit_sketch_smem_bytes": (),
     "rt_fwht": (_P, _P, _LL, _I, _P, _P, _I, _I, _F, _P),
     "rt_srht_t_pass": (_P, _LL, _P, _P, _I, _LL, _P, _P, _P, _P, _I, _I,
                        _I, _I, _F, _I, _P),

@@ -18,6 +18,10 @@ KINDS = {"polynomial": 0, "rbf": 1, "linear": 2}
 TILE_ROWS = 64
 # Row ranges a split-reduction kernel cuts its long dimension into.
 SPLITS = 128
+# The fit_sketch kernel's row ranges: one block each, at most one per SM of
+# the H100 (132), in steps of its 16-row mma tile (csrc/fit_sketch.cu).
+FIT_RANGES = 132
+FIT_ROWS = 16
 
 
 def kind_code(kind: str, degree: int) -> int:
@@ -67,13 +71,20 @@ def leading_dim(what: str, name: str, t: torch.Tensor) -> int:
     return t.stride(0)
 
 
-def split_rows(n: int) -> Tuple[int, int]:
-    """(rows per split, splits) of a split reduction over n rows. Depends
-    on n alone, so a result's summation order does not depend on the
-    other dimension (a query column gets the same bits in any batch)."""
-    per = -(-n // SPLITS)
-    per = -(-per // TILE_ROWS) * TILE_ROWS
+def split_rows(n: int, splits: int = SPLITS,
+               step: int = TILE_ROWS) -> Tuple[int, int]:
+    """(rows per split, splits) of a split reduction over n rows: at most
+    `splits` ranges, each a multiple of `step` rows. Depends on n alone,
+    so a result's summation order does not depend on the other dimension
+    (a query column gets the same bits in any batch)."""
+    per = -(-n // splits)
+    per = -(-per // step) * step
     return per, -(-n // per)
+
+
+def fit_split(m: int) -> Tuple[int, int]:
+    """(rows per range, ranges) of the fit_sketch kernel over m rows."""
+    return split_rows(m, FIT_RANGES, FIT_ROWS)
 
 
 def stream(t: torch.Tensor) -> int:

@@ -8,10 +8,6 @@ import torch
 from repro_torch.kernels import _build, _common as cm
 from repro_torch.kernels.fit_sketch.ref import fit_sketch_ref
 
-# Omega rows, the new_rows accumulator and the kernel tile of a block live
-# in shared memory: 512 r' + 25 KB must stay under the card's 227 KB.
-MAX_RP = 400
-
 
 def fit_sketch_op(X: torch.Tensor, Omega: torch.Tensor, C: torch.Tensor,
                   Ocross: torch.Tensor, V: Optional[torch.Tensor] = None,
@@ -25,7 +21,8 @@ def fit_sketch_op(X: torch.Tensor, Omega: torch.Tensor, C: torch.Tensor,
     (None = all rows valid). Returns
       (new_rows (b, r'), delta (m, r'), rn_rows (m,), rn_cols (b,))
     matching fit_sketch_ref. CPU tensors run the plain version; CUDA
-    tensors launch the kernel, which never writes K to memory.
+    tensors launch the kernel, which never writes K to memory and computes
+    its products on the tensor cores in 3xTF32 (fp32 accuracy).
     """
     what = "fit_sketch"
     if cm.plain_path(what, X, Omega, C, Ocross, V):
@@ -47,27 +44,23 @@ def fit_sketch_op(X: torch.Tensor, Omega: torch.Tensor, C: torch.Tensor,
         cm.contiguous(what, "V", V, 1)
         if V.shape[0] != m:
             raise ValueError(f"{what}: V has {V.shape[0]} rows, X has {m}")
-    if rp > MAX_RP:
-        raise ValueError(f"{what}: r'={rp} exceeds the kernel's {MAX_RP}")
-    dev = X.device
-    out_acc = torch.empty((b * rp + b,), device=dev, dtype=torch.float32)
-    out_delta = torch.empty((m * rp + m,), device=dev, dtype=torch.float32)
+    # One buffer: new_rows | rn_cols, delta | rn_rows, then the kernel's
+    # partials of new_rows | rn_cols, one per row range (delta and rn_rows
+    # leave the kernel final; a second launch sums the partials).
+    acc_len, delta_len = b * rp + b, m * rp + m
+    per, ranges = cm.fit_split(m) if m else (0, 0)
+    buf = torch.empty((acc_len * (1 + ranges) + delta_len,), device=X.device,
+                      dtype=torch.float32)
+    out_acc, out_delta = buf[:acc_len], buf[acc_len:acc_len + delta_len]
     if m == 0 or b == 0 or rp == 0:
-        out_acc.zero_()
-        out_delta.zero_()
+        buf.zero_()
     else:
-        per, splits = cm.split_rows(m)
-        b_tiles = -(-b // cm.TILE_ROWS)
-        part_acc = torch.empty((splits, b * rp + b), device=dev,
-                               dtype=torch.float32)
-        part_delta = torch.empty((b_tiles, m * rp + m), device=dev,
-                                 dtype=torch.float32)
         rc = _build.library().rt_fit_sketch(
             X.data_ptr(), ldx, m, Omega.data_ptr(), rp, C.data_ptr(), ldc, b,
             Ocross.data_ptr(), None if V is None else V.data_ptr(), p, code,
-            float(gamma), int(degree), per, splits, part_acc.data_ptr(),
-            part_delta.data_ptr(), out_acc.data_ptr(), out_delta.data_ptr(),
-            cm.stream(X))
+            float(gamma), int(degree), per, ranges,
+            buf[acc_len + delta_len:].data_ptr(), out_acc.data_ptr(),
+            out_delta.data_ptr(), cm.stream(X))
         _build.check(rc, what)
         fit_sketch_op.launches += 1
     return (out_acc[:b * rp].view(b, rp), out_delta[:m * rp].view(m, rp),

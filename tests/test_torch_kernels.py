@@ -162,6 +162,40 @@ def test_fit_sketch_is_deterministic_on_card():
             assert torch.equal(g, w)
 
 
+# The fit_sketch kernel's shapes beyond the registry: the main path's block
+# with the rbf kind (the tile's cancellation), ragged and single-column
+# blocks, m off the 16- and 64-row tiles, a V mask, r' in passes of 8, p in
+# chunks of 24 and b in chunks of 512.
+FIT_CARD_CASES = (
+    {"p": 19, "m": 100_000, "b": 512, "rp": 7, "kind": "rbf", "gamma": 0.5},
+    *({"p": 19, "m": 3001, "b": b, "rp": 7} for b in (1, 37, 160, 512)),
+    {"p": 19, "m": 5000, "b": 160, "rp": 7, "valid": 4321},
+    {"p": 19, "m": 2000, "b": 200, "rp": 140},
+    {"p": 19, "m": 2000, "b": 200, "rp": 400},
+    {"p": 50, "m": 1500, "b": 100, "rp": 9, "kind": "rbf", "gamma": 0.1},
+    {"p": 19, "m": 1500, "b": 1100, "rp": 7, "valid": 1000},
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FIT_CARD_CASES, ids=(
+    "main-rbf", "b1", "b37", "b160", "b512", "v-mask", "rp140", "rp400",
+    "p50-rbf", "b1100"))
+def test_fit_sketch_matches_plain_on_card(case):
+    """The tensor-core kernel (3xTF32) against its plain version, within
+    the registry's 2e-3, on unit-norm columns as the fit feeds it."""
+    dev = _card()
+    entry = registry.get_kernel("fit_sketch")
+    args, kw = entry.build(np.random.default_rng(11), case)
+    X, Omega, C, Ocr, V = args
+    X /= np.linalg.norm(X, axis=0, keepdims=True)
+    C /= np.linalg.norm(C, axis=0, keepdims=True)
+    targs = [torch.from_numpy(a).to(dev) for a in (X, Omega, C, Ocr, V)]
+    got = entry.op(*targs, **kw)
+    torch.cuda.synchronize()
+    registry.compare(entry, got, entry.ref(*targs, **kw))
+
+
 @pytest.mark.cuda
 def test_fwht_is_deterministic_on_card():
     """No atomics and a fixed stage order: the same bits on every run, at
