@@ -14,8 +14,11 @@ Phases, each fatal on failure:
      same bits on two launches; srht_t is also timed against the unfused
      pad / sign / fwht kernel / gather composition and against torch.mm
      with a materialized Omega (its library time); fit_sketch also at the
-     ragged tail block and with the rbf kind, beside its tensor-core and
-     its fp32 bounds, with its registers, shared memory and HMMA count;
+     ragged tail block and with the rbf kind, extend_embed also at the
+     serving widths w = 256, 64 and 8 and with the rbf kind, both beside
+     their tensor-core and fp32 bounds, with their registers, shared
+     memory and HMMA counts; extend_embed gives the same bits on two
+     launches too;
   4. fit: KernelKMeans on n = 100,000 points of the segmentation proxy
      (p = 19, K = 7, r = 2, l = 5, polynomial d = 2, onepass-srht,
      block 512) through the fused fit_sketch kernel, its eigensolve through
@@ -63,9 +66,9 @@ DEVICE = "cuda"
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): fp32 outside the
 # tensor cores, TF32 on the tensor cores and HBM3 bandwidth.
-# bound = max(ops / FP32, bytes / HBM); for fit_sketch, whose products run
-# on the tensor cores, max(bytes / HBM, 3 x tensor flops / TF32, the rest
-# of its flops / FP32).
+# bound = max(ops / FP32, bytes / HBM); for fit_sketch and extend_embed,
+# whose products run on the tensor cores, max(bytes / HBM, 3 x tensor
+# flops / TF32, the rest of their flops / FP32).
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
@@ -90,7 +93,15 @@ MAIN_PATH = ("kmeans_assign", "extend_embed", "fit_sketch", "fwht", "srht_t")
 # may give +0 where the plain version gives -0).
 EXACT = ("fwht", "srht_t")
 # Kernels that must give the same bits on two launches at the main shapes.
-REPEAT = EXACT + ("fit_sketch",)
+REPEAT = EXACT + ("fit_sketch", "extend_embed")
+# The widest bucket's stripe (512) is the main shape; these are the
+# buckets of requests of 129-256, 64, and 1-8 queries. extend_embed gives
+# each warp 2, 1 and 1 query tiles there, 4 at 512.
+SERVE_WIDTHS = (256, 64, 8)
+# Kernels built on the tensor cores: phase_build reports their registers,
+# shared memory and HMMA instructions.
+TENSOR_CORE = {"fit_sketch": "fit_sketch_kernel",
+               "extend_embed": "extend_embed_kernel"}
 RBF_GAMMA = 0.5          # the registry's rbf cases
 
 SOURCES = {
@@ -211,21 +222,33 @@ def fit_bound(p, m, b, rp, kind, degree):
     return bound(m * b * per_entry, fit_bytes(p, m, b, rp))
 
 
-def fit_tc_bound(p, m, b, rp, kind, degree):
-    """The kernel's own bound: its three products (2p + 4r' flops per
-    entry, unpadded) on the tensor cores at three TF32 products each, the
-    rest (kappa, the norms) on the CUDA cores, the bytes over HBM; the
-    largest of the three."""
-    terms = {"bytes": fit_bytes(p, m, b, rp) / HBM_BYTES_PER_S,
-             "tensor cores (3xTF32)":
-                 3 * m * b * (2 * p + 4 * rp) / TF32_FLOPS,
-             "CUDA cores": m * b * (kappa_ops(kind, degree) + 3) / FP32_FLOPS}
+def tc_bound(nbytes, tensor_flops, other_flops) -> dict:
+    """A tensor-core kernel's bound: its products (unpadded) on the tensor
+    cores at three TF32 products each, the rest on the CUDA cores, the
+    bytes over HBM; the largest of the three."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "tensor cores (3xTF32)": 3 * tensor_flops / TF32_FLOPS,
+             "CUDA cores": other_flops / FP32_FLOPS}
     term = max(terms, key=terms.get)
     return {"bound_ms": terms[term] * 1e3,
             "bound_us": terms[term] * 1e6,
             "bound_by": "bytes" if term == "bytes" else "operations",
             "bound_term": term,
             "bound_terms_ms": {k: v * 1e3 for k, v in terms.items()}}
+
+
+def fit_tc_bound(p, m, b, rp, kind, degree):
+    """fit_sketch's three products take 2p + 4r' flops per entry; kappa
+    and the norms the rest."""
+    return tc_bound(fit_bytes(p, m, b, rp), m * b * (2 * p + 4 * rp),
+                    m * b * (kappa_ops(kind, degree) + 3))
+
+
+def extend_tc_bound(p, n, r, w, kind, degree):
+    """extend_embed's two products take 2p + 2r flops per entry; kappa the
+    rest."""
+    return tc_bound(4 * (p * n + r * n + p * w + r * w),
+                    n * w * (2 * p + 2 * r), n * w * kappa_ops(kind, degree))
 
 
 def fwht_bound(n, c):
@@ -256,46 +279,55 @@ def phase_env(torch) -> str:
 
 
 def phase_build() -> dict:
-    """Build the kernels; returns ptxas's lines of each fit_sketch kernel
-    and the HMMA (tensor-core) instructions cuobjdump finds in its SASS."""
+    """Build the kernels; returns, for each tensor-core kernel (TENSOR_CORE),
+    ptxas's lines of each instantiation, its dynamic shared memory and the
+    HMMA (tensor-core) instructions cuobjdump finds in its SASS."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     lib_path = _build.build()
-    _build.library()
+    lib = _build.library()
     log(f"[build] {len(_build.sources())} sources -> {lib_path.name} in "
         f"{time.perf_counter() - t0:.1f} s")
+
+    def family(label):
+        return next((k for k, v in TENSOR_CORE.items()
+                     if label.startswith(v)), None)
+
     # ptxas's registers, shared memory and spills of each kernel, under
     # the kernel's name and template arguments (fwht_pass_kernel<3, 4>).
-    name, ptxas = "", {}
+    name, ptxas = "", {k: {} for k in TENSOR_CORE}
     for line in (lib_path.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             name = kernel_label(line.split("'")[1])
         elif "Used" in line or "spill" in line and "0 bytes spill" not in line:
             msg = line.split(":", 1)[-1].strip()
             log(f"[build] {name}: {msg}")
-            if name.startswith("fit_sketch_kernel"):
-                ptxas[name] = (ptxas.get(name, "") + " " + msg).strip()
-    info = {"fit_sketch_ptxas": ptxas,
-            "fit_sketch_dynamic_smem_bytes":
-                _build.library().rt_fit_sketch_smem_bytes()}
+            if family(name):
+                ptxas[family(name)][name] = (
+                    ptxas[family(name)].get(name, "") + " " + msg).strip()
+    info = {k: {"ptxas": ptxas[k],
+                "dynamic_smem_bytes": getattr(lib, f"rt_{k}_smem_bytes")()}
+            for k in TENSOR_CORE}
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if pathlib.Path(cuobjdump).exists():
         sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
-        hmma = {}
+        hmma = {k: {} for k in TENSOR_CORE}
         for fn in sass.split("Function : ")[1:]:
             label = kernel_label(fn.split()[0])
-            if label.startswith("fit_sketch_kernel"):
-                hmma[label] = fn.count("HMMA")
-        if not hmma or min(hmma.values()) == 0:
-            raise AssertionError(f"fit_sketch SASS without HMMA: {hmma}")
-        info["fit_sketch_sass_hmma"] = hmma
+            if family(label):
+                hmma[family(label)][label] = fn.count("HMMA")
+        for k, counts in hmma.items():
+            if not counts or min(counts.values()) == 0:
+                raise AssertionError(f"{k} SASS without HMMA: {counts}")
+            info[k]["sass_hmma"] = counts
     else:
-        info["fit_sketch_sass_hmma"] = "no cuobjdump in the toolkit"
-    log(f"[build] fit_sketch: dynamic shared memory "
-        f"{info['fit_sketch_dynamic_smem_bytes']} bytes; HMMA instructions "
-        f"in the SASS {info['fit_sketch_sass_hmma']}")
+        for k in TENSOR_CORE:
+            info[k]["sass_hmma"] = "no cuobjdump in the toolkit"
+    for k, v in info.items():
+        log(f"[build] {k}: dynamic shared memory {v['dynamic_smem_bytes']} "
+            f"bytes; HMMA instructions in the SASS {v['sass_hmma']}")
     return info
 
 
@@ -304,9 +336,10 @@ def kernel_label(mangled: str) -> str:
     name: the last <length><name> that spells a lowercase identifier."""
     names = [m[2] for m in re.finditer(r"(?=(\d+)([a-z][a-z_]*[a-z]))",
                                        mangled) if int(m[1]) == len(m[2])]
-    args = re.search(r"ILi(n?\d+)ELi(n?\d+)E", mangled)
+    tpl = re.search(r"I((?:Lin?\d+E)+)E", mangled)
+    args = re.findall(r"Li(n?\d+)E", tpl[1]) if tpl else []
     return ((names[-1] if names else mangled)
-            + (f"<{args[1]}, {args[2]}>".replace("n", "-") if args else ""))
+            + (f"<{', '.join(args)}>".replace("n", "-") if args else ""))
 
 
 def main_shape_inputs(torch, dev, X):
@@ -391,7 +424,8 @@ def phase_kernels(torch, dev, X) -> dict:
             res.update(fit_tc_bound(P, N_TRAIN, BLOCK, RP, "polynomial", 2))
             res.update(fit_sketch_extra(torch, entry, main["fit_sketch"]))
         elif entry.name == "extend_embed":
-            res.update(extend_bound(P, N_TRAIN, R, BLOCK, "polynomial", 2))
+            res.update(extend_tc_bound(P, N_TRAIN, R, BLOCK, "polynomial", 2))
+            res.update(extend_embed_extra(torch, entry, main["extend_embed"]))
         elif entry.name == "fwht":
             res.update(fwht_bound(N_PAD, BLOCK))
             res.update(fwht_extra(torch, dev, entry, main["fwht"]))
@@ -451,6 +485,54 @@ def fit_sketch_extra(torch, entry, main) -> dict:
         f"ms; rbf (gamma {RBF_GAMMA}) max abs err "
         f"{out['rbf_max_abs_err']:.3e}, {out['rbf_ms']:.4f} ms; fp32 "
         f"CUDA-core bound {out['fp32_bound_ms']:.4f} ms")
+    return out
+
+
+def extend_embed_extra(torch, entry, main) -> dict:
+    """extend_embed back to back; at the serving widths (SERVE_WIDTHS),
+    where a query column must get the bits of the main-shape run; with
+    the rbf kind at the main shape (the tile's cancellation, held against
+    the plain version); beside its fp32 CUDA-core bound. No one PyTorch
+    call computes P kappa(X, Xb): no library time."""
+    from repro_torch.kernels import registry
+    ((X, proj, Xb), kw), = main
+    rbf = {"kind": "rbf", "gamma": RBF_GAMMA}
+    got = entry.op(X, proj, Xb, **rbf)
+    torch.cuda.synchronize()
+    want = entry.ref(X, proj, Xb, **rbf)
+    registry.compare(entry, got, want)
+    same_bits(torch, "extend_embed (rbf)", got, entry.op(X, proj, Xb, **rbf))
+    out = {"ms_back_to_back": cuda_ms_back_to_back(
+               torch, lambda: entry.op(X, proj, Xb, **kw)),
+           "fp32_bound_ms": extend_bound(P, N_TRAIN, R, BLOCK, "polynomial",
+                                         2)["bound_ms"],
+           "rbf_max_abs_err": max_err(torch, got, want),
+           "rbf_ms": cuda_ms(torch, lambda: entry.op(X, proj, Xb, **rbf)),
+           "serving_widths": {},
+           "library_note": "no single PyTorch call computes P kappa(X, Xb)"}
+    for w in SERVE_WIDTHS:
+        xb = Xb[:, :w]
+        got = entry.op(X, proj, xb, **kw)
+        torch.cuda.synchronize()
+        registry.compare(entry, got, entry.ref(X, proj, xb, **kw))
+        if not torch.equal(got, entry.op(X, proj, Xb, **kw)[:, :w]):
+            raise AssertionError(f"extend_embed at w={w} differs from the "
+                                 f"same columns of the w={Xb.shape[1]} run")
+        out["serving_widths"][str(w)] = {
+            "ms": cuda_ms(torch, lambda: entry.op(X, proj, xb, **kw)),
+            "ms_back_to_back": cuda_ms_back_to_back(
+                torch, lambda: entry.op(X, proj, xb, **kw)),
+            "plain_ms": cuda_ms(torch, lambda: entry.ref(X, proj, xb, **kw)),
+            "bound_ms": extend_tc_bound(P, N_TRAIN, R, w, "polynomial",
+                                        2)["bound_ms"]}
+    log(f"[kernels] extend_embed back to back {out['ms_back_to_back']:.4f} "
+        f"ms; rbf (gamma {RBF_GAMMA}) max abs err "
+        f"{out['rbf_max_abs_err']:.3e}, {out['rbf_ms']:.4f} ms; fp32 "
+        f"CUDA-core bound {out['fp32_bound_ms']:.4f} ms; " + "; ".join(
+            f"w={w}: kernel {v['ms']:.4f} ms (back to back "
+            f"{v['ms_back_to_back']:.4f}), plain {v['plain_ms']:.4f} ms, "
+            f"bound {v['bound_ms']:.5f} ms"
+            for w, v in out["serving_widths"].items()))
     return out
 
 
@@ -996,10 +1078,8 @@ def main() -> int:
     Xall, yall = segmentation_proxy(gen, n=N_TRAIN + N_QUERY, p=P, k=K)
     X = Xall[:, :N_TRAIN].contiguous()
     kernels = phase_kernels(torch, dev, X)
-    kernels["fit_sketch"].update(
-        ptxas=build["fit_sketch_ptxas"],
-        sass_hmma=build["fit_sketch_sass_hmma"],
-        dynamic_smem_bytes=build["fit_sketch_dynamic_smem_bytes"])
+    for name, facts in build.items():
+        kernels[name].update(facts)
     summary = {}
     Xq = Xall[:, N_TRAIN:].contiguous()
     est, canon, fit_launches, summary["fit"] = phase_fit(
@@ -1037,7 +1117,7 @@ def main() -> int:
                                          "fp32_", "sass_", "ptxas"))
                         or k in ("unfused_ms", "ms_back_to_back",
                                  "copy_ms", "read_ms", "library_note",
-                                 "dynamic_smem_bytes")}})
+                                 "dynamic_smem_bytes", "serving_widths")}})
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"kernels": line}))
     log(smi)

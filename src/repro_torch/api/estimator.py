@@ -394,9 +394,15 @@ class KernelKMeans:
             raise RuntimeError("KernelKMeans is not fitted; call fit()")
         return self.model_
 
-    def extender(self) -> extend.Extender:
-        """The serving extension engine over the fitted model (cached)."""
+    def extender(self, **kwargs) -> extend.Extender:
+        """The serving extension engine over the fitted model. With kwargs
+        (Extender's `block`, `policy`), a fresh one with the estimator's
+        policy as the default; without, one cached so that repeated
+        predict()s reuse it."""
         model = self._require_fit()
+        if kwargs:
+            kwargs.setdefault("policy", self.policy)
+            return extend.Extender(model, **kwargs)
         if self._extender is None:
             self._extender = extend.Extender(model, policy=self.policy)
         return self._extender

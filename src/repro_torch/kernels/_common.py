@@ -14,14 +14,16 @@ import torch
 # (csrc/common.cuh, enum Kind).
 KINDS = {"polynomial": 0, "rbf": 1, "linear": 2}
 
-# Rows of one tile in the CUDA kernels (csrc/common.cuh, TM).
-TILE_ROWS = 64
-# Row ranges a split-reduction kernel cuts its long dimension into.
-SPLITS = 128
 # The fit_sketch kernel's row ranges: one block each, at most one per SM of
 # the H100 (132), in steps of its 16-row mma tile (csrc/fit_sketch.cu).
 FIT_RANGES = 132
 FIT_ROWS = 16
+# The extend_embed kernel's training ranges: at most one per SM in each
+# query group, in steps of its 128-point staging unit
+# (csrc/extend_embed.cu); a block's 8 warps take 16 queries per m16 tile.
+EXTEND_RANGES = 132
+EXTEND_ROWS = 128
+EXTEND_WARPS = 8
 
 
 def kind_code(kind: str, degree: int) -> int:
@@ -71,8 +73,7 @@ def leading_dim(what: str, name: str, t: torch.Tensor) -> int:
     return t.stride(0)
 
 
-def split_rows(n: int, splits: int = SPLITS,
-               step: int = TILE_ROWS) -> Tuple[int, int]:
+def split_rows(n: int, splits: int, step: int) -> Tuple[int, int]:
     """(rows per split, splits) of a split reduction over n rows: at most
     `splits` ranges, each a multiple of `step` rows. Depends on n alone,
     so a result's summation order does not depend on the other dimension
@@ -85,6 +86,21 @@ def split_rows(n: int, splits: int = SPLITS,
 def fit_split(m: int) -> Tuple[int, int]:
     """(rows per range, ranges) of the fit_sketch kernel over m rows."""
     return split_rows(m, FIT_RANGES, FIT_ROWS)
+
+
+def extend_split(n: int) -> Tuple[int, int]:
+    """(training points per range, ranges) of the extend_embed kernel over
+    n training points; a function of n alone, never of the batch width."""
+    return split_rows(n, EXTEND_RANGES, EXTEND_ROWS)
+
+
+def extend_query_tiles(w: int) -> int:
+    """m16 query tiles per warp of the extend_embed kernel at batch width
+    w: the fewest of 1, 2, 4 whose block of 8 warps covers w, so narrow
+    batches do not build wide tiles. It changes no bits (each query's sums
+    run in the same order whatever tile it lands in)."""
+    block = EXTEND_WARPS * 16              # queries of a block at one tile
+    return 1 if w <= block else 2 if w <= 2 * block else 4
 
 
 def stream(t: torch.Tensor) -> int:

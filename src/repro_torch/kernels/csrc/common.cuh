@@ -14,6 +14,8 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace rt {
 
 constexpr int kThreads = 256;  // 16 x 16 threads per block
@@ -130,6 +132,23 @@ static inline cudaError_t launch_sum_splits(const float* part, int nsplit,
   const unsigned grid = (unsigned)((len + kThreads - 1) / kThreads);
   sum_splits_kernel<<<grid, kThreads, 0, stream>>>(part, nsplit, len, out);
   return cudaGetLastError();
+}
+
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, bytes) once per
+// device and process, not per launch; `done` keeps one bit per device.
+template <typename Kernel>
+static inline cudaError_t allow_smem(Kernel kernel, int bytes,
+                                     std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
 }
 
 }  // namespace rt

@@ -52,8 +52,6 @@
 //   in chunks of 24 (each chunk of C loaded again per 16 rows).
 // - kappa is compiled per kind, and per degree for the polynomial degree 2,
 //   so that it inlines without branches.
-#include <atomic>
-
 #include "common.cuh"
 #include "mma_tf32.cuh"
 
@@ -448,21 +446,6 @@ using Kernel = void (*)(const float*, long long, int, const float*, int,
                         const float*, int, float, int, int, float*, float*,
                         float*);
 
-// cudaFuncSetAttribute once per device and process, not per launch.
-cudaError_t allow_smem(Kernel kernel,
-                       std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sizeof(Smem));
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
-}
-
 }  // namespace
 
 extern "C" int rt_fit_sketch(const float* X, long long ldx, int m,
@@ -481,7 +464,8 @@ extern "C" int rt_fit_sketch(const float* X, long long ldx, int m,
                     : kind == rt::kRbf      ? 2
                                             : 3;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = allow_smem(kernels[which], prepared[which]);
+  cudaError_t err =
+      rt::allow_smem(kernels[which], (int)sizeof(Smem), prepared[which]);
   if (err != cudaSuccess) return (int)err;
   kernels[which]<<<ranges, kThreads, sizeof(Smem), st>>>(
       X, ldx, m, Om, rp, C, ldc, b, Ocr, V, p, gamma, degree, rows_per_range,

@@ -56,10 +56,17 @@ class MicroBatcher:
         self.stats: Dict = {}
         self.reset_stats()
 
-    def reset_stats(self) -> None:
-        """Zero the traffic counters."""
+    def reset_stats(self, preserve_buckets: bool = False) -> None:
+        """Zero the traffic counters.
+
+        preserve_buckets=False also drops bucket_hits, and with it the
+        `executables` view. preserve_buckets=True zeroes each hit count
+        but keeps every bucket key, so periodic stats sampling does not
+        forget which bucket widths this batcher has served."""
+        hits = ({b: 0 for b in self.stats.get("bucket_hits", {})}
+                if preserve_buckets else {})
         self.stats = {"queries": 0, "padded_queries": 0,
-                      "batches": 0, "bucket_hits": {}}
+                      "batches": 0, "bucket_hits": hits}
 
     # -- bucketed one-shot path ------------------------------------------
 

@@ -29,7 +29,7 @@ from repro_torch.core.kmeans import _sq_dists
 from repro_torch.kernels.extend_embed.ops import extend_embed_op
 from repro_torch.kernels.kmeans_assign.ops import assign_op
 from repro_torch.serve.artifact import FittedModel
-from repro_torch.serve.policy import ComputePolicy
+from repro_torch.serve.policy import ComputePolicy, resolve_kernel_path
 
 # Eigenvalues at or below this are rank-deficient directions: they map to 0
 # in the projection rather than exploding.
@@ -112,13 +112,25 @@ class Extender:
             out[:, start:start + width] = (self._proj @ stripe)[:, :width]
         return out
 
-    def assign(self, Xq, block: Optional[int] = None
+    def assign(self, Xq, block: Optional[int] = None,
+               fused: Optional[bool] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Assign queries to the fitted clusters: (labels (b,) int32,
-        squared distance (b,))."""
+        squared distance (b,)).
+
+        `fused` overrides the constructor's assignment path for this call,
+        re-resolved on the extender's device by the policy's rules; the
+        policy's `interpret` is replayed only when the kernel path is
+        asked for, so fused=False always takes the plain argmin."""
+        if fused is None:
+            use_kernel = self.assign_fused
+        else:
+            use_kernel = resolve_kernel_path(
+                fused, self.policy.interpret if fused else None,
+                "kmeans_assign kernel", self.device)
         Yq = self.embed(Xq, block).T.contiguous()          # (b, r)
         C = self.model.centroids.contiguous()
-        if self.assign_fused:
+        if use_kernel:
             return assign_op(Yq, C)
         return _assign_plain(Yq, C)
 

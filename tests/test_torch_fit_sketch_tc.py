@@ -24,6 +24,7 @@ import torch
 from repro.kernels.fit_sketch.ref import fit_sketch_ref as jax_fit_sketch_ref
 from repro_torch.kernels import _common as cm
 from repro_torch.kernels import registry
+from torch_tf32 import frag_c, gather_c, mm1, mm3, mma, tf32, trunc
 
 TOL = 2e-3                # the fit_sketch registry tolerance
 ENTRY = registry.get_kernel("fit_sketch")
@@ -33,34 +34,8 @@ FIT_CASES = (
 )
 
 
-# -- the 3xTF32 emulation -----------------------------------------------------
-
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to TF32, to nearest with ties away from zero (cvt.rna)."""
-    bits = x.contiguous().view(torch.int32).to(torch.int64)
-    return ((bits + 0x1000) & 0xFFFFE000).to(torch.int32).view(torch.float32)
-
-
-def _trunc(x: torch.Tensor) -> torch.Tensor:
-    """x read as the tensor cores read a TF32 operand: its top 19 bits."""
-    bits = x.contiguous().view(torch.int32)
-    return (bits & -0x2000).view(torch.float32)
-
-
-def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as 3xTF32: TF32 products are exact in fp32, sums are fp32."""
-    ab, bb = _tf32(a), _tf32(b)
-    a_s, b_s = _trunc(a - ab), _trunc(b - bb)
-    return a_s @ bb + ab @ b_s + ab @ bb
-
-
-def _mm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as one TF32 product (what the kernel does not do)."""
-    return _tf32(a) @ _tf32(b)
-
-
 def fit_sketch_3xtf32(X, Omega, C, Ocross, V=None, kind="polynomial",
-                      gamma=0.0, degree=2, mm=_mm3):
+                      gamma=0.0, degree=2, mm=mm3):
     """fit_sketch with every product as the kernel computes it (`mm`)."""
     z = mm(X.T, C)
     if kind == "polynomial":
@@ -84,7 +59,7 @@ def _jax_ref(args, kw):
                                                          V8)), **kw)
 
 
-def _worst(args, kw, mm=_mm3) -> float:
+def _worst(args, kw, mm=mm3) -> float:
     """The largest |got - want| / (atol + rtol |want|) over the outputs:
     at most 1 within the registry's tolerance."""
     got = fit_sketch_3xtf32(*(torch.from_numpy(a) for a in args), mm=mm,
@@ -115,7 +90,7 @@ def _fit_scale(case):
 def test_tf32_rounding_and_split():
     x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11,
                       -(1.0 + 2.0 ** -11), 3.0e-5, -7.25e8])
-    big = _tf32(x)
+    big = tf32(x)
     # Ties go away from zero; the low 13 bits are clear.
     assert big.tolist()[:4] == [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
                                 -(1.0 + 2.0 ** -10)]
@@ -123,7 +98,7 @@ def test_tf32_rounding_and_split():
     small = x - big
     # big + small is x exactly; big + trunc(small) within 2^-21 of x.
     assert torch.equal(big + small, x)
-    rel = ((big + _trunc(small)) - x).abs() / x.abs()
+    rel = ((big + trunc(small)) - x).abs() / x.abs()
     assert float(rel.max()) <= 2.0 ** -21
 
 
@@ -146,56 +121,11 @@ def test_1xtf32_misses_the_tolerance_at_fit_scale(case):
     leaves the registry's 2e-3 at the same inputs, where 3xTF32 stays
     well inside it."""
     args, kw = _fit_scale(case)
-    assert _worst(args, kw, _mm1) > 1.0
-    assert _worst(args, kw, _mm3) < 0.1
+    assert _worst(args, kw, mm1) > 1.0
+    assert _worst(args, kw, mm3) < 0.1
 
 
 # -- fragment and slot maps, lane by lane -------------------------------------
-
-def _a_at(lane):
-    """(row, k) of a0..a3 of an m16n8k8 A fragment."""
-    g, t = divmod(lane, 4)
-    return ((g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4))
-
-
-def _b_at(lane):
-    """(k, col) of b0, b1 of a B fragment."""
-    g, t = divmod(lane, 4)
-    return ((t, g), (t + 4, g))
-
-
-def _c_at(lane):
-    """(row, col) of c0..c3 of a C fragment."""
-    g, t = divmod(lane, 4)
-    return ((g, 2 * t), (g, 2 * t + 1), (g + 8, 2 * t), (g + 8, 2 * t + 1))
-
-
-def _mma(a, b, c):
-    """mma.sync m16n8k8 on per-lane registers: a (32, 4), b (32, 2),
-    c (32, 4) -> d (32, 4) with D = A B + C."""
-    A, B = np.zeros((16, 8)), np.zeros((8, 8))
-    for lane in range(32):
-        for r, (i, k) in enumerate(_a_at(lane)):
-            A[i, k] = a[lane, r]
-        for r, (k, j) in enumerate(_b_at(lane)):
-            B[k, j] = b[lane, r]
-    D = A @ B
-    return np.array([[D[i, j] for i, j in _c_at(lane)]
-                     for lane in range(32)]) + c
-
-
-def _frag_c(M):
-    """The C-fragment registers of a 16 x 8 matrix."""
-    return np.array([[M[i, j] for i, j in _c_at(lane)] for lane in range(32)])
-
-
-def _gather_c(regs):
-    M = np.zeros((16, 8))
-    for lane in range(32):
-        for r, (i, j) in enumerate(_c_at(lane)):
-            M[i, j] = regs[lane, r]
-    return M
-
 
 def test_permuted_k_delta_equals_kc_ocross():
     """A C fragment as the A operand (a = c0, c2, c1, c3) against B rows
@@ -204,17 +134,17 @@ def test_permuted_k_delta_equals_kc_ocross():
     rng = np.random.default_rng(0)
     for _ in range(5):
         Kc, Ocr = rng.standard_normal((16, 8)), rng.standard_normal((8, 8))
-        c = _frag_c(Kc)
+        c = frag_c(Kc)
         a = c[:, [0, 2, 1, 3]]
         b = np.array([[Ocr[2 * t, g], Ocr[2 * t + 1, g]]
                       for g, t in (divmod(lane, 4) for lane in range(32))])
-        d = _mma(a, b, np.zeros((32, 4)))
-        np.testing.assert_allclose(_gather_c(d), Kc @ Ocr, rtol=1e-12)
+        d = mma(a, b, np.zeros((32, 4)))
+        np.testing.assert_allclose(gather_c(d), Kc @ Ocr, rtol=1e-12)
         # The natural order is not the contraction the C fragment holds.
         b_nat = np.array([[Ocr[t, g], Ocr[t + 4, g]]
                           for g, t in (divmod(lane, 4)
                                        for lane in range(32))])
-        assert not np.allclose(_gather_c(_mma(a, b_nat, np.zeros((32, 4)))),
+        assert not np.allclose(gather_c(mma(a, b_nat, np.zeros((32, 4)))),
                                Kc @ Ocr)
 
 
@@ -245,10 +175,10 @@ def test_warp_sub_tile_through_the_kernel_slot_maps():
             # load_cols: b0 = C[8ks + t][8nt + g], b1 four rows down.
             b = np.array([[C[8 * ks + t, 8 * nt + g],
                            C[8 * ks + t + 4, 8 * nt + g]] for g, t in lanes])
-            acc[nt] = _mma(a, b, acc[nt])
+            acc[nt] = mma(a, b, acc[nt])
     acc = (acc + gamma) ** 2                    # kappa, in place
     Kc = (X.T @ C + gamma) ** 2
-    np.testing.assert_allclose(np.hstack([_gather_c(acc[nt])
+    np.testing.assert_allclose(np.hstack([gather_c(acc[nt])
                                           for nt in range(8)]), Kc,
                                rtol=1e-12)
     delta = np.zeros((32, 4))
@@ -257,13 +187,13 @@ def test_warp_sub_tile_through_the_kernel_slot_maps():
     for nt in range(8):
         b = np.array([[Ocr[8 * nt + 2 * t, g], Ocr[8 * nt + 2 * t + 1, g]]
                       for g, t in lanes])
-        delta = _mma(acc[nt][:, [0, 2, 1, 3]], b, delta)
+        delta = mma(acc[nt][:, [0, 2, 1, 3]], b, delta)
         for lane, (g, t) in enumerate(lanes):
             k = acc[nt, lane]
             kt[g, 8 * nt + 2 * t:8 * nt + 2 * t + 2] = k[:2]
             kt[g + 8, 8 * nt + 2 * t:8 * nt + 2 * t + 2] = k[2:]
             rr[lane] += (k[0] ** 2 + k[1] ** 2, k[2] ** 2 + k[3] ** 2)
-    np.testing.assert_allclose(_gather_c(delta), Kc @ Ocr, rtol=1e-12)
+    np.testing.assert_allclose(gather_c(delta), Kc @ Ocr, rtol=1e-12)
     new_rows = np.zeros((64, 8))
     for mt in range(4):
         nacc = np.zeros((32, 4))
@@ -276,8 +206,8 @@ def test_warp_sub_tile_through_the_kernel_slot_maps():
             # put_w / fetch: b0 = Omega[8ks + t][g], b1 four rows down.
             b = np.array([[Om[8 * ks + t, g], Om[8 * ks + t + 4, g]]
                           for g, t in lanes])
-            nacc = _mma(a, b, nacc)
-        new_rows[16 * mt:16 * mt + 16] = _gather_c(nacc)
+            nacc = mma(a, b, nacc)
+        new_rows[16 * mt:16 * mt + 16] = gather_c(nacc)
     np.testing.assert_allclose(new_rows, Kc.T @ Om, rtol=1e-12)
     # The quad (t = 0..3) of group g holds rows g and g + 8.
     rn = np.zeros(16)

@@ -136,15 +136,64 @@ def test_kernel_matches_plain_on_card(name, i):
 @pytest.mark.cuda
 def test_extend_embed_column_bits_do_not_depend_on_batch_width():
     """Bucketed == unbatched on the card: the split over n depends on n
-    alone, so a query column gets the same bits in any batch width."""
+    alone, so a query column gets the same bits in any batch width and at
+    any offset (one query, offsets off the 16-query tile), in both kinds
+    the tile computes differently."""
     dev = _card()
     rng = np.random.default_rng(7)
     X, P, Xq = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                 .to(dev) for s in ((19, 5000), (2, 5000), (19, 512)))
     op = registry.get_kernel("extend_embed").op
-    wide = op(X, P, Xq)
-    for a, b in ((0, 8), (100, 164), (300, 512)):
-        assert torch.equal(op(X, P, Xq[:, a:b]), wide[:, a:b])
+    for kw in ({}, {"kind": "rbf", "gamma": 0.05}):
+        wide = op(X, P, Xq, **kw)
+        for a, b in ((0, 8), (100, 164), (300, 512), (3, 4), (17, 40),
+                     (511, 512), (0, 200)):
+            assert torch.equal(op(X, P, Xq[:, a:b], **kw), wide[:, a:b])
+
+
+@pytest.mark.cuda
+def test_extend_embed_is_deterministic_on_card():
+    """Fixed-order partial sums, no float atomics: the same inputs give
+    the same bits on every launch."""
+    dev = _card()
+    entry = registry.get_kernel("extend_embed")
+    args, kw = entry.build(np.random.default_rng(9),
+                           {"p": 19, "n": 20_000, "r": 2, "w": 512})
+    targs = [torch.from_numpy(a).to(dev) for a in args]
+    first = entry.op(*targs, **kw)
+    for _ in range(3):
+        assert torch.equal(entry.op(*targs, **kw), first)
+
+
+# The extend_embed kernel's shapes beyond the registry: the main path's
+# stripe with the rbf kind, one query to a wide batch (query tiles per warp
+# 1, 2 and 4, two query groups), n off the 128-point unit, r in passes of
+# 8 up to 200, and p in chunks of 24.
+EXTEND_CARD_CASES = (
+    {"p": 19, "n": 100_000, "r": 2, "w": 512, "kind": "rbf", "gamma": 0.5},
+    *({"p": 19, "n": 20_000, "r": 2, "w": w} for w in (1, 8, 23, 64, 1024)),
+    *({"p": 19, "n": n, "r": 2, "w": 200} for n in (97, 5001)),
+    *({"p": 19, "n": 3000, "r": r, "w": 100} for r in (1, 9, 16, 200)),
+    {"p": 50, "n": 3000, "r": 3, "w": 70, "kind": "rbf", "gamma": 0.1},
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EXTEND_CARD_CASES, ids=(
+    "main-rbf", "w1", "w8", "w23", "w64", "w1024", "n97", "n5001", "r1",
+    "r9", "r16", "r200", "p50-rbf"))
+def test_extend_embed_matches_plain_on_card(case):
+    """The tensor-core kernel (3xTF32) against its plain version, within
+    the registry's 2e-3, on unit-norm points as serving sees them."""
+    dev = _card()
+    entry = registry.get_kernel("extend_embed")
+    (X, P, Xb), kw = entry.build(np.random.default_rng(12), case)
+    X /= np.linalg.norm(X, axis=0, keepdims=True)
+    Xb /= np.linalg.norm(Xb, axis=0, keepdims=True)
+    targs = [torch.from_numpy(a).to(dev) for a in (X, P, Xb)]
+    got = entry.op(*targs, **kw)
+    torch.cuda.synchronize()
+    registry.compare(entry, got, entry.ref(*targs, **kw))
 
 
 @pytest.mark.cuda
