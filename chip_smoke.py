@@ -93,7 +93,7 @@ MAIN_PATH = ("kmeans_assign", "extend_embed", "fit_sketch", "fwht", "srht_t")
 # may give +0 where the plain version gives -0).
 EXACT = ("fwht", "srht_t")
 # Kernels that must give the same bits on two launches at the main shapes.
-REPEAT = EXACT + ("fit_sketch", "extend_embed")
+REPEAT = EXACT + ("fit_sketch", "extend_embed", "gram_stripe")
 # The widest bucket's stripe (512) is the main shape; these are the
 # buckets of requests of 129-256, 64, and 1-8 queries. extend_embed gives
 # each warp 2, 1 and 1 query tiles there, 4 at 512.
@@ -101,7 +101,12 @@ SERVE_WIDTHS = (256, 64, 8)
 # Kernels built on the tensor cores: phase_build reports their registers,
 # shared memory and HMMA instructions.
 TENSOR_CORE = {"fit_sketch": "fit_sketch_kernel",
-               "extend_embed": "extend_embed_kernel"}
+               "extend_embed": "extend_embed_kernel",
+               "gram_stripe": "gram_kernel"}
+GRAM_WIDE = 4096         # the column-tiled gram shape: 8 chunks of 512
+# gram at p past the main path's 19: resident in four chunks of 128
+# columns (100), and walked in chunks of p (400).
+GRAM_DEEP = (100, 400)
 RBF_GAMMA = 0.5          # the registry's rbf cases
 
 SOURCES = {
@@ -305,8 +310,7 @@ def phase_build() -> dict:
             if family(name):
                 ptxas[family(name)][name] = (
                     ptxas[family(name)].get(name, "") + " " + msg).strip()
-    info = {k: {"ptxas": ptxas[k],
-                "dynamic_smem_bytes": getattr(lib, f"rt_{k}_smem_bytes")()}
+    info = {k: {"ptxas": ptxas[k], "dynamic_smem_bytes": smem_bytes(lib, k)}
             for k in TENSOR_CORE}
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if pathlib.Path(cuobjdump).exists():
@@ -329,6 +333,15 @@ def phase_build() -> dict:
         log(f"[build] {k}: dynamic shared memory {v['dynamic_smem_bytes']} "
             f"bytes; HMMA instructions in the SASS {v['sass_hmma']}")
     return info
+
+
+def smem_bytes(lib, name: str) -> int:
+    """Dynamic shared memory of a tensor-core kernel's block: gram's from
+    its plan at the main shape, the others' from their library."""
+    if name != "gram_stripe":
+        return getattr(lib, f"rt_{name}_smem_bytes")()
+    from repro_torch.kernels import _common as cm
+    return cm.gram_plan(N_TRAIN, BLOCK, P).smem
 
 
 def kernel_label(mangled: str) -> str:
@@ -376,7 +389,6 @@ def main_shape_inputs(torch, dev, X):
 
 def phase_kernels(torch, dev, X) -> dict:
     from repro_torch.kernels import registry
-    from repro_torch.kernels.gram.ref import gram_stripe_ref
     results = {}
     main = main_shape_inputs(torch, dev, X)
     for entry in registry.kernel_entries():
@@ -412,14 +424,8 @@ def phase_kernels(torch, dev, X) -> dict:
                "plain_ms": cuda_ms(torch, lambda: entry.ref(*args, **kw)),
                "library_ms": None}
         if entry.name == "gram_stripe":
-            Xa, Xba = args
             res.update(gram_bound(P, N_TRAIN, BLOCK, "polynomial", 2))
-            lin = {"kind": "linear"}
-            got = entry.op(Xa, Xba, **lin)
-            registry.compare(entry, got, gram_stripe_ref(Xa, Xba, **lin))
-            res["linear_ms"] = cuda_ms(torch, lambda: entry.op(Xa, Xba, **lin))
-            res["linear_library_ms"] = cuda_ms(
-                torch, lambda: torch.mm(Xa.T, Xba))
+            res.update(gram_extra(torch, dev, entry, main["gram_stripe"]))
         elif entry.name == "fit_sketch":
             res.update(fit_tc_bound(P, N_TRAIN, BLOCK, RP, "polynomial", 2))
             res.update(fit_sketch_extra(torch, entry, main["fit_sketch"]))
@@ -447,6 +453,103 @@ def same_bits(torch, name, first, again) -> None:
     for a, b in zip(first, again):
         if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
             raise AssertionError(f"{name}: two launches differ")
+
+
+def gram_tc_bound(p, n, w, kind, degree) -> dict:
+    """gram's product takes 2p flops per entry on the tensor cores; kappa
+    the rest."""
+    return tc_bound(4 * (p * n + p * w + n * w), n * w * 2 * p,
+                    n * w * kappa_ops(kind, degree))
+
+
+def gram_extra(torch, dev, entry, main) -> dict:
+    """gram back to back; with the rbf and linear kinds at the main shape
+    (against the plain version; linear also against torch.mm, TF32 off,
+    the one PyTorch call that computes it), the same bits on two launches
+    in both; the plan gram_plan chose; the column-tiled shape w = 4,096
+    and p past 19 (GRAM_DEEP, standard normal columns of unit norm from a
+    seed) against their plain versions; the tensor-core bound beside the
+    fp32 one. No one PyTorch call computes the polynomial or rbf stripe:
+    no library time."""
+    import dataclasses
+    from repro_torch.kernels import _common as cm, registry
+    ((X, Xb), kw), = main
+    plan = cm.gram_plan(N_TRAIN, BLOCK, P)
+    out = {"ms_back_to_back": cuda_ms_back_to_back(
+               torch, lambda: entry.op(X, Xb, **kw)),
+           "plan": dataclasses.asdict(plan),
+           "tc_bound_ms": gram_tc_bound(P, N_TRAIN, BLOCK, "polynomial",
+                                        2)["bound_ms"],
+           "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+           "library_note": "torch.mm computes the linear kind only"}
+    for kind in ({"kind": "rbf", "gamma": RBF_GAMMA}, {"kind": "linear"}):
+        name = kind["kind"]
+        got = entry.op(X, Xb, **kind)
+        torch.cuda.synchronize()
+        want = entry.ref(X, Xb, **kind)
+        registry.compare(entry, got, want)
+        same_bits(torch, f"gram_stripe ({name})", got, entry.op(X, Xb, **kind))
+        out.update({f"{name}_max_abs_err": max_err(torch, got, want),
+                    f"{name}_ms": cuda_ms(torch, lambda: entry.op(X, Xb,
+                                                                  **kind)),
+                    f"{name}_ms_back_to_back": cuda_ms_back_to_back(
+                        torch, lambda: entry.op(X, Xb, **kind)),
+                    f"{name}_plain_ms": cuda_ms(
+                        torch, lambda: entry.ref(X, Xb, **kind))})
+    registry.compare(entry, torch.mm(X.T, Xb), entry.op(X, Xb,
+                                                        kind="linear"))
+    out["linear_library_ms"] = cuda_ms(torch, lambda: torch.mm(X.T, Xb))
+    out["linear_library_ms_back_to_back"] = cuda_ms_back_to_back(
+        torch, lambda: torch.mm(X.T, Xb))
+
+    def held(Xs, Xbs):
+        """The kernel at another shape against its plain version."""
+        p, n = Xs.shape
+        w = Xbs.shape[1]
+        got = entry.op(Xs, Xbs, **kw)
+        torch.cuda.synchronize()
+        want = entry.ref(Xs, Xbs, **kw)
+        registry.compare(entry, got, want)
+        return {"shape": [n, w, p],
+                "plan": dataclasses.asdict(cm.gram_plan(n, w, p)),
+                "max_abs_err": max_err(torch, got, want),
+                "ms": cuda_ms(torch, lambda: entry.op(Xs, Xbs, **kw)),
+                "ms_back_to_back": cuda_ms_back_to_back(
+                    torch, lambda: entry.op(Xs, Xbs, **kw)),
+                "plain_ms": cuda_ms(torch, lambda: entry.ref(Xs, Xbs, **kw)),
+                "bound_ms": gram_tc_bound(p, n, w, "polynomial",
+                                          2)["bound_ms"],
+                "fp32_bound_ms": gram_bound(p, n, w, "polynomial",
+                                            2)["bound_ms"]}
+    # The column-tiled shape: Xb of GRAM_WIDE columns, 8 chunks of 512.
+    out["tiled"] = held(X, X[:, N_TRAIN - GRAM_WIDE:])
+    out["deep"] = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    for p in GRAM_DEEP:
+        Xd = torch.randn((p, N_TRAIN), generator=gen, device=dev)
+        Xd /= Xd.norm(dim=0)
+        out["deep"].append(held(Xd, Xd[:, N_TRAIN - BLOCK:]))
+        del Xd
+    log(f"[kernels] gram plan {plan}")
+    log(f"[kernels] gram back to back {out['ms_back_to_back']:.4f} ms; rbf "
+        f"(gamma {RBF_GAMMA}) max abs err {out['rbf_max_abs_err']:.3e}, "
+        f"{out['rbf_ms']:.4f} ms (back to back "
+        f"{out['rbf_ms_back_to_back']:.4f}), plain {out['rbf_plain_ms']:.4f}"
+        f" ms; linear {out['linear_ms']:.4f} ms (back to back "
+        f"{out['linear_ms_back_to_back']:.4f}) vs torch.mm (TF32 matmul "
+        f"{out['tf32_matmul']}) {out['linear_library_ms']:.4f} ms (back to "
+        f"back {out['linear_library_ms_back_to_back']:.4f}); tensor-core "
+        f"bound {out['tc_bound_ms']:.5f} ms")
+    for res in [out["tiled"]] + out["deep"]:
+        pl = res["plan"]
+        log(f"[kernels] gram {res['shape']} (columns {pl['cols']} x "
+            f"{pl['chunks']}, krows {pl['krows']}, resident "
+            f"{pl['resident']}): kernel {res['ms']:.4f} ms (back to back "
+            f"{res['ms_back_to_back']:.4f}), plain {res['plain_ms']:.4f} ms,"
+            f" bound {res['bound_ms']:.4f} ms (fp32 "
+            f"{res['fp32_bound_ms']:.4f}), max abs err "
+            f"{res['max_abs_err']:.3e}")
+    return out
 
 
 def fit_sketch_extra(torch, entry, main) -> dict:
@@ -1114,10 +1217,11 @@ def main() -> int:
                         if k.startswith(("linear_", "eig_"))
                         or k.endswith("library_shape")
                         or k.startswith(("tail_", "rbf_", "bound_t",
-                                         "fp32_", "sass_", "ptxas"))
+                                         "fp32_", "sass_", "ptxas", "tc_"))
                         or k in ("unfused_ms", "ms_back_to_back",
                                  "copy_ms", "read_ms", "library_note",
-                                 "dynamic_smem_bytes", "serving_widths")}})
+                                 "dynamic_smem_bytes", "serving_widths",
+                                 "plan", "tiled", "deep", "tf32_matmul")}})
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"kernels": line}))
     log(smi)

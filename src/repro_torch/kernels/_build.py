@@ -37,7 +37,8 @@ _F = ctypes.c_float
 # argtypes of every C entry point (pointers and the stream as c_void_p, so
 # ctypes never cuts a 64-bit address to an int).
 SIGNATURES = {
-    "rt_gram_stripe": (_P, _LL, _I, _P, _LL, _I, _I, _I, _F, _I, _P, _P),
+    "rt_gram_stripe": (_P, _LL, _I, _P, _LL, _I, _I, _I, _F, _I, _I, _I, _I,
+                       _I, _P, _P),
     "rt_kmeans_assign": (_P, _I, _I, _P, _I, _P, _P, _P),
     "rt_extend_embed": (_P, _LL, _I, _P, _LL, _I, _P, _LL, _I, _I, _I, _F,
                         _I, _I, _I, _I, _P, _P, _P),

@@ -6,6 +6,8 @@ CUDA device, and raises otherwise: there is no fallback from the card.
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -24,7 +26,13 @@ FIT_ROWS = 16
 EXTEND_RANGES = 132
 EXTEND_ROWS = 128
 EXTEND_WARPS = 8
-
+# The gram kernel (csrc/gram.cu): persistent blocks of 16 warps, one per
+# SM of the H100 (132 SMs; a block may take 227 KB of shared memory), each
+# warp 16 rows x 64 columns per step, p in k-groups of 32 rows.
+GRAM_SMS = 132
+GRAM_SMEM_MAX = 232_448
+GRAM_WARPS = 16
+GRAM_KGROUP = 32
 
 def kind_code(kind: str, degree: int) -> int:
     if kind not in KINDS:
@@ -101,6 +109,61 @@ def extend_query_tiles(w: int) -> int:
     run in the same order whatever tile it lands in)."""
     block = EXTEND_WARPS * 16              # queries of a block at one tile
     return 1 if w <= block else 2 if w <= 2 * block else 4
+
+
+@dataclass(frozen=True)
+class GramPlan:
+    """The gram kernel's launch (csrc/gram.cu). A block owns one column
+    chunk of `cols` columns (`col_warps` warps across it) and walks steps
+    of `rows` rows, step = block, block + grid[0], ... (`tiles` steps);
+    each of its warps makes 16 rows x 64 columns of a step. Xb's chunk
+    stays in shared memory for the whole walk when `resident`, else p is
+    walked in chunks of `krows` rows for every step."""
+    rows: int
+    col_warps: int
+    cols: int
+    chunks: int
+    krows: int
+    resident: bool
+    tiles: int
+    grid: Tuple[int, int]
+    smem: int
+
+
+def gram_smem_bytes(col_warps: int, krows: int) -> int:
+    """Dynamic shared memory of one gram block (csrc/gram.cu Layout): Xb's
+    chunk as B fragments (16 bytes per lane and k8 step), its squared
+    column norms, and each warp's staging buffer of 16 rows of 68 floats."""
+    cols = 64 * col_warps
+    return 8 * cols * krows + 4 * cols + GRAM_WARPS * 16 * 68 * 4
+
+
+@functools.lru_cache(maxsize=256)
+def gram_plan(n: int, w: int, p: int) -> GramPlan:
+    """The gram kernel's launch for K (n, w) over p: the widest column
+    chunk (up to 512 columns, no wider than w needs) at which all of p
+    stays resident; where none does (p > 312), chunks of 64 columns with p
+    walked in chunks of as many k-groups as fit; one block per SM, at most
+    one per step."""
+    widest = 8
+    while widest > 1 and 64 * (widest // 2) >= w:
+        widest //= 2
+    resident_rows = max(8, -(-p // 8) * 8)
+    for col_warps in (widest >> i for i in range(widest.bit_length())):
+        if gram_smem_bytes(col_warps, resident_rows) <= GRAM_SMEM_MAX:
+            krows = resident_rows
+            break
+    else:
+        col_warps = 1
+        free = GRAM_SMEM_MAX - gram_smem_bytes(1, 0)
+        krows = free // (8 * 64) // GRAM_KGROUP * GRAM_KGROUP
+    rows, cols = 16 * GRAM_WARPS // col_warps, 64 * col_warps
+    chunks, tiles = -(-w // cols), -(-n // rows)
+    grid_x = max(1, min(tiles, GRAM_SMS // chunks))
+    return GramPlan(rows=rows, col_warps=col_warps, cols=cols, chunks=chunks,
+                    krows=krows, resident=krows >= p, tiles=tiles,
+                    grid=(grid_x, chunks),
+                    smem=gram_smem_bytes(col_warps, krows))
 
 
 def stream(t: torch.Tensor) -> int:

@@ -12,7 +12,8 @@ def gram_stripe_op(X: torch.Tensor, Xb: torch.Tensor,
                    degree: int = 2) -> torch.Tensor:
     """kappa(X, Xb) -> (n, w) for X (p, n), Xb (p, w), float32.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel as
+    kernels/_common.py gram_plan plans it.
     """
     what = "gram_stripe"
     if cm.plain_path(what, X, Xb):
@@ -27,9 +28,11 @@ def gram_stripe_op(X: torch.Tensor, Xb: torch.Tensor,
     out = torch.empty((n, w), device=X.device, dtype=torch.float32)
     if n == 0 or w == 0:
         return out
+    plan = cm.gram_plan(n, w, p)
     rc = _build.library().rt_gram_stripe(
         X.data_ptr(), ldx, n, Xb.data_ptr(), ldb, w, p, code, float(gamma),
-        int(degree), out.data_ptr(), cm.stream(X))
+        int(degree), plan.col_warps, plan.krows, plan.grid[0], plan.smem,
+        out.data_ptr(), cm.stream(X))
     _build.check(rc, what)
     gram_stripe_op.launches += 1
     return out
