@@ -18,7 +18,11 @@ Phases, each fatal on failure:
      serving widths w = 256, 64 and 8 and with the rbf kind, both beside
      their tensor-core and fp32 bounds, with their registers, shared
      memory and HMMA counts; extend_embed gives the same bits on two
-     launches too;
+     launches too; embed_assign (the assignment folded into extend_embed's
+     summing launch) at the main shape and the serving widths equals the
+     unfused extend_embed -> transpose -> kmeans_assign sequence bit for
+     bit, timed beside it and beside extend_embed alone; kmeans_assign
+     also back to back and at its registry case (513, 16, 100);
   4. fit: KernelKMeans on n = 100,000 points of the segmentation proxy
      (p = 19, K = 7, r = 2, l = 5, polynomial d = 2, onepass-srht,
      block 512) through the fused fit_sketch kernel, its eigensolve through
@@ -28,8 +32,12 @@ Phases, each fatal on failure:
      times; then the same fused fit in ten partial_fit chunks, whose
      sketch state must equal the one-shot fit's bit for bit;
   5. serve: a MicroBatcher answers requests of 1 .. 2,500 held-out queries
-     through extend_embed and kmeans_assign, checked against the two-pass
-     plain Extender on the card;
+     on the default policy, through embed_assign (no standalone
+     kmeans_assign launch), each request's labels and distances equal to
+     an unbatched Extender.assign bit for bit; the queries embedded through
+     extend_embed; a second batcher on the two-pass embedding serves the
+     same requests through the standalone kmeans_assign kernel; both
+     checked against the two-pass plain Extender on the card;
   6. stream: the same configuration as a streaming fit on the canonical
      SRHT path, its default route (every Omega^T M through the srht_t
      kernel): ten partial_fit chunks of 10,000 columns (a minibatch re-eig
@@ -40,6 +48,11 @@ Phases, each fatal on failure:
      (fwht_fn=fwht_op) equal to both, exact srht_t and fwht launch counts,
      bf16 / int8 artifacts serving the held-out queries, and a breakdown
      of one canonical block update by part on both routes;
+  7. device: times on the card alone from torch.profiler traces, taken
+     last so that no phase runs after the profiler: kmeans_assign,
+     embed_assign beside extend_embed and the unfused sequence, and the
+     card's busy share while the requests of phase 5 are served one by
+     one;
 then prints the `main_path` and `kernels` JSON lines, the nvidia-smi line
 and, last,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result line,
@@ -88,16 +101,19 @@ LIBRARY_FWHT_N = 8192    # rows of the materialized H timed as torch.mm
 
 # Kernels the main path launches; no path of the JAX package calls gram,
 # which is ported for its tile and checked against its plain version.
-MAIN_PATH = ("kmeans_assign", "extend_embed", "fit_sketch", "fwht", "srht_t")
+MAIN_PATH = ("kmeans_assign", "extend_embed", "fit_sketch", "fwht", "srht_t",
+             "embed_assign")
 # Kernels that must equal their plain versions exactly (by value: srht_t
 # may give +0 where the plain version gives -0).
 EXACT = ("fwht", "srht_t")
 # Kernels that must give the same bits on two launches at the main shapes.
-REPEAT = EXACT + ("fit_sketch", "extend_embed", "gram_stripe")
+REPEAT = EXACT + ("fit_sketch", "extend_embed", "gram_stripe",
+                  "embed_assign")
 # The widest bucket's stripe (512) is the main shape; these are the
 # buckets of requests of 129-256, 64, and 1-8 queries. extend_embed gives
 # each warp 2, 1 and 1 query tiles there, 4 at 512.
 SERVE_WIDTHS = (256, 64, 8)
+ASSIGN_CASE = {"n": 513, "r": 16, "k": 100}   # kmeans_assign's widest case
 # Kernels built on the tensor cores: phase_build reports their registers,
 # shared memory and HMMA instructions.
 TENSOR_CORE = {"fit_sketch": "fit_sketch_kernel",
@@ -124,6 +140,10 @@ SOURCES = {
     # and gather of src/repro/core/sketch.py:104 (srht_apply_t) fused in.
     "srht_t": ("src/repro_torch/kernels/csrc/fwht.cu",
                "src/repro/kernels/fwht/fwht.py:28"),
+    # kmeans_assign folded into extend_embed's summing launch
+    # (sum_assign_kernel, through csrc/assign.cuh).
+    "embed_assign": ("src/repro_torch/kernels/csrc/extend_embed.cu",
+                     "src/repro/kernels/kmeans_assign/kmeans_assign.py:21"),
 }
 
 
@@ -172,11 +192,49 @@ def cuda_ms_back_to_back(torch, fn, calls: int = 10) -> float:
     return a.elapsed_time(b) / calls
 
 
+def profiled(torch, fn, calls: int = 1) -> tuple:
+    """`calls` calls of fn under a torch.profiler (CUPTI) trace: the host
+    clock to the last synchronize in ms, and {kernel or copy: (records,
+    device ms)}."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    device = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            device[e.key] = (e.count, us / 1e3)
+    return host_s * 1e3, device
+
+
+def device_ms(torch, fn, calls: int = 20):
+    """Card time per call of fn, which launches each of its kernels once:
+    the sum over its kernels of each one's mean device time per record
+    (a mean stays right where a trace drops some records). None when the
+    trace shows no device time."""
+    fn()
+    torch.cuda.synchronize()
+    device = profiled(torch, fn, calls)[1]
+    return sum(ms / n for n, ms in device.values()) or None
+
+
 def max_err(torch, got, want) -> float:
+    """Largest abs difference of the float outputs (labels are counted
+    apart, by label_mismatches)."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    return max(float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
-               for g, w in zip(got, want))
+    return max(float((g - w.to(g.device)).abs().max()) if g.numel() else 0.0
+               for g, w in zip(got, want) if g.is_floating_point())
+
+
+def label_mismatches(got, want) -> int:
+    """Rows whose labels differ between two (labels, d2) results."""
+    return int((got[0] != want[0].to(got[0].device)).sum())
 
 
 # -- bounds: the least time the card could take, from the shapes ------------
@@ -206,6 +264,16 @@ def gram_bound(p, n, w, kind, degree):
 def assign_bound(n, r, k):
     return bound(n * k * (2 * r + 3) + (n + k) * 2 * r,
                  4 * (n * r + k * r) + 8 * n)
+
+
+def embed_assign_bound(p, n, r, w, k, kind, degree):
+    """extend_embed's work, then per query the assignment's 2r flops of
+    |y|^2 and k (2r + 3) of the distances; its outputs are the labels and
+    distances (the embedding it writes as scratch is not counted)."""
+    return tc_bound(4 * (p * n + r * n + p * w + k * r) + 8 * w,
+                    n * w * (2 * p + 2 * r),
+                    n * w * kappa_ops(kind, degree) + w * (2 * r
+                                                           + k * (2 * r + 3)))
 
 
 def extend_bound(p, n, r, w, kind, degree):
@@ -384,6 +452,7 @@ def main_shape_inputs(torch, dev, X):
                         kw)],
         "extend_embed": [((X, proj, Xb), kw)],
         "kmeans_assign": [((Yq, cents), {})],
+        "embed_assign": [((X, proj, Xb, cents), kw)],
     }
 
 
@@ -399,7 +468,7 @@ def phase_kernels(torch, dev, X) -> dict:
             got = entry.op(*targs, **kw)
             torch.cuda.synchronize()
             want = entry.ref(*targs, **kw)
-            registry.compare(entry, got, want)
+            registry.compare(entry, got, want, (targs, kw))
             exact(torch, entry.name, got, want)
             worst_case = max(worst_case, max_err(torch, got, want))
             log(f"[kernels] {entry.name} case {case} ok "
@@ -408,7 +477,7 @@ def phase_kernels(torch, dev, X) -> dict:
             got = entry.op(*args, **kw)
             torch.cuda.synchronize()
             want = entry.ref(*args, **kw)
-            registry.compare(entry, got, want)
+            registry.compare(entry, got, want, (args, kw))
             exact(torch, entry.name, got, want)
             if entry.name in REPEAT:
                 same_bits(torch, entry.name, got, entry.op(*args, **kw))
@@ -423,6 +492,8 @@ def phase_kernels(torch, dev, X) -> dict:
                "ms": cuda_ms(torch, lambda: entry.op(*args, **kw)),
                "plain_ms": cuda_ms(torch, lambda: entry.ref(*args, **kw)),
                "library_ms": None}
+        if isinstance(got, tuple) and got[0].dtype == torch.int32:
+            res["label_mismatches"] = label_mismatches(got, want)
         if entry.name == "gram_stripe":
             res.update(gram_bound(P, N_TRAIN, BLOCK, "polynomial", 2))
             res.update(gram_extra(torch, dev, entry, main["gram_stripe"]))
@@ -437,13 +508,19 @@ def phase_kernels(torch, dev, X) -> dict:
             res.update(fwht_extra(torch, dev, entry, main["fwht"]))
         elif entry.name == "srht_t":
             res.update(srht_t_extra(torch, entry, main["srht_t"]))
+        elif entry.name == "embed_assign":
+            res.update(embed_assign_bound(P, N_TRAIN, R, BLOCK, K,
+                                          "polynomial", 2))
+            res.update(embed_assign_extra(torch, entry,
+                                          main["embed_assign"]))
         else:
             res.update(assign_bound(1024, R, K))
+            res.update(assign_extra(torch, entry, main["kmeans_assign"]))
         log(f"[kernels] {entry.name} main shape: kernel {res['ms']:.4f} ms, "
             f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
             f"({res.get('bound_term', res['bound_by'])})")
         results[entry.name] = res
-    return results
+    return results, {k: main[k][0] for k in ("kmeans_assign", "embed_assign")}
 
 
 def same_bits(torch, name, first, again) -> None:
@@ -636,6 +713,106 @@ def extend_embed_extra(torch, entry, main) -> dict:
             f"{v['ms_back_to_back']:.4f}), plain {v['plain_ms']:.4f} ms, "
             f"bound {v['bound_ms']:.5f} ms"
             for w, v in out["serving_widths"].items()))
+    return out
+
+
+def assign_case_inputs(torch, entry, dev):
+    """kmeans_assign's inputs at ASSIGN_CASE, as phase 3 builds them."""
+    case = entry.cases.index(ASSIGN_CASE)
+    args, _ = entry.build(np.random.default_rng(100 + case), ASSIGN_CASE)
+    return [torch.from_numpy(a).to(dev) for a in args]
+
+
+def assign_extra(torch, entry, main) -> dict:
+    """kmeans_assign back to back at the main shape, and at its widest
+    registry case (ASSIGN_CASE), where every thread reads its 16 values
+    for each of 100 centroids. No one PyTorch call computes it."""
+    ((Yq, C), _), = main
+    Yc, Cc = assign_case_inputs(torch, entry, Yq.device)
+    out = {"ms_back_to_back": cuda_ms_back_to_back(
+               torch, lambda: entry.op(Yq, C)),
+           "registry_case": {
+               "shape": [ASSIGN_CASE[k] for k in ("n", "r", "k")],
+               "ms": cuda_ms(torch, lambda: entry.op(Yc, Cc)),
+               "ms_back_to_back": cuda_ms_back_to_back(
+                   torch, lambda: entry.op(Yc, Cc)),
+               "plain_ms": cuda_ms(torch, lambda: entry.ref(Yc, Cc)),
+               "bound_ms": assign_bound(*(ASSIGN_CASE[k] for k in (
+                   "n", "r", "k")))["bound_ms"]},
+           "library_note": "no single PyTorch call computes the argmin "
+                           "with its distance"}
+    rc = out["registry_case"]
+    log(f"[kernels] kmeans_assign back to back {out['ms_back_to_back']:.4f}"
+        f" ms; at {rc['shape']}: kernel {rc['ms']:.4f} ms (back to back "
+        f"{rc['ms_back_to_back']:.4f}), plain {rc['plain_ms']:.4f} ms, bound"
+        f" {rc['bound_ms']:.6f} ms")
+    return out
+
+
+def unfused_assign(X, proj, C, kw):
+    """The sequence embed_assign replaces on the serving path:
+    extend_embed_op, a transpose copy, kmeans_assign's assign_op."""
+    from repro_torch.kernels.extend_embed.ops import extend_embed_op
+    from repro_torch.kernels.kmeans_assign.ops import assign_op
+
+    def unfused(xb):
+        return assign_op(extend_embed_op(X, proj, xb, **kw).T.contiguous(),
+                         C)
+    return unfused
+
+
+def embed_assign_extra(torch, entry, main) -> dict:
+    """embed_assign at the main shape and the serving widths
+    (SERVE_WIDTHS): bit for bit against the unfused sequence it replaces
+    on the serving path (extend_embed_op, transpose, kmeans_assign's
+    assign_op), within the near-tie rule of its plain version; timed one
+    call and back to back beside extend_embed_op alone and beside the
+    unfused sequence (unfused_ms); phase_device adds their times on the
+    card alone. No one PyTorch call computes it."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.extend_embed.ops import extend_embed_op
+    from repro_torch.kernels.kmeans_assign.ops import assign_op
+    ((X, proj, Xb, C), kw), = main
+    unfused = unfused_assign(X, proj, C, kw)
+    out = {"serving_widths": {},
+           "library_note": "no single PyTorch call computes the argmin of "
+                           "P kappa(X, Xb)"}
+    for w in (BLOCK,) + SERVE_WIDTHS:
+        xb = Xb[:, :w]
+        got = entry.op(X, proj, xb, C, **kw)
+        torch.cuda.synchronize()
+        registry.compare(entry, got, entry.ref(X, proj, xb, C, **kw),
+                         ((X, proj, xb, C), kw))
+        same_bits(torch, f"embed_assign at w={w} vs extend_embed_op -> "
+                  f"assign_op", got, unfused(xb))
+        times = {
+            "ms": cuda_ms(torch, lambda: entry.op(X, proj, xb, C, **kw)),
+            "ms_back_to_back": cuda_ms_back_to_back(
+                torch, lambda: entry.op(X, proj, xb, C, **kw)),
+            "extend_embed_ms": cuda_ms(
+                torch, lambda: extend_embed_op(X, proj, xb, **kw)),
+            "extend_embed_ms_back_to_back": cuda_ms_back_to_back(
+                torch, lambda: extend_embed_op(X, proj, xb, **kw)),
+            "unfused_ms": cuda_ms(torch, lambda: unfused(xb)),
+            "unfused_ms_back_to_back": cuda_ms_back_to_back(
+                torch, lambda: unfused(xb))}
+        if w == BLOCK:
+            out.update(times)
+            continue
+        times.update({
+            "plain_ms": cuda_ms(torch, lambda: entry.ref(X, proj, xb, C,
+                                                         **kw)),
+            "bound_ms": embed_assign_bound(P, N_TRAIN, R, w, K, "polynomial",
+                                           2)["bound_ms"]})
+        out["serving_widths"][str(w)] = times
+    log(f"[kernels] embed_assign == extend_embed_op -> assign_op bit for bit"
+        f" at w = {BLOCK}, " + ", ".join(map(str, SERVE_WIDTHS)) + "; ms "
+        "one call / back to back: " + "; ".join(
+            f"w={w}: fold {v['ms']:.4f} / {v['ms_back_to_back']:.4f}, "
+            f"extend_embed_op {v['extend_embed_ms']:.4f} / "
+            f"{v['extend_embed_ms_back_to_back']:.4f}, unfused "
+            f"{v['unfused_ms']:.4f} / {v['unfused_ms_back_to_back']:.4f}"
+            for w, v in [(BLOCK, out)] + list(out["serving_widths"].items())))
     return out
 
 
@@ -869,44 +1046,86 @@ def fused_chunked(torch, X, est) -> dict:
 
 
 def phase_serve(torch, model, Xq) -> tuple:
-    """Requests through a MicroBatcher on the fused kernels, checked
-    against the two-pass plain Extender on the card."""
+    """Requests through a MicroBatcher on the default policy (each stripe
+    one embed_assign launch, no standalone kmeans_assign) and the queries
+    embedded through extend_embed; then the same requests through a
+    batcher on the two-pass embedding with the standalone kmeans_assign
+    kernel. Each request's bucketed labels and distances equal an
+    unbatched Extender.assign of its queries bit for bit; both batchers
+    are held against the two-pass plain Extender on the card."""
     from repro_torch.kernels import OPS, reset_launches
-    from repro_torch.kernels.registry import assign_compare
+    from repro_torch.kernels.registry import near_tie_compare
     from repro_torch.serve import ComputePolicy, Extender, MicroBatcher
+
+    def counts():
+        return {name: op.launches for name, op in OPS.items()}
+
     batcher = MicroBatcher(model, policy=ComputePolicy())
     batcher.warm(REQUESTS)
+    two_pass = MicroBatcher(model, policy=ComputePolicy(embed_fused=False,
+                                                        assign_fused=True))
+    two_pass.warm(REQUESTS)
     offs = [0]
     for b in REQUESTS:
         offs.append(offs[-1] + b)
     reqs = [Xq[:, a:b] for a, b in zip(offs, offs[1:])]
+    Xcat = Xq[:, :offs[-1]]
     torch.cuda.synchronize()
     reset_launches()
     latency = {b: [] for b in REQUESTS}
     drain_s = []
     for _ in range(5):
+        answers = []
         for b, req in zip(REQUESTS, reqs):
             t0 = time.perf_counter()
-            batcher.assign_batch(req)          # returns host arrays: synced
+            answers.append(batcher.assign_batch(req))   # host arrays: synced
             latency[b].append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         tickets = [batcher.submit(req) for req in reqs]
         out = batcher.drain()
         drain_s.append(time.perf_counter() - t0)
-    launches = {name: op.launches for name, op in OPS.items()}
-    for name in ("extend_embed", "kmeans_assign"):
+    emb = Extender(model, policy=ComputePolicy()).embed(Xcat)
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches["kmeans_assign"]:
+        raise AssertionError(f"the default policy launched the standalone "
+                             f"kmeans_assign {launches['kmeans_assign']} "
+                             f"times")
+    for name in ("extend_embed", "embed_assign"):
         if launches[name] == 0:
             raise AssertionError(f"serving never launched {name}")
+    # The standalone kernel's served path: the two-pass embedding.
+    reset_launches()
+    tickets2 = [two_pass.submit(req) for req in reqs]
+    out2 = two_pass.drain()
+    launches2 = counts()
+    if not launches2["kmeans_assign"] or launches2["embed_assign"]:
+        raise AssertionError(f"the two-pass batcher launched {launches2}")
+    launches = {k: launches[k] + launches2[k] for k in launches}
+
+    unbatched = Extender(model, policy=ComputePolicy())
+    for b, req, t, ans in zip(REQUESTS, reqs, tickets, answers):
+        lab, d2 = (x.cpu().numpy() for x in unbatched.assign(req))
+        for got in (out[t], ans):
+            if not (np.array_equal(got[0], lab)
+                    and np.array_equal(got[1].view(np.int32),
+                                       d2.view(np.int32))):
+                raise AssertionError(f"the request of {b} queries: bucketed "
+                                     f"!= unbatched Extender.assign")
     got = (np.concatenate([out[t][0] for t in tickets]),
            np.concatenate([out[t][1] for t in tickets]))
-    Xcat = Xq[:, :offs[-1]]
+    got2 = (np.concatenate([out2[t][0] for t in tickets2]),
+            np.concatenate([out2[t][1] for t in tickets2]))
     plain = Extender(model, policy=ComputePolicy(embed_fused=False,
                                                  assign_fused=False))
     want = plain.assign(Xcat)
-    assign_compare(got, want, TOL, TOL)
-    emb_err = float((Extender(model, policy=ComputePolicy()).embed(Xcat)
-                     - plain.embed(Xcat)).abs().max())
-    if emb_err > TOL * (1 + float(plain.embed(Xcat).abs().max())):
+    plain_emb = plain.embed(Xcat)
+    dist = ((plain_emb.T.double()[:, None, :]
+             - model.centroids.double()[None]) ** 2).sum(-1).cpu().numpy()
+    near_tie_compare(got, want, TOL, TOL, dist)
+    near_tie_compare(got2, want, TOL, TOL, dist)
+    emb_err = float((emb - plain_emb).abs().max())
+    if emb_err > TOL * (1 + float(plain_emb.abs().max())):
         raise AssertionError(f"fused embeddings differ by {emb_err}")
     total = offs[-1]
     qps = total / statistics.median(drain_s)
@@ -916,12 +1135,20 @@ def phase_serve(torch, model, Xq) -> tuple:
                                   for b, v in latency.items()},
             "label_mismatch_vs_two_pass": float(
                 (got[0] != want[0].cpu().numpy()).mean()),
+            "two_pass_kmeans_assign_label_mismatch_vs_two_pass": float(
+                (got2[0] != want[0].cpu().numpy()).mean()),
+            "bucketed_equals_unbatched": True,
+            "launches_default_policy": {k: launches[k] - launches2[k]
+                                        for k in launches},
+            "launches_two_pass_kmeans_assign": launches2,
             "embed_max_abs_err_vs_two_pass": emb_err}
     log(f"[serve] {len(REQUESTS)} requests, {total} queries: coalesced "
         f"drain {qps:.0f} queries/s; per-request latency ms " + ", ".join(
             f"{b}: {1e3 * statistics.median(v):.3f}"
             for b, v in latency.items())
-        + f"; embed max abs diff vs two-pass {emb_err:.2e}")
+        + f"; embed max abs diff vs two-pass {emb_err:.2e}; bucketed == "
+        f"unbatched bit for bit; launches {info['launches_default_policy']}"
+        f", then on the two-pass embedding {launches2}")
     return launches, info
 
 
@@ -1110,10 +1337,10 @@ def phase_stream(torch, X, Xq, canon) -> tuple:
         saved[dtype] = {"save_s": s_save, "load_s": s_load,
                         "label_agreement_vs_f32": agree_q}
     serve_counts = counts()
-    for name in ("extend_embed", "kmeans_assign"):
-        if serve_counts[name] == 0:
-            raise AssertionError(f"serving the saved models never launched "
-                                 f"{name}")
+    if serve_counts["embed_assign"] == 0 or serve_counts["kmeans_assign"]:
+        raise AssertionError(f"serving the saved models launched "
+                             f"{serve_counts}: embed_assign never, or the "
+                             f"standalone kmeans_assign")
     work.cleanup()
     sketch = SRHT(signs=m.sketch_signs, rows=m.sketch_rows, n=N_TRAIN,
                   n_pad=int(m.sketch_signs.shape[0]))
@@ -1162,6 +1389,62 @@ def phase_stream(torch, X, Xq, canon) -> tuple:
     return launches, info
 
 
+def phase_device(torch, kernels, inputs, model, Xq) -> dict:
+    """Card time alone, from torch.profiler traces, taken last so that no
+    earlier phase runs after the profiler: kmeans_assign at its main shape
+    and ASSIGN_CASE; embed_assign, extend_embed_op alone and the unfused
+    sequence at each width (into `kernels`); and the card's busy share
+    while the six requests are served one by one, returned."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.extend_embed.ops import extend_embed_op
+    from repro_torch.serve import ComputePolicy, MicroBatcher
+    assign, fold = (registry.get_kernel(n) for n in ("kmeans_assign",
+                                                     "embed_assign"))
+    (Yq, C), _ = inputs["kmeans_assign"]
+    Yc, Cc = assign_case_inputs(torch, assign, Yq.device)
+    res = kernels["kmeans_assign"]
+    res["device_ms"] = device_ms(torch, lambda: assign.op(Yq, C))
+    res["registry_case"]["device_ms"] = device_ms(
+        torch, lambda: assign.op(Yc, Cc))
+    (X, proj, Xb, C), kw = inputs["embed_assign"]
+    unfused = unfused_assign(X, proj, C, kw)
+    res = kernels["embed_assign"]
+    for w in (BLOCK,) + SERVE_WIDTHS:
+        xb = Xb[:, :w]
+        at = res if w == BLOCK else res["serving_widths"][str(w)]
+        at.update({
+            "device_ms": device_ms(torch, lambda: fold.op(X, proj, xb, C,
+                                                          **kw)),
+            "extend_embed_device_ms": device_ms(
+                torch, lambda: extend_embed_op(X, proj, xb, **kw)),
+            "unfused_device_ms": device_ms(torch, lambda: unfused(xb))})
+    batcher = MicroBatcher(model, policy=ComputePolicy())
+    batcher.warm(REQUESTS)
+    reqs, a = [], 0
+    for b in REQUESTS:
+        reqs.append(Xq[:, a:a + b])
+        a += b
+    host_ms, device = profiled(
+        torch, lambda: [batcher.assign_batch(req) for req in reqs])
+    busy_ms = sum(ms for _, ms in device.values())
+    info = {"profiled_requests_host_ms": host_ms,
+            "profiled_requests_device_ms": busy_ms,
+            "profiled_requests_device_records": sum(
+                n for n, _ in device.values()),
+            "card_busy_share": busy_ms / host_ms if busy_ms else None}
+    log(f"[device] kmeans_assign on the card "
+        f"{kernels['kmeans_assign']['device_ms']} ms, at {ASSIGN_CASE} "
+        f"{kernels['kmeans_assign']['registry_case']['device_ms']} ms; "
+        "embed_assign / extend_embed_op / unfused on the card, ms: " +
+        "; ".join(f"w={w}: {v['device_ms']} / {v['extend_embed_device_ms']}"
+                  f" / {v['unfused_device_ms']}" for w, v in
+                  [(BLOCK, res)] + list(res["serving_widths"].items()))
+        + f"; the {len(reqs)} requests one by one under the profiler: host "
+        f"{host_ms:.3f} ms, card {busy_ms:.3f} ms "
+        f"({info['profiled_requests_device_records']} records)")
+    return info
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1180,7 +1463,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     Xall, yall = segmentation_proxy(gen, n=N_TRAIN + N_QUERY, p=P, k=K)
     X = Xall[:, :N_TRAIN].contiguous()
-    kernels = phase_kernels(torch, dev, X)
+    kernels, inputs = phase_kernels(torch, dev, X)
     for name, facts in build.items():
         kernels[name].update(facts)
     summary = {}
@@ -1189,6 +1472,8 @@ def main() -> int:
         torch, X, yall[:N_TRAIN])
     serve_launches, summary["serve"] = phase_serve(torch, est.model_, Xq)
     stream_launches, summary["stream"] = phase_stream(torch, X, Xq, canon)
+    summary["serve"].update(phase_device(torch, kernels, inputs, est.model_,
+                                         Xq))
     launches = {name: fit_launches[name] + serve_launches[name]
                 + stream_launches[name] for name in SOURCES}
     summary["launches"] = {"fit": fit_launches, "serve": serve_launches,
@@ -1217,11 +1502,14 @@ def main() -> int:
                         if k.startswith(("linear_", "eig_"))
                         or k.endswith("library_shape")
                         or k.startswith(("tail_", "rbf_", "bound_t",
-                                         "fp32_", "sass_", "ptxas", "tc_"))
-                        or k in ("unfused_ms", "ms_back_to_back",
+                                         "fp32_", "sass_", "ptxas", "tc_",
+                                         "unfused_", "extend_embed_"))
+                        or k in ("ms_back_to_back", "label_mismatches",
+                                 "device_ms",
                                  "copy_ms", "read_ms", "library_note",
                                  "dynamic_smem_bytes", "serving_widths",
-                                 "plan", "tiled", "deep", "tf32_matmul")}})
+                                 "plan", "tiled", "deep", "tf32_matmul",
+                                 "registry_case")}})
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"kernels": line}))
     log(smi)

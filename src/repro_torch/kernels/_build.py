@@ -41,7 +41,7 @@ SIGNATURES = {
                        _I, _P, _P),
     "rt_kmeans_assign": (_P, _I, _I, _P, _I, _P, _P, _P),
     "rt_extend_embed": (_P, _LL, _I, _P, _LL, _I, _P, _LL, _I, _I, _I, _F,
-                        _I, _I, _I, _I, _P, _P, _P),
+                        _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P),
     "rt_extend_embed_smem_bytes": (),
     "rt_fit_sketch": (_P, _LL, _I, _P, _I, _P, _LL, _I, _P, _P, _I, _I, _F,
                       _I, _I, _I, _P, _P, _P, _P),

@@ -33,8 +33,17 @@
 //   zero-padded to 24), kappa on the accumulator fragments in place, then
 //   the projection into one accumulation chain per tile parity. At the end
 //   of the range the two chains are added and the range's partial written;
-//   rt::sum_splits_kernel adds the partials in range order. No float
-//   atomics.
+//   a second launch adds the partials in range order (rt::sum_splits_kernel,
+//   or sum_assign_kernel below when the call assigns). No float atomics.
+// - Assignment (the K-means kmeans_assign kernel folded in; it replaces the
+//   Pallas TPU kernel src/repro/kernels/kmeans_assign/kmeans_assign.py for
+//   the serving path). When the caller passes centroids, the second launch
+//   sums the partials in range order as sum_splits_kernel does (the
+//   embedding has the same bits), then gives each query, one thread each,
+//   the nearest centroid by assign.cuh's routine, so labels and d2 have
+//   the bits of the standalone kernel on the same embedding. A served
+//   request then pays no launch, transpose or copy for its argmin: the
+//   launch replaces the summing launch it already had.
 // - Summation order. The ranges depend on n alone
 //   (kernels/_common.py extend_split), every warp walks its whole range in
 //   the same order whatever w is, and an mma row's sums do not depend on
@@ -48,7 +57,7 @@
 //   points and the query fragments loaded again for each chunk.
 // - kappa is compiled per kind, and for the polynomial degree 2, so that
 //   it inlines without branches.
-#include "common.cuh"
+#include "assign.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -352,6 +361,53 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// The assigning form of the summing launch. A block takes kAssignThreads
+// queries. Its threads first sum the r x kAssignThreads elements of those
+// queries over the ranges in range order, as sum_splits_kernel does, so
+// the embedding has the same bits; they write the sums to out. Then they
+// stage the centroids, whose barriers make out visible to the block, and
+// thread q takes query q's nearest centroid from its r values in out. The
+// entry always writes the embedding: it is where the block keeps the r
+// values for the k distance passes, r having no compile-time bound. A
+// query's results read nothing of the other queries, so they do not depend
+// on its batch.
+constexpr int kSumAssignThreads = 2 * rt::kAssignThreads;
+// Partials loaded ahead of their adds (the adds keep their order). A plain
+// loop, or `#pragma unroll`, here, where the block goes on to read out,
+// compiled to one load in flight per add.
+constexpr int kSumAhead = 8;
+
+__global__ void __launch_bounds__(kSumAssignThreads)
+    sum_assign_kernel(const float* __restrict__ part, int nsplit, int r,
+                      int w, float* out, const float* __restrict__ C, int k,
+                      int* __restrict__ labels, float* __restrict__ d2) {
+  extern __shared__ float smem[];
+  float* cs = smem;        // (k, r) centroids
+  float* cn = cs + k * r;  // (k,)   their squared norms
+  const int q0 = blockIdx.x * rt::kAssignThreads;
+  const int nq = min(rt::kAssignThreads, w - q0);
+  const long long len = (long long)r * w;
+  for (int i = threadIdx.x; i < r * nq; i += blockDim.x) {
+    const long long e = (long long)(i / nq) * w + q0 + i % nq;
+    const float* p = part + e;
+    float t = 0.f;
+    int s = 0;
+    for (; s + kSumAhead <= nsplit; s += kSumAhead) {
+      float v[kSumAhead];
+#pragma unroll
+      for (int u = 0; u < kSumAhead; ++u) v[u] = __ldg(p + (s + u) * len);
+#pragma unroll
+      for (int u = 0; u < kSumAhead; ++u) t += v[u];
+    }
+    for (; s < nsplit; ++s) t += __ldg(p + s * len);
+    out[e] = t;
+  }
+  rt::stage_centroids(C, k, r, cs, cn);
+  if (threadIdx.x >= nq) return;
+  const int q = q0 + threadIdx.x;
+  rt::nearest(out + q, w, r, cs, cn, k, labels + q, d2 + q);
+}
+
 using Kernel = void (*)(const float*, long long, int, const float*,
                         long long, int, const float*, long long, int, int,
                         float, int, int, float*);
@@ -361,13 +417,17 @@ constexpr int kSmem = 2 * (int)sizeof(Buf);
 }  // namespace
 
 // query_tiles: the m16 query tiles of one warp (1, 2 or 4), so a block
-// takes 128 query_tiles queries.
+// takes 128 query_tiles queries. With labels null the second launch sums
+// the partials into out (r, w); with C (k, r), labels (w,) and d2 (w,) it
+// also assigns each query (sum_assign_kernel). ranges = 0 (n = 0) skips the
+// first launch: the embedding is then zero.
 extern "C" int rt_extend_embed(const float* X, long long ldx, int n,
                                const float* P, long long ldp, int r,
                                const float* Xb, long long ldb, int w, int p,
                                int kind, float gamma, int degree,
                                int query_tiles, int rows_per_range,
                                int ranges, float* part, float* out,
+                               const float* C, int k, int* labels, float* d2,
                                void* stream) {
 #define RT_EXTEND_KERNELS(MT)                                        \
   {extend_embed_kernel<rt::kPolynomial, 2, MT>,                      \
@@ -388,12 +448,25 @@ extern "C" int rt_extend_embed(const float* X, long long ldx, int n,
   cudaError_t err = rt::allow_smem(kernel, kSmem, prepared[m][which]);
   if (err != cudaSuccess) return (int)err;
   const int per_block = kWarps * 16 * query_tiles;
-  const dim3 grid(ranges, (w + per_block - 1) / per_block);
-  kernel<<<grid, kThreads, kSmem, st>>>(X, ldx, n, P, ldp, r, Xb, ldb, w, p,
-                                        gamma, degree, rows_per_range, part);
-  err = cudaGetLastError();
+  if (ranges > 0) {
+    const dim3 grid(ranges, (w + per_block - 1) / per_block);
+    kernel<<<grid, kThreads, kSmem, st>>>(X, ldx, n, P, ldp, r, Xb, ldb, w,
+                                          p, gamma, degree, rows_per_range,
+                                          part);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (!labels)
+    return (int)rt::launch_sum_splits(part, ranges, (long long)r * w, out,
+                                      st);
+  static std::atomic<unsigned long long> assign_prepared;
+  size_t smem = 0;
+  err = rt::assign_smem(sum_assign_kernel, k, r, &smem, assign_prepared);
   if (err != cudaSuccess) return (int)err;
-  return (int)rt::launch_sum_splits(part, ranges, (long long)r * w, out, st);
+  const int grid = (w + rt::kAssignThreads - 1) / rt::kAssignThreads;
+  sum_assign_kernel<<<grid, kSumAssignThreads, smem, st>>>(
+      part, ranges, r, w, out, C, k, labels, d2);
+  return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory of one block, for the build report.

@@ -3,7 +3,8 @@
 The cases and tolerances are those of the JAX package's kernel registry
 (repro.kernels.registry), copied so that the port imports nothing of it;
 tests/test_torch_kernels.py asserts that the two agree. srht_t, the SRHT
-form of fwht, has no entry there: its cases are the port's own. `build`
+form of fwht, and embed_assign, the assignment folded into extend_embed's
+summing launch, have no entry there: their cases are the port's own. `build`
 makes one case's inputs with numpy from a seed, so the same arrays can be
 handed to both packages.
 """
@@ -22,8 +23,8 @@ from repro_torch.kernels.fwht.ops import fwht_op, srht_t_op
 from repro_torch.kernels.fwht.ref import fwht_ref, srht_t_ref
 from repro_torch.kernels.gram.ops import gram_stripe_op
 from repro_torch.kernels.gram.ref import gram_stripe_ref
-from repro_torch.kernels.kmeans_assign.ops import assign_op
-from repro_torch.kernels.kmeans_assign.ref import assign_ref
+from repro_torch.kernels.kmeans_assign.ops import assign_op, embed_assign_op
+from repro_torch.kernels.kmeans_assign.ref import assign_ref, embed_assign_ref
 
 
 class KernelEntry(NamedTuple):
@@ -34,7 +35,10 @@ class KernelEntry(NamedTuple):
     build:    (rng, case) -> (numpy args, kwargs), args passed positionally.
     rtol/atol: allclose tolerances.
     compare:  optional (got, want, rtol, atol) override, for outputs that
-              need more than leaf-wise allclose (argmin label ties).
+              need more than leaf-wise allclose (argmin label ties); with
+              tie_distances, (got, want, rtol, atol, distances).
+    tie_distances: optional (*args, **kw) -> the plain version's (w, k)
+              squared distances, which compare's near-tie rule reads.
     """
     name: str
     op: Callable
@@ -44,6 +48,7 @@ class KernelEntry(NamedTuple):
     rtol: float = 2e-3
     atol: float = 2e-3
     compare: Optional[Callable] = None
+    tie_distances: Optional[Callable] = None
 
 
 def _kw(case: Dict) -> Dict:
@@ -68,6 +73,11 @@ def _extend_embed_build(rng, case):
     return (_normal(rng, case["p"], case["n"]),
             _normal(rng, case["r"], case["n"]),
             _normal(rng, case["p"], case["w"])), _kw(case)
+
+
+def _embed_assign_build(rng, case):
+    args, kw = _extend_embed_build(rng, case)
+    return args + (_normal(rng, case["k"], case["r"]),), kw
 
 
 def _fit_sketch_build(rng, case):
@@ -105,24 +115,48 @@ def assign_compare(got, want, rtol, atol):
     assert mism.mean() < 0.01, f"labels differ on {mism.mean():.2%} of rows"
 
 
+def near_tie_compare(got, want, rtol, atol, distances):
+    """Distances within tolerance; a label may differ only on a near-tie,
+    where the reference's squared distances (`distances`, (w, k)) to the
+    two labels agree within the tolerance."""
+    np.testing.assert_allclose(_np(got[1]), _np(want[1]), rtol=rtol,
+                               atol=atol)
+    got_l = _np(got[0]).astype(np.int64)
+    want_l = _np(want[0]).astype(np.int64)
+    k = distances.shape[1]
+    assert ((got_l >= 0) & (got_l < k)).all(), "labels out of range"
+    rows = np.flatnonzero(got_l != want_l)
+    a = distances[rows, got_l[rows]]
+    b = distances[rows, want_l[rows]]
+    far = rows[np.abs(a - b) > atol + rtol * np.abs(b)]
+    assert far.size == 0, f"labels differ off a near-tie at rows {far[:8]}"
+
+
+def embed_distances(X, P, Xb, C, kind="polynomial", gamma=0.0, degree=2):
+    """The plain embedding's squared distances to C, (w, k), in float64."""
+    Y = extend_embed_ref(X, P, Xb, kind, gamma, degree).T.double()
+    return _np(((Y[:, None, :] - C.double()[None]) ** 2).sum(-1))
+
+
 def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
 
+_EXTEND_CASES = (
+    {"p": 2, "n": 100, "r": 2, "w": 12},
+    {"p": 19, "n": 555, "r": 3, "w": 64, "kind": "rbf", "gamma": 0.5},
+    {"p": 7, "n": 1024, "r": 16, "w": 128},
+    {"p": 3, "n": 97, "r": 5, "w": 1, "kind": "linear"},
+    {"p": 2, "n": 250, "r": 2, "w": 23, "kind": "polynomial", "gamma": 1.0,
+     "degree": 3},
+)
+
 ENTRIES: Tuple[KernelEntry, ...] = (
     KernelEntry(
         name="extend_embed", op=extend_embed_op, ref=extend_embed_ref,
-        cases=(
-            {"p": 2, "n": 100, "r": 2, "w": 12},
-            {"p": 19, "n": 555, "r": 3, "w": 64, "kind": "rbf",
-             "gamma": 0.5},
-            {"p": 7, "n": 1024, "r": 16, "w": 128},
-            {"p": 3, "n": 97, "r": 5, "w": 1, "kind": "linear"},
-            {"p": 2, "n": 250, "r": 2, "w": 23, "kind": "polynomial",
-             "gamma": 1.0, "degree": 3},
-        ),
+        cases=_EXTEND_CASES,
         build=_extend_embed_build, rtol=2e-3, atol=2e-3),
     KernelEntry(
         name="fit_sketch", op=fit_sketch_op, ref=fit_sketch_ref,
@@ -168,6 +202,17 @@ ENTRIES: Tuple[KernelEntry, ...] = (
                {"n_pad": 1 << 17, "m": 100_000, "c": 7, "r": 7},
                {"n_pad": 1 << 17, "m": (1 << 17) - 1, "c": 1, "r": 12}),
         build=_srht_t_build, rtol=2e-4, atol=2e-4),
+    # kmeans_assign folded into extend_embed's summing launch (the JAX
+    # package assigns the stripe's embedding with assign_pallas): the
+    # extend_embed cases, each with a centroid set, at extend_embed's
+    # tolerance. Labels by the near-tie rule: at w = 12 or 1, the 1%-of-rows
+    # rule of assign_compare cannot tell a flip from a fault.
+    KernelEntry(
+        name="embed_assign", op=embed_assign_op, ref=embed_assign_ref,
+        cases=tuple(dict(case, k=k)
+                    for case, k in zip(_EXTEND_CASES, (2, 7, 100, 3, 7))),
+        build=_embed_assign_build, rtol=2e-3, atol=2e-3,
+        compare=near_tie_compare, tie_distances=embed_distances),
 )
 
 
@@ -184,8 +229,17 @@ def get_kernel(name: str) -> KernelEntry:
                    f"{[e.name for e in ENTRIES]}")
 
 
-def compare(entry: KernelEntry, got, want) -> None:
-    """Assert got == want within the entry's tolerances."""
+def compare(entry: KernelEntry, got, want, inputs=None) -> None:
+    """Assert got == want within the entry's tolerances. `inputs` = (args,
+    kw) of the call, which an entry with tie_distances needs."""
+    if entry.tie_distances is not None:
+        if inputs is None:
+            raise ValueError(f"{entry.name}: the near-tie rule needs the "
+                             f"call's inputs")
+        args, kw = inputs
+        entry.compare(got, want, entry.rtol, entry.atol,
+                      entry.tie_distances(*args, **kw))
+        return
     if entry.compare is not None:
         entry.compare(got, want, entry.rtol, entry.atol)
         return

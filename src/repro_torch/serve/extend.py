@@ -15,8 +15,11 @@ holds more than an (n, block) kernel stripe. Two stripe engines:
       then the projection, the stripe materialized between them.
 
 Assignment takes the nearest centroid through the kmeans_assign kernel
-(fused) or a plain distance + argmin. Path selection follows the
-ComputePolicy against the model's device (serve/policy.py).
+(fused) or a plain distance + argmin. With the fused stripe it runs in the
+stripe's own launches (embed_assign_op: each stripe writes its labels and
+distances at its offset of the request's outputs, no embedding to
+transpose); after a two-pass stripe, through assign_op. Path selection
+follows the ComputePolicy against the model's device (serve/policy.py).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch
 from repro_torch.core.kernels_fn import stripe_iterator
 from repro_torch.core.kmeans import _sq_dists
 from repro_torch.kernels.extend_embed.ops import extend_embed_op
-from repro_torch.kernels.kmeans_assign.ops import assign_op
+from repro_torch.kernels.kmeans_assign.ops import assign_op, embed_assign_op
 from repro_torch.serve.artifact import FittedModel
 from repro_torch.serve.policy import ComputePolicy, resolve_kernel_path
 
@@ -82,28 +85,36 @@ class Extender:
         self._proj = _projection(model)
         self._statics = _kernel_statics(model.spec)
 
+    def _queries(self, Xq) -> torch.Tensor:
+        """Xq as a (p, b) float32 tensor on the model's device whose
+        column stripes the kernels take without a copy."""
+        p = self.model.spec.p
+        Xq = torch.as_tensor(Xq, dtype=torch.float32, device=self.device)
+        if Xq.dim() != 2 or Xq.shape[0] != p:
+            raise ValueError(f"queries must be (p={p}, b), got "
+                             f"{tuple(Xq.shape)}")
+        if Xq.shape[1] > 1 and Xq.stride(1) != 1:
+            Xq = Xq.contiguous()
+        return Xq
+
     def embed(self, Xq, block: Optional[int] = None) -> torch.Tensor:
         """Embed query points Xq (p, b) -> Y_q (r, b), streaming over
         columns in stripes of `block` (callers may narrow per bucket)."""
         model = self.model
-        Xq = torch.as_tensor(Xq, dtype=torch.float32, device=self.device)
-        if Xq.dim() != 2 or Xq.shape[0] != model.spec.p:
-            raise ValueError(f"queries must be (p={model.spec.p}, b), got "
-                             f"{tuple(Xq.shape)}")
+        Xq = self._queries(Xq)
         block = int(block or self.block)
         b = Xq.shape[1]
         out = torch.empty((model.spec.r, b), dtype=torch.float32,
                           device=self.device)
         if self.fused:
+            # The kernel takes each stripe at its real width: a ragged last
+            # stripe needs no padding, and a query's bits do not depend on
+            # the width (kernels/_common.py extend_split).
             kind, gamma, degree = self._statics
-            b_pad = -(-b // block) * block
-            Xqp = torch.nn.functional.pad(Xq, (0, b_pad - b))
             for start in range(0, b, block):
-                yb = extend_embed_op(self._ref, self._proj,
-                                     Xqp[:, start:start + block], kind=kind,
-                                     gamma=gamma, degree=degree)
-                width = min(block, b - start)
-                out[:, start:start + width] = yb[:, :width]
+                out[:, start:start + block] = extend_embed_op(
+                    self._ref, self._proj, Xq[:, start:start + block],
+                    kind=kind, gamma=gamma, degree=degree)
             return out
         kern = model.kernel_fn()
         for start, stripe in stripe_iterator(kern, Xq, block, lhs=self._ref,
@@ -128,11 +139,30 @@ class Extender:
             use_kernel = resolve_kernel_path(
                 fused, self.policy.interpret if fused else None,
                 "kmeans_assign kernel", self.device)
-        Yq = self.embed(Xq, block).T.contiguous()          # (b, r)
         C = self.model.centroids.contiguous()
+        if use_kernel and self.fused:
+            return self._assign_stripes(Xq, C, block)
+        Yq = self.embed(Xq, block).T.contiguous()          # (b, r)
         if use_kernel:
             return assign_op(Yq, C)
         return _assign_plain(Yq, C)
+
+    def _assign_stripes(self, Xq, C: torch.Tensor, block: Optional[int]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Fused stripe and kernel assignment: one embed_assign_op per
+        stripe, writing into the request's (b,) outputs."""
+        Xq = self._queries(Xq)
+        block = int(block or self.block)
+        b = Xq.shape[1]
+        labels = torch.empty((b,), dtype=torch.int32, device=self.device)
+        d2 = torch.empty((b,), dtype=torch.float32, device=self.device)
+        kind, gamma, degree = self._statics
+        for start in range(0, b, block):
+            embed_assign_op(self._ref, self._proj, Xq[:, start:start + block],
+                            C, kind=kind, gamma=gamma, degree=degree,
+                            labels=labels[start:start + block],
+                            d2=d2[start:start + block])
+        return labels, d2
 
 
 def embed(model: FittedModel, Xq, block: Optional[int] = None, *,

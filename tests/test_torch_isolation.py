@@ -65,7 +65,7 @@ def test_wrapper_runs_plain_version_for_cpu_tensors(name):
     reset_launches()
     got = entry.op(*targs, **kw)
     assert entry.op.launches == 0          # no kernel launched
-    registry.compare(entry, got, entry.ref(*targs, **kw))
+    registry.compare(entry, got, entry.ref(*targs, **kw), (targs, kw))
 
 
 def test_wrapper_rejects_mixed_devices():

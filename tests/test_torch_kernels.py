@@ -6,7 +6,10 @@ the JAX ref.py and the JAX op in Pallas interpret mode, within the
 registry's tolerances (2e-3; 2e-4 for fwht and srht_t; 1e-4 for
 kmeans_assign, whose labels may differ only on ties). srht_t, the SRHT
 form of fwht, is held against the JAX package's srht_apply_t, with its
-plain transform and with fwht_pallas in interpret mode. The `cuda` cases
+plain transform and with fwht_pallas in interpret mode; embed_assign, the
+assignment folded into extend_embed's summing launch, against the JAX
+package's assign on extend_embed's embedding, its ref.py files composed
+and its Pallas kernels in interpret mode. The `cuda` cases
 hold each kernel against its plain version on the card; this file
 imports JAX only inside the tests that need it, so those run where JAX
 is not installed:
@@ -33,7 +36,8 @@ def jax_side():
     from repro.kernels.kmeans_assign.ref import assign_ref
     refs = {"gram_stripe": gram_stripe_ref, "kmeans_assign": assign_ref,
             "extend_embed": extend_embed_ref, "fit_sketch": fit_sketch_ref,
-            "fwht": fwht_ref, "srht_t": _jax_srht_t()}
+            "fwht": fwht_ref, "srht_t": _jax_srht_t(),
+            "embed_assign": _jax_embed_assign(extend_embed_ref, assign_ref)}
 
     def jax_args(name, args):
         """The JAX package's layout of the same inputs: fit_sketch takes
@@ -59,9 +63,24 @@ def _jax_srht_t(fwht_fn=None):
     return srht_t
 
 
+def _jax_embed_assign(embed, assign):
+    """The JAX package's assignment of a serving stripe, for the
+    embed_assign registry signature: assign(embed(X, P, Xb).T, C)."""
+    def embed_assign(X, P, Xb, C, **kw):
+        interpret = kw.pop("interpret", None)
+        extra = {} if interpret is None else {"interpret": interpret}
+        return assign(embed(X, P, Xb, **kw, **extra).T, C, **extra)
+    return embed_assign
+
+
 def _jax_op(jax_registry, name):
     """The JAX op of an entry, called in Pallas interpret mode; srht_t runs
-    srht_apply_t through fwht_pallas."""
+    srht_apply_t through fwht_pallas, embed_assign assign_pallas on
+    extend_embed_pallas."""
+    if name == "embed_assign":
+        from repro.kernels.extend_embed.ops import extend_embed_pallas
+        from repro.kernels.kmeans_assign.ops import assign_pallas
+        return _jax_embed_assign(extend_embed_pallas, assign_pallas)
     if name == "srht_t":
         from repro.kernels.fwht.ops import fwht_pallas
         op = _jax_srht_t(lambda x: fwht_pallas(x, interpret=True))
@@ -91,9 +110,16 @@ def test_cases_and_tolerances_equal_the_jax_registry(jax_side):
     jax_registry = jax_side[0]
     jax_names = {entry.name for entry in jax_registry.kernel_entries()}
     port_names = {entry.name for entry in registry.kernel_entries()}
-    assert port_names - jax_names == {"srht_t"}     # the port's own entry
+    # The port's own entries.
+    assert port_names - jax_names == {"srht_t", "embed_assign"}
     for entry in registry.kernel_entries():
-        if entry.name == "srht_t":
+        if entry.name == "embed_assign":
+            # extend_embed's cases, each with a centroid set.
+            embed = jax_registry.get_kernel("extend_embed")
+            assert [{k: v for k, v in case.items() if k != "k"}
+                    for case in entry.cases] == list(embed.cases)
+            assert (entry.rtol, entry.atol) == (embed.rtol, embed.atol)
+        if entry.name in ("srht_t", "embed_assign"):
             continue
         ref = jax_registry.get_kernel(entry.name)
         assert entry.cases == ref.cases, entry.name
@@ -104,9 +130,10 @@ def test_cases_and_tolerances_equal_the_jax_registry(jax_side):
 def test_plain_matches_jax_ref(jax_side, name, i):
     _, refs, jax_args = jax_side
     entry, args, kw = _inputs(name, i)
-    got = entry.ref(*[torch.from_numpy(a) for a in args], **kw)
+    targs = [torch.from_numpy(a) for a in args]
+    got = entry.ref(*targs, **kw)
     want = refs[name](*jax_args(name, args), **kw)
-    registry.compare(entry, got, want)
+    registry.compare(entry, got, want, (targs, kw))
 
 
 @pytest.mark.kernels
@@ -114,10 +141,11 @@ def test_plain_matches_jax_ref(jax_side, name, i):
 def test_plain_matches_jax_op_interpret(jax_side, name, i):
     jax_registry, _, jax_args = jax_side
     entry, args, kw = _inputs(name, i)
-    got = entry.op(*[torch.from_numpy(a) for a in args], **kw)
+    targs = [torch.from_numpy(a) for a in args]
+    got = entry.op(*targs, **kw)
     want = _jax_op(jax_registry, name)(*jax_args(name, args),
                                        interpret=True, **kw)
-    registry.compare(entry, got, want)
+    registry.compare(entry, got, want, (targs, kw))
 
 
 @pytest.mark.cuda
@@ -130,7 +158,7 @@ def test_kernel_matches_plain_on_card(name, i):
     got = entry.op(*targs, **kw)
     torch.cuda.synchronize()
     assert entry.op.launches == launches + 1
-    registry.compare(entry, got, entry.ref(*targs, **kw))
+    registry.compare(entry, got, entry.ref(*targs, **kw), (targs, kw))
 
 
 @pytest.mark.cuda

@@ -100,13 +100,32 @@ def test_reset_stats_matches_jax(models, preserve):
 
 @pytest.fixture
 def counted_assign(monkeypatch):
-    """extend.assign_op wrapped to count its calls: the kernel path."""
-    calls, kernel_path = [], extend.assign_op
+    """The queries each Extender.assign call sent down the kmeans_assign
+    kernel path, in either form: assign_op after the embedding, or
+    embed_assign_op in each fused stripe. Calls that took the plain argmin
+    add nothing."""
+    calls = []
+    assign = Extender.assign
 
-    def op(Yq, C):
-        calls.append(Yq.shape[0])
-        return kernel_path(Yq, C)
-    monkeypatch.setattr(extend, "assign_op", op)
+    def counted_call(self, *args, **kwargs):
+        calls.append(0)
+        try:
+            return assign(self, *args, **kwargs)
+        finally:
+            if not calls[-1]:
+                calls.pop()
+
+    def counted(op, queries):
+        def wrapped(*args, **kwargs):
+            calls[-1] += queries(*args)
+            return op(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(Extender, "assign", counted_call)
+    monkeypatch.setattr(extend, "assign_op", counted(
+        extend.assign_op, lambda Yq, C: Yq.shape[0]))
+    monkeypatch.setattr(extend, "embed_assign_op", counted(
+        extend.embed_assign_op, lambda X, P, Xb, C: Xb.shape[1]))
     return calls
 
 
