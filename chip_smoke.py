@@ -48,6 +48,21 @@ Phases, each fatal on failure:
      (fwht_fn=fwht_op) equal to both, exact srht_t and fwht launch counts,
      bf16 / int8 artifacts serving the held-out queries, and a breakdown
      of one canonical block update by part on both routes;
+  8. backends (run before 7): the Nystrom backend at n = 100,000 with
+     m = 64 (default_nystrom_m) and m = 1,024 (eight extend_embed
+     training ranges): its training round trip through extend_embed
+     against the landmarks, the 4,096 held-out queries served on the
+     default policy (embed_assign against the landmarks; bucketed ==
+     unbatched bit for bit; labels against the two-pass plain extension by
+     the near-tie rule), the m = 64 model saved as f32 / bf16 / int8,
+     loaded and served; the exact backend, the fused one-pass fit and
+     Nystrom m = 64 on every tenth training point (10,000), each with its
+     approximation error against the full K (exact is the floor), accuracy,
+     the paper's objective L(C) under K, memory model, peak device memory
+     and step times, the exact model served as above; the streaming
+     approximation error of phase 4's model and the Nystrom models at
+     n = 100,000; extend_embed and embed_assign at the landmark widths
+     n_ref = 10 .. 1,024, w = 512 and 8, against their plain versions;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -124,6 +139,14 @@ GRAM_WIDE = 4096         # the column-tiled gram shape: 8 chunks of 512
 # columns (100), and walked in chunks of p (400).
 GRAM_DEEP = (100, 400)
 RBF_GAMMA = 0.5          # the registry's rbf cases
+# Phase 8: the Nystrom landmark counts at n = 100,000 (default_nystrom_m,
+# and one that fills eight extend_embed training ranges), the exact
+# backend's n (its gram is 400 MB and its eigh takes seconds), and the
+# landmark widths extend_embed and embed_assign are held at.
+NYSTROM_M = (64, 1024)
+N_EXACT = 10_000
+LANDMARK_N = (10, 20, 50, 64, 1024)
+LANDMARK_W = (BLOCK, 8)
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -1389,6 +1412,262 @@ def phase_stream(torch, X, Xq, canon) -> tuple:
     return launches, info
 
 
+def serve_model(torch, model, Xq) -> tuple:
+    """Serve Xq on the default policy: Extender.assign of all of it, and
+    coalesced MicroBatcher drains of its requests (phase 5's, then the
+    rest of Xq as one more); each request's labels
+    and distances equal an unbatched Extender.assign bit for bit, and the
+    served labels hold against the two-pass plain extension by the
+    near-tie rule (distances within TOL). Returns (labels, facts)."""
+    from repro_torch.kernels.registry import near_tie_compare
+    from repro_torch.serve import ComputePolicy, Extender, MicroBatcher
+    offs = [0]
+    for b in REQUESTS + (Xq.shape[1] - sum(REQUESTS),):
+        offs.append(offs[-1] + b)
+    reqs = [Xq[:, a:b] for a, b in zip(offs, offs[1:]) if b > a]
+    ext = Extender(model, policy=ComputePolicy())
+    t0 = time.perf_counter()
+    labels, d2 = ext.assign(Xq)
+    torch.cuda.synchronize()
+    assign_s = time.perf_counter() - t0
+    batcher = MicroBatcher(model, policy=ComputePolicy())
+    batcher.warm(tuple(r.shape[1] for r in reqs))
+    drain_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tickets = [batcher.submit(req) for req in reqs]
+        out = batcher.drain()
+        drain_s.append(time.perf_counter() - t0)
+    for req, t in zip(reqs, tickets):
+        lab, dd = (x.cpu().numpy() for x in ext.assign(req))
+        if not (np.array_equal(out[t][0], lab)
+                and np.array_equal(out[t][1].view(np.int32),
+                                   dd.view(np.int32))):
+            raise AssertionError(f"the request of {req.shape[1]} queries: "
+                                 f"bucketed != unbatched Extender.assign")
+    got = (np.concatenate([out[t][0] for t in tickets]),
+           np.concatenate([out[t][1] for t in tickets]))
+    if not (np.array_equal(got[0], labels.cpu().numpy())
+            and np.array_equal(got[1].view(np.int32),
+                               d2.cpu().numpy().view(np.int32))):
+        raise AssertionError("the drain != Extender.assign of all queries")
+    plain = Extender(model, policy=ComputePolicy(embed_fused=False,
+                                                 assign_fused=False))
+    want = plain.assign(Xq)
+    emb = plain.embed(Xq)
+    dist = ((emb.T.double()[:, None, :] - model.centroids.double()[None])
+            ** 2).sum(-1).cpu().numpy()
+    near_tie_compare(got, want, TOL, TOL, dist)
+    facts = {"queries": int(Xq.shape[1]), "requests": len(reqs),
+             "assign_s": assign_s,
+             "drain_s_median": statistics.median(drain_s),
+             "drain_queries_per_s": Xq.shape[1] / statistics.median(drain_s),
+             "label_mismatch_vs_two_pass": float(
+                 (got[0] != want[0].cpu().numpy()).mean()),
+             "d2_max_abs_err_vs_two_pass": max_err(
+                 torch, torch.from_numpy(got[1]), want[1].cpu()),
+             "bucketed_equals_unbatched": True}
+    return labels, facts
+
+
+def backend_args(name: str, **params):
+    """The configuration's estimator arguments on the Nystrom or exact
+    backend, with its backend_params (the Nystrom m)."""
+    return {**estimator_args(), "backend": name, "backend_params": params}
+
+
+def fit_on_card(torch, args, X, policy=None) -> tuple:
+    """KernelKMeans(**args).fit(X, seed=SEED) on the card: the estimator,
+    the host seconds to the last synchronize, and the peak device memory
+    (since a reset just before the fit) in all and above what was
+    allocated at the reset."""
+    from repro_torch.api import KernelKMeans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    est = KernelKMeans(**args, policy=policy).fit(X, seed=SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    return est, {"fit_s": seconds, "peak_device_bytes": peak,
+                 "peak_device_bytes_above_start": peak - base,
+                 "fit_times_s": est.fit_times_}
+
+
+def landmark_widths(torch, X, Xq) -> dict:
+    """extend_embed and embed_assign at n_ref = LANDMARK_N training points
+    (a Nystrom model's landmarks), w = LANDMARK_W queries: against their
+    plain versions at the registry tolerances, the same bits on two
+    launches, timed. Comparison launches: not counted."""
+    from repro_torch.kernels import registry
+    gen = torch.Generator(device=X.device).manual_seed(19)
+    kw = dict(KERNEL)
+    out = {"extend_embed": {}, "embed_assign": {}}
+    for n in LANDMARK_N:
+        proj = torch.randn((R, n), generator=gen, device=X.device) / n
+        cents = torch.randn((K, R), generator=gen, device=X.device) / 30.0
+        for w in LANDMARK_W:
+            base = (X[:, :n].contiguous(), proj, Xq[:, :w])
+            for name in out:
+                entry = registry.get_kernel(name)
+                args = base + ((cents,) if name == "embed_assign" else ())
+                got = entry.op(*args, **kw)
+                torch.cuda.synchronize()
+                want = entry.ref(*args, **kw)
+                registry.compare(entry, got, want, (args, kw))
+                same_bits(torch, name, got, entry.op(*args, **kw))
+                out[name][f"n{n}_w{w}"] = {
+                    "max_abs_err": max_err(torch, got, want),
+                    "ms": cuda_ms(torch, lambda: entry.op(*args, **kw)),
+                    "plain_ms": cuda_ms(torch,
+                                        lambda: entry.ref(*args, **kw))}
+    for name, cases in out.items():
+        log(f"[backends] {name} at the landmark widths (n_ref, w): " +
+            "; ".join(f"{c}: err {v['max_abs_err']:.2e}, kernel "
+                      f"{v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms"
+                      for c, v in cases.items()))
+    return out
+
+
+def phase_backends(torch, X, y, Xq, onepass) -> tuple:
+    """The Nystrom and exact backends fitted and served on the card; the
+    memory-against-error axis of the paper at n = 100,000. Returns
+    (launches of the path, facts, landmark-width results)."""
+    from repro_torch.core import (gram_matrix, kernel_approx_error,
+                                  kernel_approx_error_streaming,
+                                  objective_from_labels)
+    from repro_torch.core.kernels_fn import make_kernel
+    from repro_torch.core.metrics import clustering_accuracy
+    from repro_torch.api import KernelKMeans, fit_memory_bytes
+    from repro_torch.kernels import OPS, reset_launches
+    from repro_torch.serve import ComputePolicy
+    widths = landmark_widths(torch, X, Xq)
+    kern = make_kernel("polynomial", gamma=KERNEL["gamma"],
+                       degree=KERNEL["degree"])
+    BUILD.mkdir(parents=True, exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=BUILD)
+    reset_launches()
+
+    # 1. Nystrom at n = 100,000: round trip, serving, artifacts.
+    nystrom, info = {}, {"nystrom": {}}
+    for m in NYSTROM_M:
+        est, facts = fit_on_card(torch, backend_args("nystrom", m=m), X)
+        if est.model_.n_ref != m or not bool(
+                torch.isfinite(est.embedding_).all()):
+            raise AssertionError(f"Nystrom m={m}: n_ref "
+                                 f"{est.model_.n_ref}, embedding not finite")
+        before = OPS["extend_embed"].launches
+        Y = est.embedding_
+        round_trip = float(torch.linalg.norm(est.embed(X) - Y)
+                           / torch.linalg.norm(Y))
+        if OPS["extend_embed"].launches == before:
+            raise AssertionError("embed(X_train) never launched extend_embed")
+        if not round_trip <= TOL:
+            raise AssertionError(f"Nystrom m={m}: the training round trip "
+                                 f"through extend_embed is {round_trip}")
+        labels, served = serve_model(torch, est.model_, Xq)
+        facts.update({"m": m, "fit_memory_bytes": fit_memory_bytes(
+            "nystrom", N_TRAIN, R, m=m), "round_trip_rel": round_trip,
+            "accuracy_vs_generating_labels": clustering_accuracy(
+                y, est.labels_, K), "serve": served})
+        if m == NYSTROM_M[0]:
+            saved = {}
+            for dtype in ("f32", "bf16", "int8"):
+                path = est.save(str(pathlib.Path(work.name) / dtype),
+                                dtype=dtype)
+                model = KernelKMeans.load(path, device=est.device).model_
+                got = serve_model(torch, model, Xq)[0]
+                agree = float((got == labels).float().mean())
+                if dtype == "f32" and not torch.equal(got, labels):
+                    raise AssertionError("the f32 Nystrom artifact serves "
+                                         "other labels than the live model")
+                if agree < SAVED_AGREEMENT:
+                    raise AssertionError(f"{dtype} Nystrom artifact labels "
+                                         f"agree with the live model on "
+                                         f"{agree}")
+                saved[dtype] = agree
+            facts["saved_label_agreement"] = saved
+        nystrom[m] = est
+        info["nystrom"][str(m)] = facts
+        log(f"[backends] nystrom m={m} at n={N_TRAIN}: fit "
+            f"{facts['fit_s']:.4f} s ({', '.join(f'{k} {v:.4f}' for k, v in est.fit_times_.items())}), "
+            f"peak device memory {facts['peak_device_bytes_above_start']}"
+            f" bytes above the start, memory model "
+            f"{facts['fit_memory_bytes']} bytes; round trip {round_trip:.2e}"
+            f"; serve: drain {served['drain_s_median'] * 1e3:.3f} ms "
+            f"({served['drain_queries_per_s']:.0f} queries/s), assign of "
+            f"{served['queries']} {served['assign_s'] * 1e3:.3f} ms, labels"
+            f" vs two-pass {served['label_mismatch_vs_two_pass']:.4f}"
+            + (f"; artifacts {facts['saved_label_agreement']}"
+               if m == NYSTROM_M[0] else ""))
+
+    # 2. Exact at n = 10,000 against the fused one-pass fit and Nystrom,
+    # on every tenth training point: the proxy lays its classes out in
+    # blocks, so the first 10,000 points would all be of one class.
+    step = N_TRAIN // N_EXACT
+    Xe, ye = X[:, ::step].contiguous(), y[::step]
+    Ke = gram_matrix(kern, Xe)
+    cases = {"exact": (backend_args("exact"), None),
+             "onepass-srht": (estimator_args(), ComputePolicy()),
+             "nystrom": (backend_args("nystrom", m=NYSTROM_M[0]), None)}
+    info["exact_n"] = N_EXACT
+    info["at_exact_n"] = {}
+    errs = {}
+    for name, (args, policy) in cases.items():
+        est, facts = fit_on_card(torch, args, Xe, policy)
+        errs[name] = kernel_approx_error(Ke, est.embedding_)
+        facts.update({
+            "kernel_approx_error": errs[name],
+            "accuracy_vs_generating_labels": clustering_accuracy(
+                ye, est.labels_, K),
+            "objective_L": float(objective_from_labels(Ke, est.labels_, K)),
+            "fit_memory_bytes": fit_memory_bytes(
+                name, N_EXACT, R, **args["backend_params"])})
+        if name == "exact":
+            facts["serve"] = serve_model(torch, est.model_, Xq)[1]
+        info["at_exact_n"][name] = facts
+        log(f"[backends] {name} at n={N_EXACT}: fit {facts['fit_s']:.4f} s"
+            f" ({', '.join(f'{k} {v:.4f}' for k, v in est.fit_times_.items())}), "
+            f"peak device memory {facts['peak_device_bytes_above_start']}"
+            f" bytes above the start, memory model "
+            f"{facts['fit_memory_bytes']} bytes; error {errs[name]:.6f}, "
+            f"accuracy {facts['accuracy_vs_generating_labels']:.4f}, "
+            f"L(C) {facts['objective_L']:.4f}"
+            + (f"; serve: drain {facts['serve']['drain_s_median'] * 1e3:.3f}"
+               f" ms, labels vs two-pass "
+               f"{facts['serve']['label_mismatch_vs_two_pass']:.4f}"
+               if name == "exact" else ""))
+    del Ke
+    below = {k: v for k, v in errs.items() if v < errs["exact"] - 1e-5}
+    if below:
+        raise AssertionError(f"errors below the exact floor "
+                             f"{errs['exact']}: {below}")
+
+    # 3. The memory-against-error axis at n = 100,000.
+    info["streaming_error_at_n_train"] = {}
+    for name, est in [("onepass-srht (phase 4, fused)", onepass)] + [
+            (f"nystrom m={m}", e) for m, e in nystrom.items()]:
+        t0 = time.perf_counter()
+        err = kernel_approx_error_streaming(kern, X, est.embedding_)
+        info["streaming_error_at_n_train"][name] = err
+        log(f"[backends] kernel_approx_error_streaming at n={N_TRAIN}, "
+            f"{name}: {err:.6f} ({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.synchronize()
+    launches = {name: op.launches for name, op in OPS.items()}
+    work.cleanup()
+    if launches["kmeans_assign"]:
+        raise AssertionError(f"the default policy launched the standalone "
+                             f"kmeans_assign {launches['kmeans_assign']} "
+                             f"times")
+    for name in ("extend_embed", "embed_assign"):
+        if launches[name] == 0:
+            raise AssertionError(f"phase 8 never launched {name}")
+    info["launches"] = launches
+    log(f"[backends] launches {launches}")
+    return launches, info, widths
+
+
 def phase_device(torch, kernels, inputs, model, Xq) -> dict:
     """Card time alone, from torch.profiler traces, taken last so that no
     earlier phase runs after the profiler: kmeans_assign at its main shape
@@ -1472,12 +1751,18 @@ def main() -> int:
         torch, X, yall[:N_TRAIN])
     serve_launches, summary["serve"] = phase_serve(torch, est.model_, Xq)
     stream_launches, summary["stream"] = phase_stream(torch, X, Xq, canon)
+    backend_launches, summary["backends"], widths = phase_backends(
+        torch, X, yall[:N_TRAIN], Xq, est)
+    for name, cases in widths.items():
+        kernels[name]["landmark_widths"] = cases
     summary["serve"].update(phase_device(torch, kernels, inputs, est.model_,
                                          Xq))
     launches = {name: fit_launches[name] + serve_launches[name]
-                + stream_launches[name] for name in SOURCES}
+                + stream_launches[name] + backend_launches[name]
+                for name in SOURCES}
     summary["launches"] = {"fit": fit_launches, "serve": serve_launches,
-                           "stream": stream_launches}
+                           "stream": stream_launches,
+                           "backends": backend_launches}
     log(f"[main path] launches {launches}")
     idle = [name for name in MAIN_PATH if launches[name] == 0]
     if idle:
@@ -1509,7 +1794,7 @@ def main() -> int:
                                  "copy_ms", "read_ms", "library_note",
                                  "dynamic_smem_bytes", "serving_widths",
                                  "plan", "tiled", "deep", "tf32_matmul",
-                                 "registry_case")}})
+                                 "registry_case", "landmark_widths")}})
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -1,4 +1,4 @@
-"""KernelKMeans: the sklearn-shaped estimator over the one-pass backends.
+"""KernelKMeans: the sklearn-shaped estimator over the approximation backends.
 
     est = KernelKMeans(k=7, r=2, kernel="polynomial",
                        kernel_params={"gamma": 0.0, "degree": 2},
@@ -8,6 +8,10 @@
     est.embed(X_new)              # (r, b) linearized new points
     est.save("artifacts/demo")    # servable artifact, the JAX layout
 
+    est = KernelKMeans(k=7, r=2, backend="nystrom",
+                       backend_params={"m": 64}).fit(X, seed=0)
+    est = KernelKMeans(k=7, r=2, backend="exact").fit(X[:, :10000])
+
     est = KernelKMeans(...)       # a streaming fit, chunk by chunk
     est.partial_fit(X[:, :5000], seed=0, capacity=n, reeig=False)
     est.partial_fit(X[:, 5000:])  # re-eigs and re-clusters
@@ -15,10 +19,10 @@
 The estimator runs on the card: `device` defaults to "cuda", and with no
 CUDA device it raises unless the caller asks for device="cpu".
 
-Randomness: `fit(X, seed)` draws the sketch from one generator and the
-k-means++ seeds from a second, both derived from `seed`; either draw can
-be handed in instead (`sketch=`, `init=`), which is how tests feed the
-JAX package's draws into the port. The K-means generator is made afresh
+Randomness: `fit(X, seed)` draws the sketch (the Nystrom landmarks) from
+one generator and the k-means++ seeds from a second, both derived from
+`seed`; either draw can be handed in instead (`sketch=`, `init=`), which
+is how tests feed the JAX package's draws into the port. The K-means generator is made afresh
 from its seed at every re-eig, so, as with a JAX key, the clustering of
 an embedding does not depend on how many re-eigs came before: a chunked
 `partial_fit` over X equals `fit(X, seed)`, and a stream resumed from a
@@ -113,7 +117,8 @@ class StepClock:
 
 
 class KernelKMeans:
-    """Kernel K-means at rank r through a one-pass approximation backend.
+    """Kernel K-means at rank r through an approximation backend
+    (api/backends.py: onepass-srht, onepass-gaussian, nystrom, exact).
 
     Parameters mirror `ClusteringSpec`; `policy` is an optional
     ComputePolicy choosing the compute paths of fit (fit_fused) and serve
@@ -122,18 +127,21 @@ class KernelKMeans:
     card) and serving the default policy (the kernels on the card), as in
     the JAX package.
 
-    `backend_params` carries the backend's knobs: oversampling,
+    `backend_params` carries the backend's knobs. One-pass: oversampling,
     truncate_basis (the Alg. 1 line 3 ablation), capacity, and fwht_fn
     (a transform for the unfused SRHT composition of the canonical path,
     e.g. kernels.fwht_op, or the plain fwht_ref; runtime-only, it never
-    lands in the spec).
+    lands in the spec). Nystrom: m (landmarks; default_nystrom_m) and eps.
+    A policy's fit field is inert for nystrom and exact, which have no
+    fused fit; its serving fields apply to every backend.
 
     Fitted attributes: labels_ (n,), embedding_ (r, n), eigvals_ (r,),
     centroids_ (k, r), inertia_ (float), kmeans_init_ the K-means starting
     centroids ((n_restarts, k, r); (k, r) after a minibatch re-eig),
     spec_, model_ (the FittedModel), fit_times_ (seconds of each step of
-    the last fit, by StepClock: block_updates, eig, kmeans_pp (0 when
-    `init` was given), lloyd).
+    the last fit, by StepClock: the backend's steps (block_updates, eig;
+    nystrom landmark_gram, eig; exact gram, eig), then kmeans_pp (0 when
+    `init` was given) and lloyd).
     """
 
     def __init__(self, k: int = 2, r: int = 2, *,
@@ -189,16 +197,20 @@ class KernelKMeans:
             max_iter=self.max_iter, n=int(n), p=int(p))
 
     def _policy_kwargs(self, spec: ClusteringSpec) -> Dict:
-        if self.policy is None:
+        """Backend kwargs the policy adds. Only the one-pass backends take
+        policy= / kernel_statics=: nystrom and exact have no fused fit,
+        so a policy is inert there (its serving fields still apply
+        through extender())."""
+        if self.policy is None or not self.backend.startswith("onepass-"):
             return {}
         return {"policy": self.policy,
                 "kernel_statics": extend._kernel_statics(spec)}
 
     def fit(self, X, seed: int = 0, *, sketch=None,
             init: Optional[torch.Tensor] = None) -> "KernelKMeans":
-        """Fit on X (p, n). `sketch` (an SRHT or GaussianSketch) replaces
-        the sketch draw, `init` ((n_restarts, k, r)) the k-means++ draw.
-        Returns self."""
+        """Fit on X (p, n). `sketch` (an SRHT or GaussianSketch; for
+        nystrom the (m,) landmark indices) replaces the backend's draw,
+        `init` ((n_restarts, k, r)) the k-means++ draw. Returns self."""
         X = torch.as_tensor(X, dtype=torch.float32, device=self.device)
         if X.dim() != 2:
             raise ValueError(f"X must be (p, n), got {tuple(X.shape)}")
@@ -221,17 +233,19 @@ class KernelKMeans:
         clock.mark("lloyd")
         self._acc = None          # a fresh fit retires live stream state
         self._set_fit(spec, X, emb.U, emb.eigvals, emb.Y, km.labels,
-                      km.centroids, km.objective, init, emb.arrays)
+                      km.centroids, km.objective, init, emb.arrays,
+                      ref=emb.ref)
         self.fit_times_ = clock.seconds()
         return self
 
     def _set_fit(self, spec, X, U, eigvals, Y, labels, centroids,
-                 objective, init, state) -> None:
+                 objective, init, state, ref=None) -> None:
         self.model_ = FittedModel(
             spec=spec, X_train=X, U=U, eigvals=eigvals, centroids=centroids,
             sketch_signs=state.get("sketch_signs"),
             sketch_rows=state.get("sketch_rows"),
             sketch_omega=state.get("sketch_omega"),
+            landmarks=ref, landmark_idx=state.get("landmark_idx"),
             stream_w=state.get("stream_w"),
             stream_row_norms2=state.get("stream_row_norms2"),
             stream_counts=state.get("stream_counts"))

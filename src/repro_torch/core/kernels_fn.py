@@ -79,6 +79,12 @@ def make_kernel(name: str, **params) -> KernelFn:
     return factory(**params)
 
 
+def gram_matrix(kernel: KernelFn, X: torch.Tensor) -> torch.Tensor:
+    """Full n x n gram matrix: only for validation-scale n and the exact
+    backend. A plain product (fp32; TF32 stays off for kernel tiles)."""
+    return kernel(X, X)
+
+
 def gram_stripe(kernel: KernelFn, lhs: torch.Tensor, X: torch.Tensor,
                 start: int, block: int) -> torch.Tensor:
     """Stripe kappa(lhs, X[:, start:start+block]) of the rectangular gram."""

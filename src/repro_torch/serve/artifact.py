@@ -3,13 +3,18 @@
 A fit collapses to a few tensors that fully determine serving:
 
     X_train    (p, n)     training data
-    U          (n, r)     orthonormal eigenvector basis of the extension
-                          operator (rows index the training points)
+    U          (n_ref, r) orthonormal eigenvector basis of the extension
+                          operator: rows index the training points
+                          (one-pass / exact) or the Nystrom landmarks
     eigvals    (r,)       matching eigenvalues (descending, >= 0)
     centroids  (k, r)     K-means centroids in the linearized space
     sketch_*              one-pass state: SRHT signs/rows or the dense
                           Gaussian Omega (not needed to serve; they make
                           the fit reproducible)
+    landmarks  (p, m)     Nystrom backend: the sampled reference points
+    landmark_idx (m,)     and their columns in X_train; the extension
+                          evaluates kappa(landmarks, x) against them
+                          (`extension_ref` picks the reference set)
     stream_*              the accumulated sketch W, the row norms of K and
                           [n_applied, capacity]
 
@@ -24,8 +29,8 @@ fitted there across in memory, and the artifact on disk has its layout:
     <dir>/step_0/          atomic checkpoint of the leaves
                            (distributed/checkpoint.py)
 
-so an artifact saved by either package loads in the other. A landmark
-(Nystrom) artifact waits for the port of that backend and is refused.
+so an artifact saved by either package loads in the other, for every
+backend. `fit_model` is a deprecated shim over the estimator API.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import dataclasses
 import json
 import pathlib
 import re
+import warnings
 from typing import Dict, List, Mapping, NamedTuple, Optional
 
 import numpy as np
@@ -93,12 +99,14 @@ class FittedModel(NamedTuple):
     """Servable fit; see module docstring for the fields."""
     spec: ClusteringSpec
     X_train: torch.Tensor              # (p, n)
-    U: torch.Tensor                    # (n, r)
+    U: torch.Tensor                    # (n_ref, r)
     eigvals: torch.Tensor              # (r,)
     centroids: torch.Tensor            # (k, r)
     sketch_signs: Optional[torch.Tensor] = None   # (n_pad,)  srht only
     sketch_rows: Optional[torch.Tensor] = None    # (r',)     srht only
     sketch_omega: Optional[torch.Tensor] = None   # (n, r')   gaussian only
+    landmarks: Optional[torch.Tensor] = None      # (p, m)    nystrom only
+    landmark_idx: Optional[torch.Tensor] = None   # (m,)      nystrom only
     stream_w: Optional[torch.Tensor] = None           # (capacity, r')
     stream_row_norms2: Optional[torch.Tensor] = None  # (capacity,)
     stream_counts: Optional[torch.Tensor] = None      # (2,) int32
@@ -107,19 +115,74 @@ class FittedModel(NamedTuple):
     def device(self) -> torch.device:
         return self.X_train.device
 
+    @property
+    def extension_ref(self) -> torch.Tensor:
+        """Reference points the out-of-sample extension evaluates the
+        kernel against: the Nystrom landmarks when present, else the
+        training set. Shape (p, n_ref)."""
+        return self.landmarks if self.landmarks is not None else self.X_train
+
+    @property
+    def n_ref(self) -> int:
+        """Columns of `extension_ref`: the per-stripe kernel height that
+        serving pays (m for Nystrom, n otherwise)."""
+        return int(self.extension_ref.shape[1])
+
+    @property
+    def Y(self) -> torch.Tensor:
+        """Fitted linearization Sigma^{1/2} U^T in R^{r x n} (recomputed).
+
+        Only defined when U spans the training points (one-pass / exact).
+        A landmark (Nystrom) fit does not keep its training linearization:
+        embed the training data through the extension instead (exact on
+        training points by construction).
+        """
+        if self.landmarks is not None:
+            raise AttributeError(
+                f"backend {self.spec.backend!r} is landmark-based: U spans "
+                f"the {self.n_ref} landmarks, not the training set; use "
+                f"serve.extend.embed(model, model.X_train) for the "
+                f"training linearization")
+        return torch.sqrt(self.eigvals)[:, None] * self.U.T
+
     def kernel_fn(self) -> KernelFn:
         return make_kernel(self.spec.kernel, **self.spec.kernel_params)
 
 
-# Leaves of a one-pass JAX FittedModel; integer leaves keep their integer
-# type (SRHT rows index, stream counts count). A landmark (Nystrom) model
-# waits for that backend's slice and is refused.
+def fit_model(X, k: int, r: int, kernel: str = "polynomial",
+              kernel_params: Optional[Dict] = None,
+              oversampling: int = 10, block: int = 512,
+              sketch_type: str = "srht", n_restarts: int = 10,
+              max_iter: int = 20, *, seed: int = 0,
+              device=None) -> FittedModel:
+    """DEPRECATED shim: use `repro_torch.api.KernelKMeans`.
+
+    Delegates to the estimator with the matching one-pass backend, so the
+    returned FittedModel is that of `KernelKMeans(...).fit(X, seed)`.
+    """
+    warnings.warn(
+        "fit_model is deprecated; use repro_torch.api.KernelKMeans(k=..., "
+        "r=..., backend='onepass-srht', ...).fit(X, seed).model_",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.api import KernelKMeans   # lazy: api builds on serve
+    est = KernelKMeans(k=k, r=r, kernel=kernel, kernel_params=kernel_params,
+                       backend=f"onepass-{sketch_type}",
+                       backend_params={"oversampling": oversampling},
+                       block=block, n_restarts=n_restarts,
+                       max_iter=max_iter, device=device)
+    return est.fit(X, seed=seed).model_
+
+
+# Leaves of a JAX FittedModel; integer leaves keep their integer type (SRHT
+# rows and landmark indices index, stream counts count).
 _FLOAT_LEAVES = ("X_train", "U", "eigvals", "centroids", "sketch_signs",
-                 "sketch_omega", "stream_w", "stream_row_norms2")
-_INT_LEAVES = {"sketch_rows": torch.int64, "stream_counts": torch.int32}
-_LANDMARK_LEAVES = ("landmarks", "landmark_idx")
+                 "sketch_omega", "landmarks", "stream_w",
+                 "stream_row_norms2")
+_INT_LEAVES = {"sketch_rows": torch.int64, "landmark_idx": torch.int64,
+               "stream_counts": torch.int32}
 # On disk the integer leaves keep the JAX package's int32.
-_DISK_INT = {"sketch_rows": np.int32, "stream_counts": np.int32}
+_DISK_INT = {"sketch_rows": np.int32, "landmark_idx": np.int32,
+             "stream_counts": np.int32}
 _SPEC_FIELDS = tuple(f.name for f in dataclasses.fields(ClusteringSpec))
 
 
@@ -129,8 +192,8 @@ def from_reference(leaves: Mapping[str, np.ndarray], spec: Mapping,
 
     leaves: the JAX FittedModel's array leaves as numpy arrays, by field
     name (X_train, U, eigvals, centroids, sketch_signs/rows |
-    sketch_omega, stream_w, stream_row_norms2, stream_counts; absent or
-    None leaves stay None). spec: the JAX ClusteringSpec's fields (e.g.
+    sketch_omega, landmarks, landmark_idx, stream_w, stream_row_norms2,
+    stream_counts; absent or None leaves stay None). spec: the JAX ClusteringSpec's fields (e.g.
     dataclasses.asdict of it). The tensors land on `device`.
     """
     unknown = set(spec) - set(_SPEC_FIELDS)
@@ -141,11 +204,6 @@ def from_reference(leaves: Mapping[str, np.ndarray], spec: Mapping,
     if missing:
         raise ValueError(f"reference model lacks leaves {sorted(missing)}")
     present = {k for k, v in leaves.items() if v is not None}
-    if present & set(_LANDMARK_LEAVES):
-        raise ValueError(
-            "landmark (Nystrom) models are not ported yet (ROADMAP Queue A "
-            "item 7, other backends); this model carries "
-            f"{sorted(present & set(_LANDMARK_LEAVES))}")
     extra = present - set(_FLOAT_LEAVES) - set(_INT_LEAVES)
     if extra:
         raise ValueError(f"unknown leaves {sorted(extra)}")
@@ -228,12 +286,6 @@ def load_model(artifact_dir: str, device="cuda") -> FittedModel:
     spec = ClusteringSpec.from_json((base / "spec.json").read_text())
     manifest = ckpt.read_manifest(str(base), step=0)
     names, quantized = _leaf_names(base, manifest)
-    landmark = sorted(set(names) & set(_LANDMARK_LEAVES))
-    if landmark:
-        raise ValueError(
-            f"artifact at {base} is a landmark (Nystrom) model "
-            f"({landmark}); that backend is not ported yet (ROADMAP "
-            f"Queue A item 7, other backends)")
     like = {name: np.zeros(shape, dtype)
             for name, shape, dtype in zip(names, manifest["shapes"],
                                           manifest["dtypes"])}

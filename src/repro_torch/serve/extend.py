@@ -1,16 +1,18 @@
 """Out-of-sample extension: embed and assign new points against a fit.
 
-A one-pass fit reduces to eigenpairs (U, Sigma) over the training
-points, and a new point x embeds as
+A fit reduces to eigenpairs (U, Sigma) over its reference points, and a
+new point x embeds as
 
-    y(x) = Sigma^{-1/2} U^T kappa(X_train, x)          in R^r
+    y(x) = Sigma^{-1/2} U^T kappa(ref, x)              in R^r
 
+where ref (`FittedModel.extension_ref`, (p, n_ref)) is the training set
+for the one-pass and exact backends and the m landmarks for Nystrom.
 Query columns stream in stripes of the training `block`, so serving never
-holds more than an (n, block) kernel stripe. Two stripe engines:
+holds more than an (n_ref, block) kernel stripe. Two stripe engines:
 
   fused (the default on the card)  the extend_embed kernel builds each
       kernel tile and contracts it with P = Sigma^{-1/2} U^T on chip: the
-      (n, block) stripe never reaches device memory.
+      (n_ref, block) stripe never reaches device memory.
   two-pass  a plain gram stripe (kernels_fn.stripe_iterator, pad_tail)
       then the projection, the stripe materialized between them.
 
@@ -51,7 +53,7 @@ def _kernel_statics(spec) -> Tuple[str, float, int]:
 
 
 def _projection(model: FittedModel) -> torch.Tensor:
-    """P = Sigma^{-1/2} U^T (r, n)."""
+    """P = Sigma^{-1/2} U^T (r, n_ref)."""
     ev = model.eigvals
     inv_sqrt = torch.where(ev > _EIG_EPS,
                            1.0 / torch.sqrt(torch.clamp(ev, min=_EIG_EPS)),
@@ -81,7 +83,9 @@ class Extender:
         self.block = int(block or model.spec.block)
         self.fused = policy.resolve_embed(self.device)
         self.assign_fused = policy.resolve_assign(self.device)
-        self._ref = model.X_train.contiguous()
+        # The reference set the stripes run against: the training points,
+        # or the Nystrom landmarks.
+        self._ref = model.extension_ref.contiguous()
         self._proj = _projection(model)
         self._statics = _kernel_statics(model.spec)
 

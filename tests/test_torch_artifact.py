@@ -4,7 +4,9 @@ A model saved by JAX (f32, bf16, int8, and a legacy artifact without
 leaves.json or with the old ModelSpec schema) loads in the port and serves
 the labels of `repro.serve.assign` (distances within 2e-3, labels differ
 only on ties: the kmeans_assign rule); a model saved by the port loads in
-JAX with exactly equal leaves. The bf16 and int8 codecs equal JAX's bit
+JAX with exactly equal leaves. The same holds for Nystrom (landmark)
+artifacts in f32 and bf16, their labels by the near-tie rule, and for
+exact ones. The bf16 and int8 codecs equal JAX's bit
 for bit, and the checkpoint layer writes JAX's manifest.
 """
 import dataclasses
@@ -28,7 +30,7 @@ from repro_torch.api import KernelKMeans, spec_to_estimator
 from repro_torch.data import segmentation_proxy
 from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.distributed import compression as codec
-from repro_torch.kernels.registry import assign_compare
+from repro_torch.kernels.registry import assign_compare, near_tie_compare
 from repro_torch.serve import (ClusteringSpec, Extender, MicroBatcher,
                                load_model, save_model)
 
@@ -106,14 +108,42 @@ def test_legacy_jax_artifact_loads(data, jax_est, tmp_path, legacy):
                    jax_assign(jax_model, data[1]), TOL, TOL)
 
 
+def _jax_nystrom(X):
+    return JaxKernelKMeans(k=K, r=R, kernel="polynomial",
+                           kernel_params=KPARAMS, backend="nystrom",
+                           backend_params={"m": 64}, block=BLOCK).fit(X, key=0)
+
+
 def test_nystrom_artifact_is_refused(data, tmp_path):
-    est = JaxKernelKMeans(k=K, r=R, kernel="polynomial",
-                          kernel_params=KPARAMS, backend="nystrom",
-                          backend_params={"m": 64}, block=BLOCK)
-    path = jax_save_model(est.fit(data[0], key=0).model_,
+    """Refused no longer: a JAX Nystrom artifact loads with its landmark
+    leaves, landmark_idx int32 on disk and int64 in memory."""
+    path = jax_save_model(_jax_nystrom(data[0]).model_,
                           str(tmp_path / "nys"))
-    with pytest.raises(ValueError, match="Queue A item 7"):
-        load_model(path, device="cpu")
+    manifest = jax_ckpt.read_manifest(path)
+    names = json.loads((pathlib.Path(path) / "leaves.json").read_text())[
+        "names"]
+    assert manifest["dtypes"][names.index("landmark_idx")] == "int32"
+    model = load_model(path, device="cpu")
+    assert model.landmark_idx.dtype == torch.int64
+    assert model.landmarks.shape == (P, 64) and model.n_ref == 64
+    assert torch.equal(model.landmarks, model.X_train[:, model.landmark_idx])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_jax_nystrom_artifact_serves_in_the_port(data, tmp_path, dtype):
+    Xq = data[1]
+    path = jax_save_model(_jax_nystrom(data[0]).model_, str(tmp_path / dtype),
+                          dtype=dtype)
+    jax_model = jax_load_model(path)
+    model = load_model(path, device="cpu")
+    for name, leaf in _leaves(jax_model).items():
+        np.testing.assert_array_equal(getattr(model, name).numpy(),
+                                      np.asarray(leaf), err_msg=name)
+    got = MicroBatcher(model, max_bucket=64).assign_batch(Xq)
+    emb = Extender(model).embed(Xq).T.double()
+    dist = ((emb[:, None, :] - model.centroids.double()[None]) ** 2).sum(
+        -1).numpy()
+    near_tie_compare(got, jax_assign(jax_model, Xq), TOL, TOL, dist)
 
 
 # -- port -> JAX -------------------------------------------------------------
@@ -160,6 +190,50 @@ def test_spec_json_round_trip_and_refit(data):
     assert text == JaxSpec.from_json(text).to_json()
     refit = spec_to_estimator(spec, device="cpu").fit(data[0], seed=0)
     assert torch.equal(refit.labels_, _port_est(data[0]).labels_)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_port_nystrom_artifact_loads_in_jax(data, tmp_path, dtype):
+    est = KernelKMeans(k=K, r=R, kernel="polynomial", kernel_params=KPARAMS,
+                       backend="nystrom", backend_params={"m": 64},
+                       block=BLOCK, device="cpu").fit(data[0], seed=0)
+    path = est.save(str(tmp_path / dtype), dtype=dtype)
+    jax_model, model = jax_load_model(path), load_model(path, device="cpu")
+    for name, leaf in _leaves(model).items():
+        got = np.asarray(getattr(jax_model, name))
+        np.testing.assert_array_equal(got, leaf.numpy(), err_msg=name)
+    assert np.asarray(jax_model.landmark_idx).dtype == np.int32
+    assert jax_model.n_ref == 64 and jax_model.spec.backend == "nystrom"
+    if dtype == "f32":
+        for name, leaf in _leaves(est.model_).items():
+            assert torch.equal(getattr(model, name), leaf), name
+    got = KernelKMeans.from_model(model).extender().assign(data[1])
+    emb = Extender(model).embed(data[1]).T.double()
+    dist = ((emb[:, None, :] - model.centroids.double()[None]) ** 2).sum(
+        -1).numpy()
+    near_tie_compare(got, jax_assign(jax_model, data[1]), TOL, TOL, dist)
+
+
+def test_exact_artifacts_load_both_ways(data, tmp_path):
+    """An exact model, saved by either package, loads in the other with
+    equal leaves and serves the other package's labels."""
+    kw = dict(k=K, r=R, kernel="polynomial", kernel_params=KPARAMS,
+              backend="exact", block=BLOCK)
+    jax_path = jax_save_model(JaxKernelKMeans(**kw).fit(data[0], key=0)
+                              .model_, str(tmp_path / "jax"))
+    port_path = KernelKMeans(**kw, device="cpu").fit(data[0], seed=0).save(
+        str(tmp_path / "port"))
+    for path in (jax_path, port_path):
+        jax_model, model = jax_load_model(path), load_model(path,
+                                                            device="cpu")
+        assert model.spec.backend == jax_model.spec.backend == "exact"
+        assert model.landmarks is None and model.n_ref == N
+        for name, leaf in _leaves(model).items():
+            np.testing.assert_array_equal(
+                leaf.numpy(), np.asarray(getattr(jax_model, name)),
+                err_msg=name)
+        assign_compare(Extender(model).assign(data[1]),
+                       jax_assign(jax_model, data[1]), TOL, TOL)
 
 
 # -- codecs and the checkpoint layer -----------------------------------------

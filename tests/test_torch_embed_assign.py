@@ -10,7 +10,10 @@ each kernel kind, with a ragged last stripe. Labels follow the near-tie
 rule of the registry entry (`registry.near_tie_compare`). A routing test
 shows which wrapper each policy reaches. The `cuda` cases hold the fold
 against the two-launch sequence (extend_embed_op, transpose, assign_op)
-bit for bit on the card:
+bit for bit on the card, and hold extend_embed and the fold against their
+plain versions at the landmark widths of a Nystrom model (n_ref = m of
+10 to 64 training points, a part of one staging unit), where a Nystrom
+fit on the card serves:
 
     python -m pytest --noconftest -m cuda tests/test_torch_embed_assign.py
 """
@@ -20,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.api import KernelKMeans
 from repro_torch.data import segmentation_proxy
 from repro_torch.kernels import registry
 from repro_torch.kernels.extend_embed.ops import extend_embed_op
@@ -281,3 +285,85 @@ def test_served_requests_go_through_the_fold_on_card():
         np.testing.assert_array_equal(got[1].view(np.int32),
                                       d2[a:b].cpu().numpy().view(np.int32))
     assert assign_op.launches == before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [8, 512])
+@pytest.mark.parametrize("n", [10, 20, 50, 64])
+@pytest.mark.parametrize("kind", ["poly-g0-d2", "rbf"])
+def test_landmark_widths_on_card(kind, n, w):
+    """extend_embed and the fold against n = m landmarks (p 19): within
+    the registry tolerances of their plain versions, the same bits on two
+    launches."""
+    kw = _statics(kind)
+    X, Pm, Xb, C = _on_card(19, n, w, K, R)
+    for name in ("extend_embed", "embed_assign"):
+        entry = registry.get_kernel(name)
+        args = (X, Pm, Xb) + ((C,) if name == "embed_assign" else ())
+        got = entry.op(*args, **kw)
+        again = entry.op(*args, **kw)
+        torch.cuda.synchronize()
+        registry.compare(entry, got, entry.ref(*args, **kw), (args, kw))
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        again if isinstance(again, tuple) else (again,)):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_nystrom_fit_and_predict_on_card():
+    """A Nystrom KernelKMeans on the card serves through embed_assign
+    against its 64 landmarks, with no standalone kmeans_assign launch; its
+    training round trip and labels hold against the two-pass plain
+    extension."""
+    dev = _card()
+    X, _ = segmentation_proxy(np.random.default_rng(23), n=3000 + NQ, p=P,
+                              k=K)
+    Xq = X[:, 3000:].to(dev)
+    est = KernelKMeans(k=K, r=R, kernel="polynomial",
+                       kernel_params={"gamma": 0.0, "degree": 2},
+                       backend="nystrom", backend_params={"m": 64},
+                       block=128, device=dev).fit(X[:, :3000], seed=0)
+    assert est.model_.n_ref == 64 and est.model_.landmarks.is_cuda
+    before = (embed_assign_op.launches, assign_op.launches)
+    labels = est.predict(Xq)
+    assert embed_assign_op.launches - before[0] == 2       # 128 + 72
+    assert assign_op.launches == before[1]
+    Y = est.embedding_
+    rel = float(torch.linalg.norm(est.embed(X[:, :3000].to(dev)) - Y)
+                / torch.linalg.norm(Y))
+    assert rel <= TOL, rel
+    plain = Extender(est.model_, policy=ComputePolicy(embed_fused=False,
+                                                      assign_fused=False))
+    emb = plain.embed(Xq).T.double()
+    dist = ((emb[:, None, :] - est.centroids_.double()[None]) ** 2).sum(
+        -1).cpu().numpy()
+    got = est.extender().assign(Xq)
+    assert torch.equal(got[0], labels)
+    registry.near_tie_compare(got, plain.assign(Xq), TOL, TOL, dist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["nystrom", "exact"])
+def test_backend_fits_predicts_scores_and_reloads_on_card(backend, tmp_path):
+    """The Nystrom and exact estimators on the card: fit, predict, score,
+    save and load; the loaded model serves the same labels and score."""
+    dev = _card()
+    X, _ = segmentation_proxy(np.random.default_rng(29), n=2000 + NQ, p=P,
+                              k=K)
+    Xq = X[:, 2000:]
+    est = KernelKMeans(k=K, r=R, kernel="polynomial",
+                       kernel_params={"gamma": 0.0, "degree": 2},
+                       backend=backend,
+                       backend_params={"m": 64} if backend == "nystrom"
+                       else {}, block=128, device=dev).fit(X[:, :2000],
+                                                           seed=0)
+    labels = est.predict(Xq)
+    assert labels.device.type == dev.type and est.model_.n_ref == (
+        64 if backend == "nystrom" else 2000)
+    score = est.score(Xq)
+    assert np.isfinite(score) and score <= 0.0 and est.score() <= 0.0
+    loaded = KernelKMeans.load(est.save(str(tmp_path / backend)),
+                               device=dev)
+    assert loaded.model_.device.type == dev.type
+    assert torch.equal(loaded.predict(Xq), labels)
+    assert loaded.score(Xq) == score

@@ -41,7 +41,8 @@ def test_port_covers_the_slice_modules():
                 "serve/artifact.py", "serve/extend.py", "serve/batcher.py",
                 "api/estimator.py", "data/synthetic.py",
                 "stream/minibatch.py", "distributed/checkpoint.py",
-                "distributed/compression.py"):
+                "distributed/compression.py", "core/nystrom.py",
+                "core/exact.py", "core/linearized.py", "core/onepass.py"):
         assert (port / rel).is_file(), rel
     for name in ("gram", "kmeans_assign", "extend_embed", "fit_sketch",
                  "fwht"):

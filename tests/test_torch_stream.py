@@ -182,7 +182,7 @@ def test_partial_fit_first_call_contract(X):
     with pytest.raises(ValueError, match="capacity"):
         _est().partial_fit(X[:, :64], seed=0)
     est = _est()
-    est.backend = "nystrom"           # no such backend in the port yet
+    est.backend = "nystrom"           # no streaming state
     with pytest.raises(ValueError, match="one-pass"):
         est.partial_fit(X[:, :64], seed=0, capacity=64)
     est = _est().partial_fit(X[:, :64], seed=0, capacity=N, reeig=False)
