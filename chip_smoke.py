@@ -63,6 +63,29 @@ Phases, each fatal on failure:
      approximation error of phase 4's model and the Nystrom models at
      n = 100,000; extend_embed and embed_assign at the landmark widths
      n_ref = 10 .. 1,024, w = 512 and 8, against their plain versions;
+  9. lifecycle (run after 8 and before 7): (a) phase 4's model behind
+     ModelRegistry().scheduler("main", max_wait_ms=2.0, slo_ms=250.0)
+     with its pump thread live: 256 requests of 1-64 held-out queries
+     (seed 0) all resolve, each equal to a synchronous MicroBatcher.drain
+     of the same requests bit for bit though the two coalesce
+     differently, labels against the two-pass plain extension (near-tie
+     rule); latency percentiles, SLO violations, queries/s and the
+     cooperative benchmark_async; a VersionStore under build/ (v1 pinned
+     outlives gc(keep=1); unpinned, gc(keep=2) leaves v2 and v3, v3 the
+     centroid rows reversed), a warm swap to v3 with 8 requests pending
+     (drained into the old model bit for bit, later requests labelled
+     k - 1 - old, 0 stranded futures, the old row's buckets warmed), the
+     SwapReport and benchmark_swap, post-stop submits refused; (b) the
+     streaming loop on the canonical route at capacity 100,000: five
+     partial_fit chunks of the first half (classes 0-3), healthy traffic
+     through the async front door observed by a DriftMonitor (quiet),
+     drifted traffic (columns past 70,000 and the held-out queries,
+     classes 4-6) with one request pending: exactly one RetrainWorker
+     rollout (refit with the second half -> publish -> swap -> rebind),
+     0 stranded futures, drifted-set accuracy higher after; the
+     monitor's errors through the gram kernel against the plain kappa,
+     and gram timed at the drift shape. Launches are counted on the
+     parts no pump thread serves;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -114,10 +137,11 @@ STREAM_CHUNK = 10_000                          # partial_fit chunk width
 SAVED_AGREEMENT = 0.95   # tests/test_stream.py::test_int8_artifact_serves
 LIBRARY_FWHT_N = 8192    # rows of the materialized H timed as torch.mm
 
-# Kernels the main path launches; no path of the JAX package calls gram,
-# which is ported for its tile and checked against its plain version.
+# Kernels the main path launches. No path of the JAX package calls gram
+# (its drift monitor takes kappa in plain jnp); the port's drift monitor
+# takes each sampled kernel column from it (phase 9).
 MAIN_PATH = ("kmeans_assign", "extend_embed", "fit_sketch", "fwht", "srht_t",
-             "embed_assign")
+             "embed_assign", "gram_stripe")
 # Kernels that must equal their plain versions exactly (by value: srht_t
 # may give +0 where the plain version gives -0).
 EXACT = ("fwht", "srht_t")
@@ -147,6 +171,22 @@ NYSTROM_M = (64, 1024)
 N_EXACT = 10_000
 LANDMARK_N = (10, 20, 50, 64, 1024)
 LANDMARK_W = (BLOCK, 8)
+# Phase 9: the async front door's traffic (requests of 1-64 held-out
+# queries from seed 0; the JAX bench's defaults), the requests left
+# pending at the warm swap, every pow-2 bucket a coalesced flush can hit;
+# the streaming loop's first fit (the first half of the training columns,
+# which the proxy's class blocks leave with classes 0-3 only), the drifted
+# pool (columns past 70,000 and the held-out queries: classes 4-6), the
+# columns of each kind of traffic and its request width.
+ASYNC_REQUESTS = 256
+ASYNC_WIDTHS = (1, 64)
+SWAP_PENDING = 8
+ALL_BUCKETS = tuple(8 << i for i in range(8))          # 8 .. 1,024
+STREAM_HALF = 50_000
+DRIFT_FROM = 70_000
+TRAFFIC_COLS = 2_000
+TRAFFIC_WIDTH = 50
+PIN_OWNER = "chip_smoke"
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -1668,6 +1708,382 @@ def phase_backends(torch, X, y, Xq, onepass) -> tuple:
     return launches, info, widths
 
 
+class LaunchTally:
+    """Launch counts of the deterministic parts of phase 9: each counted
+    call runs with every count set to 0 and adds what it launched. The
+    parts a pump thread serves are not counted (a wrapper's `launches
+    += 1` is not atomic across threads)."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels import OPS
+        self.torch, self.ops = torch, OPS
+        self.launches = {name: 0 for name in OPS}
+
+    def __call__(self, fn):
+        from repro_torch.kernels import reset_launches
+        self.torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        self.torch.cuda.synchronize()
+        for name, op in self.ops.items():
+            self.launches[name] += op.launches
+        return out
+
+
+def same_answers(what, got, want) -> None:
+    """Per request (labels, d2) equal bit for bit."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not (np.array_equal(g[0], w[0])
+                and np.array_equal(g[1].view(np.int32), w[1].view(np.int32))):
+            raise AssertionError(f"{what}: request {i} differs")
+
+
+def plain_distances(torch, model, Xb):
+    """The two-pass plain extension's assignment of Xb, and its squared
+    distances to every centroid (w, k) in float64: the near-tie rule's
+    reference."""
+    from repro_torch.serve import ComputePolicy, Extender
+    plain = Extender(model, policy=ComputePolicy(embed_fused=False,
+                                                 assign_fused=False))
+    emb = plain.embed(Xb)
+    dist = ((emb.T.double()[:, None, :] - model.centroids.double()[None])
+            ** 2).sum(-1).cpu().numpy()
+    return plain.assign(Xb), dist
+
+
+def lifecycle_serve(torch, model, Xq, tally) -> dict:
+    """9a: phase 4's model behind the registry's async front door with its
+    pump thread live; async == sync drain bit for bit; labels against the
+    two-pass plain extension; a VersionStore with pins and GC; a warm swap
+    with requests pending; the async and swap benches."""
+    from repro_torch.kernels.registry import near_tie_compare
+    from repro_torch.serve import (ComputePolicy, MicroBatcher,
+                                   ModelRegistry, VersionStore,
+                                   benchmark_async, benchmark_swap)
+    rng = np.random.RandomState(SEED)
+    lo, hi = ASYNC_WIDTHS
+    widths = rng.randint(lo, hi + 1, size=ASYNC_REQUESTS)
+    host = Xq.cpu().numpy()
+    reqs = []
+    for w in widths:
+        a = rng.randint(0, N_QUERY - w + 1)
+        reqs.append(np.ascontiguousarray(host[:, a:a + w]))
+    queries = int(widths.sum())
+
+    reg = ModelRegistry()
+    reg.register("main", model)
+    sched = reg.scheduler("main", max_wait_ms=2.0, slo_ms=250.0)
+    tally(lambda: sched.batcher.warm(ALL_BUCKETS))    # before the pump
+    flushes = sched.batcher.stats["batches"]
+    sched.start()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [sched.submit(r) for r in reqs]
+    answers = [f.result(timeout=120.0) for f in futs]
+    wall = time.perf_counter() - t0
+    flushes = sched.batcher.stats["batches"] - flushes
+    if sched.pump_errors:
+        raise AssertionError(f"the pump failed: {sched.last_pump_error!r}")
+
+    sync = MicroBatcher(model, policy=ComputePolicy())
+    for r in reqs:
+        sync.submit(r)
+    same_answers("async != a synchronous drain", answers, tally(sync.drain))
+    Xcat = torch.from_numpy(np.concatenate(reqs, axis=1)).to(model.device)
+    want, dist = plain_distances(torch, model, Xcat)
+    got = (np.concatenate([a[0] for a in answers]),
+           np.concatenate([a[1] for a in answers]))
+    near_tie_compare(got, want, TOL, TOL, dist)
+    summary = sched.latency.summary()
+    serve = {"requests": ASYNC_REQUESTS, "queries": queries,
+             "flushes": flushes, "wall_s": wall,
+             "queries_per_s": queries / wall, "latency": summary,
+             "async_equals_sync_drain": True,
+             "label_mismatch_vs_two_pass": float(
+                 (got[0] != want[0].cpu().numpy()).mean())}
+    lat, wait = summary["latency_ms"], summary["queue_wait_ms"]
+    log(f"[lifecycle] {ASYNC_REQUESTS} requests ({queries} queries) "
+        f"through the pump in {flushes} flushes: {queries / wall:.0f} "
+        f"queries/s; total p50 / p95 / p99 {lat['p50']:.3f} / "
+        f"{lat['p95']:.3f} / {lat['p99']:.3f} ms, queue wait "
+        f"{wait['p50']:.3f} / {wait['p95']:.3f} / {wait['p99']:.3f} ms, SLO "
+        f"{summary['slo_ms']} ms violations {summary['slo_violations']}; "
+        f"== a synchronous drain bit for bit; labels against the two-pass "
+        f"plain extension by the near-tie rule")
+    bench = tally(lambda: benchmark_async(
+        model, n_requests=ASYNC_REQUESTS, width_range=ASYNC_WIDTHS,
+        max_wait_ms=2.0, slo_ms=250.0, seed=SEED))
+    blat = bench["latency"]["latency_ms"]
+    log(f"[lifecycle] benchmark_async (cooperative): "
+        f"{bench['queries_per_sec']:.0f} queries/s, p50 / p95 / p99 "
+        f"{blat['p50']:.3f} / {blat['p95']:.3f} / {blat['p99']:.3f} ms, SLO "
+        f"violations {bench['latency']['slo_violations']}")
+
+    # The store: v1 pinned outlives gc(keep=1); unpinned, gc(keep=2)
+    # leaves v2 and v3 (the centroid rows reversed: labels k - 1 - old).
+    BUILD.mkdir(parents=True, exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=BUILD)
+    store = VersionStore(str(pathlib.Path(work.name) / "versions"))
+    v1, v2 = store.publish(model), store.publish(model)
+    store.pin(v1, PIN_OWNER)
+    if store.gc(keep=1) or store.versions() != [v1, v2]:
+        raise AssertionError(f"gc(keep=1) under a pin of v{v1} left "
+                             f"{store.versions()}")
+    v3 = store.publish(model._replace(
+        centroids=model.centroids.flip(0).contiguous()))
+    store.unpin(v1, PIN_OWNER)
+    if store.gc(keep=2) != [v1] or store.versions() != [v2, v3]:
+        raise AssertionError(f"gc(keep=2) left {store.versions()}")
+    store.pin(v3, PIN_OWNER)
+    model_b = store.load(v3, device=model.device)
+
+    # The warm swap with requests pending: hold the window (no bucket is
+    # due) so the swap's drain, not the pump, resolves them.
+    for b in ALL_BUCKETS:
+        sched.set_bucket_wait(b, 3.6e6)
+    held = reqs[:SWAP_PENDING]
+    pending = [sched.submit(r) for r in held]
+    if sched.pending_requests != SWAP_PENDING:
+        raise AssertionError(f"{sched.pending_requests} requests pending")
+    old_buckets = sched.batcher.executables
+    report = reg.swap("main", model_b, version=v3)
+    sched2 = reg.scheduler("main")
+    if report.drained_requests != SWAP_PENDING or not all(
+            f.done() for f in pending):
+        raise AssertionError(f"the swap drained {report.drained_requests}")
+    same_answers("a pending request after the swap",
+                 [f.result(timeout=0) for f in pending],
+                 answers[:SWAP_PENDING])
+    if not sched2.running or sched.running:
+        raise AssertionError("the pump did not move to the new row")
+    after = [sched2.submit(r) for r in held]
+    for f, old in zip(after, answers):
+        if not np.array_equal(f.result(timeout=60.0)[0], K - 1 - old[0]):
+            raise AssertionError("a later request was not served by v3")
+    stranded = sum(not f.done() for f in futs + pending + after)
+    if stranded or not set(old_buckets) <= set(report.buckets_warmed):
+        raise AssertionError(f"{stranded} stranded; warmed "
+                             f"{report.buckets_warmed} of {old_buckets}")
+    try:
+        sched.submit(held[0])
+        raise AssertionError("the retired scheduler took a request")
+    except RuntimeError:
+        pass
+    sched2.stop()
+    try:
+        sched2.submit(held[0])
+        raise AssertionError("a stopped scheduler took a request")
+    except RuntimeError:
+        pass
+    if sched.pump_errors or sched2.pump_errors:
+        raise AssertionError("a pump thread failed")
+    swap = report.to_dict()
+    swap["p95_after_ms"] = sched2.latency.total.percentile(95.0)
+    bswap = tally(lambda: benchmark_swap(model, n_requests=128, seed=SEED))
+    work.cleanup()
+    log(f"[lifecycle] store: v{v1} pinned survived gc(keep=1); unpinned, "
+        f"gc(keep=2) left v{v2}, v{v3}; warm swap v{report.old_version} -> "
+        f"v{report.new_version}: flip {report.flip_ms:.4f} ms, warm "
+        f"{report.warm_s:.4f} s (buckets {report.buckets_warmed}), drain "
+        f"{report.drain_s:.4f} s of {report.drained_requests} pending "
+        f"requests, p95 {report.p95_before_ms:.3f} -> "
+        f"{swap['p95_after_ms']:.3f} ms; 0 stranded futures; later "
+        f"requests labelled k - 1 - old by v3")
+    log(f"[lifecycle] benchmark_swap: flip {bswap['flip_ms']:.4f} ms, warm "
+        f"{bswap['warm_s']:.4f} s, drain {bswap['drain_s']:.4f} s, p95 "
+        f"{bswap['p95_before_ms']:.3f} -> {bswap['p95_after_ms']:.3f} ms, "
+        f"stranded {bswap['stranded_futures']}")
+    if bswap["stranded_futures"]:
+        raise AssertionError("benchmark_swap stranded futures")
+    return {"async": serve, "benchmark_async": bench, "swap": swap,
+            "benchmark_swap": bswap,
+            "store": {"gc_keep_1_under_pin": [v1, v2],
+                      "gc_keep_2": [v2, v3]}}
+
+
+def drift_errors_plain(torch, mon, Xb):
+    """The monitor's errors with the plain kappa (kernels/gram/ref.py)."""
+    from repro_torch.kernels.gram.ref import gram_stripe_ref
+    model = mon.model
+    z = gram_stripe_ref(model.extension_ref, Xb, *mon._statics)
+    resid = z - model.U @ (model.U.T @ z)
+    return torch.linalg.norm(resid, dim=0) / torch.clamp(
+        torch.linalg.norm(z, dim=0), min=1e-12)
+
+
+def lifecycle_stream(torch, X, y, Xq, yq, tally) -> tuple:
+    """9b: the streaming loop at full width on the canonical route: a fit
+    of the first half, healthy traffic (quiet), drifted traffic (one
+    rollout: refit -> publish -> swap -> rebind), accuracy on the drifted
+    set before and after; the monitor's errors through the gram kernel
+    against the plain kappa; gram timed at the drift shape."""
+    from repro_torch.api import KernelKMeans
+    from repro_torch.core.metrics import clustering_accuracy
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.gram.ops import gram_stripe_op
+    from repro_torch.kernels.gram.ref import gram_stripe_ref
+    from repro_torch.serve import Extender, ModelRegistry, VersionStore
+    from repro_torch.stream import DriftMonitor, RetrainWorker
+    y_host, yq_host = y.cpu().numpy(), yq.cpu().numpy()
+    X_host = X.cpu().numpy()
+    Xd = torch.cat([X[:, DRIFT_FROM:], Xq], dim=1)
+    yd = np.concatenate([y_host[DRIFT_FROM:], yq_host])
+    classes = {"first_half": np.bincount(y_host[:STREAM_HALF],
+                                         minlength=K).tolist(),
+               "second_half": np.bincount(y_host[STREAM_HALF:],
+                                          minlength=K).tolist(),
+               "drifted": np.bincount(yd, minlength=K).tolist()}
+
+    def fit_first():
+        for lo in range(0, STREAM_HALF, STREAM_CHUNK):
+            est.partial_fit(X[:, lo:lo + STREAM_CHUNK], seed=SEED,
+                            capacity=N_TRAIN,
+                            reeig=lo + STREAM_CHUNK >= STREAM_HALF)
+
+    est = KernelKMeans(**estimator_args())
+    t0 = time.perf_counter()
+    tally(fit_first)
+    fit_s = time.perf_counter() - t0
+    stale = est.model_
+
+    def accuracy(model):
+        labels, _ = Extender(model).assign(Xd)
+        return clustering_accuracy(yd, labels.cpu().numpy(), K)
+
+    acc_before = tally(lambda: accuracy(stale))
+    BUILD.mkdir(parents=True, exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=BUILD)
+    store = VersionStore(str(pathlib.Path(work.name) / "versions"))
+    reg = ModelRegistry()
+    reg.register("stream", stale, version=store.publish(stale))
+    sched = reg.scheduler("stream", max_wait_ms=2.0, slo_ms=250.0)
+    tally(lambda: sched.batcher.warm(ALL_BUCKETS))
+    # The reference is what serving gives the training points
+    # (ref_labels=None), as after every rollout's rebind: at rank 2 the
+    # extension of a training point often differs from its K-means label
+    # when the first half's 4 classes take 7 clusters (a property of the
+    # JAX package's fit too), and traffic of that very half would fire.
+    served = tally(lambda: Extender(stale).assign(X[:, :STREAM_HALF])[0])
+    label_gap = float((served != est.labels_).float().mean())
+    mon = tally(lambda: DriftMonitor(
+        stale, chi2_threshold=30.0, frac_delta_threshold=0.25,
+        min_queries=64, approx_err_threshold=None))
+    worker = RetrainWorker("stream", reg, store, mon,
+                           lambda rep: est.partial_fit(
+                               X[:, STREAM_HALF:]).model_)
+    rng = np.random.RandomState(SEED + 9)
+
+    def traffic(pool):
+        """TRAFFIC_COLS shuffled columns of pool (host) through the async
+        front door, each request observed with its served labels."""
+        cols = pool[:, rng.permutation(pool.shape[1])[:TRAFFIC_COLS]]
+        chunks = [np.ascontiguousarray(cols[:, a:a + TRAFFIC_WIDTH])
+                  for a in range(0, TRAFFIC_COLS, TRAFFIC_WIDTH)]
+        futs = [sched.submit(c) for c in chunks]
+        sched.flush()
+        for c, f in zip(chunks, futs):
+            mon.observe(c, f.result(timeout=0)[0])
+        return chunks, futs
+
+    healthy, _ = tally(lambda: traffic(X_host[:, :STREAM_HALF]))
+    quiet = mon.report()
+    if tally(worker.step) is not None:
+        raise AssertionError(f"the monitor fired on healthy traffic: "
+                             f"{quiet.reason}")
+    gram_before = tally.launches["gram_stripe"]
+    drifted, dfuts = tally(lambda: traffic(Xd.cpu().numpy()))
+    if tally.launches["gram_stripe"] <= gram_before:
+        raise AssertionError("the monitor never launched the gram kernel")
+    # The monitor's errors through the gram kernel against the plain kappa
+    # on a healthy and a drifted request, on the stale model.
+    entry = registry.get_kernel("gram_stripe")
+    err_gap = 0.0
+    for chunk in (healthy[0], drifted[0]):
+        Xb = torch.from_numpy(chunk).to(X.device)
+        got, want = mon._approx_errors(Xb), drift_errors_plain(torch, mon,
+                                                                Xb)
+        registry.compare(entry, got, want)
+        err_gap = max(err_gap, max_err(torch, got, want))
+    pending = sched.submit(drifted[1])
+    rollout = tally(worker.step)
+    if rollout is None:
+        raise AssertionError(f"drift did not fire: {mon.report().reason}")
+    if tally(worker.step) is not None or worker.retrains != 1:
+        raise AssertionError("drift must trigger exactly one rollout")
+    stranded = sum(not f.done() for f in dfuts + [pending])
+    if stranded or rollout.swap.drained_requests != 1:
+        raise AssertionError(f"{stranded} futures stranded, drained "
+                             f"{rollout.swap.drained_requests}")
+    acc_after = tally(lambda: accuracy(reg.get("stream")))
+    if not acc_after > acc_before:
+        raise AssertionError(f"drifted-set accuracy {acc_before} -> "
+                             f"{acc_after}")
+    if worker.errors or sched.pump_errors:
+        raise AssertionError(f"worker errors {worker.errors}")
+    reg.unregister("stream")
+    work.cleanup()
+
+    # gram at the drift shape: the stale model's training columns against
+    # one request.
+    ref_pts = stale.extension_ref.contiguous()
+    Xb = torch.from_numpy(drifted[0]).to(X.device)
+    kind, gamma, degree = mon._statics
+    kw = {"kind": kind, "gamma": gamma, "degree": degree}
+    n_ref, w = ref_pts.shape[1], Xb.shape[1]
+    got = gram_stripe_op(ref_pts, Xb, **kw)
+    registry.compare(entry, got, gram_stripe_ref(ref_pts, Xb, **kw))
+    gram = {"shape": [n_ref, w, P],
+            "ms": cuda_ms(torch, lambda: gram_stripe_op(ref_pts, Xb, **kw)),
+            "ms_back_to_back": cuda_ms_back_to_back(
+                torch, lambda: gram_stripe_op(ref_pts, Xb, **kw)),
+            "plain_ms": cuda_ms(torch, lambda: gram_stripe_ref(ref_pts, Xb,
+                                                               **kw)),
+            "monitor_err_max_abs_diff_vs_plain": err_gap,
+            **gram_tc_bound(P, n_ref, w, kind, degree),
+            "fp32_bound_ms": gram_bound(P, n_ref, w, kind,
+                                        degree)["bound_ms"]}
+    drift = rollout.drift
+    info = {"classes": classes, "first_fit_s": fit_s,
+            "training_labels_differing_from_served": label_gap,
+            "quiet_report": quiet.to_dict(), "rollout": {
+                k: v for k, v in rollout.to_dict().items() if k != "swap"},
+            "swap": rollout.swap.to_dict(),
+            "accuracy_drifted_before": acc_before,
+            "accuracy_drifted_after": acc_after, "retrains": worker.retrains,
+            "stranded_futures": 0}
+    log(f"[lifecycle] stream: classes of the first half "
+        f"{classes['first_half']}, of the second {classes['second_half']}, "
+        f"of the drifted pool {classes['drifted']}; first fit "
+        f"({STREAM_HALF // STREAM_CHUNK} partial_fit chunks) {fit_s:.3f} s,"
+        f" its K-means labels differ from the served labels of the same "
+        f"points on {label_gap:.4f}; healthy traffic quiet (chi2 "
+        f"{quiet.chi2:.3g}, max delta {quiet.max_frac_delta:.3g})")
+    log(f"[lifecycle] stream: drift fired ({drift.reason}; approx err p50 "
+        f"{drift.approx_err_p50:.4f}, p95 {drift.approx_err_p95:.4f} over "
+        f"{drift.samples} queries); rollout v{rollout.version}: refit "
+        f"{rollout.refit_s:.4f} s, publish {rollout.publish_s:.4f} s, swap "
+        f"{rollout.swap_s:.4f} s, detect -> swap "
+        f"{rollout.detect_to_swap_s:.4f} s; one rollout, 0 stranded "
+        f"futures; drifted-set accuracy {acc_before:.4f} -> "
+        f"{acc_after:.4f}; monitor errors through gram vs plain kappa max "
+        f"abs diff {err_gap:.2e}")
+    log(f"[lifecycle] gram at the drift shape {gram['shape']}: kernel "
+        f"{gram['ms']:.4f} ms (back to back {gram['ms_back_to_back']:.4f}), "
+        f"plain {gram['plain_ms']:.4f} ms, bound {gram['bound_ms']:.5f} ms "
+        f"({gram['bound_term']})")
+    return info, gram
+
+
+def phase_lifecycle(torch, model, X, y, Xq, yq) -> tuple:
+    """Phase 9: 9a serving lifecycle on phase 4's model, 9b the streaming
+    loop; the launches of their deterministic parts."""
+    tally = LaunchTally(torch)
+    info = {"serve": lifecycle_serve(torch, model, Xq, tally)}
+    info["stream"], gram = lifecycle_stream(torch, X, y, Xq, yq, tally)
+    log(f"[lifecycle] launches {tally.launches}")
+    return tally.launches, info, gram
+
+
 def phase_device(torch, kernels, inputs, model, Xq) -> dict:
     """Card time alone, from torch.profiler traces, taken last so that no
     earlier phase runs after the profiler: kmeans_assign at its main shape
@@ -1755,14 +2171,18 @@ def main() -> int:
         torch, X, yall[:N_TRAIN], Xq, est)
     for name, cases in widths.items():
         kernels[name]["landmark_widths"] = cases
+    lifecycle_launches, summary["lifecycle"], gram_drift = phase_lifecycle(
+        torch, est.model_, X, yall[:N_TRAIN], Xq, yall[N_TRAIN:])
+    kernels["gram_stripe"]["drift_shape"] = gram_drift
     summary["serve"].update(phase_device(torch, kernels, inputs, est.model_,
                                          Xq))
     launches = {name: fit_launches[name] + serve_launches[name]
                 + stream_launches[name] + backend_launches[name]
-                for name in SOURCES}
+                + lifecycle_launches[name] for name in SOURCES}
     summary["launches"] = {"fit": fit_launches, "serve": serve_launches,
                            "stream": stream_launches,
-                           "backends": backend_launches}
+                           "backends": backend_launches,
+                           "lifecycle": lifecycle_launches}
     log(f"[main path] launches {launches}")
     idle = [name for name in MAIN_PATH if launches[name] == 0]
     if idle:
@@ -1794,7 +2214,8 @@ def main() -> int:
                                  "copy_ms", "read_ms", "library_note",
                                  "dynamic_smem_bytes", "serving_widths",
                                  "plan", "tiled", "deep", "tf32_matmul",
-                                 "registry_case", "landmark_widths")}})
+                                 "registry_case", "landmark_widths",
+                                 "drift_shape")}})
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -1,0 +1,483 @@
+"""Serving benchmarks: sync, async, warm swap and the streaming loop.
+
+  sync    `benchmark_assign` — bucketed assignments/sec per batch size
+          through MicroBatcher (one warmup call per size pays the first
+          launch of its bucket);
+  async   `benchmark_async` — request traffic through AsyncBatcher with
+          deadline-driven flushing; reports the LatencyStats summary
+          (p50/p95/p99, queue wait, SLO violations) plus throughput;
+  swap    `benchmark_swap` — async traffic with a warm hot-swap
+          (registry.swap) in the middle: measured flip duration plus p95
+          before/after from the surviving LatencyStats;
+  stream  `benchmark_stream` — the streaming fit (repro_torch.stream):
+          partial_fit accumulation throughput, the re-eig cost, and the
+          detection-to-swap latency of one full drift rollout (trigger ->
+          refit -> publish -> warm swap) against a real VersionStore +
+          ModelRegistry.
+
+These are the JAX package's benches (repro.serve.bench) with its schema,
+less the sections that read XLA's cost analysis or a mesh. Randomness
+comes from a numpy seed; every wall-clock read on the card follows a
+`torch.cuda.synchronize()`, so a time covers the device work it names.
+`write_bench` writes the port's own file, BENCH_serve_torch.json by
+default (BENCH_serve.json belongs to the JAX package's regression gate).
+
+Schema (the dicts these return; callers merge them, e.g.
+bench = benchmark_assign(m); bench["async"] = benchmark_async(m)):
+
+    {"model": {...spec...}, "backend": "cuda" | "cpu", "device": name,
+     "batch_sizes": [...],
+     "results": [{"batch_size": b, "bucket": B, "calls": c, "wall_s": t,
+                  "assignments_per_sec": qps}, ...],
+     "bucket_executables": [...],
+     "async": {"max_wait_ms": ..., "wall_s": ..., "queries_per_sec": ...,
+               "latency": <LatencyStats.summary()>},
+     "swap": {"flip_ms": ..., "warm_s": ..., "drain_s": ...,
+              "buckets_warmed": [...], "drained_requests": ...,
+              "p95_before_ms": ..., "p95_after_ms": ...,
+              "stranded_futures": 0},
+     "stream": {"partial_fit_chunks_per_sec": ...,
+                "partial_fit_cols_per_sec": ..., "reeig_s": ...,
+                "rollout": {"detect_to_swap_s": ..., "refit_s": ...,
+                            "publish_s": ..., "swap_s": ...,
+                            "stranded_futures": 0, "retrains": 1}}}
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.serve.artifact import FittedModel
+from repro_torch.serve.batcher import MicroBatcher, bucket_size
+from repro_torch.serve.registry import ModelRegistry
+from repro_torch.serve.scheduler import AsyncBatcher
+
+BENCH_PATH = "BENCH_serve_torch.json"
+
+
+def _sync(device) -> None:
+    """Wait for the card before a host-clock read (no-op on the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _device_name(device) -> str:
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"
+
+
+def _min_call_time(fn, repeats: int, device, min_total_s: float = 0.25,
+                   max_calls: int = 1000):
+    """(best per-call seconds, calls made, total wall seconds).
+
+    Throughput from the BEST of an auto-calibrated number of calls
+    (timeit's estimator): serving calls finish in ~ms, where a mean over
+    a fixed handful of calls is dominated by scheduler/GC outliers.
+    `repeats` is the floor; the count is raised until ~min_total_s of
+    samples back the minimum. The caller must have warmed `fn` already.
+    """
+    def timed():
+        _sync(device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        return time.perf_counter() - t0
+
+    est = timed()
+    calls = max(int(repeats),
+                min(max_calls, int(min_total_s / max(est, 1e-9)) + 1))
+    times = [est] + [timed() for _ in range(calls - 1)]
+    return min(times), calls, sum(times)
+
+
+def _traffic(p: int, n_requests: int, width_range: Sequence[int],
+             seed: int):
+    """Request widths uniform in width_range and their (p, sum) queries."""
+    rng = np.random.RandomState(seed)
+    lo, hi = int(width_range[0]), int(width_range[1])
+    widths = rng.randint(lo, hi + 1, size=n_requests)
+    queries = rng.randn(p, int(widths.sum())).astype(np.float32)
+    return widths, queries
+
+
+def _warm_all_buckets(batcher: MicroBatcher) -> None:
+    """One zero batch per pow-2 bucket in [min_bucket, max_bucket]:
+    steady-state percentiles, not first-launch spikes."""
+    bsz = batcher.min_bucket
+    widths = []
+    while bsz <= batcher.max_bucket:
+        widths.append(bsz)
+        bsz *= 2
+    batcher.warm(widths)
+
+
+def benchmark_assign(model: FittedModel,
+                     batch_sizes: Sequence[int] = (64, 512),
+                     repeats: int = 5, seed: int = 0,
+                     block: Optional[int] = None, policy=None,
+                     max_bucket: int = 1024) -> Dict:
+    """Drive synthetic query load through a MicroBatcher; returns the dict
+    documented in the module docstring."""
+    rng = np.random.RandomState(seed)
+    batcher = MicroBatcher(model, block=block, policy=policy,
+                           max_bucket=max_bucket)
+    results = []
+    for b in batch_sizes:
+        Xq = torch.from_numpy(rng.randn(model.spec.p, b).astype(
+            np.float32)).to(model.device)
+        batcher.assign_batch(Xq)                    # warmup: first launch
+        best, calls, wall = _min_call_time(
+            lambda: batcher.assign_batch(Xq), repeats, model.device)
+        results.append({
+            "batch_size": int(b),
+            "bucket": bucket_size(b, batcher.min_bucket, batcher.max_bucket),
+            "calls": int(calls),
+            "wall_s": wall,
+            "assignments_per_sec": b / best,
+        })
+    return {
+        "model": dataclasses.asdict(model.spec),
+        "backend": model.device.type,
+        "device": _device_name(model.device),
+        "batch_sizes": [int(b) for b in batch_sizes],
+        "results": results,
+        "bucket_executables": batcher.executables,
+    }
+
+
+def benchmark_async(model: FittedModel,
+                    n_requests: int = 256,
+                    width_range: Sequence[int] = (1, 64),
+                    max_wait_ms: float = 2.0,
+                    slo_ms: float = 250.0,
+                    seed: int = 0,
+                    block: Optional[int] = None, policy=None,
+                    max_bucket: int = 1024) -> Dict:
+    """Request traffic through AsyncBatcher; returns latency percentiles.
+
+    Submits n_requests of uniformly random widths in width_range, polling
+    the deadline between submits (cooperative mode — the bench IS the
+    event loop, so numbers are not polluted by pump-thread jitter), then
+    flushes the tail. Every pow-2 bucket the traffic can hit is warmed
+    first.
+    """
+    widths, queries = _traffic(model.spec.p, n_requests, width_range, seed)
+    async_batcher = AsyncBatcher(model, max_wait_ms=max_wait_ms,
+                                 slo_ms=slo_ms, block=block, policy=policy,
+                                 max_bucket=max_bucket)
+    _warm_all_buckets(async_batcher.batcher)
+    async_batcher.batcher.reset_stats()
+
+    futures = []
+    off = 0
+    _sync(model.device)
+    t0 = time.perf_counter()
+    for w in widths:
+        futures.append(async_batcher.submit(queries[:, off:off + w]))
+        off += w
+        async_batcher.poll()
+    async_batcher.flush()
+    for fut in futures:
+        fut.result()                              # all resolved by flush
+    _sync(model.device)
+    wall = time.perf_counter() - t0
+    total_q = int(widths.sum())
+    return {
+        "mode": "async",
+        "n_requests": int(n_requests),
+        "width_range": [int(width_range[0]), int(width_range[1])],
+        "max_wait_ms": float(max_wait_ms),
+        "wall_s": wall,
+        "queries_per_sec": total_q / wall,
+        "latency": async_batcher.latency.summary(),
+        "bucket_executables": async_batcher.batcher.executables,
+    }
+
+
+def benchmark_swap(model: FittedModel,
+                   new_model: Optional[FittedModel] = None,
+                   n_requests: int = 128,
+                   width_range: Sequence[int] = (1, 64),
+                   max_wait_ms: float = 2.0,
+                   slo_ms: float = 250.0,
+                   seed: int = 0,
+                   block: Optional[int] = None, policy=None,
+                   max_bucket: int = 1024) -> Dict:
+    """Async traffic with a warm hot-swap in the middle; measures the flip.
+
+    Half the requests run against the original model, registry.swap()
+    flips to `new_model` (default: a re-wrap of the same fit — the
+    same-spec refresh case every real redeploy hits), the other half run
+    against the swapped-in row. All timing comes from the surviving
+    LatencyStats, so p95_before/p95_after are directly comparable — the
+    after number includes the before samples (cumulative histogram): a
+    swap that stalled traffic shows up as p95_after >> p95_before.
+    Every future is checked resolved; `stranded_futures` must be 0.
+    """
+    widths, queries = _traffic(model.spec.p, n_requests, width_range, seed)
+    reg = ModelRegistry()
+    reg.register("swap-bench", model, version=1)
+    sched = reg.scheduler("swap-bench", max_wait_ms=max_wait_ms,
+                          slo_ms=slo_ms, block=block, policy=policy,
+                          max_bucket=max_bucket)
+    # Warm every reachable bucket so the percentiles measure steady-state
+    # serving (and the swap's warm phase has a full history to replay).
+    _warm_all_buckets(sched.batcher)
+
+    half = n_requests // 2
+    pend_n = min(4, half)
+    futures = []
+    off = 0
+
+    def drive(target, lo_i, hi_i, flush=True):
+        nonlocal off
+        for w in widths[lo_i:hi_i]:
+            futures.append(target.submit(queries[:, off:off + w]))
+            off += w
+            if flush:
+                target.poll()
+        if flush:
+            target.flush()
+
+    _sync(model.device)
+    t0 = time.perf_counter()
+    drive(sched, 0, half - pend_n)
+    # The last pre-swap requests stay PENDING at flip time: the swap's
+    # drain — not a client flush — must resolve them through the old
+    # model, so drained_requests measures the real pending-at-flip path.
+    drive(sched, half - pend_n, half, flush=False)
+    report = reg.swap("swap-bench",
+                      new_model if new_model is not None
+                      else model._replace(), version=2)
+    sched2 = reg.scheduler("swap-bench")
+    drive(sched2, half, n_requests)
+    _sync(model.device)
+    wall = time.perf_counter() - t0
+    report.p95_after_ms = sched2.latency.total.percentile(95.0)
+    stranded = sum(not f.done() for f in futures)
+    reg.unregister("swap-bench")
+    out = {"mode": "swap", "n_requests": int(n_requests),
+           "width_range": [int(width_range[0]), int(width_range[1])],
+           "max_wait_ms": float(max_wait_ms),
+           "wall_s": wall, "stranded_futures": int(stranded)}
+    out.update({k: v for k, v in report.to_dict().items()
+                if k not in ("name", "old_version", "new_version")})
+    return out
+
+
+def benchmark_stream(model: FittedModel, n_chunks: int = 8,
+                     chunk_cols: int = 128, repeats: int = 3,
+                     seed: int = 0, block: Optional[int] = None,
+                     max_wait_ms: float = 2.0) -> Dict:
+    """The streaming-fit path (repro_torch.stream) as bench numbers.
+
+    Three read-outs:
+
+      partial_fit_*_per_sec  accumulation throughput: chunks folded with
+                             reeig=False (the steady-state ingest path) —
+                             best pass of `repeats`, each on a fresh
+                             accumulator;
+      reeig_s                re-eig cost at full capacity (one_pass_core
+                             + full K-means re-cluster), best of
+                             `repeats` after a warmup call;
+      rollout                detection-to-swap latency of one REAL drift
+                             rollout — drifted async traffic observed by
+                             a DriftMonitor, RetrainWorker.step() doing
+                             refit -> VersionStore.publish -> warm
+                             registry.swap — with the zero-stranded-
+                             futures invariant re-checked.
+
+    The accumulation/re-eig section streams random data through the
+    model's spec (coerced to a one-pass backend) on the model's device;
+    the rollout is a self-contained 1-d drift demo there.
+    """
+    import tempfile
+
+    from repro_torch.api import KernelKMeans
+    from repro_torch.serve.versions import VersionStore
+    from repro_torch.stream import DriftMonitor, RetrainWorker
+
+    spec, device = model.spec, model.device
+    backend = (spec.backend if spec.backend.startswith("onepass-")
+               else "onepass-srht")
+    blk = min(block or spec.block, chunk_cols)
+    capacity = int(n_chunks) * int(chunk_cols)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn((spec.p, capacity), generator=gen, device=device)
+
+    def one_pass():
+        est = KernelKMeans(k=spec.k, r=spec.r, kernel=spec.kernel,
+                           kernel_params=spec.kernel_params,
+                           backend=backend, block=blk, device=device)
+        est.partial_fit(X[:, :chunk_cols], seed=seed, capacity=capacity,
+                        reeig=False)               # warmup chunk
+        _sync(device)
+        t0 = time.perf_counter()
+        for i in range(1, n_chunks):
+            est.partial_fit(X[:, i * chunk_cols:(i + 1) * chunk_cols],
+                            reeig=False)
+        _sync(device)
+        return time.perf_counter() - t0, est
+
+    walls = []
+    for _ in range(max(int(repeats), 1)):
+        wall, est = one_pass()
+        walls.append(wall)
+    accum_best = min(walls)
+
+    est.reeig_now()                                # warmup
+    reeig_times = []
+    for _ in range(max(int(repeats), 1)):
+        _sync(device)
+        t0 = time.perf_counter()
+        est.reeig_now()
+        _sync(device)
+        reeig_times.append(time.perf_counter() - t0)
+
+    # One full drift rollout against a real store + registry.
+    rng = np.random.RandomState(0)
+
+    def blobs(xs, n_per=80):
+        cols = []
+        for x0 in xs:
+            c = np.zeros((2, n_per), np.float32)
+            c[0] = x0 + 0.25 * rng.randn(n_per)
+            c[1] = 0.25 * rng.randn(n_per)
+            cols.append(c)
+        return np.concatenate(cols, axis=1)
+
+    X0, Xd = blobs((-2.0, 2.0)), blobs((3.0, 8.0))
+    demo = KernelKMeans(k=2, r=2, kernel="linear", backend="onepass-srht",
+                        block=64, device=device)
+    demo.partial_fit(X0, seed=seed, capacity=X0.shape[1] + Xd.shape[1])
+    with tempfile.TemporaryDirectory() as tmp:
+        store = VersionStore(tmp, keep=2)
+        reg = ModelRegistry()
+        reg.register("stream-bench", demo.model_,
+                     version=store.publish(demo.model_))
+        sched = reg.scheduler("stream-bench", max_wait_ms=max_wait_ms)
+        mon = DriftMonitor(demo.model_, ref_labels=demo.labels_,
+                           min_queries=64)
+        worker = RetrainWorker("stream-bench", reg, store, mon,
+                               lambda rep: demo.partial_fit(Xd).model_)
+        chunks = [Xd[:, i * 20:(i + 1) * 20] for i in range(8)]
+        futures = [sched.submit(ch) for ch in chunks]
+        sched.flush()
+        for ch, fut in zip(chunks, futures):
+            mon.observe(ch, fut.result()[0])
+        pending = sched.submit(Xd[:, :8])          # drained by the swap
+        rollout = worker.step()
+        if rollout is None:
+            raise RuntimeError("drift rollout did not fire")
+        stranded = sum(not f.done() for f in futures + [pending])
+        reg.unregister("stream-bench")             # retire the new row
+
+    return {
+        "mode": "stream",
+        "stream_backend": backend,
+        "chunk_cols": int(chunk_cols),
+        "n_chunks": int(n_chunks),
+        "capacity": capacity,
+        "block": int(blk),
+        "partial_fit_chunks_per_sec": (n_chunks - 1) / accum_best,
+        "partial_fit_cols_per_sec":
+            (n_chunks - 1) * chunk_cols / accum_best,
+        "reeig_s": min(reeig_times),
+        "rollout": {
+            "detect_to_swap_s": float(rollout.detect_to_swap_s),
+            "refit_s": float(rollout.refit_s),
+            "publish_s": float(rollout.publish_s),
+            "swap_s": float(rollout.swap_s),
+            "drift_chi2": float(rollout.drift.chi2),
+            "drained_requests": int(rollout.swap.drained_requests),
+            "stranded_futures": int(stranded),
+            "retrains": int(worker.retrains),
+        },
+    }
+
+
+def median_benches(benches: Sequence[Dict]) -> Dict:
+    """Per-leaf median across K same-shape bench dicts.
+
+    A single bench pass's async latency section moves with transient
+    machine state even after min-of-N per-call timing, so a caller runs
+    the benches K times and keeps the element-wise median. Non-numeric
+    leaves (and bools/strings) take the first pass's value.
+    """
+    def merge(vals):
+        v0 = vals[0]
+        if isinstance(v0, dict):
+            # Timing-dependent sections (the async per-bucket breakdown)
+            # can legitimately differ in keys across passes — a request
+            # that coalesced into bucket 512 on pass 1 may land in 1024
+            # on pass 2. Median over the passes that saw the key.
+            return {k: merge([v[k] for v in vals
+                              if isinstance(v, dict) and k in v])
+                    for k in v0}
+        if isinstance(v0, list):
+            return [merge([v[i] for v in vals]) for i in range(len(v0))]
+        if isinstance(v0, bool) or not isinstance(v0, (int, float)):
+            return v0
+        med = statistics.median(vals)
+        # Even pass counts give float midpoints; round (not truncate)
+        # integer leaves like calls / slo_violations.
+        return round(med) if isinstance(v0, int) else float(med)
+
+    benches = list(benches)
+    return benches[0] if len(benches) == 1 else merge(benches)
+
+
+def format_bench(bench: Dict) -> str:
+    """Human-readable lines for a bench dict."""
+    lines = []
+    for row in bench.get("results", []):
+        lines.append(f"batch {row['batch_size']:>6d} "
+                     f"(bucket {row['bucket']:>5d}): "
+                     f"{row['assignments_per_sec']:>12.0f} assignments/sec")
+    if "async" in bench:
+        a = bench["async"]
+        lat = a["latency"]["latency_ms"]
+        lines.append(f"async: {a['queries_per_sec']:>12.0f} queries/sec  "
+                     f"p50 {lat['p50']:.2f} ms  p95 {lat['p95']:.2f} ms  "
+                     f"p99 {lat['p99']:.2f} ms  SLO violations "
+                     f"{a['latency']['slo_violations']}")
+    if "swap" in bench:
+        s = bench["swap"]
+        after = (f"{s['p95_after_ms']:.2f}"
+                 if s.get("p95_after_ms") is not None else "—")
+        lines.append(
+            f"swap: flip {s['flip_ms']:.3f} ms  warm {s['warm_s']:.3f} s "
+            f"(buckets {s['buckets_warmed']})  p95 {s['p95_before_ms']:.2f}"
+            f" -> {after} ms  stranded futures {s['stranded_futures']}")
+    if "stream" in bench:
+        st = bench["stream"]
+        ro = st["rollout"]
+        lines.append(
+            f"stream: partial_fit {st['partial_fit_cols_per_sec']:>10.0f} "
+            f"cols/sec ({st['partial_fit_chunks_per_sec']:.1f} chunks/sec "
+            f"@ {st['chunk_cols']} cols)  re-eig {st['reeig_s'] * 1e3:.1f}"
+            f" ms @ n={st['capacity']}")
+        lines.append(
+            f"  drift rollout: detect->swap {ro['detect_to_swap_s']:.3f} s"
+            f" (refit {ro['refit_s']:.3f} s, publish {ro['publish_s']:.3f}"
+            f" s, swap {ro['swap_s']:.3f} s)  stranded futures "
+            f"{ro['stranded_futures']}")
+    return "\n".join(lines)
+
+
+def write_bench(path: Optional[str], bench: Dict) -> str:
+    """Write `bench` as JSON to `path` (None: BENCH_PATH); returns it."""
+    path = path or BENCH_PATH
+    with open(path, "w") as f:
+        json.dump(bench, f, indent=1, sort_keys=True)
+        f.write("\n")
+    return path

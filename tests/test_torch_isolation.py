@@ -42,7 +42,10 @@ def test_port_covers_the_slice_modules():
                 "api/estimator.py", "data/synthetic.py",
                 "stream/minibatch.py", "distributed/checkpoint.py",
                 "distributed/compression.py", "core/nystrom.py",
-                "core/exact.py", "core/linearized.py", "core/onepass.py"):
+                "core/exact.py", "core/linearized.py", "core/onepass.py",
+                "serve/latency.py", "serve/scheduler.py", "serve/versions.py",
+                "serve/registry.py", "serve/bench.py", "stream/drift.py",
+                "stream/retrain.py"):
         assert (port / rel).is_file(), rel
     for name in ("gram", "kmeans_assign", "extend_embed", "fit_sketch",
                  "fwht"):
