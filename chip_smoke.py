@@ -86,6 +86,23 @@ Phases, each fatal on failure:
      monitor's errors through the gram kernel against the plain kappa,
      and gram timed at the drift shape. Launches are counted on the
      parts no pump thread serves;
+  10. fleet (run after 9 and before 7): phase 4's model published to a
+     VersionStore under build/ and served by Fleet(store, n_workers=2,
+     max_wait_ms=2.0, slo_ms=250.0, device="cuda"), cooperatively (no
+     pump): phase 9a's 256 requests, least-loaded, each equal to an
+     unbatched Extender.assign of its queries bit for bit, both replicas
+     serving, labels against the two-pass plain extension (near-tie
+     rule); under hash routing 64 keyed requests sent twice land on the
+     same replica both times; v2 (centroid rows reversed) published and
+     gc(keep=1) leaves v1, which both replicas pin; a canary rollout to
+     v2 with 8 requests pending (promoted, every replica on v2, 0
+     stranded, the pending ones answered by v1 bit for bit, later ones
+     labelled k - 1 - old), then a rollout to v3 whose probe breaches,
+     rolled back with every replica on v2; the 256 requests flooded at a
+     cap of 64 columns per replica (shed > 0, admitted p99 within the
+     SLO); every pin released when a fleet stops; benchmark_fleet at 1, 2
+     and 4 replicas with live pumps (q/s and percentiles printed, the
+     scaling not gated). Launches are counted on the cooperative parts;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -187,6 +204,15 @@ DRIFT_FROM = 70_000
 TRAFFIC_COLS = 2_000
 TRAFFIC_WIDTH = 50
 PIN_OWNER = "chip_smoke"
+# Phase 10: replicas behind the fleet's front door (on the one card), the
+# keys sent twice under hash routing, the per-replica queue cap of the
+# overload, and benchmark_fleet's replica counts and requests.
+FLEET_WORKERS = 2
+FLEET_KEYS = 64
+OVERLOAD_DEPTH = 64
+FLEET_SWEEP = (1, 2, 4)
+FLEET_BENCH_REQUESTS = 192
+FLEET_KW = {"max_wait_ms": 2.0, "slo_ms": 250.0}     # the JAX bench's
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -1751,6 +1777,20 @@ def plain_distances(torch, model, Xb):
     return plain.assign(Xb), dist
 
 
+def held_out_requests(Xq) -> list:
+    """ASYNC_REQUESTS requests of ASYNC_WIDTHS held-out queries at random
+    offsets (seed SEED), as host arrays."""
+    rng = np.random.RandomState(SEED)
+    lo, hi = ASYNC_WIDTHS
+    widths = rng.randint(lo, hi + 1, size=ASYNC_REQUESTS)
+    host = Xq.cpu().numpy()
+    reqs = []
+    for w in widths:
+        a = rng.randint(0, N_QUERY - w + 1)
+        reqs.append(np.ascontiguousarray(host[:, a:a + w]))
+    return reqs
+
+
 def lifecycle_serve(torch, model, Xq, tally) -> dict:
     """9a: phase 4's model behind the registry's async front door with its
     pump thread live; async == sync drain bit for bit; labels against the
@@ -1760,15 +1800,8 @@ def lifecycle_serve(torch, model, Xq, tally) -> dict:
     from repro_torch.serve import (ComputePolicy, MicroBatcher,
                                    ModelRegistry, VersionStore,
                                    benchmark_async, benchmark_swap)
-    rng = np.random.RandomState(SEED)
-    lo, hi = ASYNC_WIDTHS
-    widths = rng.randint(lo, hi + 1, size=ASYNC_REQUESTS)
-    host = Xq.cpu().numpy()
-    reqs = []
-    for w in widths:
-        a = rng.randint(0, N_QUERY - w + 1)
-        reqs.append(np.ascontiguousarray(host[:, a:a + w]))
-    queries = int(widths.sum())
+    reqs = held_out_requests(Xq)
+    queries = sum(r.shape[1] for r in reqs)
 
     reg = ModelRegistry()
     reg.register("main", model)
@@ -2084,6 +2117,259 @@ def phase_lifecycle(torch, model, X, y, Xq, yq) -> tuple:
     return tally.launches, info, gram
 
 
+def fleet_serve(fleet, reqs, keys=None) -> tuple:
+    """Submit `reqs` to a cooperative fleet (control() every 16 requests,
+    the JAX bench's cadence), then drain it: the answers, and the worker
+    each request was queued on."""
+    def accepted(w):            # queued or completed, across flushes
+        return w.scheduler().pending_requests + w.latency.requests
+
+    futs, placed = [], []
+    for i, r in enumerate(reqs):
+        before = [accepted(w) for w in fleet.workers]
+        futs.append(fleet.submit(r, key=None if keys is None else keys[i]))
+        placed.append(next(w.worker_id for w, n in zip(fleet.workers, before)
+                           if accepted(w) > n))
+        if (i + 1) % 16 == 0:
+            fleet.control()
+    fleet.flush()
+    return [f.result(timeout=0) for f in futs], placed
+
+
+def released(store) -> None:
+    held = {v: pins for v in store.versions() if (pins := store.pins(v))}
+    if held:
+        raise AssertionError(f"pins left after the fleet stopped: {held}")
+
+
+def fleet_answers(torch, model, store, reqs, want, tally) -> tuple:
+    """10a: two replicas behind least-loaded routing answer every request
+    as an unbatched Extender.assign, bit for bit; hash routing places a
+    key on the same replica twice."""
+    from repro_torch.fleet import Fleet
+    from repro_torch.kernels.registry import near_tie_compare
+    from repro_torch.serve import VersionStore
+    fleet = Fleet(store, n_workers=FLEET_WORKERS, device=DEVICE, **FLEET_KW)
+    tally(lambda: [w.scheduler().batcher.warm(ALL_BUCKETS)
+                   for w in fleet.workers])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    answers, placed = tally(lambda: fleet_serve(fleet, reqs))
+    wall = time.perf_counter() - t0
+    same_answers("a fleet-routed request != an unbatched Extender.assign",
+                 answers, want)
+    per_worker = {w.worker_id: placed.count(w.worker_id)
+                  for w in fleet.workers}
+    if min(per_worker.values()) == 0:
+        raise AssertionError(f"a replica served nothing: {per_worker}")
+    Xcat = torch.from_numpy(np.concatenate(reqs, axis=1)).to(model.device)
+    plain, dist = plain_distances(torch, model, Xcat)
+    got = (np.concatenate([a[0] for a in answers]),
+           np.concatenate([a[1] for a in answers]))
+    near_tie_compare(got, plain, TOL, TOL, dist)
+    queries = int(Xcat.shape[1])
+    lat = fleet.latency().summary()
+    info = {"requests": len(reqs), "queries": queries,
+            "requests_per_worker": per_worker, "wall_s": wall,
+            "queries_per_s": queries / wall, "latency": lat,
+            "equals_unbatched_assign": True,
+            "label_mismatch_vs_two_pass": float(
+                (got[0] != plain[0].cpu().numpy()).mean())}
+    log(f"[fleet] {len(reqs)} requests ({queries} queries), least-loaded "
+        f"over {FLEET_WORKERS} replicas {per_worker}, cooperative: "
+        f"{queries / wall:.0f} queries/s, total p50 / p95 / p99 "
+        f"{lat['latency_ms']['p50']:.3f} / {lat['latency_ms']['p95']:.3f} "
+        f"/ {lat['latency_ms']['p99']:.3f} ms; == unbatched "
+        f"Extender.assign bit for bit; labels against the two-pass plain "
+        f"extension by the near-tie rule")
+
+    # A store of its own: a fleet names its replicas w0, w1, ..., the
+    # owners of their pins, so a second fleet on the first one's store
+    # would release the first one's pins when it stops.
+    own = VersionStore(str(store.root.parent / "hash"))
+    own.publish(model)
+    hashed = Fleet(own, n_workers=FLEET_WORKERS, routing="hash",
+                   device=DEVICE, **FLEET_KW)
+    tally(lambda: [w.scheduler().batcher.warm(ALL_BUCKETS)
+                   for w in hashed.workers])
+    keys = [f"session-{i}" for i in range(FLEET_KEYS)]
+    rounds = [tally(lambda: fleet_serve(hashed, reqs[:FLEET_KEYS], keys))
+              for _ in range(2)]
+    hashed.stop()
+    released(own)
+    if rounds[0][1] != rounds[1][1]:
+        raise AssertionError("a hash-routed key changed replicas")
+    for ans, _ in rounds:
+        same_answers("a hash-routed request", ans, want[:FLEET_KEYS])
+    info["hash_keys_per_worker"] = {w: rounds[0][1].count(w)
+                                    for w in sorted(set(rounds[0][1]))}
+    log(f"[fleet] hash routing: {FLEET_KEYS} keys sent twice landed on the "
+        f"same replica both times {info['hash_keys_per_worker']}")
+    return fleet, info
+
+
+def fleet_rollouts(model, fleet, reqs, want, tally) -> dict:
+    """10b, 10c: pins spare v1 from GC; a canary rollout to v2 (centroid
+    rows reversed) with requests pending, then a breached rollout to v3
+    that rolls back to v2."""
+    store = fleet.store
+    v1 = fleet.workers[0].version
+    v2 = store.publish(model._replace(
+        centroids=model.centroids.flip(0).contiguous()))
+    removed = store.gc(keep=1)
+    if removed or store.versions() != [v1, v2] or \
+            store.pins(v1) != sorted(w.worker_id for w in fleet.workers):
+        raise AssertionError(f"gc(keep=1) under the replicas' pins removed "
+                             f"{removed}, left {store.versions()}, pins "
+                             f"{store.pins(v1)}")
+    held = reqs[:SWAP_PENDING]
+
+    def promote():
+        pending = [fleet.submit(r) for r in held]
+        report = fleet.rollout(v2)
+        fleet.flush()
+        return pending, report
+
+    pending, promote_rep = tally(promote)
+    stranded = sum(not f.done() for f in pending)
+    if not promote_rep.promoted or stranded or any(
+            w.version != v2 for w in fleet.workers):
+        raise AssertionError(f"the rollout to v{v2}: {promote_rep}, "
+                             f"{stranded} stranded")
+    same_answers("a request pending across the rollout",
+                 [f.result(timeout=0) for f in pending], want[:SWAP_PENDING])
+    later = tally(lambda: fleet_serve(fleet, held))[0]
+    for got, old in zip(later, want):
+        if not np.array_equal(got[0], K - 1 - old[0]):
+            raise AssertionError("a later request was not served by v2")
+
+    v3 = store.publish(model)
+
+    def breach():
+        pending = [fleet.submit(r) for r in held]
+        report = fleet.rollout(v3, probe=lambda w: float("inf"))
+        fleet.flush()
+        return pending, report
+
+    pending, rollback_rep = tally(breach)
+    stranded_rb = sum(not f.done() for f in pending)
+    if rollback_rep.state != "rolled-back" or stranded_rb or any(
+            w.version != v2 for w in fleet.workers):
+        raise AssertionError(f"the breached rollout to v{v3}: "
+                             f"{rollback_rep}, {stranded_rb} stranded")
+    for f, old in zip(pending, want):
+        if not np.array_equal(f.result(timeout=0)[0], K - 1 - old[0]):
+            raise AssertionError("a request pending across the rollback "
+                                 "was not served by v2")
+    for name, rep in (("promote", promote_rep), ("rollback", rollback_rep)):
+        log(f"[fleet] rollout {name} to v{rep.version}: state {rep.state}, "
+            f"canary {rep.canary_id} p95 {rep.canary_p95_ms:.3f} ms "
+            f"(budget {rep.budget_ms} ms), timeline " + ", ".join(
+                f"{st} {t:.4f} s" for st, t in rep.timeline)
+            + f", wall {rep.wall_s:.4f} s, flips ms " + ", ".join(
+                f"{k} {v['flip_ms']:.4f}" for k, v in rep.swaps.items()))
+    log(f"[fleet] gc(keep=1) under the replicas' pins left v{v1}, v{v2}; "
+        f"0 stranded futures across the promote and the rollback; "
+        f"requests pending at the promote answered by v{v1} bit for bit, "
+        f"later ones labelled k - 1 - old by v{v2}; every replica on "
+        f"v{v2} after the rollback")
+    return {"gc_keep_1_under_pins": [v1, v2],
+            "promote": promote_rep.to_dict(),
+            "rollback": rollback_rep.to_dict(), "stranded_futures": 0}
+
+
+def fleet_overload(store, reqs, tally) -> dict:
+    """10d: the requests flooded past a per-worker cap, control() every
+    32 and no polls between."""
+    from repro_torch.fleet import Fleet, ShedError
+    fleet = Fleet(store, n_workers=FLEET_WORKERS,
+                  max_queue_depth=OVERLOAD_DEPTH, device=DEVICE,
+                  **FLEET_KW)
+    tally(lambda: [w.scheduler().batcher.warm(ALL_BUCKETS)
+                   for w in fleet.workers])
+
+    def flood():
+        futs, shed, breaker = [], 0, False
+        for i, r in enumerate(reqs):
+            try:
+                futs.append(fleet.submit(r))
+            except ShedError:
+                shed += 1
+            if (i + 1) % 32 == 0:
+                breaker = fleet.control()["breaker_open"] or breaker
+        fleet.flush()
+        return [f.result(timeout=0) for f in futs], shed, breaker
+
+    admitted, shed, breaker = tally(flood)
+    p99 = fleet.latency().total.percentile(99.0)
+    adm = fleet.admission.summary()
+    fleet.stop()
+    if shed == 0 or p99 > fleet.slo_ms:
+        raise AssertionError(f"overload: shed {shed}, admitted p99 {p99} ms")
+    log(f"[fleet] overload at {OVERLOAD_DEPTH} columns per replica: "
+        f"{len(reqs)} offered, {len(admitted)} admitted, {shed} shed "
+        f"{adm['shed_by_reason']}, admitted p99 {p99:.3f} ms (SLO "
+        f"{fleet.slo_ms} ms), breaker opened: {breaker}")
+    return {"offered": len(reqs), "admitted": len(admitted), "shed": shed,
+            "shed_by_reason": adm["shed_by_reason"],
+            "admitted_p99_ms": p99, "breaker_opened": breaker}
+
+
+def phase_fleet(torch, model, Xq) -> tuple:
+    """Phase 10: phase 4's model served by a fleet of replicas on the card
+    from a VersionStore under build/: routing and answers, pins against
+    GC, canary rollout and rollback, overload (all cooperative: launches
+    counted); then benchmark_fleet with live pumps (not counted)."""
+    from repro_torch.fleet import benchmark_fleet
+    from repro_torch.serve import ComputePolicy, Extender, VersionStore
+    t_phase = time.perf_counter()
+    tally = LaunchTally(torch)
+    reqs = held_out_requests(Xq)
+    unbatched = Extender(model, policy=ComputePolicy())
+    want = [tuple(x.cpu().numpy() for x in unbatched.assign(
+        torch.from_numpy(r).to(model.device))) for r in reqs]
+    BUILD.mkdir(parents=True, exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=BUILD)
+    store = VersionStore(str(pathlib.Path(work.name) / "versions"))
+    store.publish(model)
+    fleet, info = fleet_answers(torch, model, store, reqs, want, tally)
+    info["rollout"] = fleet_rollouts(model, fleet, reqs, want, tally)
+    fleet.stop()
+    released(store)
+    info["overload"] = fleet_overload(store, reqs, tally)
+    released(store)
+    work.cleanup()
+
+    t0 = time.perf_counter()
+    bench = benchmark_fleet(model, worker_counts=FLEET_SWEEP,
+                            n_requests=FLEET_BENCH_REQUESTS, seed=SEED,
+                            device=DEVICE, **FLEET_KW)
+    bench["wall_s"] = time.perf_counter() - t0
+    for row in bench["sweep"]:
+        log(f"[fleet] benchmark_fleet, {row['workers']} replica(s), pumps "
+            f"live: {row['queries_per_sec']:.0f} queries/s, p50 / p95 / p99 "
+            f"{row['p50_ms']:.3f} / {row['p95_ms']:.3f} / "
+            f"{row['p99_ms']:.3f} ms, SLO violations "
+            f"{row['slo_violations']}")
+    ov, ro = bench["overload"], bench["rollout"]
+    log(f"[fleet] benchmark_fleet: qps_vs_1_worker "
+        f"{bench['scaling']['qps_vs_1_worker']:.3f} at "
+        f"{bench['scaling']['workers_max']} replicas (not gated); overload "
+        f"{ov['offered']} offered, {ov['shed']} shed {ov['shed_by_reason']}"
+        f", admitted p99 {ov['admitted_p99_ms']:.3f} ms, breaker "
+        f"{ov['breaker_opened']}; promote {ro['promote_s']:.4f} s, rollback "
+        f"{ro['rollback']['state']}, stranded {ro['stranded_futures']}; "
+        f"{bench['wall_s']:.2f} s")
+    info["benchmark_fleet"] = bench
+    if tally.launches["embed_assign"] == 0:
+        raise AssertionError("phase 10 never launched embed_assign")
+    info["launches"] = tally.launches
+    info["phase_s"] = time.perf_counter() - t_phase
+    log(f"[fleet] launches {tally.launches}; phase 10 took "
+        f"{info['phase_s']:.2f} s")
+    return tally.launches, info
+
+
 def phase_device(torch, kernels, inputs, model, Xq) -> dict:
     """Card time alone, from torch.profiler traces, taken last so that no
     earlier phase runs after the profiler: kmeans_assign at its main shape
@@ -2174,15 +2460,18 @@ def main() -> int:
     lifecycle_launches, summary["lifecycle"], gram_drift = phase_lifecycle(
         torch, est.model_, X, yall[:N_TRAIN], Xq, yall[N_TRAIN:])
     kernels["gram_stripe"]["drift_shape"] = gram_drift
+    fleet_launches, summary["fleet"] = phase_fleet(torch, est.model_, Xq)
     summary["serve"].update(phase_device(torch, kernels, inputs, est.model_,
                                          Xq))
     launches = {name: fit_launches[name] + serve_launches[name]
                 + stream_launches[name] + backend_launches[name]
-                + lifecycle_launches[name] for name in SOURCES}
+                + lifecycle_launches[name] + fleet_launches[name]
+                for name in SOURCES}
     summary["launches"] = {"fit": fit_launches, "serve": serve_launches,
                            "stream": stream_launches,
                            "backends": backend_launches,
-                           "lifecycle": lifecycle_launches}
+                           "lifecycle": lifecycle_launches,
+                           "fleet": fleet_launches}
     log(f"[main path] launches {launches}")
     idle = [name for name in MAIN_PATH if launches[name] == 0]
     if idle:

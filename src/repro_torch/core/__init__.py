@@ -14,7 +14,7 @@ from repro_torch.core.metrics import (clustering_accuracy,
                                       kernel_approx_error,
                                       kernel_approx_error_streaming, nmi)
 from repro_torch.core.nystrom import NystromResult, nystrom
-from repro_torch.core.sketch import (SRHT, LowRankEig, SketchedEig,
+from repro_torch.core.sketch import (SRHT, LowRankEig, SketchedEig, fwht,
                                      make_srht, next_pow2, one_pass_core,
                                      randomized_eig,
                                      randomized_eig_with_state, srht_apply,
@@ -26,7 +26,7 @@ __all__ = [
     "make_kernel", "polynomial_kernel", "rbf_kernel", "gram_matrix",
     "stripe_iterator",
     "kmeans_plus_plus", "KMeansResult",
-    "make_srht", "srht_apply", "srht_apply_t", "randomized_eig",
+    "fwht", "make_srht", "srht_apply", "srht_apply_t", "randomized_eig",
     "randomized_eig_with_state", "one_pass_core", "sketch_stream",
     "next_pow2", "SRHT", "LowRankEig", "SketchedEig",
     "one_pass_kernel_kmeans", "linearized_kmeans_from_Y",

@@ -1,4 +1,5 @@
 """Synthetic data sets (numpy or torch generators)."""
-from repro_torch.data.synthetic import gaussian_blobs, segmentation_proxy
+from repro_torch.data.synthetic import (blob_ring, gaussian_blobs,
+                                        segmentation_proxy, two_rings)
 
-__all__ = ["gaussian_blobs", "segmentation_proxy"]
+__all__ = ["two_rings", "blob_ring", "gaussian_blobs", "segmentation_proxy"]

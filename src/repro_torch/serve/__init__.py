@@ -12,7 +12,7 @@ and the lifecycle around them.
   bench.py      sync/async/swap/stream benches -> BENCH_serve_torch.json
 """
 from repro_torch.serve.artifact import (ClusteringSpec, FittedModel,
-                                        fit_model, from_reference,
+                                        ModelSpec, fit_model, from_reference,
                                         load_model, save_model)
 from repro_torch.serve.batcher import MicroBatcher, bucket_size
 from repro_torch.serve.bench import (benchmark_assign, benchmark_async,
@@ -31,8 +31,8 @@ from repro_torch.serve.versions import (VersionStore, gc_versions,
 
 __all__ = ["AsyncBatcher", "ClusteringSpec", "ComputePolicy",
            "DEFAULT_REGISTRY", "Extender", "FittedModel", "LatencyStats",
-           "MicroBatcher", "ModelRegistry", "SwapReport", "VersionStore",
-           "assign", "benchmark_assign", "benchmark_async",
+           "MicroBatcher", "ModelRegistry", "ModelSpec", "SwapReport",
+           "VersionStore", "assign", "benchmark_assign", "benchmark_async",
            "benchmark_stream", "benchmark_swap", "bucket_size", "embed",
            "fit_model", "format_bench", "from_reference", "gc_versions",
            "latest_version", "load_model", "load_version", "median_benches",

@@ -95,6 +95,10 @@ class ClusteringSpec:
         return cls(**d)
 
 
+# Legacy alias, as the JAX package keeps it.
+ModelSpec = ClusteringSpec
+
+
 class FittedModel(NamedTuple):
     """Servable fit; see module docstring for the fields."""
     spec: ClusteringSpec

@@ -192,7 +192,9 @@ class LatencyStats:
                     f"violation counters would mix thresholds")
         self.queue_wait.merge(other.queue_wait)
         self.total.merge(other.total)
-        for b, h in other.by_bucket.items():
+        # A snapshot: a fleet merges while live pumps record, and a first
+        # flush into a new bucket would change the dict mid-iteration.
+        for b, h in list(other.by_bucket.items()):
             self.by_bucket.setdefault(int(b), Histogram()).merge(h)
         self.requests += other.requests
         self.queries += other.queries

@@ -93,3 +93,6 @@ class ComputePolicy:
                     ) -> bool:
         return resolve_kernel_path(self.fit_fused, self.interpret, where,
                                    device)
+
+    def replace(self, **changes) -> "ComputePolicy":
+        return dataclasses.replace(self, **changes)

@@ -83,6 +83,18 @@ def test_fwht_matches_jax():
         sk.fwht(torch.zeros(6))
 
 
+def test_core_exports_fwht():
+    """repro_torch.core.fwht is the plain version bit for bit and JAX's
+    repro.core.fwht within the registry's 2e-4."""
+    from repro.core import fwht as jax_fwht
+    from repro_torch.core import fwht
+    from repro_torch.kernels.fwht.ref import fwht_ref
+    x = _rng(10).standard_normal((1 << 10, 7)).astype(np.float32)
+    got = fwht(_t(x))
+    assert torch.equal(got, fwht_ref(_t(x)))
+    _close(got, jax_fwht(jnp.asarray(x)), 2e-4)
+
+
 def test_srht_fed_jax_draws_matches_jax():
     jsrht = jsk.make_srht(jax.random.PRNGKey(3), 300, 7)
     srht = _port_srht(jsrht)

@@ -45,7 +45,9 @@ def test_port_covers_the_slice_modules():
                 "core/exact.py", "core/linearized.py", "core/onepass.py",
                 "serve/latency.py", "serve/scheduler.py", "serve/versions.py",
                 "serve/registry.py", "serve/bench.py", "stream/drift.py",
-                "stream/retrain.py"):
+                "stream/retrain.py", "fleet/worker.py", "fleet/router.py",
+                "fleet/admission.py", "fleet/controller.py",
+                "fleet/rollout.py", "fleet/tier.py", "fleet/bench.py"):
         assert (port / rel).is_file(), rel
     for name in ("gram", "kmeans_assign", "extend_embed", "fit_sketch",
                  "fwht"):

@@ -171,3 +171,30 @@ def test_assign_fused_true_per_call_follows_the_jax_rules(models,
         with pytest.raises(ValueError, match="interpret=False"):
             e.assign(Xq, fused=True)
     assert torch.equal(ext.assign(Xq, fused=False)[0], want[0])
+
+
+# -- names the reference exports (ROADMAP Queue C) ---------------------------
+
+def test_model_spec_is_the_legacy_alias():
+    from repro_torch.serve import ClusteringSpec, ModelSpec
+    assert ModelSpec is ClusteringSpec
+
+
+@pytest.mark.parametrize("changes", [
+    {}, {"embed_fused": False}, {"assign_fused": True, "interpret": True},
+    {"embed_fused": True, "assign_fused": False, "fit_fused": False,
+     "interpret": None}])
+def test_policy_replace_matches_jax(changes):
+    base = {"embed_fused": True, "fit_fused": True}
+    policy = ComputePolicy(**base)
+    got = policy.replace(**changes)
+    want = JaxPolicy(**base).replace(**changes)
+    shared = [f.name for f in dataclasses.fields(ComputePolicy)]
+    assert {n: getattr(got, n) for n in shared} == \
+        {n: getattr(want, n) for n in shared}
+    assert got is not policy and policy == ComputePolicy(**base)
+    assert got == ComputePolicy(**{**base, **changes})
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        got.embed_fused = None
+    with pytest.raises(TypeError):
+        got.replace(mesh_axis="data")    # no mesh fields before that slice
