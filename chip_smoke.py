@@ -103,6 +103,29 @@ Phases, each fatal on failure:
      SLO); every pin released when a fleet stops; benchmark_fleet at 1, 2
      and 4 replicas with live pumps (q/s and percentiles printed, the
      scaling not gated). Launches are counted on the cooperative parts;
+  11. distributed (after 10, before 7): a NCCL world of one rank, made
+     and torn down here, at the main path's width: (a) the sharded fit
+     (ComputePolicy(mesh=...)) on the canonical route equal to the
+     unsharded canonical fit bit for bit (stream_w, row norms, eigvals,
+     U, centroids, labels) and on the fused route within 2e-3 of phase
+     4's eigenvalues with labels agreeing on >= 0.99 (bitwise or not,
+     printed); ten partial_fit chunks equal to the one-shot sharded fit
+     on both routes, and a stream resumed from a mid-stream artifact
+     equal to the live one, bit for bit; (b) a ShardedExtender over the
+     4,096 held-out queries: embed equal to Extender.embed bit for bit,
+     labels by the near-tie rule, a MicroBatcher on the mesh policy
+     bucketed == unbatched, q/s beside Extender.assign's; (c) Alg. 1 on
+     the mesh (distributed_one_pass_kernel_kmeans) at n = 100,000 padded
+     to 131,072 with its draws from seed 0: distributed_fwht equal to
+     fwht_op on a (131,072, 512) stripe, W within 2e-3 of the
+     accumulator's sketch on the same draws, its approximation error and
+     accuracy beside the single-host fit's; (d) benchmark_fit_scaling at
+     n = 25,000, 50,000, 100,000 on both routes; (e) a CheckpointManager
+     save / GC / restore_latest onto the mesh, bit for bit; (f) the
+     launcher under torchrun (--standalone --nproc_per_node=1
+     -m repro_torch.launch.cluster --distributed --dataset seg), which
+     must exit 0. Launches are counted on the sharded paths, and
+     fit_sketch, fwht, extend_embed and kmeans_assign must launch;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -213,6 +236,11 @@ OVERLOAD_DEPTH = 64
 FLEET_SWEEP = (1, 2, 4)
 FLEET_BENCH_REQUESTS = 192
 FLEET_KW = {"max_wait_ms": 2.0, "slo_ms": 250.0}     # the JAX bench's
+# Phase 11: the model leaves a sharded fit must give bit for bit, and
+# benchmark_fit_scaling's capacities.
+DIST_FIT_LEAVES = ("stream_w", "stream_row_norms2", "eigvals", "centroids",
+                   "U")
+FIT_SCALING_NS = (25_000, 50_000, 100_000)
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -428,6 +456,316 @@ def srht_t_bound(m, c, rows, n_pad):
 
 
 # -- phases -------------------------------------------------------------------
+
+def timed(torch, fn) -> tuple:
+    """(fn's result, seconds), the card synchronized before and after."""
+    sync(torch)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch)
+    return out, time.perf_counter() - t0
+
+
+def sync(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def equal_fits(torch, what, a, b, names=DIST_FIT_LEAVES) -> None:
+    """The named model leaves, labels and centroids of two fits bit for
+    bit."""
+    for name in names:
+        if not torch.equal(getattr(a.model_, name), getattr(b.model_, name)):
+            raise AssertionError(f"{what}: {name} differs")
+    if not torch.equal(a.labels_, b.labels_):
+        raise AssertionError(f"{what}: labels differ")
+
+
+def dist_fit(torch, X, y, est, mesh, tally, smi) -> dict:
+    """11a: the sharded fit on both routes against the unsharded fits;
+    chunked == one-shot and resumed == live on the mesh."""
+    from repro_torch.api import KernelKMeans
+    from repro_torch.core.metrics import clustering_accuracy
+    from repro_torch.serve import ComputePolicy
+    canon_pol = ComputePolicy(fit_fused=False)
+    mesh_canon = ComputePolicy(fit_fused=False, mesh=mesh)
+    mesh_fused = ComputePolicy(mesh=mesh)
+    canon, canon_s = timed(torch, lambda: KernelKMeans(
+        **estimator_args(), policy=canon_pol).fit(X, seed=SEED))
+    sharded, sharded_s = timed(torch, lambda: tally(lambda: KernelKMeans(
+        **estimator_args(), policy=mesh_canon).fit(X, seed=SEED)))
+    equal_fits(torch, "sharded canonical fit vs unsharded", sharded, canon)
+    _, unsharded_fused_s = timed(torch, lambda: KernelKMeans(
+        **estimator_args(), policy=ComputePolicy()).fit(X, seed=SEED))
+    fused, fused_s = timed(torch, lambda: tally(lambda: KernelKMeans(
+        **estimator_args(), policy=mesh_fused).fit(X, seed=SEED)))
+    eig_err = float((fused.eigvals_ - est.eigvals_).abs().max())
+    if not torch.allclose(fused.eigvals_, est.eigvals_, rtol=TOL, atol=TOL):
+        raise AssertionError(f"sharded fused eigvals {fused.eigvals_} vs "
+                             f"unsharded {est.eigvals_}")
+    agree = clustering_accuracy(est.labels_, fused.labels_, K)
+    if agree < 0.99:
+        raise AssertionError(f"sharded fused labels agree on {agree}")
+    fused_bitwise = all(torch.equal(getattr(fused.model_, n),
+                                    getattr(est.model_, n))
+                        for n in DIST_FIT_LEAVES)
+    info = {"unsharded_canonical_fit_s": canon_s,
+            "sharded_canonical_fit_s": sharded_s,
+            "unsharded_fused_fit_s": unsharded_fused_s,
+            "sharded_fused_fit_s": fused_s,
+            "sharded_canonical_equals_unsharded": True,
+            "sharded_fused_eigval_max_abs_err": eig_err,
+            "sharded_fused_label_agreement": agree,
+            "sharded_fused_bitwise_vs_unsharded": fused_bitwise,
+            "accuracy_vs_generating_labels": clustering_accuracy(
+                y, sharded.labels_, K)}
+    chunks = N_TRAIN // STREAM_CHUNK
+    for route, pol, one in (("canonical", mesh_canon, sharded),
+                            ("fused", mesh_fused, fused)):
+        live = KernelKMeans(**estimator_args(), policy=pol)
+
+        def stream():
+            for i in range(chunks):
+                live.partial_fit(X[:, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK],
+                                 seed=SEED, capacity=N_TRAIN,
+                                 reeig=i == chunks - 1)
+        _, info[f"{route}_chunked_s"] = timed(torch, lambda: tally(stream))
+        equal_fits(torch, f"sharded {route} chunked vs one-shot", live, one)
+    # Resume from a mid-stream artifact under the mesh.
+    half = chunks // 2
+    work = tempfile.TemporaryDirectory(dir=BUILD)
+    live = KernelKMeans(**estimator_args(), policy=mesh_canon)
+
+    def first_half():
+        for i in range(half):
+            live.partial_fit(X[:, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK],
+                             seed=SEED, capacity=N_TRAIN,
+                             reeig=i == half - 1)
+    tally(first_half)
+    path = live.save(str(pathlib.Path(work.name) / "mid"))
+    resumed = KernelKMeans.load(path, device=DEVICE, policy=mesh_canon)
+    for est_ in (live, resumed):
+        def second_half(e=est_):
+            for i in range(half, chunks):
+                e.partial_fit(X[:, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK],
+                              seed=SEED, reeig=i == chunks - 1)
+        tally(second_half)
+    equal_fits(torch, "resumed vs live under the mesh", resumed, live)
+    work.cleanup()
+    info["resumed_equals_live"] = info["chunked_equals_one_shot"] = True
+    log(f"[distributed] fit at n={N_TRAIN}, world size 1 over NCCL: "
+        f"canonical unsharded {canon_s:.3f} s, sharded {sharded_s:.3f} s "
+        f"(stream_w, row norms, eigvals, labels, centroids equal bit for "
+        f"bit); fused unsharded {unsharded_fused_s:.3f} s, sharded "
+        f"{fused_s:.3f} s against phase 4's fit (eigvals max abs diff "
+        f"{eig_err:.2e}, "
+        f"labels agree {agree:.4f}, bitwise {fused_bitwise}); "
+        f"{chunks} partial_fit chunks == one-shot on both routes "
+        f"(canonical {info['canonical_chunked_s']:.3f} s, fused "
+        f"{info['fused_chunked_s']:.3f} s), resumed == live [{smi}]")
+    return info
+
+
+def dist_serve(torch, model, Xq, mesh, tally, smi) -> dict:
+    """11b: a ShardedExtender over the held-out queries against Extender;
+    a MicroBatcher on the mesh policy, bucketed == unbatched."""
+    from repro_torch.kernels.registry import near_tie_compare
+    from repro_torch.serve import (ComputePolicy, Extender, MicroBatcher,
+                                   ShardedExtender)
+    pol = ComputePolicy(mesh=mesh)
+    ext = Extender(model, policy=ComputePolicy())
+    sh = ShardedExtender(model, policy=pol)
+    emb = tally(lambda: sh.embed(Xq))
+    if not torch.equal(emb, ext.embed(Xq)):
+        raise AssertionError("ShardedExtender.embed != Extender.embed")
+    got = tally(lambda: sh.assign(Xq))
+    want, dists = plain_distances(torch, model, Xq)
+    near_tie_compare(got, want, TOL, TOL, dists)
+    near_tie_compare(got, ext.assign(Xq), TOL, TOL, dists)
+    batcher = MicroBatcher(model, policy=pol)
+    batcher.warm(REQUESTS)
+    offs = np.cumsum((0,) + REQUESTS)
+    reqs = [Xq[:, a:b] for a, b in zip(offs, offs[1:])]
+    answers = tally(lambda: [batcher.assign_batch(r) for r in reqs])
+    for b, req, ans in zip(REQUESTS, reqs, answers):
+        lab, d2 = (x.cpu().numpy() for x in sh.assign(req))
+        if not (np.array_equal(ans[0], lab)
+                and np.array_equal(ans[1].view(np.int32), d2.view(np.int32))):
+            raise AssertionError(f"mesh batcher, request of {b}: bucketed "
+                                 f"!= unbatched")
+    reps = 10
+    _, sh_s = timed(torch, lambda: [sh.assign(Xq) for _ in range(reps)])
+    _, ext_s = timed(torch, lambda: [ext.assign(Xq) for _ in range(reps)])
+    info = {"queries": N_QUERY, "embed_equals_extender": True,
+            "bucketed_equals_unbatched": True,
+            "label_mismatch_vs_extender": float(
+                (got[0] != want[0]).float().mean()),
+            "sharded_assign_queries_per_s": reps * N_QUERY / sh_s,
+            "extender_assign_queries_per_s": reps * N_QUERY / ext_s}
+    log(f"[distributed] ShardedExtender over {N_QUERY} held-out queries: "
+        f"embed == Extender.embed bit for bit, labels by the near-tie rule, "
+        f"mesh MicroBatcher bucketed == unbatched; assign "
+        f"{info['sharded_assign_queries_per_s']:.0f} q/s (extend_embed + "
+        f"all_reduce + kmeans_assign) beside Extender.assign "
+        f"{info['extender_assign_queries_per_s']:.0f} q/s (embed_assign) "
+        f"[{smi}]")
+    return info
+
+
+def dist_alg1(torch, X, y, est, mesh, tally, smi) -> dict:
+    """11c: Alg. 1 on the mesh at n = 100,000 padded to 131,072, draws
+    from seed 0; the butterfly against fwht_op on a stripe, W against the
+    accumulator's sketch on the same draws."""
+    from repro_torch.core import kernel_approx_error_streaming
+    from repro_torch.core.kernels_fn import make_kernel
+    from repro_torch.core.metrics import clustering_accuracy
+    from repro_torch.core.sketch import SRHT
+    from repro_torch.distributed.cluster import (
+        distributed_one_pass_kernel_kmeans, distributed_sketch)
+    from repro_torch.distributed.dfwht import distributed_fwht
+    from repro_torch.kernels import fwht_op
+    from repro_torch.launch.cluster import alg1_draws
+    from repro_torch.stream.accumulate import SketchAccumulator
+    kern = make_kernel("polynomial", gamma=KERNEL["gamma"],
+                       degree=KERNEL["degree"])
+    Xp = torch.nn.functional.pad(X, (0, N_PAD - N_TRAIN))
+    signs, rows, inits = alg1_draws(SEED, N_PAD, RP, K, 10, X.device)
+    stripe = (kern(Xp, Xp[:, :BLOCK]) * signs[:, None]).contiguous()
+    dfw = tally(lambda: distributed_fwht(stripe, mesh))
+    if not torch.equal(dfw, fwht_op(stripe)):
+        raise AssertionError("distributed_fwht != fwht_op on a stripe")
+    W = tally(lambda: distributed_sketch(kern, Xp, mesh, signs, rows,
+                                         block=BLOCK))
+    acc = SketchAccumulator(kern, N_TRAIN, R, oversampling=OVERSAMPLING,
+                            block=BLOCK, sketch=SRHT(signs=signs, rows=rows,
+                                                     n=N_TRAIN, n_pad=N_PAD))
+    W_acc = acc.add(X)._effective_state()[0]     # the ragged tail applied
+    w_err = float((W[:N_TRAIN] - W_acc).abs().max())
+    if not torch.allclose(W[:N_TRAIN], W_acc, rtol=TOL, atol=TOL):
+        raise AssertionError(f"distributed W vs the accumulator's: {w_err}")
+    res, alg1_s = timed(torch, lambda: tally(
+        lambda: distributed_one_pass_kernel_kmeans(
+            kern, Xp, K, R, mesh, signs, rows, inits, block=BLOCK)))
+    Y = res.Y[:, :N_TRAIN]
+    if not (bool(torch.isfinite(Y).all()) and tuple(Y.shape) == (R, N_TRAIN)):
+        raise AssertionError("Alg. 1 on the mesh: Y not finite (r, n)")
+    err = kernel_approx_error_streaming(kern, X, Y)
+    err_single = kernel_approx_error_streaming(kern, X, est.embedding_)
+    info = {"n": N_TRAIN, "n_pad": N_PAD, "alg1_s": alg1_s,
+            "W_max_abs_err_vs_accumulator": w_err,
+            "distributed_fwht_equals_fwht_op": True,
+            "eigvals": res.eigvals.tolist(), "approx_error": err,
+            "approx_error_single_host_fit": err_single,
+            "accuracy": clustering_accuracy(y, res.labels[:N_TRAIN], K),
+            "accuracy_single_host_fit": clustering_accuracy(
+                y, est.labels_, K)}
+    log(f"[distributed] Alg. 1 on the mesh at n={N_TRAIN} (padded to "
+        f"{N_PAD}): {alg1_s:.3f} s; distributed_fwht == fwht_op on a "
+        f"({N_PAD}, {BLOCK}) stripe; W within {w_err:.2e} of the "
+        f"accumulator's; approx error {err:.4f} (single-host fit "
+        f"{err_single:.4f}), accuracy {info['accuracy']:.4f} (single-host "
+        f"{info['accuracy_single_host_fit']:.4f}) [{smi}]")
+    return info
+
+
+def dist_checkpoint(torch, model, mesh) -> dict:
+    """11e: CheckpointManager save / GC / restore_latest onto the mesh."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    work = tempfile.TemporaryDirectory(dir=BUILD)
+    mgr = CheckpointManager(work.name, save_every=1, keep=2,
+                            async_saves=False)
+    state = {"X_train": model.X_train, "stream_w": model.stream_w,
+             "eigvals": model.eigvals}
+    for step in range(1, 5):
+        mgr.maybe_save(step, state)
+    kept = sorted(p.name for p in pathlib.Path(work.name).iterdir())
+    like = {k: torch.zeros_like(v) for k, v in state.items()}
+    got, step = mgr.restore_latest(like, mesh=mesh, pspecs={
+        "X_train": Shard(1), "stream_w": Shard(0), "eigvals": Replicate()})
+    for k, v in state.items():
+        if not torch.equal(got[k], v):
+            raise AssertionError(f"checkpoint round trip: {k} differs")
+    work.cleanup()
+    if step != 4 or kept != ["step_3", "step_4"]:
+        raise AssertionError(f"checkpoints kept {kept}, restored {step}")
+    log(f"[distributed] CheckpointManager: 4 saves, GC kept {kept}, "
+        f"restore_latest onto the mesh (Shard / Replicate) bit for bit")
+    return {"kept": kept, "restored_step": step, "round_trip_equal": True}
+
+
+def dist_launcher(smi) -> dict:
+    """11f: the launcher under torchrun, one process on the card."""
+    import os
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", "-m", "repro_torch.launch.cluster",
+           "--distributed", "--dataset", "seg"]
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=300, cwd=str(ROOT))
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun launcher exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    log(f"[distributed] torchrun --standalone --nproc_per_node=1 -m "
+        f"repro_torch.launch.cluster --distributed --dataset seg: exit 0 in "
+        f"{seconds:.1f} s [{smi}]: " + " | ".join(lines))
+    return {"torchrun_s": seconds, "lines": lines}
+
+
+def phase_distributed(torch, est, X, y, Xq, smi) -> tuple:
+    """Phase 11: the distributed package on a NCCL world of one rank that
+    this phase makes and tears down: the sharded fit, sharded serving,
+    Alg. 1 on the mesh, benchmark_fit_scaling, checkpoints and the
+    launcher under torchrun. Launches counted on the sharded paths."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serve import ComputePolicy, benchmark_fit_scaling
+    t_phase = time.perf_counter()
+    from repro_torch.api import KernelKMeans
+    made = not dist.is_initialized()
+    mesh = make_debug_mesh(device=DEVICE)
+    # First use of NCCL (the communicator is made at the first collective)
+    # and of each sharded route, on a small fit outside the counts and the
+    # clocks, as phase 4 warms cuBLAS.
+    for fused in (False, None):
+        KernelKMeans(**estimator_args(), policy=ComputePolicy(
+            fit_fused=fused, mesh=mesh)).fit(X[:, :4096], seed=1)
+    sync(torch)
+    tally = LaunchTally(torch)
+    BUILD.mkdir(parents=True, exist_ok=True)
+    info = {"fit": dist_fit(torch, X, y, est, mesh, tally, smi),
+            "serve": dist_serve(torch, est.model_, Xq, mesh, tally, smi),
+            "alg1": dist_alg1(torch, X, y, est, mesh, tally, smi)}
+    scaling = {}
+    for route, fused in (("canonical", False), ("fused", None)):
+        bench = benchmark_fit_scaling(
+            est.model_, ns=FIT_SCALING_NS, repeats=1, seed=SEED,
+            policy=ComputePolicy(fit_fused=fused, mesh=mesh))
+        scaling[route] = bench
+        log(f"[distributed] benchmark_fit_scaling, {route} route: " +
+            "; ".join(f"n={r['n']}: single {r['single_cols_per_sec']:.0f} "
+                      f"cols/s, sharded {r['sharded_cols_per_sec']:.0f} "
+                      f"cols/s, sharded_over_single "
+                      f"{r['sharded_over_single']:.3f}"
+                      for r in bench["rows"]) + f" [{smi}]")
+    info["fit_scaling"] = scaling
+    info["checkpoint"] = dist_checkpoint(torch, est.model_, mesh)
+    if made:
+        dist.destroy_process_group()
+    info["launcher"] = dist_launcher(smi)
+    idle = [n for n in ("fit_sketch", "fwht", "extend_embed",
+                        "kmeans_assign") if tally.launches[n] == 0]
+    if idle:
+        raise AssertionError(f"phase 11 never launched {idle}")
+    info["launches"] = tally.launches
+    info["phase_s"] = time.perf_counter() - t_phase
+    log(f"[distributed] launches {tally.launches}; phase 11 took "
+        f"{info['phase_s']:.2f} s")
+    return tally.launches, info
+
 
 def phase_env(torch) -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2461,17 +2799,20 @@ def main() -> int:
         torch, est.model_, X, yall[:N_TRAIN], Xq, yall[N_TRAIN:])
     kernels["gram_stripe"]["drift_shape"] = gram_drift
     fleet_launches, summary["fleet"] = phase_fleet(torch, est.model_, Xq)
+    dist_launches, summary["distributed"] = phase_distributed(
+        torch, est, X, yall[:N_TRAIN], Xq, smi)
     summary["serve"].update(phase_device(torch, kernels, inputs, est.model_,
                                          Xq))
     launches = {name: fit_launches[name] + serve_launches[name]
                 + stream_launches[name] + backend_launches[name]
                 + lifecycle_launches[name] + fleet_launches[name]
-                for name in SOURCES}
+                + dist_launches[name] for name in SOURCES}
     summary["launches"] = {"fit": fit_launches, "serve": serve_launches,
                            "stream": stream_launches,
                            "backends": backend_launches,
                            "lifecycle": lifecycle_launches,
-                           "fleet": fleet_launches}
+                           "fleet": fleet_launches,
+                           "distributed": dist_launches}
     log(f"[main path] launches {launches}")
     idle = [name for name in MAIN_PATH if launches[name] == 0]
     if idle:

@@ -1,4 +1,5 @@
-"""Checkpoints on disk: atomic commits, async writes, the JAX layout.
+"""Checkpoints on disk: atomic commits, async writes, retention, the JAX
+layout, and restore onto a mesh.
 
 Layout (the JAX package's repro.distributed.checkpoint, so either package
 reads what the other wrote):
@@ -12,8 +13,18 @@ reads what the other wrote):
 
 A state is a tree of dicts (keys in sorted order, as JAX flattens them),
 lists and tuples over tensors or numpy arrays. `paths` are JAX keystr
-paths ("['X_train']", "[0]"), `dtypes` numpy dtype names. Restoring onto
-a mesh waits for the torch.distributed slice of the port.
+paths ("['X_train']", "[0]"), `dtypes` numpy dtype names.
+
+Restoring onto a mesh (restore_checkpoint's mesh= and pspecs=): pspecs
+mirrors the state with one placement per leaf, a
+torch.distributed.tensor Shard(dim) or Replicate() for the mesh's first
+dim (the others replicate), or a tuple of them, one per mesh dim. A sharded
+leaf comes back as this
+rank's local chunk, split as Shard(dim) splits it (torch.chunk: equal
+chunks but the last, which may be short or empty), on the mesh's device.
+Every rank reads the files itself: no collective runs, so a checkpoint
+written on any mesh restores onto any other (the elastic re-mesh of
+distributed/fault.py).
 """
 from __future__ import annotations
 
@@ -135,25 +146,129 @@ def read_manifest(ckpt_dir: str, step: Optional[int] = None) -> Dict:
     return json.loads((path / "manifest.json").read_text())
 
 
+def _placements(spec, ndim: int) -> tuple:
+    """A leaf's placements, one per mesh dim: a single placement holds for
+    the mesh's first dim, with Replicate() on the others."""
+    from torch.distributed.tensor import Placement, Replicate
+    specs = (tuple(spec) if isinstance(spec, (tuple, list))
+             else (spec,) + (Replicate(),) * (ndim - 1))
+    if len(specs) != ndim or not all(isinstance(p, Placement)
+                                     for p in specs):
+        raise ValueError(f"a leaf's placement must be {ndim} of Shard(dim)"
+                         f" / Replicate(), got {spec!r}")
+    return tuple(specs)
+
+
+def _spec_leaves(pspecs, ndim: int) -> List[tuple]:
+    """pspecs' leaves in the state's order: a placement, or a tuple of
+    placements (one per mesh dim), is a leaf."""
+    from torch.distributed.tensor import Placement
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            for key in sorted(tree):
+                yield from walk(tree[key])
+        elif isinstance(tree, (list, tuple)) and not (
+                tree and all(isinstance(p, Placement) for p in tree)):
+            for sub in tree:
+                yield from walk(sub)
+        else:
+            yield _placements(tree, ndim)
+
+    return list(walk(pspecs))
+
+
+def local_chunk(t: torch.Tensor, mesh, placements: tuple) -> torch.Tensor:
+    """This rank's chunk of the whole tensor `t` under `placements` (one
+    per mesh dim): Shard(dim) keeps chunk i of torch.chunk along dim at
+    coordinate i (an empty slice past the last chunk), Replicate() all."""
+    from torch.distributed.tensor import Replicate, Shard
+    coord = mesh.get_coordinate()
+    for i, place in enumerate(placements):
+        if isinstance(place, Replicate):
+            continue
+        if not isinstance(place, Shard):
+            raise ValueError(f"cannot restore onto placement {place!r}")
+        dim = place.dim % max(t.dim(), 1)
+        chunks = torch.chunk(t, mesh.size(i), dim=dim)
+        t = (chunks[coord[i]] if coord[i] < len(chunks)
+             else t.narrow(dim, t.shape[dim], 0))
+    return t.contiguous()
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def restore_checkpoint(ckpt_dir: str, state_like: Any,
-                       step: Optional[int] = None) -> Tuple[Any, int]:
+                       step: Optional[int] = None, mesh=None,
+                       pspecs: Any = None) -> Tuple[Any, int]:
     """Restore into the structure of `state_like`: a tensor leaf comes
     back as a tensor of its dtype on its device, any other leaf as a
-    numpy array of its dtype."""
+    numpy array of its dtype. With (mesh, pspecs) every leaf comes back
+    as a tensor of the like's dtype on the mesh's device, a sharded one
+    as this rank's chunk (see the module docstring)."""
     path, step = _step_dir(ckpt_dir, step)
     manifest = json.loads((path / "manifest.json").read_text())
     likes = [leaf for _, leaf in _flatten(state_like)]
     n = len(manifest["shapes"])
     if n != len(likes):
         raise ValueError(f"checkpoint has {n} leaves, expected {len(likes)}")
+    specs = [None] * n
+    if mesh is not None and pspecs is not None:
+        specs = _spec_leaves(pspecs, mesh.ndim)
+        if len(specs) != n:
+            raise ValueError(f"pspecs has {len(specs)} leaves, the state "
+                             f"{n}")
     out = []
-    for i, like in enumerate(likes):
+    for i, (like, spec) in enumerate(zip(likes, specs)):
         arr = np.load(path / f"leaf_{i}.npy")
         if list(arr.shape) != list(like.shape):
             raise ValueError(f"leaf {i}: shape {arr.shape} != "
                              f"{tuple(like.shape)}")
-        if isinstance(like, torch.Tensor):
+        if spec is not None:
+            dtype = (like.dtype if isinstance(like, torch.Tensor)
+                     else torch.from_numpy(
+                         np.zeros((), np.asarray(like).dtype)).dtype)
+            t = torch.as_tensor(arr).to(dtype)
+            out.append(local_chunk(t, mesh, spec).to(_mesh_device(mesh)))
+        elif isinstance(like, torch.Tensor):
             out.append(torch.as_tensor(arr).to(like.device, like.dtype))
         else:
             out.append(arr.astype(np.asarray(like).dtype, copy=False))
     return _unflatten(state_like, iter(out)), step
+
+
+class CheckpointManager:
+    """Interval and retention policy around save / restore: a save every
+    `save_every` steps, the newest `keep` kept."""
+
+    def __init__(self, ckpt_dir: str, save_every: int = 100,
+                 keep: int = 3, async_saves: bool = True):
+        self.dir = ckpt_dir
+        self.save_every = save_every
+        self.keep = keep
+        self.async_saves = async_saves
+
+    def maybe_save(self, step: int, state: Any) -> Optional[str]:
+        if step % self.save_every:
+            return None
+        path = save_checkpoint(self.dir, step, state,
+                               blocking=not self.async_saves)
+        self._gc()
+        return path
+
+    def _gc(self) -> None:
+        base = pathlib.Path(self.dir)
+        steps = sorted(int(p.name[5:]) for p in base.iterdir()
+                       if p.is_dir() and p.name.startswith("step_")
+                       and not p.name.endswith(".tmp"))
+        for s in steps[:-self.keep]:
+            shutil.rmtree(base / f"step_{s}", ignore_errors=True)
+
+    def restore_latest(self, state_like: Any, mesh=None,
+                       pspecs: Any = None) -> Tuple[Any, int]:
+        return restore_checkpoint(self.dir, state_like, mesh=mesh,
+                                  pspecs=pspecs)

@@ -68,3 +68,9 @@ def fit_sketch_op(X: torch.Tensor, Omega: torch.Tensor, C: torch.Tensor,
 
 
 fit_sketch_op.launches = 0
+
+
+def fit_sketch_bytes(p: int, m: int, b: int, rp: int) -> int:
+    """Bytes a launch must move: X, Omega, C and Ocross read once; new_rows,
+    delta and the two norm vectors written once (no V)."""
+    return 4 * (p * m + m * rp + p * b + b * rp + b * rp + m * rp + m + b)

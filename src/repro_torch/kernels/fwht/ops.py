@@ -256,3 +256,14 @@ def srht_t_op(M: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
 
 
 srht_t_op.launches = 0
+
+
+def fwht_bytes(n: int, c: int) -> int:
+    """Bytes a transform of (n, c) must move: x read once, written once."""
+    return 8 * n * c
+
+
+def srht_t_bytes(m: int, c: int, r_prime: int, n_pad: int) -> int:
+    """Bytes Omega^T M must move: M's m rows and the signs read once, the
+    (r', c) result written once."""
+    return 4 * (m * c + n_pad + r_prime * c)

@@ -39,3 +39,8 @@ def gram_stripe_op(X: torch.Tensor, Xb: torch.Tensor,
 
 
 gram_stripe_op.launches = 0
+
+
+def gram_stripe_bytes(p: int, n: int, w: int) -> int:
+    """Bytes the stripe must move: X and Xb read once, K written once."""
+    return 4 * (p * n + p * w + n * w)

@@ -1,0 +1,175 @@
+"""Process groups and device meshes over torch.distributed.
+
+JAX drives every device of a Mesh from one process; PyTorch runs one
+process per rank. A mesh here is a torch DeviceMesh with named dims
+("data", "model"), and every sharded entry point of the port is
+collective: each rank calls it with the same arguments.
+
+Backends follow the device, with no downgrade: NCCL for a CUDA mesh, gloo
+for a CPU mesh. A mesh whose group runs another backend, or a tensor on
+another device type than its mesh, raises. Every group gets a timeout, so
+a collective that one rank never joins fails instead of hanging.
+
+Functions only: importing this module touches no process group.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import tempfile
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+# How long a collective waits for every rank before it fails.
+TIMEOUT = datetime.timedelta(seconds=300)
+BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def _device_type(device) -> str:
+    """"cuda" when device is None (the port's default; no fallback to the
+    CPU), else the type of `device`."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on the card by default and no CUDA device "
+                "is available; pass device='cpu' for a gloo mesh")
+        return "cuda"
+    kind = torch.device(device).type
+    if kind not in BACKENDS:
+        raise ValueError(f"no mesh backend for device type {kind!r}")
+    return kind
+
+
+def init_world(device=None, timeout: datetime.timedelta = TIMEOUT) -> int:
+    """The default process group, made when none exists: from the
+    launcher's environment (RANK / WORLD_SIZE, as torchrun sets them), or
+    else a world of one rank through a FileStore in a temporary file.
+    Returns the world size."""
+    kind = _device_type(device)
+    if kind == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    if not dist.is_initialized():
+        backend = BACKENDS[kind]
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, timeout=timeout)
+        else:
+            fd, path = tempfile.mkstemp(prefix="repro_torch_store_")
+            os.close(fd)
+            os.unlink(path)
+            dist.init_process_group(backend, store=dist.FileStore(path, 1),
+                                    rank=0, world_size=1, timeout=timeout)
+    return dist.get_world_size()
+
+
+def make_mesh(shape: Sequence[int], names: Sequence[str], device=None):
+    """A DeviceMesh of `shape` over the whole world, dims named `names`;
+    the world must hold exactly prod(shape) ranks."""
+    kind = _device_type(device)
+    world = init_world(kind)
+    want = 1
+    for s in shape:
+        want *= int(s)
+    if world != want:
+        raise ValueError(f"a {tuple(shape)} mesh needs {want} ranks; the "
+                         f"world has {world}")
+    from torch.distributed.device_mesh import DeviceMesh
+    mesh = DeviceMesh(kind, torch.arange(want).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(names))
+    for name in names:
+        _check_backend(mesh, mesh.get_group(name))
+    return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """16 x 16 = 256 ranks per pod ("data", "model"); 2 pods = 512 with a
+    leading "pod" dim. Raises when the world is not that size."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, names, device)
+
+
+def make_debug_mesh(data: int = 1, model: int = 1, device=None):
+    """A (data, model) mesh over the world (tests, one card, torchrun);
+    makes a world of one rank when no process group exists."""
+    return make_mesh((data, model), ("data", "model"), device)
+
+
+def mesh_axis_sizes(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    """Batch axes: ("pod", "data") when present, else ("data",)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def tp_axis(mesh) -> Optional[str]:
+    return "model" if "model" in mesh.mesh_dim_names else None
+
+
+def _check_backend(mesh, group) -> None:
+    want = BACKENDS.get(mesh.device_type)
+    have = str(dist.get_backend(group))
+    if want is None or want not in have:
+        raise ValueError(f"a {mesh.device_type} mesh needs the {want} "
+                         f"backend; its group runs {have}")
+
+
+class MeshAxis(NamedTuple):
+    """One dim of a mesh as a collective sees it: its process group, its
+    size, this rank's coordinate along it, and the mesh's device type."""
+    group: object
+    size: int
+    index: int
+    device_type: str
+
+    def check(self, what: str, *tensors: torch.Tensor) -> None:
+        """Raise unless every tensor lies on the mesh's device type."""
+        for t in tensors:
+            if t.device.type != self.device_type:
+                raise ValueError(f"{what}: a tensor on {t.device} for a "
+                                 f"{self.device_type} mesh")
+
+    def peer(self, index: int) -> int:
+        """The global rank at `index` along this dim."""
+        return dist.get_global_rank(self.group, index)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum `t` over the dim, in place; returns it."""
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def all_reduce_many(self, *ts: torch.Tensor) -> list:
+        """Sum several tensors over the dim in one collective (one message
+        of their flattened concatenation); returns them, reduced, in their
+        shapes."""
+        flat = self.all_reduce(torch.cat([t.reshape(-1) for t in ts]))
+        out, at = [], 0
+        for t in ts:
+            out.append(flat[at:at + t.numel()].view(t.shape))
+            at += t.numel()
+        return out
+
+    def all_gather_cat(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's `t` (same shape on each), concatenated along `dim`
+        in the order of the dim."""
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+
+def mesh_axis(mesh, axis: str = "data") -> MeshAxis:
+    """The dim `axis` of `mesh`, its backend checked against the mesh's
+    device type."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"mesh has no axis {axis!r}; have {names}")
+    group = mesh.get_group(axis)
+    _check_backend(mesh, group)
+    return MeshAxis(group=group, size=int(mesh.size(names.index(axis))),
+                    index=int(mesh.get_local_rank(axis)),
+                    device_type=mesh.device_type)

@@ -2,7 +2,8 @@
 and the lifecycle around them.
 
   artifact.py   FittedModel + save/load in the JAX package's layout
-  extend.py     out-of-sample extension through the kernels (Extender)
+  extend.py     out-of-sample extension through the kernels (Extender;
+                ShardedExtender over a mesh)
   policy.py     ComputePolicy: which compute paths run
   batcher.py    pow-2 bucketed MicroBatcher with a coalescing queue
   scheduler.py  AsyncBatcher: futures, deadline flush, SLO accounting
@@ -16,10 +17,12 @@ from repro_torch.serve.artifact import (ClusteringSpec, FittedModel,
                                         load_model, save_model)
 from repro_torch.serve.batcher import MicroBatcher, bucket_size
 from repro_torch.serve.bench import (benchmark_assign, benchmark_async,
+                                     benchmark_fit_scaling,
                                      benchmark_stream, benchmark_swap,
                                      format_bench, median_benches,
                                      write_bench)
-from repro_torch.serve.extend import Extender, assign, embed
+from repro_torch.serve.extend import (Extender, ShardedExtender, assign,
+                                     embed, embed_sharded)
 from repro_torch.serve.latency import LatencyStats
 from repro_torch.serve.policy import ComputePolicy, resolve_kernel_path
 from repro_torch.serve.registry import (DEFAULT_REGISTRY, ModelRegistry,
@@ -32,8 +35,9 @@ from repro_torch.serve.versions import (VersionStore, gc_versions,
 __all__ = ["AsyncBatcher", "ClusteringSpec", "ComputePolicy",
            "DEFAULT_REGISTRY", "Extender", "FittedModel", "LatencyStats",
            "MicroBatcher", "ModelRegistry", "ModelSpec", "SwapReport",
-           "VersionStore", "assign", "benchmark_assign", "benchmark_async",
-           "benchmark_stream", "benchmark_swap", "bucket_size", "embed",
+           "ShardedExtender", "VersionStore", "assign", "benchmark_assign",
+           "benchmark_async", "benchmark_fit_scaling", "benchmark_stream",
+           "benchmark_swap", "bucket_size", "embed", "embed_sharded",
            "fit_model", "format_bench", "from_reference", "gc_versions",
            "latest_version", "load_model", "load_version", "median_benches",
            "publish_version", "resolve_kernel_path", "save_model",

@@ -39,7 +39,9 @@ class MicroBatcher:
 
     policy: ComputePolicy selecting the compute paths (assign_fused: the
     kmeans_assign kernel, embed_fused: the extend_embed stripe; both on
-    by default on the card).
+    by default on the card). With policy.mesh every bucket is served
+    through a ShardedExtender, and every call is collective: each rank
+    makes it with the same queries.
     """
 
     def __init__(self, model: FittedModel, block: Optional[int] = None,
@@ -51,7 +53,10 @@ class MicroBatcher:
         self.block = int(block or model.spec.block)
         self.min_bucket = min_bucket
         self.max_bucket = max_bucket
-        self.extender = extend.Extender(model, self.block, policy=policy)
+        self.extender = (
+            extend.ShardedExtender(model, block=self.block, policy=policy)
+            if policy.mesh is not None else
+            extend.Extender(model, self.block, policy=policy))
         self._pending: List[np.ndarray] = []
         self.stats: Dict = {}
         self.reset_stats()

@@ -13,10 +13,13 @@
           partial_fit accumulation throughput, the re-eig cost, and the
           detection-to-swap latency of one full drift rollout (trigger ->
           refit -> publish -> warm swap) against a real VersionStore +
-          ModelRegistry.
+          ModelRegistry;
+  fit scaling  `benchmark_fit_scaling` — partial_fit cols/s single-host
+          against the sharded fit (distributed/fit.py) on an n sweep,
+          with each block's bytes from the kernels' own counts.
 
 These are the JAX package's benches (repro.serve.bench) with its schema,
-less the sections that read XLA's cost analysis or a mesh. Randomness
+less the sections that read XLA's cost analysis. Randomness
 comes from a numpy seed; every wall-clock read on the card follows a
 `torch.cuda.synchronize()`, so a time covers the device work it names.
 `write_bench` writes the port's own file, BENCH_serve_torch.json by
@@ -481,3 +484,97 @@ def write_bench(path: Optional[str], bench: Dict) -> str:
         json.dump(bench, f, indent=1, sort_keys=True)
         f.write("\n")
     return path
+
+
+def _fit_block_bytes(p: int, n: int, b: int, rp: int, shards: int) -> Dict:
+    """Bytes of the last block update (q + b = n) at capacity n, from the
+    kernels' own counts: the kappa stripe (as the gram kernel would move
+    it), the canonical route's srht_t, the sharded route's fwht of one
+    rank's (N / shards, b) slab, and the fused route's fit_sketch."""
+    from repro_torch.core.sketch import next_pow2
+    from repro_torch.kernels.fit_sketch.ops import fit_sketch_bytes
+    from repro_torch.kernels.fwht.ops import fwht_bytes, srht_t_bytes
+    from repro_torch.kernels.gram.ops import gram_stripe_bytes
+    n_pad = next_pow2(n)
+    return {"kappa_stripe": gram_stripe_bytes(p, n, b),
+            "srht_t": srht_t_bytes(n, b, rp, n_pad),
+            "fwht_slab": fwht_bytes(max(n_pad // shards, 1), b),
+            "fit_sketch": fit_sketch_bytes(p, n, b, rp),
+            "source": "kernels/*/ops.py byte counts"}
+
+
+def benchmark_fit_scaling(model: FittedModel, ns: Sequence[int] = (128, 256,
+                                                                   512),
+                          repeats: int = 3, seed: int = 0,
+                          block: Optional[int] = None,
+                          policy=None) -> Dict:
+    """The sharded one-pass fit against the single-host accumulator on an
+    n sweep.
+
+    For each n: n columns streamed chunk by chunk through
+    `KernelKMeans.partial_fit(reeig=False)` (the steady-state ingest
+    path), under a mesh ComputePolicy (every rank of the world when
+    `policy` is None) and under the same policy without its mesh, so both
+    take the same route (canonical or fused); cols/s of each, the best pass of
+    `repeats` on a fresh estimator (the first chunk, untimed, pays the
+    first launches). At world size 1, "sharded" measures the engine's cost
+    over the canonical path at equal bits. Collective: every rank calls
+    it. Each row carries the block's bytes (_fit_block_bytes).
+    """
+    import torch.distributed as dist
+
+    from repro_torch.api import KernelKMeans
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serve.policy import ComputePolicy
+
+    spec, device = model.spec, model.device
+    backend = (spec.backend if spec.backend.startswith("onepass-")
+               else "onepass-srht")
+    chunk = min(block or spec.block, min(int(n) for n in ns))
+    if policy is None:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        policy = ComputePolicy(mesh=make_debug_mesh(data=world,
+                                                    device=device))
+    rp = spec.r + int(spec.backend_params.get("oversampling", 10))
+
+    def one_pass(n_chunks, capacity, X, pol):
+        est = KernelKMeans(k=spec.k, r=spec.r, kernel=spec.kernel,
+                           kernel_params=spec.kernel_params,
+                           backend=backend, block=chunk,
+                           backend_params={"oversampling": rp - spec.r},
+                           policy=pol, device=device)
+        est.partial_fit(X[:, :chunk], seed=seed, capacity=capacity,
+                        reeig=False)               # warmup chunk
+        _sync(device)
+        t0 = time.perf_counter()
+        for i in range(1, n_chunks):
+            est.partial_fit(X[:, i * chunk:(i + 1) * chunk], reeig=False)
+        _sync(device)
+        return time.perf_counter() - t0
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows, seen = [], set()
+    for n in ns:
+        n_chunks = max(int(n) // chunk, 2)
+        capacity = n_chunks * chunk
+        if capacity in seen:    # small n collapse onto one capacity
+            continue
+        seen.add(capacity)
+        X = torch.randn((spec.p, capacity), generator=gen, device=device)
+        single = min(one_pass(n_chunks, capacity, X,
+                              policy.replace(mesh=None))
+                     for _ in range(max(int(repeats), 1)))
+        sharded = min(one_pass(n_chunks, capacity, X, policy)
+                      for _ in range(max(int(repeats), 1)))
+        cols = (n_chunks - 1) * chunk
+        rows.append({
+            "n": int(capacity), "chunk_cols": int(chunk),
+            "single_cols_per_sec": cols / single,
+            "sharded_cols_per_sec": cols / sharded,
+            "sharded_over_single": single / sharded,
+            "bytes": _fit_block_bytes(spec.p, capacity, chunk, rp,
+                                      policy.shards)})
+    return {"mode": "fit_scaling", "fit_backend": backend,
+            "shards": int(policy.shards), "chunk_cols": int(chunk),
+            "repeats": int(repeats), "device": _device_name(device),
+            "rows": rows}

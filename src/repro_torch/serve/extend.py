@@ -22,6 +22,16 @@ stripe's own launches (embed_assign_op: each stripe writes its labels and
 distances at its offset of the request's outputs, no embedding to
 transpose); after a two-pass stripe, through assign_op. Path selection
 follows the ComputePolicy against the model's device (serve/policy.py).
+
+Sharded (`ShardedExtender`, policy.mesh): the extension P kappa(ref, x)
+shards like the fit. Each rank holds a column slab of the reference set
+and of P (zero-padded to a multiple of the ranks; padded P columns are
+zero, so whatever kernel values the padded reference columns give are
+annihilated, exactly, even where kappa(0, x) != 0), embeds every stripe
+against its slab (extend_embed on the card) and one all_reduce of the
+(r, block) partials sums them: r * block floats per stripe, whatever n.
+The assignment runs after the sum, through the standalone kmeans_assign
+kernel: the fold into extend_embed's launch cannot reach across ranks.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ from repro_torch.core.kernels_fn import stripe_iterator
 from repro_torch.core.kmeans import _sq_dists
 from repro_torch.kernels.extend_embed.ops import extend_embed_op
 from repro_torch.kernels.kmeans_assign.ops import assign_op, embed_assign_op
+from repro_torch.launch.mesh import mesh_axis
 from repro_torch.serve.artifact import FittedModel
 from repro_torch.serve.policy import ComputePolicy, resolve_kernel_path
 
@@ -59,6 +70,19 @@ def _projection(model: FittedModel) -> torch.Tensor:
                            1.0 / torch.sqrt(torch.clamp(ev, min=_EIG_EPS)),
                            torch.zeros_like(ev))
     return (inv_sqrt[:, None] * model.U.T).contiguous()
+
+
+def _queries(model: FittedModel, Xq) -> torch.Tensor:
+    """Xq as a (p, b) float32 tensor on the model's device whose column
+    stripes the kernels take without a copy."""
+    p = model.spec.p
+    Xq = torch.as_tensor(Xq, dtype=torch.float32, device=model.device)
+    if Xq.dim() != 2 or Xq.shape[0] != p:
+        raise ValueError(f"queries must be (p={p}, b), got "
+                         f"{tuple(Xq.shape)}")
+    if Xq.shape[1] > 1 and Xq.stride(1) != 1:
+        Xq = Xq.contiguous()
+    return Xq
 
 
 def _assign_plain(Yq: torch.Tensor, C: torch.Tensor):
@@ -90,16 +114,7 @@ class Extender:
         self._statics = _kernel_statics(model.spec)
 
     def _queries(self, Xq) -> torch.Tensor:
-        """Xq as a (p, b) float32 tensor on the model's device whose
-        column stripes the kernels take without a copy."""
-        p = self.model.spec.p
-        Xq = torch.as_tensor(Xq, dtype=torch.float32, device=self.device)
-        if Xq.dim() != 2 or Xq.shape[0] != p:
-            raise ValueError(f"queries must be (p={p}, b), got "
-                             f"{tuple(Xq.shape)}")
-        if Xq.shape[1] > 1 and Xq.stride(1) != 1:
-            Xq = Xq.contiguous()
-        return Xq
+        return _queries(self.model, Xq)
 
     def embed(self, Xq, block: Optional[int] = None) -> torch.Tensor:
         """Embed query points Xq (p, b) -> Y_q (r, b), streaming over
@@ -180,3 +195,93 @@ def assign(model: FittedModel, Xq, block: Optional[int] = None, *,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-shot assignment: (labels (b,), squared distance (b,))."""
     return Extender(model, block, policy=policy).assign(Xq)
+
+
+class ShardedExtender:
+    """The extension sharded over a mesh axis, one all_reduce per stripe.
+
+    Takes the mesh from `mesh` / `axis` or from policy.mesh /
+    policy.mesh_axis. embed() and assign() have Extender's arguments and
+    are collective: every rank calls them with the same queries. At world
+    size 1 the slab is the whole reference set and embed() has the bits of
+    Extender.embed() on the same policy.
+    """
+
+    def __init__(self, model: FittedModel, mesh=None, axis: str = "data",
+                 block: Optional[int] = None, *,
+                 policy: Optional[ComputePolicy] = None):
+        policy = policy if policy is not None else ComputePolicy()
+        if mesh is None:
+            mesh, axis = policy.mesh, policy.mesh_axis
+        if mesh is None:
+            raise ValueError("ShardedExtender needs a mesh — pass mesh= "
+                             "or a policy with policy.mesh set")
+        self.ax = ax = mesh_axis(mesh, axis)
+        self.model = model
+        self.policy = policy
+        self.device = model.device
+        self.block = int(block or model.spec.block)
+        self.fused = policy.resolve_embed(self.device,
+                                          "fused extend_embed stripe "
+                                          "(sharded)")
+        self.assign_fused = policy.resolve_assign(self.device)
+        self._statics = _kernel_statics(model.spec)
+        # This rank's column slab of the reference set and of P.
+        n = model.n_ref
+        width = -(-n // ax.size)
+        lo, hi = min(ax.index * width, n), min((ax.index + 1) * width, n)
+        pad = (0, width - (hi - lo))
+        self._ref = torch.nn.functional.pad(
+            model.extension_ref[:, lo:hi], pad).contiguous()
+        self._proj = torch.nn.functional.pad(
+            _projection(model)[:, lo:hi], pad).contiguous()
+        ax.check("ShardedExtender", self._ref)
+
+    def embed(self, Xq, block: Optional[int] = None) -> torch.Tensor:
+        """Embed Xq (p, b) -> (r, b) in stripes of `block`: each stripe
+        against this rank's slab, then one all_reduce of the partials."""
+        Xq = _queries(self.model, Xq)
+        block = int(block or self.block)
+        b = Xq.shape[1]
+        out = torch.empty((self.model.spec.r, b), dtype=torch.float32,
+                          device=self.device)
+        if self.fused:
+            kind, gamma, degree = self._statics
+            for start in range(0, b, block):
+                part = extend_embed_op(
+                    self._ref, self._proj, Xq[:, start:start + block],
+                    kind=kind, gamma=gamma, degree=degree)
+                out[:, start:start + block] = self.ax.all_reduce(part)
+            return out
+        kern = self.model.kernel_fn()
+        for start, stripe in stripe_iterator(kern, Xq, block, lhs=self._ref,
+                                             pad_tail=True):
+            width = min(block, b - start)
+            part = (self._proj @ stripe)[:, :width].contiguous()
+            out[:, start:start + width] = self.ax.all_reduce(part)
+        return out
+
+    def assign(self, Xq, block: Optional[int] = None,
+               fused: Optional[bool] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sharded embed, then the nearest centroid: (labels (b,) int32,
+        squared distance (b,)). `fused` as in Extender.assign."""
+        if fused is None:
+            use_kernel = self.assign_fused
+        else:
+            use_kernel = resolve_kernel_path(
+                fused, self.policy.interpret if fused else None,
+                "kmeans_assign kernel", self.device)
+        C = self.model.centroids.contiguous()
+        Yq = self.embed(Xq, block).T.contiguous()          # (b, r)
+        if use_kernel:
+            return assign_op(Yq, C)
+        return _assign_plain(Yq, C)
+
+
+def embed_sharded(model: FittedModel, Xq, mesh, axis: str = "data",
+                  block: Optional[int] = None) -> torch.Tensor:
+    """One-shot sharded embed through a throwaway ShardedExtender on the
+    default policy (serving paths hold one and reuse its slabs).
+    Collective."""
+    return ShardedExtender(model, mesh, axis, block).embed(Xq)

@@ -10,6 +10,12 @@ Fields (all tri-state: None = auto, True/False = explicit):
                   counterpart of Pallas interpret mode). It chooses
                   nothing: the tensors' device does. It only decides
                   whether a request warns or conflicts, by the JAX rules.
+    mesh          torch.distributed DeviceMesh with named dims; not None
+                  routes the one-pass fit (distributed/fit.py) and the
+                  serving extension (ShardedExtender) through the sharded
+                  path. Every call on that path is collective: each rank
+                  makes it with the same arguments.
+    mesh_axis     the mesh dim the data dimension shards over.
 
 The JAX package resolved a field against the default backend; the port
 resolves it against the device of the tensors the path will see, which a
@@ -19,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -78,6 +84,14 @@ class ComputePolicy:
     assign_fused: Optional[bool] = None
     fit_fused: Optional[bool] = None
     interpret: Optional[bool] = None
+    mesh: Any = None
+    mesh_axis: str = "data"
+
+    def __post_init__(self):
+        if self.mesh is not None and \
+                self.mesh_axis not in (self.mesh.mesh_dim_names or ()):
+            raise ValueError(f"mesh has no axis {self.mesh_axis!r}; "
+                             f"have {self.mesh.mesh_dim_names}")
 
     def resolve_embed(self, device, where: str = "fused extend_embed stripe"
                       ) -> bool:
@@ -96,3 +110,14 @@ class ComputePolicy:
 
     def replace(self, **changes) -> "ComputePolicy":
         return dataclasses.replace(self, **changes)
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def shards(self) -> int:
+        """Ranks along the data axis (1 when unsharded)."""
+        if self.mesh is None:
+            return 1
+        return self.mesh.size(self.mesh.mesh_dim_names.index(self.mesh_axis))

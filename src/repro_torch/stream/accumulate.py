@@ -37,6 +37,7 @@ from repro_torch.core.sketch import (GaussianSketch, LowRankEig, SRHT,
                                      make_gaussian, make_srht, one_pass_core,
                                      srht_apply_t, srht_apply_t_prefix,
                                      srht_rows, truncate_sketch)
+from repro_torch.distributed.fit import ShardedFitEngine
 from repro_torch.kernels.fit_sketch.ops import fit_sketch_op
 
 Sketch = Union[SRHT, GaussianSketch]
@@ -65,8 +66,10 @@ class SketchAccumulator:
                  CPU tensors); a given fwht_fn (the kernel fwht_op, or the
                  plain fwht_ref) runs the unfused pad / sign / transform /
                  gather composition through it
-    policy:      optional ComputePolicy; fit_fused routes every block
-                 update through the fused fit_sketch kernel.
+    policy:      optional ComputePolicy. policy.mesh routes every block
+                 update through the sharded engine (distributed/fit.py,
+                 the bits of the unsharded fit at world size 1); fit_fused
+                 routes it through the fused fit_sketch kernel.
     kernel_statics: (kind, gamma, degree) for the fused kernel; required
                  whenever fit_fused resolves on.
     """
@@ -131,6 +134,15 @@ class SketchAccumulator:
                 "for the fit_sketch kernel — fit through KernelKMeans "
                 "(which passes them from the spec) or give "
                 "SketchAccumulator kernel_statics=")
+        # Under a mesh, self.W / self.row_norms2 hold this rank's padded
+        # slabs; eig() and state_arrays() gather the logical rows.
+        self._engine = None
+        if policy is not None and policy.mesh is not None:
+            self._engine = ShardedFitEngine(
+                policy.mesh, policy.mesh_axis, sketch, kernel,
+                fit_fused=self._fit_fused, kernel_statics=kernel_statics)
+            self.W = self._engine.pad_rows(W)
+            self.row_norms2 = self._engine.pad_vec(row_norms2)
         if X is not None:
             self._store(torch.as_tensor(X, dtype=torch.float32,
                                         device=self.device))
@@ -145,16 +157,15 @@ class SketchAccumulator:
         """Rebuild an accumulator around existing state (W, row norms and
         the data added so far), on the sketch's device."""
         dev = _sketch_device(sketch)
+        W = torch.as_tensor(W, dtype=torch.float32, device=dev).clone()
+        _check_sketch(sketch, int(W.shape[0]), int(W.shape[1]))
         acc = cls.__new__(cls)
-        acc._bind(kernel, r, sketch,
-                  torch.as_tensor(W, dtype=torch.float32,
-                                  device=dev).clone(),
+        acc._bind(kernel, r, sketch, W,
                   torch.as_tensor(row_norms2, dtype=torch.float32,
                                   device=dev).clone(),
                   n_applied, X, block=block, fwht_fn=fwht_fn,
                   truncate_basis=truncate_basis, policy=policy,
                   kernel_statics=kernel_statics)
-        _check_sketch(sketch, int(acc.W.shape[0]), int(acc.W.shape[1]))
         if acc.n_added < acc.n_applied or acc.n_added > acc.capacity:
             raise ValueError(
                 f"inconsistent stream state: {acc.n_added} columns of data "
@@ -263,8 +274,12 @@ class SketchAccumulator:
     def _apply(self, W: torch.Tensor, row_norms2: torch.Tensor, q: int,
                b: int) -> None:
         """One block update, in place: fold columns [q, q+b) of the data
-        into (W, row_norms2). The fit_fused policy routes it through the
-        fused fit_sketch kernel; otherwise the canonical update."""
+        into (W, row_norms2). A mesh policy routes it through the sharded
+        engine, fit_fused through the fused fit_sketch kernel; otherwise
+        the canonical update."""
+        if self._engine is not None:
+            self._engine.apply(self._Xbuf, W, row_norms2, q, b)
+            return
         if self._fit_fused:
             self._apply_fused(W, row_norms2, q, b)
             return
@@ -315,10 +330,17 @@ class SketchAccumulator:
         keep the chunk-invariant update sequence."""
         tail = self.n_added - self.n_applied
         if tail == 0:
-            return self.W, self.row_norms2, self.n_applied
-        W, rn = self.W.clone(), self.row_norms2.clone()
-        self._apply(W, rn, self.n_applied, tail)
-        return W, rn, self.n_added
+            W, rn, n_eff = self.W, self.row_norms2, self.n_applied
+        else:
+            W, rn = self.W.clone(), self.row_norms2.clone()
+            self._apply(W, rn, self.n_applied, tail)
+            n_eff = self.n_added
+        return self._logical(W), self._logical(rn), n_eff
+
+    def _logical(self, t: torch.Tensor) -> torch.Tensor:
+        """The (capacity, ...) view of W or the row norms: under a mesh,
+        every rank's slab gathered (collective)."""
+        return t if self._engine is None else self._engine.gather(t)
 
     # -- eigendecomposition ----------------------------------------------
 
@@ -363,8 +385,8 @@ class SketchAccumulator:
                   "sketch_rows": self.sketch.rows}
         else:
             st = {"sketch_omega": self.sketch.omega}
-        st["stream_w"] = self.W.clone()
-        st["stream_row_norms2"] = self.row_norms2.clone()
+        st["stream_w"] = self._logical(self.W).clone()
+        st["stream_row_norms2"] = self._logical(self.row_norms2).clone()
         st["stream_counts"] = torch.tensor([self.n_applied, self.capacity],
                                            dtype=torch.int32)
         return st

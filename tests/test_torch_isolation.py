@@ -47,7 +47,10 @@ def test_port_covers_the_slice_modules():
                 "serve/registry.py", "serve/bench.py", "stream/drift.py",
                 "stream/retrain.py", "fleet/worker.py", "fleet/router.py",
                 "fleet/admission.py", "fleet/controller.py",
-                "fleet/rollout.py", "fleet/tier.py", "fleet/bench.py"):
+                "fleet/rollout.py", "fleet/tier.py", "fleet/bench.py",
+                "distributed/dfwht.py", "distributed/fit.py",
+                "distributed/cluster.py", "distributed/fault.py",
+                "launch/mesh.py", "launch/cluster.py"):
         assert (port / rel).is_file(), rel
     for name in ("gram", "kmeans_assign", "extend_embed", "fit_sketch",
                  "fwht"):

@@ -8,6 +8,7 @@ from a seed. Labels and distances are compared by the kmeans_assign rule
 (distances within 2e-3, labels differ on < 1% of rows).
 """
 import dataclasses
+import types
 import warnings
 
 import numpy as np
@@ -196,5 +197,10 @@ def test_policy_replace_matches_jax(changes):
     assert got == ComputePolicy(**{**base, **changes})
     with pytest.raises(dataclasses.FrozenInstanceError):
         got.embed_fused = None
-    with pytest.raises(TypeError):
-        got.replace(mesh_axis="data")    # no mesh fields before that slice
+    # The mesh fields: replace() carries them, and a mesh without the
+    # data axis is refused, as in the JAX package.
+    assert got.replace(mesh_axis="data") == got
+    mesh = types.SimpleNamespace(mesh_dim_names=("model",))
+    with pytest.raises(ValueError, match="no axis 'data'"):
+        got.replace(mesh=mesh)
+    assert got.replace(mesh=mesh, mesh_axis="model").mesh is mesh
