@@ -126,6 +126,25 @@ Phases, each fatal on failure:
      -m repro_torch.launch.cluster --distributed --dataset seg), which
      must exit 0. Launches are counted on the sharded paths, and
      fit_sketch, fwht, extend_embed and kmeans_assign must launch;
+  12. launcher (after 11, before 7): repro_torch.launch.serve_cluster
+     in-process at n = 100,000 points of its blob_ring (p = 2, k = 2,
+     r = 2), the artifacts and bench files in a temporary directory under
+     build/: (a) --swap --stream --fleet --bench all --batch-sizes
+     64,512,4096 --queries 8192 prints `serve_cluster: OK`, its bench
+     file holds all eight sections, srht_t, extend_embed and embed_assign
+     launch; (b) --backend nystrom --nystrom-m 1024 --bench sync, and
+     --fused-embed off --bench sync, which launches kmeans_assign; each
+     with every launch count set to 0 just before, its seconds, launches
+     and the bench's headline numbers printed; (c) --sharded --bench sync
+     under torchrun (--standalone --nproc_per_node=1) and (d) the four
+     examples (examples/torch_*.py; the distributed one under torchrun),
+     started together as processes, each of which must exit 0. While
+     (a) and (b) run, a stand-in beside each kernel wrapper keeps the
+     inputs of the first call of each distinct shape (the wrappers alone
+     count launches); after each run, outside its counts, every kept call
+     goes through the wrapper again on the card and through the plain
+     version, held by the registry's rule (fwht and srht_t exactly), and
+     a kernel that launched with no call kept fails the phase;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -241,6 +260,32 @@ FLEET_KW = {"max_wait_ms": 2.0, "slo_ms": 250.0}     # the JAX bench's
 DIST_FIT_LEAVES = ("stream_w", "stream_row_norms2", "eigvals", "centroids",
                    "U")
 FIT_SCALING_NS = (25_000, 50_000, 100_000)
+# Phase 12: the serving launcher at n = 100,000 on its own data
+# (blob_ring, p = 2, k = 2, r = 2): the main run with every check and
+# every bench, a Nystrom run and a two-pass run in-process; the sharded
+# run under torchrun and the four examples as processes, all at once.
+LAUNCHER_RUNS = {
+    "main": ["--n", "100000", "--k", "2", "--r", "2", "--swap", "--stream",
+             "--fleet", "--bench", "all", "--batch-sizes", "64,512,4096",
+             "--queries", "8192"],
+    "nystrom": ["--backend", "nystrom", "--nystrom-m", "1024", "--n",
+                "100000", "--bench", "sync"],
+    "two-pass": ["--fused-embed", "off", "--n", "100000", "--bench",
+                 "sync"],
+}
+# Kernels each in-process run must launch.
+LAUNCHER_MUST = {"main": ("srht_t", "extend_embed", "embed_assign"),
+                 "nystrom": ("extend_embed", "embed_assign"),
+                 "two-pass": ("kmeans_assign",)}
+# The bench file's sections: sync's "results" and the seven others.
+BENCH_SECTIONS = ("results", "async", "fused", "swap", "backends", "stream",
+                  "fit_scaling", "fleet")
+LAUNCHER_SHARDED_N = 100_000
+EXAMPLES = ("torch_quickstart", "torch_serve_async", "torch_stream_refit")
+TORCHRUN = ["-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node=1"]
+# Output arguments of a wrapper, left out of the calls phase 12 keeps.
+OUTPUT_KW = ("labels", "d2")
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -765,6 +810,267 @@ def phase_distributed(torch, est, X, y, Xq, smi) -> tuple:
     log(f"[distributed] launches {tally.launches}; phase 11 took "
         f"{info['phase_s']:.2f} s")
     return tally.launches, info
+
+
+class CallKeeper:
+    """Within `with`, a stand-in takes the place of each kernel wrapper in
+    every repro_torch module but the wrappers' own (where a wrapper counts
+    its launches through its own name): it keeps a copy of the inputs of
+    the first call of each distinct shape, by kernel, then calls the
+    wrapper, which alone counts the launch. Every module of the package is
+    imported first, so that none takes a wrapper from its own module
+    meanwhile; on leaving, every module gets its wrappers back."""
+
+    def __init__(self, torch):
+        import threading
+        from repro_torch.kernels import OPS
+        self.torch, self.lock = torch, threading.Lock()
+        self.calls = {name: {} for name in OPS}
+        self.stand_ins = {id(op): self._stand_in(name, op)
+                          for name, op in OPS.items()}
+        self.wrappers = {id(s): op for s, op in (
+            (s, s.__wrapped__) for s in self.stand_ins.values())}
+
+    def _stand_in(self, name, op):
+        is_t = self.torch.is_tensor
+
+        def stand_in(*args, **kw):
+            key = (tuple(tuple(a.shape) if is_t(a) else a for a in args),
+                   tuple((k, tuple(v.shape) if is_t(v) else v)
+                         for k, v in sorted(kw.items())
+                         if k not in OUTPUT_KW))
+            if key not in self.calls[name]:
+                with self.lock:
+                    self.calls[name].setdefault(key, (
+                        [a.detach().clone() if is_t(a) else a
+                         for a in args],
+                        {k: v.detach().clone() if is_t(v) else v
+                         for k, v in kw.items() if k not in OUTPUT_KW}))
+            return op(*args, **kw)
+        stand_in.__wrapped__ = op
+        return stand_in
+
+    @staticmethod
+    def _swap(table) -> None:
+        for mod_name, mod in list(sys.modules.items()):
+            if mod is None or mod_name.split(".")[0] != "repro_torch" \
+                    or re.fullmatch(r"repro_torch\.kernels\.\w+\.ops",
+                                    mod_name):
+                continue
+            for attr, value in list(vars(mod).items()):
+                if id(value) in table:
+                    setattr(mod, attr, table[id(value)])
+
+    def __enter__(self):
+        import importlib
+        import pkgutil
+        import repro_torch
+        for mod in pkgutil.walk_packages(repro_torch.__path__,
+                                         "repro_torch."):
+            importlib.import_module(mod.name)
+        self._swap(self.stand_ins)
+        return self
+
+    def __exit__(self, *exc):
+        self._swap(self.wrappers)
+
+
+def hold_kept(torch, run, keeper, launches) -> dict:
+    """Each call `keeper` kept, through the wrapper on the card and through
+    its plain version, held by the registry's rule (fwht and srht_t
+    exactly): per kernel, the shapes held and the largest difference. A
+    kernel that launched in the run with no call kept fails."""
+    from repro_torch.kernels import registry
+    held = {}
+    for entry in registry.kernel_entries():
+        kept = list(keeper.calls[entry.name].values())
+        if launches[entry.name] and not kept:
+            raise AssertionError(
+                f"phase 12 {run}: {entry.name} launched "
+                f"{launches[entry.name]} times, but no call of it was "
+                f"kept: a call site the stand-ins do not reach")
+        worst = 0.0
+        for args, kw in kept:
+            got = entry.op(*args, **kw)
+            sync(torch)
+            want = entry.ref(*args, **kw)
+            try:
+                registry.compare(entry, got, want, (args, kw))
+                exact(torch, entry.name, got, want)
+            except AssertionError as e:
+                shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+                raise AssertionError(f"phase 12 {run}: {entry.name} at "
+                                     f"{shapes}: {e}") from None
+            worst = max(worst, max_err(torch, got, want))
+        if kept:
+            held[entry.name] = {
+                "shapes": len(kept), "max_abs_err": worst,
+                "first": [list(a.shape) for a in kept[0][0]
+                          if torch.is_tensor(a)]}
+    keeper.calls = {name: {} for name in keeper.calls}   # free the copies
+    log(f"[launcher] {run}: every call kept held against the plain "
+        f"version: " + "; ".join(
+            f"{n} {h['shapes']} shapes (first {h['first']}) max_abs_err "
+            f"{h['max_abs_err']:.3e}" for n, h in held.items()))
+    return held
+
+
+def launcher_run(torch, name, work, smi) -> tuple:
+    """One in-process run of repro_torch.launch.serve_cluster.main with
+    every launch count set to 0 just before: (launches, bench dict,
+    seconds, the kept calls held against the plain versions). Its output
+    is printed after it, each line tagged."""
+    import contextlib
+    import io
+    from repro_torch.kernels import OPS, reset_launches
+    from repro_torch.launch import serve_cluster
+    bench_out = work / f"bench_{name}.json"
+    argv = LAUNCHER_RUNS[name] + [
+        "--device", DEVICE, "--artifact-dir", str(work / name / "demo"),
+        "--bench-out", str(bench_out)]
+    buf = io.StringIO()
+    keeper = CallKeeper(torch)
+    sync(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf), keeper:
+            rc = serve_cluster.main(argv)
+        sync(torch)
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"[launcher {name}] {line}")
+    seconds = time.perf_counter() - t0
+    launches = {n: op.launches for n, op in OPS.items()}
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0 or not lines or lines[-1] != "serve_cluster: OK":
+        raise AssertionError(f"serve_cluster {name} did not end in OK")
+    idle = [n for n in LAUNCHER_MUST[name] if launches[n] == 0]
+    if idle:
+        raise AssertionError(f"serve_cluster {name} never launched {idle}")
+    log(f"[launcher] {name}: serve_cluster.main({' '.join(argv)}) OK in "
+        f"{seconds:.2f} s [{smi}]; launches {launches}")
+    held = hold_kept(torch, name, keeper, launches)
+    return launches, json.loads(bench_out.read_text()), seconds, held
+
+
+def bench_headlines(bench) -> dict:
+    """The bench file's headline numbers."""
+    lat = bench["async"]["latency"]
+    return {
+        "sync_qps": {str(r["batch_size"]): r["assignments_per_sec"]
+                     for r in bench["results"]},
+        "async_p50_ms": lat["latency_ms"]["p50"],
+        "async_p99_ms": lat["latency_ms"]["p99"],
+        "async_slo_violations": lat["slo_violations"],
+        "fused_speedup": bench["fused"]["speedup"],
+        "fused_saved_ratio": bench["fused"]["hbm"]["saved_ratio"],
+        "backends": {name: {k: row[k] for k in (
+            "accuracy", "kernel_approx_error", "fit_memory_bytes",
+            "assignments_per_sec")}
+            for name, row in bench["backends"]["per_backend"].items()},
+        "matmul512_ms": bench["calibration"]["matmul512_ms"],
+    }
+
+
+def launcher_processes(work, smi) -> dict:
+    """The launcher with --sharded under torchrun and the four examples
+    (the distributed one under torchrun), started together; each must
+    exit 0. Returns each one's seconds (they overlap) and its last
+    lines."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    # "--" ends torchrun's options: it would read --n as an ambiguous
+    # abbreviation of its own.
+    cmds = {"serve_cluster --sharded (torchrun)": TORCHRUN + [
+        "-m", "repro_torch.launch.serve_cluster", "--", "--sharded",
+        "--bench",
+        "sync", "--n", str(LAUNCHER_SHARDED_N), "--device", DEVICE,
+        "--artifact-dir",
+        str(work / "sharded" / "demo"), "--bench-out",
+        str(work / "bench_sharded.json")]}
+    for name in EXAMPLES:
+        cmds[name] = [str(ROOT / "examples" / f"{name}.py"), "--device",
+                      DEVICE]
+    cmds["torch_distributed_clustering (torchrun)"] = TORCHRUN + [
+        str(ROOT / "examples" / "torch_distributed_clustering.py"),
+        "--device", DEVICE]
+    t0 = time.perf_counter()
+    # Each in a session of its own, so that a kill reaches torchrun's
+    # workers too.
+    procs = {name: subprocess.Popen(
+        [sys.executable] + cmd, env=env, cwd=str(work), text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        start_new_session=True) for name, cmd in cmds.items()}
+    out, failed = {}, []
+    try:
+        for name, proc in procs.items():
+            so, se = proc.communicate(timeout=max(
+                1.0, 300 - (time.perf_counter() - t0)))
+            lines = [ln for ln in so.splitlines() if ln.strip()]
+            out[name] = {"seconds": time.perf_counter() - t0,
+                         "rc": proc.returncode, "lines": lines[-4:]}
+            log(f"[launcher] {name}: exit {proc.returncode} by "
+                f"{out[name]['seconds']:.1f} s (all started together) "
+                f"[{smi}]: " + " | ".join(lines[-4:]))
+            if proc.returncode != 0:
+                failed.append(name)
+                log(f"[launcher] {name} stderr:\n{se[-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    if failed:
+        raise AssertionError(f"phase 12: {failed} did not exit 0")
+    return out
+
+
+def phase_launcher(torch, smi) -> tuple:
+    """Phase 12: the serving launcher (repro_torch.launch.serve_cluster)
+    in-process at n = 100,000: the main run (every check, every bench,
+    the bench file's eight sections), a Nystrom run and a two-pass run,
+    launches counted in each; then the sharded launcher under torchrun
+    and the four examples as processes."""
+    t_phase = time.perf_counter()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    work_dir = tempfile.TemporaryDirectory(dir=BUILD)
+    work = pathlib.Path(work_dir.name)
+    launches = {}
+    info = {"runs": {}}
+    held = {}
+    for name in LAUNCHER_RUNS:
+        counted, bench, seconds, held_run = launcher_run(torch, name, work,
+                                                         smi)
+        for op, n in counted.items():
+            launches[op] = launches.get(op, 0) + n
+        for op, h in held_run.items():
+            was = held.get(op, {"shapes": 0, "max_abs_err": 0.0})
+            held[op] = {"shapes": was["shapes"] + h["shapes"],
+                        "max_abs_err": max(was["max_abs_err"],
+                                           h["max_abs_err"])}
+        info["runs"][name] = {"seconds": seconds, "launches": counted,
+                              "held": held_run}
+        if name == "main":
+            missing = [s for s in BENCH_SECTIONS if s not in bench]
+            if missing:
+                raise AssertionError(f"the bench file lacks {missing}")
+            info["bench"] = bench_headlines(bench)
+            log(f"[launcher] main bench [{smi}]: "
+                f"{json.dumps(info['bench'])}")
+        else:
+            info["runs"][name]["sync_qps"] = {
+                str(r["batch_size"]): r["assignments_per_sec"]
+                for r in bench["results"]}
+    info["processes"] = launcher_processes(work, smi)
+    work_dir.cleanup()
+    info["launches"] = launches
+    info["held"] = held
+    info["phase_s"] = time.perf_counter() - t_phase
+    log(f"[launcher] launches {launches} (gram_stripe "
+        f"{launches.get('gram_stripe', 0)}: the stream check's drift "
+        f"monitor, not required); phase 12 took {info['phase_s']:.2f} s")
+    return launches, info
 
 
 def phase_env(torch) -> str:
@@ -2801,18 +3107,23 @@ def main() -> int:
     fleet_launches, summary["fleet"] = phase_fleet(torch, est.model_, Xq)
     dist_launches, summary["distributed"] = phase_distributed(
         torch, est, X, yall[:N_TRAIN], Xq, smi)
+    launcher_launches, summary["launcher"] = phase_launcher(torch, smi)
+    for name, held in summary["launcher"]["held"].items():
+        kernels[name]["launcher_held"] = held
     summary["serve"].update(phase_device(torch, kernels, inputs, est.model_,
                                          Xq))
     launches = {name: fit_launches[name] + serve_launches[name]
                 + stream_launches[name] + backend_launches[name]
                 + lifecycle_launches[name] + fleet_launches[name]
-                + dist_launches[name] for name in SOURCES}
+                + dist_launches[name] + launcher_launches[name]
+                for name in SOURCES}
     summary["launches"] = {"fit": fit_launches, "serve": serve_launches,
                            "stream": stream_launches,
                            "backends": backend_launches,
                            "lifecycle": lifecycle_launches,
                            "fleet": fleet_launches,
-                           "distributed": dist_launches}
+                           "distributed": dist_launches,
+                           "launcher": launcher_launches}
     log(f"[main path] launches {launches}")
     idle = [name for name in MAIN_PATH if launches[name] == 0]
     if idle:
@@ -2845,7 +3156,7 @@ def main() -> int:
                                  "dynamic_smem_bytes", "serving_widths",
                                  "plan", "tiled", "deep", "tf32_matmul",
                                  "registry_case", "landmark_widths",
-                                 "drift_shape")}})
+                                 "drift_shape", "launcher_held")}})
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -8,6 +8,7 @@
 - segmentation_proxy: a structure-matched stand-in for the UCI image
   segmentation set (n=2310, p=19, K=7, unit-l2 rows) of Fig. 3.
 - gaussian_blobs: well-separated clusters for unit tests.
+- blobs_1d: two-row blobs along the x axis, the drift demos' data.
 
 Draws come from a numpy Generator (or an int seed for one), or from a
 torch.Generator, whose device the data is then made on.
@@ -131,3 +132,18 @@ def segmentation_proxy(source: Source, n: int = 2310, p: int = 19,
     X = centers[labels] + spread * scales[labels] * noise   # (n, p)
     X = X / torch.linalg.norm(X, dim=1, keepdim=True)      # unit l2 rows
     return X.T.contiguous(), labels.to(torch.int32)
+
+
+def blobs_1d(rng: np.random.RandomState, xs, n_per: int = 100
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Two-row blobs of n_per points centered at each x position of `xs`
+    (spread 0.25): the drift demos' initial and drifted distributions.
+    Returns X (2, len(xs) n_per) float32, labels (len(xs) n_per,)."""
+    cols, labs = [], []
+    for i, x0 in enumerate(xs):
+        c = np.zeros((2, n_per), np.float32)
+        c[0] = x0 + 0.25 * rng.randn(n_per)
+        c[1] = 0.25 * rng.randn(n_per)
+        cols.append(c)
+        labs.append(np.full(n_per, i))
+    return np.concatenate(cols, axis=1), np.concatenate(labs)

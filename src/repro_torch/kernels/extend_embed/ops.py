@@ -67,3 +67,10 @@ def launch(what: str, X: torch.Tensor, P: torch.Tensor, Xb: torch.Tensor,
         cm.stream(X))
     _build.check(rc, what)
     return out
+
+
+def extend_embed_bytes(p: int, n: int, r: int, w: int) -> int:
+    """Bytes one serving stripe must move: X (p, n) and P (r, n) read once,
+    the query block Xb (p, w) read once, the (r, w) embedding written once
+    (the JAX package's memory_contract without the TPU padding)."""
+    return 4 * (p * n + r * n + p * w + r * w)

@@ -103,3 +103,10 @@ def embed_assign_op(X: torch.Tensor, P: torch.Tensor, Xb: torch.Tensor,
 
 
 embed_assign_op.launches = 0
+
+
+def assign_bytes(n: int, r: int, k: int) -> int:
+    """Bytes one assignment sweep must move: Y (n, r) and C (k, r) read
+    once, the (n,) int32 labels and (n,) float32 distances written once
+    (the JAX package's memory_contract without the TPU padding)."""
+    return 4 * (n * r + k * r + n + n)

@@ -132,10 +132,16 @@ def near_tie_compare(got, want, rtol, atol, distances):
     assert far.size == 0, f"labels differ off a near-tie at rows {far[:8]}"
 
 
+def sq_distances(Y, C):
+    """Squared distances (w, k) in float64 of the embedding Y (r, w) to
+    the centroids C (k, r): the near-tie rule's reference."""
+    Y = Y.T.double()
+    return _np(((Y[:, None, :] - C.double()[None]) ** 2).sum(-1))
+
+
 def embed_distances(X, P, Xb, C, kind="polynomial", gamma=0.0, degree=2):
     """The plain embedding's squared distances to C, (w, k), in float64."""
-    Y = extend_embed_ref(X, P, Xb, kind, gamma, degree).T.double()
-    return _np(((Y[:, None, :] - C.double()[None]) ** 2).sum(-1))
+    return sq_distances(extend_embed_ref(X, P, Xb, kind, gamma, degree), C)
 
 
 def _np(x) -> np.ndarray:

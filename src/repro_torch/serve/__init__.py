@@ -10,16 +10,18 @@ and the lifecycle around them.
   latency.py    streaming latency histogram: p50/p95/p99, SLO violations
   versions.py   VersionStore: <root>/v_<N>/ publish, pins, keep-last-K GC
   registry.py   ModelRegistry: rows of models, warm hot-swap (SwapReport)
-  bench.py      sync/async/swap/stream benches -> BENCH_serve_torch.json
+  bench.py      the eight benches (run_benches) -> BENCH_serve_torch.json
 """
 from repro_torch.serve.artifact import (ClusteringSpec, FittedModel,
                                         ModelSpec, fit_model, from_reference,
                                         load_model, save_model)
 from repro_torch.serve.batcher import MicroBatcher, bucket_size
 from repro_torch.serve.bench import (benchmark_assign, benchmark_async,
-                                     benchmark_fit_scaling,
+                                     benchmark_backends,
+                                     benchmark_fit_scaling, benchmark_fused,
                                      benchmark_stream, benchmark_swap,
-                                     format_bench, median_benches,
+                                     format_bench, machine_calibration,
+                                     median_benches, run_benches,
                                      write_bench)
 from repro_torch.serve.extend import (Extender, ShardedExtender, assign,
                                      embed, embed_sharded)
@@ -36,9 +38,11 @@ __all__ = ["AsyncBatcher", "ClusteringSpec", "ComputePolicy",
            "DEFAULT_REGISTRY", "Extender", "FittedModel", "LatencyStats",
            "MicroBatcher", "ModelRegistry", "ModelSpec", "SwapReport",
            "ShardedExtender", "VersionStore", "assign", "benchmark_assign",
-           "benchmark_async", "benchmark_fit_scaling", "benchmark_stream",
-           "benchmark_swap", "bucket_size", "embed", "embed_sharded",
+           "benchmark_async", "benchmark_backends", "benchmark_fit_scaling",
+           "benchmark_fused", "benchmark_stream", "benchmark_swap",
+           "bucket_size", "embed", "embed_sharded",
            "fit_model", "format_bench", "from_reference", "gc_versions",
-           "latest_version", "load_model", "load_version", "median_benches",
-           "publish_version", "resolve_kernel_path", "save_model",
+           "latest_version", "load_model", "load_version",
+           "machine_calibration", "median_benches", "publish_version",
+           "resolve_kernel_path", "run_benches", "save_model",
            "write_bench"]

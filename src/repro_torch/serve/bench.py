@@ -1,49 +1,69 @@
-"""Serving benchmarks: sync, async, warm swap and the streaming loop.
+"""Serving benchmarks: eight modes, one bench dict (run_benches).
 
   sync    `benchmark_assign` — bucketed assignments/sec per batch size
           through MicroBatcher (one warmup call per size pays the first
-          launch of its bucket);
+          launch of its bucket); on a sharded policy every rank times the
+          same number of (collective) calls;
   async   `benchmark_async` — request traffic through AsyncBatcher with
           deadline-driven flushing; reports the LatencyStats summary
           (p50/p95/p99, queue wait, SLO violations) plus throughput;
+  fused   `benchmark_fused` — the extension stripe through the
+          extend_embed kernel against the two-pass gram + projection,
+          with each stripe's bytes from the kernels' own byte counts;
   swap    `benchmark_swap` — async traffic with a warm hot-swap
           (registry.swap) in the middle: measured flip duration plus p95
           before/after from the surviving LatencyStats;
+  backends `benchmark_backends` — every backend fitted through
+          KernelKMeans on the same data: accuracy, approximation error,
+          fit s and memory model, artifact bytes, serving q/s;
   stream  `benchmark_stream` — the streaming fit (repro_torch.stream):
           partial_fit accumulation throughput, the re-eig cost, and the
           detection-to-swap latency of one full drift rollout (trigger ->
           refit -> publish -> warm swap) against a real VersionStore +
           ModelRegistry;
-  fit scaling  `benchmark_fit_scaling` — partial_fit cols/s single-host
+  fit_scaling  `benchmark_fit_scaling` — partial_fit cols/s single-host
           against the sharded fit (distributed/fit.py) on an n sweep,
-          with each block's bytes from the kernels' own counts.
+          with each block's bytes from the kernels' own counts;
+  fleet   `repro_torch.fleet.benchmark_fleet` — the replica tier's soak.
 
-These are the JAX package's benches (repro.serve.bench) with its schema,
-less the sections that read XLA's cost analysis. Randomness
-comes from a numpy seed; every wall-clock read on the card follows a
+These are the JAX package's benches (repro.serve.bench) with its schema
+and section keys; where it read XLA's cost analysis the port counts bytes
+with the kernels' byte models (kernels/*/ops.py), and every bench dict
+also names the `device`. Randomness comes from a seed (numpy or a
+torch.Generator); every wall-clock read on the card follows a
 `torch.cuda.synchronize()`, so a time covers the device work it names.
 `write_bench` writes the port's own file, BENCH_serve_torch.json by
 default (BENCH_serve.json belongs to the JAX package's regression gate).
 
-Schema (the dicts these return; callers merge them, e.g.
-bench = benchmark_assign(m); bench["async"] = benchmark_async(m)):
+Schema (run_benches; each bench alone returns its section):
 
     {"model": {...spec...}, "backend": "cuda" | "cpu", "device": name,
+     "calibration": {"matmul512_ms": ...},
+     "sharded": false | {"shards": s, "axis": "data"},
      "batch_sizes": [...],
      "results": [{"batch_size": b, "bucket": B, "calls": c, "wall_s": t,
                   "assignments_per_sec": qps}, ...],
      "bucket_executables": [...],
      "async": {"max_wait_ms": ..., "wall_s": ..., "queries_per_sec": ...,
                "latency": <LatencyStats.summary()>},
+     "fused": {"fused": {...}, "two_pass": {...}, "speedup": ...,
+               "hbm": {"two_pass_bytes": ..., "fused_bytes": ...,
+                       "saved_bytes": ..., "saved_ratio": ...}},
      "swap": {"flip_ms": ..., "warm_s": ..., "drain_s": ...,
               "buckets_warmed": [...], "drained_requests": ...,
               "p95_before_ms": ..., "p95_after_ms": ...,
               "stranded_futures": 0},
+     "backends": {"per_backend": {"onepass-srht": {"accuracy": ...,
+                  "kernel_approx_error": ..., "fit_s": ...,
+                  "fit_memory_bytes": ..., "artifact_bytes": ...,
+                  "n_ref": ..., "assignments_per_sec": ...}, ...}},
      "stream": {"partial_fit_chunks_per_sec": ...,
                 "partial_fit_cols_per_sec": ..., "reeig_s": ...,
                 "rollout": {"detect_to_swap_s": ..., "refit_s": ...,
                             "publish_s": ..., "swap_s": ...,
-                            "stranded_futures": 0, "retrains": 1}}}
+                            "stranded_futures": 0, "retrains": 1}},
+     "fit_scaling": {"shards": s, "rows": [...]},
+     "fleet": {"sweep": [...], "overload": {...}, "rollout": {...}}}
 """
 from __future__ import annotations
 
@@ -51,7 +71,7 @@ import dataclasses
 import json
 import statistics
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -133,13 +153,17 @@ def benchmark_assign(model: FittedModel,
     rng = np.random.RandomState(seed)
     batcher = MicroBatcher(model, block=block, policy=policy,
                            max_bucket=max_bucket)
+    # Each call of a batcher sharded over ranks is collective: every rank
+    # makes the same fixed `repeats` calls, uncalibrated.
+    collective = policy is not None and policy.shards > 1
     results = []
     for b in batch_sizes:
         Xq = torch.from_numpy(rng.randn(model.spec.p, b).astype(
             np.float32)).to(model.device)
         batcher.assign_batch(Xq)                    # warmup: first launch
         best, calls, wall = _min_call_time(
-            lambda: batcher.assign_batch(Xq), repeats, model.device)
+            lambda: batcher.assign_batch(Xq), repeats, model.device,
+            max_calls=repeats if collective else 1000)
         results.append({
             "batch_size": int(b),
             "bucket": bucket_size(b, batcher.min_bucket, batcher.max_bucket),
@@ -347,18 +371,10 @@ def benchmark_stream(model: FittedModel, n_chunks: int = 8,
         reeig_times.append(time.perf_counter() - t0)
 
     # One full drift rollout against a real store + registry.
+    from repro_torch.data import blobs_1d
     rng = np.random.RandomState(0)
-
-    def blobs(xs, n_per=80):
-        cols = []
-        for x0 in xs:
-            c = np.zeros((2, n_per), np.float32)
-            c[0] = x0 + 0.25 * rng.randn(n_per)
-            c[1] = 0.25 * rng.randn(n_per)
-            cols.append(c)
-        return np.concatenate(cols, axis=1)
-
-    X0, Xd = blobs((-2.0, 2.0)), blobs((3.0, 8.0))
+    X0 = blobs_1d(rng, (-2.0, 2.0), n_per=80)[0]
+    Xd = blobs_1d(rng, (3.0, 8.0), n_per=80)[0]
     demo = KernelKMeans(k=2, r=2, kernel="linear", backend="onepass-srht",
                         block=64, device=device)
     demo.partial_fit(X0, seed=seed, capacity=X0.shape[1] + Xd.shape[1])
@@ -474,6 +490,64 @@ def format_bench(bench: Dict) -> str:
             f" (refit {ro['refit_s']:.3f} s, publish {ro['publish_s']:.3f}"
             f" s, swap {ro['swap_s']:.3f} s)  stranded futures "
             f"{ro['stranded_futures']}")
+    if "backends" in bench and "per_backend" in bench["backends"]:
+        for name, row in sorted(bench["backends"]["per_backend"].items()):
+            lines.append(
+                f"backend {name:>16s}: acc {row['accuracy']:.3f}  "
+                f"err {row['kernel_approx_error']:.3f}  "
+                f"fit {row['fit_s']:6.2f} s / "
+                f"{row['fit_memory_bytes'] / 1e6:8.2f} MB  "
+                f"serve {row['assignments_per_sec']:>10.0f} q/s "
+                f"(n_ref {row['n_ref']})")
+    if "fleet" in bench:
+        fl = bench["fleet"]
+        for row in fl["sweep"]:
+            lines.append(
+                f"fleet {row['workers']} worker"
+                f"{'s' if row['workers'] != 1 else ''}: "
+                f"{row['queries_per_sec']:>10.0f} q/s  "
+                f"p50 {row['p50_ms']:.2f} ms  p95 {row['p95_ms']:.2f} ms  "
+                f"p99 {row['p99_ms']:.2f} ms")
+        ov = fl["overload"]
+        lines.append(
+            f"  overload (depth {ov['max_queue_depth']}): shed "
+            f"{ov['shed']}/{ov['offered']} ({ov['shed_rate']:.0%})  "
+            f"admitted p99 {ov['admitted_p99_ms']:.2f} ms "
+            f"{'<=' if ov['within_slo'] else '>'} SLO {ov['slo_ms']:.0f} ms")
+        ro = fl["rollout"]
+        lines.append(
+            f"  rollout: promote v{ro['promote']['version']} in "
+            f"{ro['promote']['wall_s']:.3f} s (canary p95 "
+            f"{ro['promote']['canary_p95_ms']:.2f} ms)  rollback "
+            f"v{ro['rollback']['version']} -> {ro['rollback']['state']}  "
+            f"stranded futures {ro['stranded_futures']}")
+    if "fit_scaling" in bench:
+        fs = bench["fit_scaling"]
+        for row in fs["rows"]:
+            by = row["bytes"]
+            lines.append(
+                f"fit n={row['n']:>6d} ({fs['shards']} shard"
+                f"{'s' if fs['shards'] != 1 else ''}): single "
+                f"{row['single_cols_per_sec']:>9.0f} cols/sec  sharded "
+                f"{row['sharded_cols_per_sec']:>9.0f} cols/sec  block "
+                f"fit_sketch {by['fit_sketch'] / 1e6:.2f} MB, srht_t "
+                f"{by['srht_t'] / 1e6:.2f} MB")
+    if "fused" in bench:
+        f = bench["fused"]
+        hbm = f["hbm"]
+        interp = " (interpret)" if f["interpret"] else ""
+        lines.append(
+            f"fused stripe{interp}: "
+            f"{f['fused']['queries_per_sec']:>10.0f} q/s  vs two-pass "
+            f"{f['two_pass']['queries_per_sec']:>10.0f} q/s  "
+            f"(speedup {f['speedup']:.2f}x)")
+        lines.append(
+            f"  stripe bytes: two-pass {hbm['two_pass_bytes'] / 1e6:.2f} MB"
+            f" -> fused {hbm['fused_bytes'] / 1e6:.2f} MB  "
+            f"(saves {hbm['saved_ratio']:.0%})")
+    if "calibration" in bench:
+        lines.append(f"calibration: 512 x 512 matmul "
+                     f"{bench['calibration']['matmul512_ms']:.4f} ms")
     return "\n".join(lines)
 
 
@@ -578,3 +652,271 @@ def benchmark_fit_scaling(model: FittedModel, ns: Sequence[int] = (128, 256,
             "shards": int(policy.shards), "chunk_cols": int(chunk),
             "repeats": int(repeats), "device": _device_name(device),
             "rows": rows}
+
+
+def _stripe_traffic(model: FittedModel, width: int) -> Dict:
+    """Bytes of one serving stripe of `width` queries, from the kernels'
+    own counts: two-pass is the gram stripe (the (n, width) stripe
+    written) plus the projection (the stripe read back, P read, the
+    embedding written); fused is the extend_embed kernel, whose stripe
+    never reaches memory. n is the extension height: the landmark count
+    of a Nystrom fit, the training count otherwise."""
+    from repro_torch.kernels.extend_embed.ops import extend_embed_bytes
+    from repro_torch.kernels.gram.ops import gram_stripe_bytes
+    spec = model.spec
+    p, n, r = spec.p, model.n_ref, spec.r
+    two_pass = (gram_stripe_bytes(p, n, width)
+                + 4 * (r * n + n * width + r * width))
+    fused = extend_embed_bytes(p, n, r, width)
+    return {
+        "two_pass_bytes": float(two_pass),
+        "two_pass_source": "kernels.gram.ops.gram_stripe_bytes + the "
+                           "projection's 4 (r n + n w + r w)",
+        "fused_bytes": float(fused),
+        "fused_source": "kernels.extend_embed.ops.extend_embed_bytes",
+        "stripe_roundtrip_bytes": float(2 * 4 * n * width),
+        "saved_bytes": float(two_pass - fused),
+        "saved_ratio": float((two_pass - fused) / two_pass)
+        if two_pass else 0.0,
+    }
+
+
+def benchmark_fused(model: FittedModel, width: int = 512, repeats: int = 5,
+                    seed: int = 0, block: Optional[int] = None,
+                    interpret: Optional[bool] = None) -> Dict:
+    """Fused extend_embed stripe against the two-pass gram + projection,
+    on the same (p, width) queries.
+
+    Embeds the batch through both engines (the first call of each paid
+    outside the timed loop; every timed call ends in a synchronize) and
+    reports throughput each plus the stripe's bytes (_stripe_traffic). On
+    CPU tensors the fused engine runs the kernel's plain version
+    (interpret=True unless given), so its time there is not the kernel's.
+    """
+    from repro_torch.serve.extend import Extender
+    from repro_torch.serve.policy import ComputePolicy
+    device = model.device
+    block_w = min(block or model.spec.block, width)
+    if interpret is None and device.type == "cpu":
+        interpret = True
+    engines = {
+        "fused": Extender(model, block_w, policy=ComputePolicy(
+            embed_fused=True, interpret=interpret)),
+        "two_pass": Extender(model, block_w,
+                             policy=ComputePolicy(embed_fused=False)),
+    }
+    gen = torch.Generator(device=device).manual_seed(seed)
+    Xq = torch.randn((model.spec.p, width), generator=gen, device=device)
+    out: Dict = {"mode": "fused", "width": int(width),
+                 "block": int(block_w), "repeats": int(repeats),
+                 "backend": device.type, "device": _device_name(device),
+                 "interpret": bool(interpret)}
+    for name, ext in engines.items():
+        ext.embed(Xq)                                 # first launch
+        best, calls, wall = _min_call_time(lambda: ext.embed(Xq), repeats,
+                                           device)
+        out[name] = {"wall_s": wall, "calls": int(calls),
+                     "queries_per_sec": width / best}
+    out["speedup"] = (out["fused"]["queries_per_sec"] /
+                      out["two_pass"]["queries_per_sec"])
+    out["hbm"] = _stripe_traffic(model, block_w)
+    return out
+
+
+# benchmark_backends' fit cache, bounded to ONE sweep: keyed by a data
+# fingerprint (shape and first two moments), the fit config and the seed;
+# a new (data, config) evicts the previous sweep's models.
+_BACKEND_FIT_CACHE: Dict = {}
+
+
+def benchmark_backends(X, labels, k: int, r: int,
+                       backends: Optional[Sequence[str]] = None,
+                       kernel: str = "polynomial",
+                       kernel_params: Optional[Dict] = None,
+                       block: int = 512, batch_size: int = 256,
+                       repeats: int = 3, seed: int = 0, policy=None,
+                       max_n: int = 4000, device=None) -> Dict:
+    """The paper's comparison as a bench section: every registered
+    backend fitted through KernelKMeans on the same data, and per backend
+
+      accuracy            best-permutation clustering accuracy vs labels
+      kernel_approx_error streaming ||K - Y^T Y||_F / ||K||_F
+      fit_s               fit wall time (backend + K-means), synchronized
+      fit_memory_bytes    the backend's memory model (O(r'n) one-pass,
+                          O(mn) Nystrom, O(n^2) exact)
+      artifact_bytes      the saved model's array payload
+      n_ref               serving extension height (m for Nystrom, n else)
+      assignments_per_sec bucketed serving throughput at `batch_size`
+                          through a MicroBatcher on `policy`
+
+    X (p, n) lands on `device` (X's own when it is a tensor, else the
+    card). The exact backend forms the n x n gram, so X is cut to its
+    first `max_n` columns (a uniform subsample for the shuffled synthetic
+    sets), recorded as `subsampled_from`. Fits are cached per (data,
+    config, seed) for one sweep, so repeated passes re-time only the
+    serving loop.
+    """
+    from repro_torch.api import (KernelKMeans, available_backends,
+                                 fit_memory_bytes)
+    from repro_torch.api.estimator import resolve_device
+    from repro_torch.core.metrics import (clustering_accuracy,
+                                          kernel_approx_error_streaming)
+    from repro_torch.serve.artifact import _array_state
+
+    if device is None and isinstance(X, torch.Tensor):
+        device = X.device
+    device = resolve_device(device)
+    X = torch.as_tensor(X, dtype=torch.float32, device=device)
+    if isinstance(labels, torch.Tensor):
+        labels = labels.cpu().numpy()
+    labels = np.asarray(labels)
+    backends = list(backends) if backends else available_backends()
+    full_n = int(X.shape[1])
+    if full_n > max_n:
+        X, labels = X[:, :max_n], labels[:max_n]
+    n = int(X.shape[1])
+    data_print = (tuple(X.shape), float(X.sum()), float((X * X).sum()))
+    cfg = (data_print, n, int(k), int(r), kernel,
+           tuple(sorted((kernel_params or {}).items())), int(block),
+           int(seed), str(device))
+    if _BACKEND_FIT_CACHE.get("cfg") != cfg:
+        _BACKEND_FIT_CACHE.clear()
+        _BACKEND_FIT_CACHE["cfg"] = cfg
+    gen = torch.Generator(device=device).manual_seed(seed)
+    per_backend: Dict[str, Dict] = {}
+    for name in backends:
+        cached = _BACKEND_FIT_CACHE.get((cfg, name))
+        if cached is None:
+            est = KernelKMeans(k=k, r=r, kernel=kernel,
+                               kernel_params=kernel_params, backend=name,
+                               block=block, device=device)
+            _sync(device)
+            t0 = time.perf_counter()
+            est.fit(X, seed=seed)
+            _sync(device)
+            fit_s = time.perf_counter() - t0
+            model = est.model_
+            err = kernel_approx_error_streaming(model.kernel_fn(), X,
+                                                est.embedding_, block=block)
+            cached = {"model": model, "row": {
+                "accuracy": float(clustering_accuracy(labels, est.labels_,
+                                                      k)),
+                "kernel_approx_error": float(err),
+                "fit_s": float(fit_s),
+                "fit_memory_bytes": int(fit_memory_bytes(
+                    name, n, r, **est.backend_params)),
+                "artifact_bytes": sum(int(v.nbytes) for v in
+                                      _array_state(model).values()),
+                "n_ref": model.n_ref,
+            }}
+            _BACKEND_FIT_CACHE[(cfg, name)] = cached
+        model = cached["model"]
+        batcher = MicroBatcher(model, policy=policy)
+        Xq = torch.randn((model.spec.p, batch_size), generator=gen,
+                         device=device)
+        batcher.assign_batch(Xq)                     # first launches
+        best, calls, wall = _min_call_time(
+            lambda: batcher.assign_batch(Xq), repeats, device)
+        per_backend[name] = dict(cached["row"],
+                                 assignments_per_sec=batch_size / best,
+                                 calls=int(calls), wall_s=wall)
+    out = {"mode": "backends", "n": n, "k": int(k), "r": int(r),
+           "batch_size": int(batch_size), "device": _device_name(device),
+           "per_backend": per_backend}
+    if full_n > n:
+        out["subsampled_from"] = full_n
+    return out
+
+
+def machine_calibration(device=None) -> Dict:
+    """Machine-speed probe stored in every bench file: the best time of a
+    512 x 512 torch.mm on `device` (the card when None), synchronized,
+    over at least 10 calls."""
+    from repro_torch.api.estimator import resolve_device
+    device = resolve_device(device)
+    x = torch.ones((512, 512), device=device)
+    torch.mm(x, x)                                    # first launch
+    best, _, _ = _min_call_time(lambda: torch.mm(x, x), 10, device,
+                                min_total_s=0.2)
+    return {"matmul512_ms": best * 1e3}
+
+
+BENCH_MODES = ("sync", "async", "fused", "swap", "backends", "stream",
+               "fit_scaling", "fleet")
+
+
+def run_benches(model: FittedModel, modes: Sequence[str] = ("sync", "async"),
+                batch_sizes: Sequence[int] = (64, 512), repeats: int = 5,
+                seed: int = 0, block: Optional[int] = None, policy=None,
+                max_bucket: int = 1024, n_requests: int = 256,
+                max_wait_ms: float = 2.0, slo_ms: float = 250.0,
+                data: Optional[Tuple] = None) -> Dict:
+    """Run the requested bench modes (BENCH_MODES) into one bench dict,
+    the JAX package's sections.
+
+    `policy` (a ComputePolicy) picks the serving paths; its mesh shards
+    the sync and async benches (ShardedExtender), and fit_scaling runs on
+    it (on a world of every rank when it has none). The other modes run
+    unsharded, as the JAX package's do. `data=(X, labels)` enables the
+    "backends" mode; without it the section records that it was skipped.
+    """
+    from repro_torch.serve.policy import ComputePolicy
+    policy = policy if policy is not None else ComputePolicy()
+    local = policy.replace(mesh=None)
+    device = model.device
+    bench: Dict = {
+        "model": dataclasses.asdict(model.spec),
+        "backend": device.type,
+        "device": _device_name(device),
+        "calibration": machine_calibration(device),
+        "sharded": ({"shards": int(policy.shards),
+                     "axis": policy.mesh_axis}
+                    if policy.mesh is not None else False),
+    }
+    if "sync" in modes:
+        bench.update(benchmark_assign(
+            model, batch_sizes=batch_sizes, repeats=repeats, seed=seed,
+            block=block, policy=policy, max_bucket=max_bucket))
+    if "async" in modes:
+        bench["async"] = benchmark_async(
+            model, n_requests=n_requests, max_wait_ms=max_wait_ms,
+            slo_ms=slo_ms, seed=seed, block=block, policy=policy,
+            max_bucket=max_bucket)
+    if "fused" in modes:
+        bench["fused"] = benchmark_fused(model, repeats=repeats, seed=seed,
+                                         block=block,
+                                         interpret=policy.interpret)
+    if "swap" in modes:
+        bench["swap"] = benchmark_swap(
+            model, n_requests=max(n_requests // 2, 32),
+            max_wait_ms=max_wait_ms, slo_ms=slo_ms, seed=seed, block=block,
+            policy=local, max_bucket=max_bucket)
+    if "stream" in modes:
+        bench["stream"] = benchmark_stream(model, repeats=repeats,
+                                           seed=seed, block=block,
+                                           max_wait_ms=max_wait_ms)
+    if "fit_scaling" in modes:
+        bench["fit_scaling"] = benchmark_fit_scaling(
+            model, repeats=repeats, seed=seed, block=block,
+            policy=(ComputePolicy(mesh=policy.mesh,
+                                  mesh_axis=policy.mesh_axis)
+                    if policy.mesh is not None else None))
+    if "fleet" in modes:
+        # Imported here: repro_torch.fleet composes the serve layer.
+        from repro_torch.fleet import benchmark_fleet
+        bench["fleet"] = benchmark_fleet(
+            model, max_wait_ms=max_wait_ms, slo_ms=slo_ms, seed=seed,
+            block=block, policy=local, device=device)
+    if "backends" in modes:
+        if data is None:
+            bench["backends"] = {"skipped": "no (X, labels) data passed"}
+        else:
+            X, labels = data
+            spec = model.spec
+            bench["backends"] = benchmark_backends(
+                X, labels, k=spec.k, r=spec.r, kernel=spec.kernel,
+                kernel_params=spec.kernel_params, block=block or spec.block,
+                repeats=repeats, seed=seed,
+                policy=ComputePolicy(interpret=policy.interpret),
+                device=device)
+    return bench

@@ -11,7 +11,7 @@ from repro_torch.kernels import OPS, registry, reset_launches
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py"] + sorted((REPO / "examples").glob("torch_*.py"))
 
 
 def _imports(path):
@@ -50,8 +50,12 @@ def test_port_covers_the_slice_modules():
                 "fleet/rollout.py", "fleet/tier.py", "fleet/bench.py",
                 "distributed/dfwht.py", "distributed/fit.py",
                 "distributed/cluster.py", "distributed/fault.py",
-                "launch/mesh.py", "launch/cluster.py"):
+                "launch/mesh.py", "launch/cluster.py",
+                "launch/serve_cluster.py"):
         assert (port / rel).is_file(), rel
+    for name in ("quickstart", "serve_async", "stream_refit",
+                 "distributed_clustering"):
+        assert (REPO / "examples" / f"torch_{name}.py").is_file(), name
     for name in ("gram", "kmeans_assign", "extend_embed", "fit_sketch",
                  "fwht"):
         assert (port / "kernels" / f"{name}" / "ops.py").is_file()

@@ -1,0 +1,190 @@
+"""The serving launcher (repro_torch.launch.serve_cluster) on the CPU.
+
+The launcher runs in-process with --device cpu --smoke at its smoke size
+(n = 2,000, as the JAX launcher's) for each flag and each --bench choice;
+each run prints `serve_cluster: OK` and writes exactly the sections the
+JAX package's run_benches writes for its modes (plus the port's
+`device`; tests/test_torch_serve_bench.py holds the keys against JAX's).
+Worlds of 2 gloo ranks run the launcher as two processes: --sharded
+--bench sync passes there, and a clock-flushed mode is refused.
+`run_world` here starts such a world for tests/test_torch_examples.py too.
+"""
+import datetime
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch.launch import serve_cluster
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+SMALL = ["--device", "cpu", "--smoke", "--queries", "128", "--repeats", "1",
+         "--bench-passes", "1", "--batch-sizes", "8,64",
+         "--async-requests", "32"]
+# The sections the JAX package's run_benches writes: always BASE, then
+# each mode's own (src/repro/serve/bench.py run_benches).
+BASE = {"model", "backend", "calibration", "sharded"}
+MODE_SECTIONS = {"sync": {"batch_sizes", "results", "bucket_executables"},
+                 "async": {"async"}, "fused": {"fused"}, "swap": {"swap"},
+                 "backends": {"backends"}, "stream": {"stream"},
+                 "fit_scaling": {"fit_scaling"}, "fleet": {"fleet"}}
+PORT_ONLY = {"device"}
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread for each test: the suite runs several test
+    processes on the machine's cores, where more threads per process
+    only contend (an n = 2,000 eigh slowed 80-fold so)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def run_world(cmd, world, cwd, timeout=240):
+    """`cmd` (python's arguments) as each rank of a world of `world`
+    processes, run in `cwd`, with the environment torchrun gives its
+    ranks; returns [(returncode, stdout, stderr)] by rank. As torchrun's
+    agent does, this process holds the ranks' store, on a port the system
+    picks (TORCHELASTIC_USE_AGENT_STORE: every rank is a client), so no
+    port is chosen and then taken by another. A rank still running at
+    `timeout` seconds is killed."""
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=timeout))
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
+           "OMP_NUM_THREADS": "1", "WORLD_SIZE": str(world),
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(store.port),
+           "TORCHELASTIC_USE_AGENT_STORE": "True"}
+    procs = [subprocess.Popen(
+        [sys.executable] + list(cmd), cwd=cwd,
+        env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    out = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=timeout)
+            out.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    del store
+    return out
+
+
+def _sections(modes):
+    out = set(BASE)
+    for m in modes:
+        out |= MODE_SECTIONS[m]
+    return out
+
+
+def _launch(tmp_path, capsys, *extra):
+    bench_out = tmp_path / "bench.json"
+    rc = serve_cluster.main(SMALL + list(extra) + [
+        "--artifact-dir", str(tmp_path / "art" / "demo"),
+        "--bench-out", str(bench_out)])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert out.strip().splitlines()[-1] == "serve_cluster: OK"
+    return json.loads(bench_out.read_text()), out
+
+
+RUNS = {
+    "default": ([], tuple(MODE_SECTIONS)),
+    "swap-gc-keep-2": (["--swap", "--gc-keep", "2", "--bench", "sync"],
+                       ("sync",)),
+    "stream": (["--stream", "--bench", "sync"], ("sync",)),
+    "fleet": (["--fleet", "--fleet-workers", "2", "--bench", "fleet"],
+              ("fleet",)),
+    "nystrom": (["--backend", "nystrom", "--bench", "sync"], ("sync",)),
+    "exact": (["--backend", "exact", "--bench", "sync"], ("sync",)),
+    "onepass-gaussian": (["--backend", "onepass-gaussian", "--bench",
+                          "sync"], ("sync",)),
+    "rbf": (["--kernel", "rbf", "--bench", "sync"], ("sync",)),
+    # "default" is --bench all.
+    **{f"bench-{m}": (["--bench", m], (m,)) for m in MODE_SECTIONS},
+}
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_launcher_runs_on_the_cpu(tmp_path, capsys, name):
+    extra, modes = RUNS[name]
+    bench, out = _launch(tmp_path, capsys, *extra)
+    assert set(bench) == _sections(modes) | PORT_ONLY
+    assert bench["backend"] == "cpu" and bench["sharded"] is False
+    assert bench["calibration"]["matmul512_ms"] > 0
+    if "backends" in modes:
+        assert set(bench["backends"]["per_backend"]) == {
+            "exact", "nystrom", "onepass-gaussian", "onepass-srht"}
+    if "--swap" in extra:
+        assert "warm swap" in out and "published v1, v2, v3 -> [2, 3]" \
+            in out
+    if "--stream" in extra:
+        assert "stream: drift" in out
+    if "--fleet" in extra:
+        assert "breached canary rolled back" in out
+    if name == "rbf":
+        assert "not gated" in out
+    backend = extra[extra.index("--backend") + 1] if "--backend" in extra \
+        else "onepass-srht"
+    assert ("sharded fit (1 shard) bit-identical" in out) == \
+        backend.startswith("onepass-")
+
+
+def test_the_card_is_the_default(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        serve_cluster.main(["--smoke"])
+    assert e.value.code != 0
+    assert "--device cpu" in capsys.readouterr().err
+
+
+def test_interpret_is_for_the_cpu(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(SystemExit) as e:
+        serve_cluster.main(["--smoke", "--interpret"])
+    assert e.value.code != 0
+    assert "plain versions" in capsys.readouterr().err
+
+
+def test_interpret_takes_the_kernel_paths_on_the_cpu(tmp_path, capsys):
+    bench, _ = _launch(tmp_path, capsys, "--interpret", "--bench", "fused")
+    assert bench["fused"]["interpret"] is True
+
+
+# -- worlds of 2 gloo ranks ---------------------------------------------------
+
+LAUNCHER = ["-m", "repro_torch.launch.serve_cluster"] + SMALL
+
+
+def test_sharded_sync_over_two_ranks(tmp_path):
+    res = run_world(LAUNCHER + ["--sharded", "--bench", "sync"], 2, tmp_path)
+    for rc, out, err in res:
+        assert rc == 0, err[-3000:]
+    out = res[0][1]
+    assert out.strip().splitlines()[-1] == "serve_cluster: OK"
+    assert "sharded fit (2 shards) within 2e-3" in out
+    assert "sharded extension matches single-device over 2" in out
+    bench = json.loads((tmp_path / "BENCH_serve_torch.json").read_text())
+    assert bench["sharded"] == {"shards": 2, "axis": "data"}
+    assert set(bench) == _sections(("sync",)) | PORT_ONLY
+
+
+@pytest.mark.parametrize("extra", [["--bench", "async"],
+                                   ["--swap", "--bench", "sync"]])
+def test_clocked_modes_are_refused_over_two_ranks(tmp_path, extra):
+    res = run_world(LAUNCHER + ["--sharded"] + extra, 2, tmp_path)
+    for rc, out, err in res:
+        assert rc == 2, err[-3000:]
+        assert "rank-0 pump" in err and "serve_cluster: OK" not in out
