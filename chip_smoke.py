@@ -145,6 +145,28 @@ Phases, each fatal on failure:
      goes through the wrapper again on the card and through the plain
      version, held by the registry's rule (fwht and srht_t exactly), and
      a kernel that launched with no call kept fails the phase;
+  13. lm (after 12, before 7): the decoder-only LM serving path
+     (repro_torch.models, launch/serve.py), on which no kernel of the
+     port's lies (the projections are torch.matmul, attention plain
+     einsums; the launch counts read around it stay 0): (a) python -m
+     repro_torch.launch.serve --no-smoke --arch phi4-mini-3.8b --batch 8
+     --prompt-len 512 --gen 32 --max-seq 1024 as a process (full width
+     and depth, 4.451 B parameters, bf16, an f32 cache), which must exit
+     0 with finite logits; its prefill ms, decode ms/step, tokens/s and
+     peak memory beside the prefill's flops bound and the decode step's
+     bytes bound; (b) the same model in process: prefill(512) against
+     forward(512)[:, -1] and one decode against forward(513)[:, -1]
+     within the bf16 tolerances of LM_PREFILL_ULPS / LM_ROUNDINGS, a
+     differing greedy token only at a near tie; the same checks at depth
+     2 in f32 within 1e-4 with equal tokens; warm prefill and decode
+     times, peak memory, and a decode step under the profiler; (c) the
+     other six decoder-only archs at their published widths, depth cut
+     to 2 (`reduced`), one at a time: prefill(256) == forward at batch 4,
+     one decode == forward(257) for the non-MoE ones (capacity routing
+     groups a decode step's tokens apart: the JAX package's semantics),
+     8 decode steps timed; mixtral's sliding ring at full width at one
+     Attention layer (prefill 4,100 > window 4,096 at batch 1, then 3
+     decode steps against the windowed forward, f32 and bf16);
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -158,6 +180,7 @@ without a CUDA card or without the repository around it.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -181,6 +204,7 @@ DEVICE = "cuda"
 # flops / TF32, the rest of their flops / FP32).
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12      # the LM phase's bound: bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 # The port's configuration: the paper's Fig. 3 widths at n = 100,000.
@@ -286,6 +310,38 @@ TORCHRUN = ["-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node=1"]
 # Output arguments of a wrapper, left out of the calls phase 12 keeps.
 OUTPUT_KW = ("labels", "d2")
+
+# Phase 13: the decoder-only LM serving path. (a) phi4-mini-3.8b at full
+# width and depth through the LM launcher as a process; (b) the same model
+# in process, held to its own invariants and timed warm, and at depth 2 in
+# f32; (c) the other six decoder-only archs at their published widths,
+# depth cut to 2, one at a time, and mixtral's sliding ring at full width
+# at the layer (a prefill of 4,100 > window 4,096, then 3 decode steps).
+LM_ARCH = "phi4-mini-3.8b"
+LM_B, LM_S, LM_GEN, LM_MAX_SEQ = 8, 512, 32, 1024
+LM_SERVE = ["--no-smoke", "--arch", LM_ARCH, "--batch", str(LM_B),
+            "--prompt-len", str(LM_S), "--gen", str(LM_GEN), "--max-seq",
+            str(LM_MAX_SEQ)]
+LM_OTHERS = ("qwen3-14b", "command-r-plus-104b", "nemotron-4-340b",
+             "pixtral-12b", "mixtral-8x7b", "dbrx-132b")
+LM_CUT_DEPTH = 2
+LM_OTHERS_B, LM_OTHERS_S, LM_OTHERS_GEN = 4, 256, 8
+RING_S, RING_STEPS = 4100, 3
+LM_F32_TOL = 1e-4        # abs on logits: the CPU tests' bound against JAX
+LM_RING_TOL = 1e-4       # relative to the largest |output|, f32
+# bf16 keeps 8 significant bits, so one rounding moves a value v by up to
+# ulp(v) = 2^(floor(log2 |v|) - 7), 2^-8 |v| on average. prefill(S) runs
+# every layer at forward(S)'s shapes: only the unembedding's GEMM (one row
+# in S) differs, and dbrx's top-4 scatter-add sums in the order its
+# atomics land: LM_PREFILL_ULPS ulps of the largest logit. A decode step
+# runs every GEMM at M = B where forward runs M = B x (S + 1), so any of a
+# layer's LM_ROUNDINGS rounded outputs (q, k, v, scores, probabilities,
+# o-projection, MLP) may round the other way, and those steps add up like
+# a random walk: sqrt(LM_ROUNDINGS x layers) x 2^-8 x the largest logit
+# (phi4 at depth 32: 0.30 against logits up to 5.2; one attention layer:
+# 1.0e-2 relative).
+LM_PREFILL_ULPS = 2
+LM_ROUNDINGS = 7
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -3014,6 +3070,412 @@ def phase_fleet(torch, model, Xq) -> tuple:
     return tally.launches, info
 
 
+# -- phase 13: the decoder-only LM serving path -------------------------------
+
+def lm_weights(torch, cfg) -> dict:
+    """Bytes of the LM's weights at tp = 1 (from a model on the meta
+    device: shapes and dtypes, no memory) and of its embedding table."""
+    from repro_torch.models import LM
+    model = LM(cfg, tp=1, device="meta")
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    embed = model.embed.numel() * model.embed.element_size()
+    return {"bytes": total, "embed_bytes": embed,
+            "row_bytes": model.embed.element_size() * cfg.d_model,
+            "params": sum(p.numel() for p in model.parameters())}
+
+
+def lm_bounds(torch, cfg, B, S, T) -> dict:
+    """The least time of one prefill of S tokens and of one decode step
+    against a cache of T slots, batch B, from the config's shapes.
+
+    Flops: every projection on the tokens it sees (an MoE's experts on
+    the E x C tokens capacity routing gives them, per group of B x S
+    tokens in prefill and of B in decode), the causal attention's QK and
+    PV over the pairs inside the window (decode: over all T slots, as it
+    runs), the unembedding of the last position only; the embedding is a
+    gather. Over 989 TFLOP/s bf16. Bytes: the weights read once (of the
+    embedding only the rows gathered) and the f32 KV cache written
+    (prefill) or read over all T slots (decode), over 3.35 TB/s. Also the
+    coarser prefill bound 2 x parameters x B x S + attention."""
+    w = lm_weights(torch, cfg)
+    d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    L_, V = cfg.n_layers, cfg.vocab_padded(1)
+    attn_params = d * hd * (nq + 2 * nkv) + nq * hd * d
+    mlp_params = (3 if cfg.activation in ("swiglu", "geglu") else 2) \
+        * d * cfg.d_ff
+    win = cfg.window if cfg.attention == "sliding" else 0
+
+    def layer_flops(tokens):
+        """A layer's projections on `tokens` tokens routed as one group."""
+        if not cfg.n_experts:
+            return 2 * tokens * (attn_params + mlp_params)
+        C = max(1, int(cfg.top_k * tokens * 1.25 / cfg.n_experts))
+        return 2 * tokens * (attn_params + d * cfg.n_experts) \
+            + 2 * cfg.n_experts * C * mlp_params
+
+    pairs = sum(min(i + 1, win) if win else i + 1 for i in range(S))
+    attn_flops = 2 * 2 * B * nq * hd * pairs
+    prefill_flops = L_ * (layer_flops(B * S) + attn_flops) + 2 * B * d * V
+    dec_flops = L_ * (layer_flops(B) + 2 * 2 * B * nq * hd * T) \
+        + 2 * B * d * V
+    cache_bytes = 2 * L_ * B * T * nkv * hd * 4
+    weights = w["bytes"] - w["embed_bytes"]
+    pre_bytes = weights + B * S * w["row_bytes"] + cache_bytes
+    dec_bytes = weights + B * w["row_bytes"] + cache_bytes
+    coarse = 2 * cfg.param_count() * B * S + L_ * attn_flops
+
+    def bound(flops, nbytes):
+        t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                           else "bytes")
+    pre_ms, pre_by = bound(prefill_flops, pre_bytes)
+    dec_ms, dec_by = bound(dec_flops, dec_bytes)
+    return {"params": w["params"], "weight_bytes": w["bytes"],
+            "prefill_flops": prefill_flops, "prefill_bytes": pre_bytes,
+            "prefill_bound_ms": pre_ms, "prefill_bound_by": pre_by,
+            "prefill_2NBS_bound_ms": coarse / BF16_FLOPS * 1e3,
+            "decode_flops": dec_flops, "decode_bytes": dec_bytes,
+            "decode_bound_ms": dec_ms, "decode_bound_by": dec_by}
+
+
+def lm_launcher(torch, smi) -> dict:
+    """13a: `python -m repro_torch.launch.serve --no-smoke` on phi4 at full
+    width and depth as a process; it must exit 0 (it checks its logits
+    are finite). Returns its numbers beside their bounds."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve"] + LM_SERVE + [
+        "--device", DEVICE]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=900, cwd=str(ROOT))
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0:
+        raise AssertionError(f"repro_torch.launch.serve exited "
+                             f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    head = re.search(r"prefill (\d+) tok in ([\d.]+) ms; (\d+) decode steps "
+                     r"in ([\d.]+) ms \(([\d.]+) ms/step", lines[0])
+    tail = re.search(r"decode ([\d.]+) tokens/s; peak device memory "
+                     r"([\d.]+ GB|not measured)", lines[2])
+    if not (head and tail and lines[1].startswith("generated token ids")):
+        raise AssertionError(f"unexpected launcher output: {lines}")
+    cfg = get_lm_config(LM_ARCH)
+    b = lm_bounds(torch, cfg, LM_B, LM_S, LM_MAX_SEQ)
+    info = {"cmd": "python -m repro_torch.launch.serve " + " ".join(
+                LM_SERVE), "process_s": seconds,
+            "prefill_ms": float(head.group(2)),
+            "decode_ms_per_step": float(head.group(5)),
+            "tokens_per_s": float(tail.group(1)),
+            "peak_memory": tail.group(2), "lines": lines, **b}
+    log(f"[lm] 13a {info['cmd']}: exit 0 in {seconds:.1f} s [{smi}]: "
+        + " | ".join(lines))
+    log(f"[lm] 13a {LM_ARCH} full width and depth ({b['params']:,} "
+        f"parameters, {b['weight_bytes'] / 1e9:.3f} GB) [{smi}]: prefill "
+        f"{info['prefill_ms']} ms (its first call; flops bound "
+        f"{b['prefill_bound_ms']:.3f} ms by {b['prefill_bound_by']}, "
+        f"2NBS {b['prefill_2NBS_bound_ms']:.3f}); decode "
+        f"{info['decode_ms_per_step']} ms/step (bytes bound "
+        f"{b['decode_bound_ms']:.3f} ms: {b['decode_bytes'] / 1e9:.3f} GB "
+        f"over 3.35 TB/s), {info['tokens_per_s']} tokens/s; peak memory "
+        f"{info['peak_memory']}")
+    return info
+
+
+def get_lm_config(arch, **cut):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, **cut) if cut else cfg
+
+
+def near_ties(torch, got, want) -> dict:
+    """Greedy agreement of two sets of logit rows: how many argmaxes are
+    equal, and the largest gap between want's max and want at got's
+    argmax (0 where they agree)."""
+    pick = got.argmax(-1)
+    gap = want.max(-1).values - want.gather(-1, pick[:, None])[:, 0]
+    return {"argmax_equal": int((pick == want.argmax(-1)).sum()),
+            "rows": int(pick.numel()), "worst_gap": float(gap.max())}
+
+
+def bf16_tol(kind: str, n_layers: int, scale: float) -> float:
+    """The bf16 tolerance of LM_PREFILL_ULPS / LM_ROUNDINGS for values of
+    largest magnitude `scale`."""
+    if kind == "prefill":
+        return LM_PREFILL_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7)
+    return math.sqrt(LM_ROUNDINGS * n_layers) * 2.0 ** -8 * scale
+
+
+def hold_logits(torch, what, got, want, kind, n_layers, f32) -> dict:
+    """got against want within LM_F32_TOL (f32) or bf16_tol; the greedy
+    tokens equal (f32), or any that differ a near tie within the
+    tolerance (bf16)."""
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    tol = LM_F32_TOL if f32 else bf16_tol(kind, n_layers, scale)
+    res = {"max_abs_err": err, "tol": tol, "ref_max_abs": scale,
+           **near_ties(torch, got, want)}
+    log(f"[lm] {what}: max abs err {err:.3g} (tol {tol:.3g}, |logits| <= "
+        f"{res['ref_max_abs']:.3g}); argmax equal {res['argmax_equal']}/"
+        f"{res['rows']}, worst gap {res['worst_gap']:.3g}")
+    if not err <= tol:
+        raise AssertionError(f"{what}: {err} > {tol}")
+    if f32 and res["argmax_equal"] != res["rows"]:
+        raise AssertionError(f"{what}: greedy tokens differ: {res}")
+    if res["worst_gap"] > tol:
+        raise AssertionError(f"{what}: a greedy token differs past a tie: "
+                             f"{res}")
+    return res
+
+
+def lm_invariants(torch, model, tokens, decode_too=True, what="") -> dict:
+    """prefill(S) against forward(S)[:, -1]; one decode after it against
+    forward(S + 1)[:, -1] (where decode_too). tokens: (B, S + 1)."""
+    S = tokens.shape[1] - 1
+    L_, f32 = model.cfg.n_layers, model.cfg.param_dtype == "float32"
+    out = {}
+    with torch.no_grad():
+        cache = model.init_cache(tokens.shape[0], S + 1, torch.float32)
+        logits, cache = model.prefill(tokens[:, :S], cache)
+        out["prefill"] = hold_logits(
+            torch, f"{what} prefill({S}) vs forward({S})[:, -1]", logits,
+            model(tokens[:, :S])[:, -1], "prefill", L_, f32)
+        if decode_too:
+            logits, cache = model.decode(tokens[:, S], cache)
+            out["decode"] = hold_logits(
+                torch, f"{what} decode after prefill({S}) vs "
+                f"forward({S + 1})[:, -1]", logits, model(tokens)[:, -1],
+                "decode", L_, f32)
+    return out
+
+
+def lm_times(torch, model, tokens, gen, max_seq) -> dict:
+    """Warm prefill ms and decode ms/step (host clock, synchronized; a
+    prefill and two decode steps first), tokens/s of the decode."""
+    B = tokens.shape[0]
+    with torch.no_grad():
+        cache = model.init_cache(B, max_seq, torch.float32)
+        logits, cache = model.prefill(tokens, cache)         # warm-up
+        for _ in range(2):
+            logits, cache = model.decode(logits.argmax(-1), cache)
+        cache = model.init_cache(B, max_seq, torch.float32)
+        (logits, cache), t_pre = timed(
+            torch, lambda: model.prefill(tokens, cache))
+        nxt = logits.argmax(-1).to(torch.int32)
+
+        def steps():
+            nonlocal nxt, cache
+            for _ in range(gen):
+                logits, cache = model.decode(nxt, cache)
+                nxt = logits.argmax(-1).to(torch.int32)
+            return logits
+        logits, t_dec = timed(torch, steps)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits")
+    return {"prefill_ms": t_pre * 1e3, "decode_ms_per_step":
+            t_dec / gen * 1e3, "tokens_per_s": B * gen / t_dec}
+
+
+def lm_decode_profile(torch, model, tokens, max_seq, steps=4) -> dict:
+    """`steps` warm decode steps under torch.profiler: host and card ms a
+    step, the card's busy share, and the kernels that take most of it."""
+    with torch.no_grad():
+        cache = model.init_cache(tokens.shape[0], max_seq, torch.float32)
+        logits, cache = model.prefill(tokens, cache)
+        state = {"nxt": logits.argmax(-1), "cache": cache}
+
+        def step():
+            logits, state["cache"] = model.decode(state["nxt"],
+                                                  state["cache"])
+            state["nxt"] = logits.argmax(-1)
+        step()
+        sync(torch)
+        host_ms, device = profiled(torch, lambda: [step() for _ in
+                                                   range(steps)])
+    busy = sum(ms for _, ms in device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"host_ms_per_step": host_ms / steps,
+            "device_ms_per_step": busy / steps,
+            "busy_share": busy / host_ms if busy else None,
+            "launches_per_step": sum(n for n, _ in device.values()) / steps,
+            "top": [{"kernel": k[:90], "ms_per_step": ms / steps,
+                     "calls_per_step": n / steps} for k, (n, ms) in top]}
+
+
+def lm_tokens(torch, cfg, B, S, seed):
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+
+
+def lm_model(torch, cfg, seed=SEED):
+    from repro_torch.models import LM
+    return LM(cfg, tp=1, device=DEVICE,
+              generator=torch.Generator(DEVICE).manual_seed(seed))
+
+
+def free(torch) -> None:
+    import gc
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def lm_in_process(torch, smi) -> dict:
+    """13b: phi4 at full width and depth in bf16 held to its own
+    invariants and timed warm; the same checks in f32 at depth 2."""
+    cfg = get_lm_config(LM_ARCH)
+    info = {}
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = lm_model(torch, cfg)
+    tokens = lm_tokens(torch, cfg, LM_B, LM_S + 1, SEED + 1)
+    info["bf16"] = lm_invariants(torch, model, tokens,
+                                 what=f"13b {LM_ARCH} bf16")
+    info.update(lm_times(torch, model, tokens[:, :LM_S], LM_GEN,
+                         LM_MAX_SEQ))
+    if DEVICE == "cuda":
+        info["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    info["decode_profile"] = prof = lm_decode_profile(
+        torch, model, tokens[:, :LM_S], LM_MAX_SEQ)
+    b = lm_bounds(torch, cfg, LM_B, LM_S, LM_MAX_SEQ)
+    peak = (f"{info['peak_gb']:.3f} GB" if "peak_gb" in info
+            else "not measured")
+    log(f"[lm] 13b {LM_ARCH} in process, warm [{smi}]: prefill "
+        f"{info['prefill_ms']:.2f} ms (flops bound "
+        f"{b['prefill_bound_ms']:.3f}); decode "
+        f"{info['decode_ms_per_step']:.3f} ms/step (bytes bound "
+        f"{b['decode_bound_ms']:.3f}), {info['tokens_per_s']:.1f} tokens/s;"
+        f" peak memory {peak} (the forward checks' f32 logits included); a "
+        f"decode step under the profiler: "
+        f"host {prof['host_ms_per_step']:.3f} ms, card "
+        f"{prof['device_ms_per_step']:.3f} ms (busy share "
+        f"{prof['busy_share']}), {prof['launches_per_step']:.0f} records; "
+        f"most card time: {json.dumps(prof['top'])}")
+    del model
+    free(torch)
+    cut = get_lm_config(LM_ARCH, n_layers=LM_CUT_DEPTH,
+                        param_dtype="float32", dtype="float32")
+    model = lm_model(torch, cut)
+    info["f32_depth2"] = lm_invariants(
+        torch, model, tokens, what=f"13b {LM_ARCH} f32 depth {LM_CUT_DEPTH}")
+    del model
+    free(torch)
+    return info
+
+
+def lm_others(torch, smi) -> dict:
+    """13c: the six other decoder-only archs at their published widths,
+    depth cut to 2, one at a time: a prefill and 8 decode steps, timed;
+    prefill(S) == forward(S)[:, -1]; for the non-MoE archs also one decode
+    == forward(S + 1)[:, -1] (capacity routing groups a decode step's B
+    tokens apart from the forward's B x (S + 1), so an MoE drops other
+    tokens: the JAX package's semantics)."""
+    out = {}
+    for arch in LM_OTHERS:
+        cfg = get_lm_config(arch, n_layers=LM_CUT_DEPTH)
+        t0 = time.perf_counter()
+        model = lm_model(torch, cfg)
+        sync(torch)
+        init_s = time.perf_counter() - t0
+        tokens = lm_tokens(torch, cfg, LM_OTHERS_B, LM_OTHERS_S + 1,
+                           SEED + 1)
+        res = {"reduced": f"n_layers {cfg.n_layers} of "
+               f"{get_lm_config(arch).n_layers}", "init_s": init_s,
+               **lm_invariants(torch, model, tokens,
+                               decode_too=not cfg.n_experts,
+                               what=f"13c {arch} depth {LM_CUT_DEPTH}")}
+        res.update(lm_times(torch, model, tokens[:, :LM_OTHERS_S],
+                            LM_OTHERS_GEN, LM_OTHERS_S + LM_OTHERS_GEN))
+        b = lm_bounds(torch, cfg, LM_OTHERS_B, LM_OTHERS_S,
+                      LM_OTHERS_S + LM_OTHERS_GEN)
+        res.update({k: b[k] for k in ("params", "weight_bytes",
+                                      "prefill_bound_ms", "decode_bound_ms")})
+        log(f"[lm] 13c {arch} (published widths, depth {LM_CUT_DEPTH}: "
+            f"{b['params']:,} parameters, {b['weight_bytes'] / 1e9:.2f} GB) "
+            f"[{smi}]: init {init_s:.2f} s; prefill {LM_OTHERS_S} x "
+            f"{LM_OTHERS_B} {res['prefill_ms']:.2f} ms (bound "
+            f"{b['prefill_bound_ms']:.3f}); decode "
+            f"{res['decode_ms_per_step']:.3f} ms/step (bound "
+            f"{b['decode_bound_ms']:.3f})")
+        out[arch] = res
+        del model
+        free(torch)
+    out["mixtral_ring"] = lm_ring(torch, smi)
+    return out
+
+
+def lm_ring(torch, smi) -> dict:
+    """mixtral's sliding ring at full width at the layer: one Attention
+    layer prefills S = 4,100 > window 4,096 at batch 1 into a cache of
+    4,096 slots (the roll of lm.py:99-102), then decodes 3 steps; each
+    step's output against the windowed full-sequence forward at the same
+    position, and the prefill's last position too. In f32 (the ring's
+    arithmetic, tol LM_RING_TOL relative) and in bf16 (bf16_tol of one
+    layer, relative)."""
+    from repro_torch.models.layers import Attention
+    cfg = get_lm_config("mixtral-8x7b")
+    win, out = cfg.window, {}
+    for dtype, tol in ((torch.float32, LM_RING_TOL),
+                       (torch.bfloat16, bf16_tol("decode", 1, 1.0))):
+        gen = torch.Generator(DEVICE).manual_seed(SEED)
+        attn = Attention(cfg, dtype, DEVICE)
+        attn.reset_parameters(gen)
+        x = torch.randn((1, RING_S + RING_STEPS, cfg.d_model),
+                        generator=gen, device=DEVICE).to(dtype)
+        shape = (1, win, cfg.n_kv_heads, cfg.head_dim)
+        kc = torch.zeros(shape, device=DEVICE)
+        vc = torch.zeros(shape, device=DEVICE)
+        errs = []
+        with torch.no_grad():
+            full = attn(x, window=win).float()
+            scale = float(full[:, RING_S - 1:].abs().max())
+            pre = attn.prefill(x[:, :RING_S], kc, vc, window=win)
+            errs.append(float((pre[:, -1].float()
+                               - full[:, RING_S - 1]).abs().max()))
+            for i in range(RING_STEPS):
+                pos = RING_S + i
+                got = attn.decode(x[:, pos:pos + 1], kc, vc, pos, window=win)
+                errs.append(float((got[:, 0].float()
+                                   - full[:, pos]).abs().max()))
+        rel = max(errs) / scale
+        name = str(dtype).removeprefix("torch.")
+        out[name] = {"max_abs_err": errs, "scale": scale, "rel_err": rel,
+                     "tol": tol}
+        log(f"[lm] 13c mixtral ring at full width ({name}, window {win}, "
+            f"prefill {RING_S}, {RING_STEPS} decode steps): abs errs "
+            f"{['%.3g' % e for e in errs]} against |out| <= {scale:.3g}: "
+            f"relative {rel:.3g} (tol {tol})")
+        if not rel <= tol:
+            raise AssertionError(f"mixtral ring {name}: {rel} > {tol}")
+        del attn, x, full
+        free(torch)
+    return out
+
+
+def phase_lm(torch, smi) -> dict:
+    """Phase 13: the decoder-only LM serving path on the card (no kernel
+    of the port's: the projections are torch.matmul, attention plain
+    einsums); launch counts are read around it to show it."""
+    from repro_torch.kernels import OPS, reset_launches
+    free(torch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    reset_launches()
+    info = {"launcher": lm_launcher(torch, smi),
+            "in_process": lm_in_process(torch, smi),
+            "others": lm_others(torch, smi)}
+    info["kernel_launches"] = {n: op.launches for n, op in OPS.items()}
+    info["phase_s"] = time.perf_counter() - t0
+    info["card"] = smi
+    log(f"[lm] phase 13 took {info['phase_s']:.1f} s; the port's kernels "
+        f"launched {info['kernel_launches']} (none lies on this path)")
+    return info
+
+
 def phase_device(torch, kernels, inputs, model, Xq) -> dict:
     """Card time alone, from torch.profiler traces, taken last so that no
     earlier phase runs after the profiler: kmeans_assign at its main shape
@@ -3110,6 +3572,7 @@ def main() -> int:
     launcher_launches, summary["launcher"] = phase_launcher(torch, smi)
     for name, held in summary["launcher"]["held"].items():
         kernels[name]["launcher_held"] = held
+    summary["lm"] = phase_lm(torch, smi)
     summary["serve"].update(phase_device(torch, kernels, inputs, est.model_,
                                          Xq))
     launches = {name: fit_launches[name] + serve_launches[name]

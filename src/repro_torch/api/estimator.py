@@ -41,6 +41,7 @@ import torch
 from repro_torch.api import backends as be
 from repro_torch.core.kernels_fn import kernel_params_for, make_kernel
 from repro_torch.core.kmeans import kmeans, kmeans_plus_plus
+from repro_torch.device import resolve_device
 from repro_torch.serve import extend
 from repro_torch.serve.artifact import (ClusteringSpec, FittedModel,
                                         load_model, save_model)
@@ -49,17 +50,6 @@ from repro_torch.stream.minibatch import draw_minibatch, minibatch_kmeans
 
 # The default parameters of the paper's primary kernel.
 _KERNEL_DEFAULTS = {"polynomial": {"gamma": 0.0, "degree": 2}}
-
-
-def resolve_device(device) -> torch.device:
-    """`device`, or the card when None; no silent fallback to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on the card by default and no CUDA device "
-                "is available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def seeds(seed: int) -> Tuple[int, int]:

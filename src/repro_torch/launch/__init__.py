@@ -1,3 +1,4 @@
 """Launchers: process groups and device meshes (mesh.py), the paper's
-pipeline (cluster.py) and the serving stack end to end (serve_cluster.py)
-from the command line."""
+pipeline (cluster.py), the serving stack end to end (serve_cluster.py)
+and the decoder-only LMs' prefill / decode (serve.py, its inputs in
+specs.py) from the command line."""

@@ -1,0 +1,108 @@
+"""Input builders for every (arch x shape) cell (repro/launch/specs.py).
+
+The assigned shape grid (all 10 LM-family archs):
+    train_4k     seq=4096   global_batch=256   -> train_step
+    prefill_32k  seq=32768  global_batch=32    -> prefill_step
+    decode_32k   seq=32768  global_batch=128   -> decode_step (KV cache 32k)
+    long_500k    seq=524288 global_batch=1     -> decode_step, sub-quadratic
+                                                  archs only
+
+Only the concrete branch is ported: real tensors drawn from a
+torch.Generator on its device (the generator's device, unless `device`
+is given), for smoke tests and the serving launcher. The
+ShapeDtypeStruct branch belongs to dryrun, which comes later.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import dtype_of
+
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
+# Archs for which long_500k decode is runnable (bounded state/window);
+# everything else is a documented skip.
+LONG_OK = {"recurrentgemma-2b", "rwkv6-1.6b", "mixtral-8x7b"}
+
+
+def cell_supported(cfg: ArchConfig, shape: str) -> Tuple[bool, str]:
+    if shape == "long_500k" and cfg.name not in LONG_OK:
+        return False, ("pure full-attention arch: 500k-token decode is "
+                       "quadratic/HBM-infeasible; skipped per assignment")
+    return True, ""
+
+
+def _generator(generator: Optional[torch.Generator],
+               device) -> torch.Generator:
+    if generator is not None:
+        return generator
+    return torch.Generator(resolve_device(device)).manual_seed(0)
+
+
+def _mk(shape, dtype: torch.dtype, gen: torch.Generator,
+        maxval: Optional[int] = None) -> torch.Tensor:
+    if dtype == torch.int32:
+        return torch.randint(0, maxval or 2, shape, generator=gen,
+                             device=gen.device, dtype=torch.int32)
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32).to(dtype)
+
+
+def train_inputs(cfg: ArchConfig, seq: int, batch: int,
+                 generator: Optional[torch.Generator] = None,
+                 device=None) -> Dict[str, torch.Tensor]:
+    """Batch dict for a train step. Token budget == seq per sample;
+    modality prefixes (whisper frames / pixtral patches) take their
+    slice of it."""
+    gen = _generator(generator, device)
+    act_dtype = dtype_of(cfg.dtype)
+    V = cfg.vocab_size
+    if cfg.family == "encdec":
+        return {
+            "frames": _mk((batch, cfg.n_audio_frames, cfg.d_model),
+                          act_dtype, gen),
+            "tokens": _mk((batch, seq), torch.int32, gen, V),
+            "labels": _mk((batch, seq), torch.int32, gen, V),
+        }
+    if cfg.family == "vlm":
+        n_patch = min(cfg.n_patch_tokens, seq // 2)
+        patches = _mk((batch, n_patch, cfg.d_model), act_dtype, gen)
+        tokens = _mk((batch, seq - n_patch), torch.int32, gen, V)
+        # labels cover the patch prefix (masked -1) + text.
+        labels = torch.cat([
+            torch.full((batch, n_patch), -1, dtype=torch.int32,
+                       device=gen.device),
+            _mk((batch, seq - n_patch), torch.int32, gen, V)], dim=1)
+        return {"patches": patches, "tokens": tokens, "labels": labels}
+    return {"tokens": _mk((batch, seq), torch.int32, gen, V),
+            "labels": _mk((batch, seq), torch.int32, gen, V)}
+
+
+def prefill_inputs(cfg: ArchConfig, seq: int, batch: int,
+                   generator: Optional[torch.Generator] = None,
+                   device=None) -> Dict[str, torch.Tensor]:
+    b = train_inputs(cfg, seq, batch, generator, device)
+    b.pop("labels", None)
+    return b
+
+
+def decode_tokens(cfg: ArchConfig, batch: int,
+                  generator: Optional[torch.Generator] = None,
+                  device=None) -> torch.Tensor:
+    return _mk((batch,), torch.int32, _generator(generator, device),
+               cfg.vocab_size)
+
+
+def cache_specs(cfg: ArchConfig, api, batch: int, max_seq: int,
+                dtype: torch.dtype = torch.bfloat16, device=None):
+    """The zero cache (the concrete branch of JAX's cache_specs)."""
+    return api.init_cache(cfg, batch, max_seq, dtype, device)

@@ -1,0 +1,395 @@
+"""Transformer building blocks of the decoder-only LMs (PyTorch modules).
+
+The port of repro/models/layers.py, function for function:
+
+- `rms_norm` / `RMSNorm`: the variance in f32, the scale cast to the
+  input dtype BEFORE the multiply (layers.py:31), so no f32 copy of the
+  residual stream is formed and the bf16 bits follow JAX's order;
+- `rope_freqs` / `apply_rope`: split halves (not interleaved), angles in
+  f32, the result cast back to the input dtype;
+- `sdpa` (layers.py:99 `_sdpa`): GQA grouping (B, S, Hkv, q_per_kv, hd),
+  scores in the input dtype then cast to f32, masked with -1e30, the
+  probabilities cast to v's dtype. Plain einsums, not torch's
+  scaled_dot_product_attention, which would bring a library kernel's
+  arithmetic in place of the reference's;
+- `Attention`: the full-sequence form (forward), the prefill form that
+  also fills one layer of the KV cache, and the one-token decode against
+  a full or ring (sliding-window) cache;
+- `act`, `DenseMLP` (swiglu / geglu / relu2 / gelu; gelu is the tanh
+  approximation, jax.nn.gelu's default) and `MoE`, the grouped capacity
+  routing of layers.py:213;
+- `Block`: the pre-norm attention + MLP block.
+
+Weight layout: every projection keeps the JAX package's (in, out) layout
+and computes x @ W as JAX does; the MoE experts are (E, d, f) and
+(E, f, d) parameters and the router an f32 (d, E) one. So
+`repro_torch.models.convert.lm_from_jax` carries JAX's arrays across
+without a transpose. The norms' weights are f32, the projections in
+cfg.param_dtype. Initialisation draws N(0, 1) * scale_dim**-0.5 in f32
+and casts to the parameter's dtype (layers.py:26 `_dense_init`), a chunk
+of rows at a time so that no f32 copy of a whole weight exists.
+
+The KV cache is written in place (JAX returns a new cache): one layer's
+(B, T, Hkv, hd) view of the model's stacked cache. `maybe_shard`
+(distributed/sharding.py:76) is a no-op outside a mesh and is left out;
+the sharding rules come with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.config import ArchConfig
+
+_INIT_CHUNK = 1 << 26          # f32 elements drawn at once (256 MB)
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """torch dtype of a config's dtype name ("bfloat16", "float32")."""
+    return getattr(torch, name)
+
+
+@torch.no_grad()
+def dense_init_(w: torch.Tensor, generator: torch.Generator,
+                scale_dim: Optional[int] = None) -> torch.Tensor:
+    """Fill w with N(0, 1) * (scale_dim or w.shape[0])**-0.5, drawn in f32
+    and cast to w's dtype, `_INIT_CHUNK` elements of rows at a time."""
+    scale = (scale_dim or w.shape[0]) ** -0.5
+    rows = w.view(-1, w.shape[-1])
+    step = max(1, _INIT_CHUNK // w.shape[-1])
+    for a in range(0, rows.shape[0], step):
+        part = rows[a:a + step]
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               device=w.device,
+                               dtype=torch.float32).mul_(scale))
+    return w
+
+
+def empty_param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    scale = (torch.rsqrt(var + eps) * w).to(x.dtype)
+    return x * scale
+
+
+class RMSNorm(nn.Module):
+    """rms_norm with an f32 weight of ones (layers.py:22 `_norm_init`)."""
+
+    def __init__(self, d: int, device=None, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = empty_param((d,), torch.float32, device)
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        self.weight.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.weight, self.eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd), positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (hd/2,)
+    angles = positions[..., None].float() * freqs             # (..., S, hd/2)
+    angles = angles[..., None, :]                             # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention (full / sliding window): forward, prefill and decode paths
+# ---------------------------------------------------------------------------
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         mask: torch.Tensor, q_per_kv: int,
+         scores_f32: bool = True) -> torch.Tensor:
+    """q: (B,S,Hq,hd), k/v: (B,T,Hkv,hd), mask: (B|1, 1, S, T) bool."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, q_per_kv, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k) / (hd ** 0.5)
+    if scores_f32:
+        scores = scores.float()
+    neg = -1e30 if scores_f32 else -3e38
+    scores = scores.masked_fill(~mask[:, :, None], neg)    # (B,Hkv,g,S,T)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return out.reshape(B, S, Hq * hd)
+
+
+def causal_mask(S: int, window: int = 0, device=None) -> torch.Tensor:
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(S, device=device)[None, :]
+    m = j <= i
+    if window:
+        m &= (i - j) < window
+    return m[None, None]   # (1,1,S,S)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, hd = cfg.d_model, cfg.head_dim
+        nq, nkv = cfg.n_heads, cfg.n_kv_heads
+        self.wq = empty_param((d, nq * hd), dtype, device)
+        self.wk = empty_param((d, nkv * hd), dtype, device)
+        self.wv = empty_param((d, nkv * hd), dtype, device)
+        self.wo = empty_param((nq * hd, d), dtype, device)
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(hd, device)
+            self.k_norm = RMSNorm(hd, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            dense_init_(w, generator)
+        if self.cfg.qk_norm:
+            self.q_norm.reset_parameters()
+            self.k_norm.reset_parameters()
+
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        cfg = self.cfg
+        B, S = x.shape[:2]
+        hd = cfg.head_dim
+        q = (x @ self.wq).reshape(B, S, cfg.n_heads, hd)
+        k = (x @ self.wk).reshape(B, S, cfg.n_kv_heads, hd)
+        v = (x @ self.wv).reshape(B, S, cfg.n_kv_heads, hd)
+        if cfg.qk_norm:
+            q = self.q_norm(q)
+            k = self.k_norm(k)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        return q, k, v
+
+    def forward(self, x: torch.Tensor, window: int = 0, causal: bool = True,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """layers.py:120 `apply_attention`."""
+        S = x.shape[1]
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        q, k, v = self.qkv(x, positions)
+        if causal:
+            mask = causal_mask(S, window, x.device)
+        else:
+            mask = torch.ones((1, 1, S, S), dtype=torch.bool, device=x.device)
+        out = sdpa(q, k, v, mask, self.cfg.q_per_kv, self.cfg.attn_scores_f32)
+        return out @ self.wo
+
+    def prefill(self, x: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, window: int = 0) -> torch.Tensor:
+        """The causal prompt pass of lm.py:91-109: returns the attention
+        output and writes this layer's cache (B, T, Hkv, hd) in place with
+        the last T positions, position p at slot p % T (the ring layout
+        decode continues), zeros past S."""
+        B, S = x.shape[:2]
+        T = k_cache.shape[1]
+        q, k, v = self.qkv(x, torch.arange(S, device=x.device)[None, :])
+        out = sdpa(q, k, v, causal_mask(S, window, x.device),
+                   self.cfg.q_per_kv) @ self.wo
+        if window and S > T:
+            k_cache.copy_(torch.roll(k[:, -T:], S % T, dims=1))
+            v_cache.copy_(torch.roll(v[:, -T:], S % T, dims=1))
+        elif S > T:
+            raise ValueError(f"a prompt of {S} tokens does not fit a "
+                             f"full-attention cache of {T} positions")
+        else:
+            k_cache[:, :S] = k
+            v_cache[:, :S] = v
+            k_cache[:, S:] = 0
+            v_cache[:, S:] = 0
+        return out
+
+    def decode(self, x: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, pos: int,
+               window: int = 0) -> torch.Tensor:
+        """One-token decode (layers.py:139). x: (B,1,d); caches (B,T,Hkv,hd),
+        written in place; pos: the token's absolute position.
+
+        Full attention: T = max_seq, write at slot pos, attend to slots
+        <= pos. Sliding window: T is a ring, write at pos % T, attend to
+        the slots written so far (every slot once pos >= T). Decode attends
+        over all T slots, masked, with the cache cast to v's dtype.
+        """
+        B = x.shape[0]
+        T = k_cache.shape[1]
+        q, k, v = self.qkv(x, torch.full((1, 1), pos, device=x.device))
+        slot = pos % T if window else pos
+        if slot >= T:
+            raise ValueError(f"position {pos} is past the full-attention "
+                             f"cache of {T} positions")
+        k_cache[:, slot] = k[:, 0]
+        v_cache[:, slot] = v[:, 0]
+        idx = torch.arange(T, device=x.device)
+        # JAX also ands in (slot - idx) % T < T, which always holds.
+        mask = ((idx <= slot) | (pos >= T)) if window else idx <= pos
+        mask = mask[None, None, None, :].expand(B, 1, 1, T)
+        out = sdpa(q, k_cache.to(v.dtype), v_cache.to(v.dtype), mask,
+                   self.cfg.q_per_kv)
+        return out @ self.wo
+
+
+# ---------------------------------------------------------------------------
+# MLPs: SwiGLU / GeGLU / squared-ReLU / GELU, dense and MoE
+# ---------------------------------------------------------------------------
+
+def gated(cfg: ArchConfig) -> bool:
+    return cfg.activation in ("swiglu", "geglu")
+
+
+def act(cfg: ArchConfig, a: torch.Tensor,
+        b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """layers.py:196 `_act`; jax.nn.gelu is the tanh approximation."""
+    if cfg.activation == "swiglu":
+        return F.silu(a) * b
+    if cfg.activation == "geglu":
+        return F.gelu(a, approximate="tanh") * b
+    if cfg.activation == "relu2":
+        r = F.relu(a)
+        return r * r
+    return F.gelu(a, approximate="tanh")
+
+
+class DenseMLP(nn.Module):
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, f = cfg.d_model, cfg.d_ff
+        self.w1 = empty_param((d, f), dtype, device)
+        self.w2 = empty_param((f, d), dtype, device)
+        if gated(cfg):
+            self.w3 = empty_param((d, f), dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for name in ("w1", "w2", "w3"):
+            if hasattr(self, name):
+                dense_init_(getattr(self, name), generator)
+
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        b = x @ self.w3 if gated(self.cfg) else None
+        return act(self.cfg, x @ self.w1, b) @ self.w2
+
+
+class MoE(nn.Module):
+    """Grouped capacity-based top-k MoE (layers.py:213 `apply_moe`).
+
+    Tokens split into `groups` routing groups; per group and expert the
+    top-C tokens by gate weight are gathered, run through the expert and
+    scattered back weighted, C = max(1, int(top_k * Tg * capacity_factor
+    / E)). Tokens past capacity get no MLP output. Slots whose gate is 0
+    (an expert with fewer than C routed tokens) contribute 0; which token
+    fills them differs between torch.topk and jax.lax.top_k on ties.
+    """
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+        self.router = empty_param((d, E), torch.float32, device)
+        self.w1 = empty_param((E, d, f), dtype, device)
+        self.w2 = empty_param((E, f, d), dtype, device)
+        if gated(cfg):
+            self.w3 = empty_param((E, d, f), dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        d, f = self.cfg.d_model, self.cfg.d_ff
+        dense_init_(self.w1, generator, scale_dim=d)
+        dense_init_(self.w2, generator, scale_dim=f)
+        if gated(self.cfg):
+            dense_init_(self.w3, generator, scale_dim=d)
+        dense_init_(self.router, generator)
+
+    def route(self, xg: torch.Tensor,
+              capacity_factor: float = 1.25) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+        """xg: (G, Tg, d) -> (sel_vals, sel_idx), each (G, E, C): per
+        expert its C tokens of highest gate and their gates."""
+        G, Tg, _ = xg.shape
+        E, topk = self.cfg.n_experts, self.cfg.top_k
+        # Router matmul in the activation dtype, then upcast (as JAX).
+        logits = (xg @ self.router.to(xg.dtype)).float()
+        probs = torch.softmax(logits, dim=-1)
+        top_vals, top_idx = torch.topk(probs, topk, dim=-1)     # (G,Tg,topk)
+        top_vals = top_vals / top_vals.sum(-1, keepdim=True)
+        gate = torch.zeros((G, Tg, E), dtype=torch.float32, device=xg.device)
+        gate.scatter_(-1, top_idx, top_vals)                     # (G,Tg,E)
+        C = max(1, int(topk * Tg * capacity_factor / E))
+        return torch.topk(gate.transpose(1, 2), C, dim=-1)      # (G,E,C)
+
+    def forward(self, x: torch.Tensor, groups: int = 1,
+                capacity_factor: float = 1.25) -> torch.Tensor:
+        B, S, d = x.shape
+        T = B * S
+        G = min(groups, T)
+        Tg = T // G
+        xg = x.reshape(G, Tg, d)
+        sel_vals, sel_idx = self.route(xg, capacity_factor)
+        E, C = sel_idx.shape[1:]
+        xe = xg[torch.arange(G, device=x.device)[:, None, None], sel_idx]
+        a = torch.einsum("gecd,edf->gecf", xe, self.w1)
+        b = (torch.einsum("gecd,edf->gecf", xe, self.w3)
+             if gated(self.cfg) else None)
+        y = torch.einsum("gecf,efd->gecd", act(self.cfg, a, b), self.w2)
+        y = y * sel_vals[..., None].to(y.dtype)
+        # Scatter-add back to token order, in y's dtype (as JAX's .at[].add).
+        out = torch.zeros((G, Tg, d), dtype=y.dtype, device=x.device)
+        out.scatter_add_(1, sel_idx.reshape(G, E * C, 1).expand(G, E * C, d),
+                         y.reshape(G, E * C, d))
+        return out.reshape(B, S, d)
+
+
+# ---------------------------------------------------------------------------
+# Pre-norm transformer block (attention + MLP)
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.ln1 = RMSNorm(cfg.d_model, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.ln2 = RMSNorm(cfg.d_model, device)
+        self.mlp = (MoE if cfg.n_experts else DenseMLP)(cfg, dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.ln1.reset_parameters()
+        self.attn.reset_parameters(generator)
+        self.ln2.reset_parameters()
+        self.mlp.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, groups: int = 1, window: int = 0,
+                causal: bool = True,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), window, causal, positions)
+        return x + self.mlp(self.ln2(x), groups)
+
+    def prefill(self, x: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, groups: int = 1,
+                window: int = 0) -> torch.Tensor:
+        x = x + self.attn.prefill(self.ln1(x), k_cache, v_cache, window)
+        return x + self.mlp(self.ln2(x), groups)
+
+    def decode(self, x: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, pos: int, groups: int = 1,
+               window: int = 0) -> torch.Tensor:
+        x = x + self.attn.decode(self.ln1(x), k_cache, v_cache, pos, window)
+        return x + self.mlp(self.ln2(x), groups)

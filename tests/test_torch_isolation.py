@@ -7,6 +7,10 @@ import pytest
 import torch
 
 from repro_torch.api import KernelKMeans
+from repro_torch.configs import get_config
+from repro_torch.launch import serve
+from repro_torch.models import LM
+from repro_torch.models.lm import init_cache_lm
 from repro_torch.kernels import OPS, registry, reset_launches
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -51,8 +55,16 @@ def test_port_covers_the_slice_modules():
                 "distributed/dfwht.py", "distributed/fit.py",
                 "distributed/cluster.py", "distributed/fault.py",
                 "launch/mesh.py", "launch/cluster.py",
-                "launch/serve_cluster.py"):
+                "launch/serve_cluster.py", "models/config.py",
+                "models/layers.py", "models/lm.py", "models/registry.py",
+                "models/convert.py", "train/steps.py", "launch/specs.py",
+                "launch/serve.py", "configs/__init__.py"):
         assert (port / rel).is_file(), rel
+    for name in ("command_r_plus_104b", "dbrx_132b", "mixtral_8x7b",
+                 "nemotron_4_340b", "phi4_mini_3_8b", "pixtral_12b",
+                 "qwen3_14b", "recurrentgemma_2b", "rwkv6_1_6b",
+                 "whisper_large_v3"):
+        assert (port / "configs" / f"{name}.py").is_file(), name
     for name in ("quickstart", "serve_async", "stream_refit",
                  "distributed_clustering"):
         assert (REPO / "examples" / f"torch_{name}.py").is_file(), name
@@ -68,6 +80,20 @@ def test_estimator_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         KernelKMeans()
     assert KernelKMeans(device="cpu").device.type == "cpu"
+
+
+def test_lm_serving_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("phi4-mini-3.8b", smoke=True)
+    assert serve.build_parser().parse_args([]).device == "cuda"
+    with pytest.raises(SystemExit) as stop:
+        serve.main([])                       # ap.error: exit 2, no CPU run
+    assert stop.value.code == 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache_lm(cfg, 1, 8)
+    assert LM(cfg, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("name", sorted(OPS))
