@@ -136,7 +136,7 @@ Phases, each fatal on failure:
      --fused-embed off --bench sync, which launches kmeans_assign; each
      with every launch count set to 0 just before, its seconds, launches
      and the bench's headline numbers printed; (c) --sharded --bench sync
-     under torchrun (--standalone --nproc_per_node=1) and (d) the four
+     under torchrun (--standalone --nproc_per_node=1) and (d) the five
      examples (examples/torch_*.py; the distributed one under torchrun),
      started together as processes, each of which must exit 0. While
      (a) and (b) run, a stand-in beside each kernel wrapper keeps the
@@ -167,6 +167,19 @@ Phases, each fatal on failure:
      8 decode steps timed; mixtral's sliding ring at full width at one
      Attention layer (prefill 4,100 > window 4,096 at batch 1, then 3
      decode steps against the windowed forward, f32 and bf16);
+  14. hybrid (after 13, before 7): the hybrid family (models/rglru.py:
+     RG-LRU blocks and local attention; no kernel of the port's lies on
+     it): (a) python -m repro_torch.launch.serve --no-smoke --arch
+     recurrentgemma-2b at 13a's batch, prompt, steps and cache, all 26
+     layers (8 x (R R A) + R R) at the published widths, as a process
+     that must exit 0, its numbers beside its bounds; (b) the same model
+     in process in bf16: prefill(512) == forward(512)[:, -1] and one
+     decode == forward(513)[:, -1] within bf16_tol (an R layer's decode
+     counting HY_R_ROUNDINGS roundings), then the ring past the window
+     (batch 1, a prompt of 2,100 > window 2,048 into 2,048 slots, 3
+     decode steps, each against forward(2,103) at its position), warm
+     times, peak memory and a decode step under the profiler; the same
+     checks in f32 at depth 3 (one R R A superblock) within 1e-4;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -287,7 +300,7 @@ FIT_SCALING_NS = (25_000, 50_000, 100_000)
 # Phase 12: the serving launcher at n = 100,000 on its own data
 # (blob_ring, p = 2, k = 2, r = 2): the main run with every check and
 # every bench, a Nystrom run and a two-pass run in-process; the sharded
-# run under torchrun and the four examples as processes, all at once.
+# run under torchrun and the five examples as processes, all at once.
 LAUNCHER_RUNS = {
     "main": ["--n", "100000", "--k", "2", "--r", "2", "--swap", "--stream",
              "--fleet", "--bench", "all", "--batch-sizes", "64,512,4096",
@@ -305,7 +318,8 @@ LAUNCHER_MUST = {"main": ("srht_t", "extend_embed", "embed_assign"),
 BENCH_SECTIONS = ("results", "async", "fused", "swap", "backends", "stream",
                   "fit_scaling", "fleet")
 LAUNCHER_SHARDED_N = 100_000
-EXAMPLES = ("torch_quickstart", "torch_serve_async", "torch_stream_refit")
+EXAMPLES = ("torch_quickstart", "torch_serve_async", "torch_stream_refit",
+            "torch_cluster_embeddings")
 TORCHRUN = ["-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node=1"]
 # Output arguments of a wrapper, left out of the calls phase 12 keeps.
@@ -342,6 +356,35 @@ LM_RING_TOL = 1e-4       # relative to the largest |output|, f32
 # 1.0e-2 relative).
 LM_PREFILL_ULPS = 2
 LM_ROUNDINGS = 7
+
+# Phase 14: the hybrid family (models/rglru.py: RG-LRU blocks and local
+# attention). (a) recurrentgemma-2b at its published widths and all 26
+# layers (8 x (R R A) + R R) through the LM launcher as a process, at
+# phase 13's batch, prompt, steps and cache; (b) the same model in process
+# in bf16, held to prefill == forward and decode == forward, then the ring
+# past the window (batch 1, a prompt of HY_RING_S > window 2,048 into a
+# cache of 2,048 slots, HY_RING_STEPS decode steps, each against the
+# forward at its position), timed warm, a decode step profiled; the same
+# checks in f32 at depth 3 (one R R A superblock).
+HY_ARCH = "recurrentgemma-2b"
+HY_SERVE = ["--no-smoke", "--arch", HY_ARCH, "--batch", str(LM_B),
+            "--prompt-len", str(LM_S), "--gen", str(LM_GEN), "--max-seq",
+            str(LM_MAX_SEQ)]
+HY_CUT_DEPTH = 3
+HY_RING_S, HY_RING_STEPS = 2100, 3
+# An R layer's decode step differs from its forward in more than GEMM
+# shapes: against the f32 cache (the launchers') it runs the width-4 conv
+# and the r / i gate products in f32 where the forward rounds them to
+# bf16, so every bf16 rounding of the R layer's forward counts as a step
+# of bf16_tol's random walk: the two norms (2 each), the u, i, gate and
+# out products (4), the conv's 4 products and 3 sums (7), h's cast, the
+# gelu's cast, h x gate and the two residual adds (5), the MLP's three
+# products, its gelu and its product of halves (5): 25. The r gate's
+# rounding counts more: it moves log a = -8 softplus(lam) r, so h, by
+# |log a| times its size, whose mean square is 64 E[softplus(lam)^2]
+# E[r^2] = 64 x 1.00 x 0.293 = 18.8 steps for lam ~ U[0, 1) and r the
+# sigmoid of a unit-variance projection (init_rglru_block's draws): 44.
+HY_R_ROUNDINGS = 44
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -1030,7 +1073,7 @@ def bench_headlines(bench) -> dict:
 
 
 def launcher_processes(work, smi) -> dict:
-    """The launcher with --sharded under torchrun and the four examples
+    """The launcher with --sharded under torchrun and the five examples
     (the distributed one under torchrun), started together; each must
     exit 0. Returns each one's seconds (they overlap) and its last
     lines."""
@@ -1087,7 +1130,7 @@ def phase_launcher(torch, smi) -> tuple:
     in-process at n = 100,000: the main run (every check, every bench,
     the bench file's eight sections), a Nystrom run and a two-pass run,
     launches counted in each; then the sharded launcher under torchrun
-    and the four examples as processes."""
+    and the five examples as processes."""
     t_phase = time.perf_counter()
     BUILD.mkdir(parents=True, exist_ok=True)
     work_dir = tempfile.TemporaryDirectory(dir=BUILD)
@@ -3073,10 +3116,10 @@ def phase_fleet(torch, model, Xq) -> tuple:
 # -- phase 13: the decoder-only LM serving path -------------------------------
 
 def lm_weights(torch, cfg) -> dict:
-    """Bytes of the LM's weights at tp = 1 (from a model on the meta
+    """Bytes of the model's weights at tp = 1 (from a model on the meta
     device: shapes and dtypes, no memory) and of its embedding table."""
-    from repro_torch.models import LM
-    model = LM(cfg, tp=1, device="meta")
+    from repro_torch.models import get_api
+    model = get_api(cfg).init(cfg, tp=1, device="meta")
     total = sum(p.numel() * p.element_size() for p in model.parameters())
     embed = model.embed.numel() * model.embed.element_size()
     return {"bytes": total, "embed_bytes": embed,
@@ -3084,26 +3127,36 @@ def lm_weights(torch, cfg) -> dict:
             "params": sum(p.numel() for p in model.parameters())}
 
 
-def lm_bounds(torch, cfg, B, S, T) -> dict:
+def lm_bounds(torch, cfg, B, S, max_seq) -> dict:
     """The least time of one prefill of S tokens and of one decode step
-    against a cache of T slots, batch B, from the config's shapes.
+    against a cache for max_seq positions (T slots: min(max_seq, window)
+    under a sliding window), batch B, from the config's shapes.
 
     Flops: every projection on the tokens it sees (an MoE's experts on
     the E x C tokens capacity routing gives them, per group of B x S
     tokens in prefill and of B in decode), the causal attention's QK and
     PV over the pairs inside the window (decode: over all T slots, as it
     runs), the unembedding of the last position only; the embedding is a
-    gather. Over 989 TFLOP/s bf16. Bytes: the weights read once (of the
-    embedding only the rows gathered) and the f32 KV cache written
-    (prefill) or read over all T slots (decode), over 3.35 TB/s. Also the
-    coarser prefill bound 2 x parameters x B x S + attention."""
+    gather. Over 989 TFLOP/s bf16. A hybrid's R layer (models/rglru.py)
+    projects through its five d x d matrices and its MLP and does not
+    attend; against the f32 cache its decode runs u @ W_a and u @ W_x in
+    f32 (JAX's promotion), over 67 TFLOP/s. Its conv, gates and scan
+    (~10^2 elementwise flops a channel a token, under 0.1 % of its
+    projections) are left out. Bytes: the weights read once (of the
+    embedding only the rows gathered), the f32 KV cache written (prefill)
+    or read over all T slots (decode), and an R layer's f32 h and conv
+    state written (prefill) or read and written (decode), over 3.35 TB/s.
+    Also the coarser prefill bound 2 x parameters x B x S + attention."""
     w = lm_weights(torch, cfg)
     d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     L_, V = cfg.n_layers, cfg.vocab_padded(1)
+    n_r = cfg._pattern().count("R") if cfg.family == "hybrid" else 0
+    n_a = L_ - n_r
     attn_params = d * hd * (nq + 2 * nkv) + nq * hd * d
     mlp_params = (3 if cfg.activation in ("swiglu", "geglu") else 2) \
         * d * cfg.d_ff
     win = cfg.window if cfg.attention == "sliding" else 0
+    T = min(max_seq, win) if win else max_seq
 
     def layer_flops(tokens):
         """A layer's projections on `tokens` tokens routed as one group."""
@@ -3113,24 +3166,34 @@ def lm_bounds(torch, cfg, B, S, T) -> dict:
         return 2 * tokens * (attn_params + d * cfg.n_experts) \
             + 2 * cfg.n_experts * C * mlp_params
 
+    def r_flops(tokens, f32):
+        """An R layer's bf16 projections (f32: u @ W_a, u @ W_x apart)."""
+        return 2 * tokens * ((3 if f32 else 5) * d * d + mlp_params)
+
     pairs = sum(min(i + 1, win) if win else i + 1 for i in range(S))
     attn_flops = 2 * 2 * B * nq * hd * pairs
-    prefill_flops = L_ * (layer_flops(B * S) + attn_flops) + 2 * B * d * V
-    dec_flops = L_ * (layer_flops(B) + 2 * 2 * B * nq * hd * T) \
-        + 2 * B * d * V
-    cache_bytes = 2 * L_ * B * T * nkv * hd * 4
+    prefill_flops = n_a * (layer_flops(B * S) + attn_flops) \
+        + n_r * r_flops(B * S, False) + 2 * B * d * V
+    dec_flops = n_a * (layer_flops(B) + 2 * 2 * B * nq * hd * T) \
+        + n_r * r_flops(B, True) + 2 * B * d * V
+    dec_f32_flops = n_r * 2 * B * 2 * d * d
+    cache_bytes = 2 * n_a * B * T * nkv * hd * 4
+    state_bytes = n_r * B * 4 * d * 4               # h (d) and conv (3 d)
     weights = w["bytes"] - w["embed_bytes"]
-    pre_bytes = weights + B * S * w["row_bytes"] + cache_bytes
-    dec_bytes = weights + B * w["row_bytes"] + cache_bytes
-    coarse = 2 * cfg.param_count() * B * S + L_ * attn_flops
+    pre_bytes = weights + B * S * w["row_bytes"] + cache_bytes + state_bytes
+    dec_bytes = weights + B * w["row_bytes"] + cache_bytes + 2 * state_bytes
+    coarse = 2 * w["params"] * B * S + n_a * attn_flops
 
-    def bound(flops, nbytes):
-        t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    def bound(flops, nbytes, f32_flops=0):
+        t_ops = flops / BF16_FLOPS + f32_flops / FP32_FLOPS
+        t_bytes = nbytes / HBM_BYTES_PER_S
         return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                            else "bytes")
     pre_ms, pre_by = bound(prefill_flops, pre_bytes)
-    dec_ms, dec_by = bound(dec_flops, dec_bytes)
+    dec_ms, dec_by = bound(dec_flops, dec_bytes, dec_f32_flops)
     return {"params": w["params"], "weight_bytes": w["bytes"],
+            "cache_slots": T, "kv_cache_bytes": cache_bytes,
+            "state_bytes": state_bytes,
             "prefill_flops": prefill_flops, "prefill_bytes": pre_bytes,
             "prefill_bound_ms": pre_ms, "prefill_bound_by": pre_by,
             "prefill_2NBS_bound_ms": coarse / BF16_FLOPS * 1e3,
@@ -3138,13 +3201,15 @@ def lm_bounds(torch, cfg, B, S, T) -> dict:
             "decode_bound_ms": dec_ms, "decode_bound_by": dec_by}
 
 
-def lm_launcher(torch, smi) -> dict:
-    """13a: `python -m repro_torch.launch.serve --no-smoke` on phi4 at full
-    width and depth as a process; it must exit 0 (it checks its logits
+def lm_launcher(torch, smi, arch=LM_ARCH, args=None, tag="13a") -> dict:
+    """13a / 14a: `python -m repro_torch.launch.serve --no-smoke` on `arch`
+    (phi4 / recurrentgemma) at full width and depth as a process, with
+    `args` (LM_SERVE / HY_SERVE); it must exit 0 (it checks its logits
     are finite). Returns its numbers beside their bounds."""
     import os
+    args = LM_SERVE if args is None else args
     env = {**os.environ, "PYTHONPATH": str(SRC)}
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve"] + LM_SERVE + [
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve"] + args + [
         "--device", DEVICE]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
@@ -3161,18 +3226,22 @@ def lm_launcher(torch, smi) -> dict:
                      r"([\d.]+ GB|not measured)", lines[2])
     if not (head and tail and lines[1].startswith("generated token ids")):
         raise AssertionError(f"unexpected launcher output: {lines}")
-    cfg = get_lm_config(LM_ARCH)
+    cfg = get_lm_config(arch)
     b = lm_bounds(torch, cfg, LM_B, LM_S, LM_MAX_SEQ)
     info = {"cmd": "python -m repro_torch.launch.serve " + " ".join(
-                LM_SERVE), "process_s": seconds,
+                args), "process_s": seconds,
             "prefill_ms": float(head.group(2)),
             "decode_ms_per_step": float(head.group(5)),
             "tokens_per_s": float(tail.group(1)),
             "peak_memory": tail.group(2), "lines": lines, **b}
-    log(f"[lm] 13a {info['cmd']}: exit 0 in {seconds:.1f} s [{smi}]: "
+    log(f"[lm] {tag} {info['cmd']}: exit 0 in {seconds:.1f} s [{smi}]: "
         + " | ".join(lines))
-    log(f"[lm] 13a {LM_ARCH} full width and depth ({b['params']:,} "
-        f"parameters, {b['weight_bytes'] / 1e9:.3f} GB) [{smi}]: prefill "
+    state = (f", f32 h and conv state {b['state_bytes'] / 1e9:.4f} GB"
+             if b["state_bytes"] else "")
+    log(f"[lm] {tag} {arch} full width and depth ({cfg.n_layers} layers, "
+        f"{b['params']:,} parameters, {b['weight_bytes'] / 1e9:.3f} GB; "
+        f"f32 KV cache of {b['cache_slots']} slots "
+        f"{b['kv_cache_bytes'] / 1e9:.4f} GB{state}) [{smi}]: prefill "
         f"{info['prefill_ms']} ms (its first call; flops bound "
         f"{b['prefill_bound_ms']:.3f} ms by {b['prefill_bound_by']}, "
         f"2NBS {b['prefill_2NBS_bound_ms']:.3f}); decode "
@@ -3200,21 +3269,32 @@ def near_ties(torch, got, want) -> dict:
             "rows": int(pick.numel()), "worst_gap": float(gap.max())}
 
 
-def bf16_tol(kind: str, n_layers: int, scale: float) -> float:
-    """The bf16 tolerance of LM_PREFILL_ULPS / LM_ROUNDINGS for values of
-    largest magnitude `scale`."""
+def decode_roundings(cfg, steps: int = 1) -> int:
+    """The bf16 roundings in which `steps` decode steps may part from the
+    forward: LM_ROUNDINGS an attention layer, HY_R_ROUNDINGS an R layer,
+    and each step adds its own to the state it carries on (the KV ring,
+    h, the conv's inputs)."""
+    n_r = cfg._pattern().count("R") if cfg.family == "hybrid" else 0
+    return steps * (HY_R_ROUNDINGS * n_r
+                    + LM_ROUNDINGS * (cfg.n_layers - n_r))
+
+
+def bf16_tol(kind: str, roundings: int, scale: float) -> float:
+    """The bf16 tolerance for values of largest magnitude `scale`:
+    LM_PREFILL_ULPS ulps (prefill), or a random walk of `roundings` steps
+    of 2^-8 (decode; decode_roundings)."""
     if kind == "prefill":
         return LM_PREFILL_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7)
-    return math.sqrt(LM_ROUNDINGS * n_layers) * 2.0 ** -8 * scale
+    return math.sqrt(roundings) * 2.0 ** -8 * scale
 
 
-def hold_logits(torch, what, got, want, kind, n_layers, f32) -> dict:
+def hold_logits(torch, what, got, want, kind, roundings, f32) -> dict:
     """got against want within LM_F32_TOL (f32) or bf16_tol; the greedy
     tokens equal (f32), or any that differ a near tie within the
     tolerance (bf16)."""
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    tol = LM_F32_TOL if f32 else bf16_tol(kind, n_layers, scale)
+    tol = LM_F32_TOL if f32 else bf16_tol(kind, roundings, scale)
     res = {"max_abs_err": err, "tol": tol, "ref_max_abs": scale,
            **near_ties(torch, got, want)}
     log(f"[lm] {what}: max abs err {err:.3g} (tol {tol:.3g}, |logits| <= "
@@ -3234,20 +3314,20 @@ def lm_invariants(torch, model, tokens, decode_too=True, what="") -> dict:
     """prefill(S) against forward(S)[:, -1]; one decode after it against
     forward(S + 1)[:, -1] (where decode_too). tokens: (B, S + 1)."""
     S = tokens.shape[1] - 1
-    L_, f32 = model.cfg.n_layers, model.cfg.param_dtype == "float32"
+    f32 = model.cfg.param_dtype == "float32"
     out = {}
     with torch.no_grad():
         cache = model.init_cache(tokens.shape[0], S + 1, torch.float32)
         logits, cache = model.prefill(tokens[:, :S], cache)
         out["prefill"] = hold_logits(
             torch, f"{what} prefill({S}) vs forward({S})[:, -1]", logits,
-            model(tokens[:, :S])[:, -1], "prefill", L_, f32)
+            model(tokens[:, :S])[:, -1], "prefill", 0, f32)
         if decode_too:
             logits, cache = model.decode(tokens[:, S], cache)
             out["decode"] = hold_logits(
                 torch, f"{what} decode after prefill({S}) vs "
                 f"forward({S + 1})[:, -1]", logits, model(tokens)[:, -1],
-                "decode", L_, f32)
+                "decode", decode_roundings(model.cfg), f32)
     return out
 
 
@@ -3311,9 +3391,11 @@ def lm_tokens(torch, cfg, B, S, seed):
 
 
 def lm_model(torch, cfg, seed=SEED):
-    from repro_torch.models import LM
-    return LM(cfg, tp=1, device=DEVICE,
-              generator=torch.Generator(DEVICE).manual_seed(seed))
+    """The family's model (LM, or RG for the hybrid) through get_api."""
+    from repro_torch.models import get_api
+    return get_api(cfg).init(
+        cfg, tp=1, device=DEVICE,
+        generator=torch.Generator(DEVICE).manual_seed(seed))
 
 
 def free(torch) -> None:
@@ -3323,17 +3405,23 @@ def free(torch) -> None:
         torch.cuda.empty_cache()
 
 
-def lm_in_process(torch, smi) -> dict:
-    """13b: phi4 at full width and depth in bf16 held to its own
-    invariants and timed warm; the same checks in f32 at depth 2."""
-    cfg = get_lm_config(LM_ARCH)
+def lm_in_process(torch, smi, arch=LM_ARCH, cut_depth=LM_CUT_DEPTH,
+                  tag="13b", ring=False) -> dict:
+    """13b / 14b: `arch` at full width and depth in bf16 held to its own
+    invariants and timed warm; the same checks in f32 at depth
+    `cut_depth`. With `ring`, also the ring past the window (hy_ring) in
+    both."""
+    cfg = get_lm_config(arch)
     info = {}
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     model = lm_model(torch, cfg)
+    sync(torch)
+    info["init_s"] = time.perf_counter() - t0
     tokens = lm_tokens(torch, cfg, LM_B, LM_S + 1, SEED + 1)
     info["bf16"] = lm_invariants(torch, model, tokens,
-                                 what=f"13b {LM_ARCH} bf16")
+                                 what=f"{tag} {arch} bf16")
     info.update(lm_times(torch, model, tokens[:, :LM_S], LM_GEN,
                          LM_MAX_SEQ))
     if DEVICE == "cuda":
@@ -3343,7 +3431,8 @@ def lm_in_process(torch, smi) -> dict:
     b = lm_bounds(torch, cfg, LM_B, LM_S, LM_MAX_SEQ)
     peak = (f"{info['peak_gb']:.3f} GB" if "peak_gb" in info
             else "not measured")
-    log(f"[lm] 13b {LM_ARCH} in process, warm [{smi}]: prefill "
+    log(f"[lm] {tag} {arch} in process, warm [{smi}]: init "
+        f"{info['init_s']:.2f} s; prefill "
         f"{info['prefill_ms']:.2f} ms (flops bound "
         f"{b['prefill_bound_ms']:.3f}); decode "
         f"{info['decode_ms_per_step']:.3f} ms/step (bytes bound "
@@ -3354,16 +3443,56 @@ def lm_in_process(torch, smi) -> dict:
         f"{prof['device_ms_per_step']:.3f} ms (busy share "
         f"{prof['busy_share']}), {prof['launches_per_step']:.0f} records; "
         f"most card time: {json.dumps(prof['top'])}")
+    if ring:
+        info["bf16_ring"] = hy_ring(torch, model, f"{tag} {arch} bf16")
     del model
     free(torch)
-    cut = get_lm_config(LM_ARCH, n_layers=LM_CUT_DEPTH,
-                        param_dtype="float32", dtype="float32")
+    cut = get_lm_config(arch, n_layers=cut_depth, param_dtype="float32",
+                        dtype="float32")
     model = lm_model(torch, cut)
-    info["f32_depth2"] = lm_invariants(
-        torch, model, tokens, what=f"13b {LM_ARCH} f32 depth {LM_CUT_DEPTH}")
+    what = f"{tag} {arch} f32 depth {cut_depth}"
+    info[f"f32_depth{cut_depth}"] = lm_invariants(torch, model, tokens,
+                                                  what=what)
+    if ring:
+        info[f"f32_depth{cut_depth}_ring"] = hy_ring(torch, model, what)
     del model
     free(torch)
     return info
+
+
+def hy_ring(torch, model, what) -> dict:
+    """The hybrid's local attention past its window: batch 1, a prompt of
+    HY_RING_S > window tokens into a cache for HY_RING_S + HY_RING_STEPS
+    positions (T = window ring slots: prefill keeps the last T positions
+    rolled into slot p % T, rglru.py:241-253), prefill(HY_RING_S) ==
+    forward(HY_RING_S)[:, -1], then HY_RING_STEPS decode steps, step k
+    against forward(HY_RING_S + HY_RING_STEPS) at its position within the
+    tolerance of k steps (decode_roundings)."""
+    cfg = model.cfg
+    S, steps = HY_RING_S, HY_RING_STEPS
+    f32 = cfg.param_dtype == "float32"
+    tokens = lm_tokens(torch, cfg, 1, S + steps, SEED + 2)
+    out = {"decode": []}
+    with torch.no_grad():
+        cache = model.init_cache(1, S + steps, torch.float32)
+        if not S > cache["k"].shape[2] == cfg.window:
+            raise AssertionError(f"{what}: the ring check needs a prompt "
+                                 f"past the window's {cfg.window} slots")
+        logits, cache = model.prefill(tokens[:, :S], cache)
+        out["prefill"] = hold_logits(
+            torch, f"{what} ring: prefill({S}) vs forward({S})[:, -1]",
+            logits, model(tokens[:, :S])[:, -1], "prefill", 0, f32)
+        full = model(tokens)
+        for k in range(steps):
+            logits, cache = model.decode(tokens[:, S + k], cache)
+            out["decode"].append(hold_logits(
+                torch, f"{what} ring: decode step {k + 1} (position "
+                f"{S + k}, {cache['k'].shape[2]} slots) vs "
+                f"forward({S + steps})[:, {S + k}]", logits,
+                full[:, S + k], "decode", decode_roundings(cfg, k + 1),
+                f32))
+    del full
+    return out
 
 
 def lm_others(torch, smi) -> dict:
@@ -3419,7 +3548,8 @@ def lm_ring(torch, smi) -> dict:
     cfg = get_lm_config("mixtral-8x7b")
     win, out = cfg.window, {}
     for dtype, tol in ((torch.float32, LM_RING_TOL),
-                       (torch.bfloat16, bf16_tol("decode", 1, 1.0))):
+                       (torch.bfloat16,
+                        bf16_tol("decode", LM_ROUNDINGS, 1.0))):
         gen = torch.Generator(DEVICE).manual_seed(SEED)
         attn = Attention(cfg, dtype, DEVICE)
         attn.reset_parameters(gen)
@@ -3472,6 +3602,28 @@ def phase_lm(torch, smi) -> dict:
     info["phase_s"] = time.perf_counter() - t0
     info["card"] = smi
     log(f"[lm] phase 13 took {info['phase_s']:.1f} s; the port's kernels "
+        f"launched {info['kernel_launches']} (none lies on this path)")
+    return info
+
+
+def phase_hybrid(torch, smi) -> dict:
+    """Phase 14: the hybrid family's serving path on the card (models/
+    rglru.py: RG-LRU blocks, a log-depth scan in plain PyTorch, and the
+    LM path's local attention; no kernel of the port's lies on it);
+    launch counts are read around it to show it."""
+    from repro_torch.kernels import OPS, reset_launches
+    free(torch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    reset_launches()
+    info = {"launcher": lm_launcher(torch, smi, HY_ARCH, HY_SERVE, "14a"),
+            "in_process": lm_in_process(torch, smi, HY_ARCH, HY_CUT_DEPTH,
+                                        "14b", ring=True)}
+    info["kernel_launches"] = {n: op.launches for n, op in OPS.items()}
+    info["phase_s"] = time.perf_counter() - t0
+    info["card"] = smi
+    log(f"[lm] phase 14 took {info['phase_s']:.1f} s; the port's kernels "
         f"launched {info['kernel_launches']} (none lies on this path)")
     return info
 
@@ -3573,6 +3725,7 @@ def main() -> int:
     for name, held in summary["launcher"]["held"].items():
         kernels[name]["launcher_held"] = held
     summary["lm"] = phase_lm(torch, smi)
+    summary["hybrid"] = phase_hybrid(torch, smi)
     summary["serve"].update(phase_device(torch, kernels, inputs, est.model_,
                                          Xq))
     launches = {name: fit_launches[name] + serve_launches[name]

@@ -1,9 +1,11 @@
 """Batched LM serving launcher: prefill + greedy decode over a batch of
 synthetic requests (the port of repro/launch/serve.py).
 
-It does what the JAX launcher does: the config (the smoke config unless
---no-smoke), random weights at tp = 1 (drawn from --seed), a synthetic
-prompt (from --seed + 1), a KV cache in f32, one prefill, greedy argmax,
+It does what the JAX launcher does for every family the port serves
+(dense, moe, vlm and the hybrid, through models.registry.get_api): the
+config (the smoke config unless --no-smoke), random weights at tp = 1
+(drawn from --seed), a synthetic prompt (from --seed + 1), a cache in
+f32 (the hybrid's h and conv state too), one prefill, greedy argmax,
 --gen decode steps, the same two printed lines and a check that the
 logits are finite. A third line gives the decode rate and, on the card,
 the peak device memory.
@@ -23,6 +25,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \
       --arch phi4-mini-3.8b --batch 8 --prompt-len 512 --gen 32 \
+      --max-seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \
+      --arch recurrentgemma-2b --batch 8 --prompt-len 512 --gen 32 \
       --max-seq 1024
 """
 from __future__ import annotations

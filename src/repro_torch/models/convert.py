@@ -1,23 +1,32 @@
-"""Carry the JAX package's LM weights into the port's LM.
+"""Carry the JAX package's LM weights into the port's models.
 
 `lm_from_jax(cfg, params_np, device)` takes `jax.tree.map(np.asarray,
 params)` of `repro.models.lm.init_lm(key, cfg, tp)`: a nested dict of
 numpy arrays whose "layers" leaves are stacked on a leading n_layers
-axis. It unstacks them into the port's nn.ModuleList. Both packages keep
-the (in, out) layout, so nothing is transposed; q_norm / k_norm and the
-f32 router come across as they are. A bf16 array (ml_dtypes' bfloat16)
-is carried bit for bit through its uint16 view.
+axis. It unstacks them into the port's nn.ModuleList. `rg_from_jax`
+does the same for `repro.models.rglru.init_rg`'s tree: "supers" holds
+one entry per position of the layer pattern ("0_R", "1_R", "2_A"), each
+stacked on n_super, and "rem" the remainder layers, unstacked; they go
+into the port's ModuleList in `_layer_list`'s order. Both packages keep
+the (in, out) layout, so nothing is transposed; q_norm / k_norm, the
+f32 router and the f32 `lam` come across as they are. A bf16 array
+(ml_dtypes' bfloat16) is carried bit for bit through its uint16 view.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Callable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import LM
+from repro_torch.models.rglru import RG, superblocks
+
+# (params, layer index) -> (the layer's subtree, its row there or None)
+Layer = Callable[[Mapping, int], Tuple[Mapping, Optional[int]]]
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -27,32 +36,53 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _leaf(params: Mapping, name: str) -> np.ndarray:
+def _leaf(params: Mapping, name: str, layer: Layer) -> np.ndarray:
     """The JAX array behind one of the port's parameter names: the norm
     modules' ".weight" is the bare array there, and "layers.<i>.<path>"
-    is row i of the stacked "layers" leaf at <path>."""
+    is <path> in the subtree `layer` gives for layer i, at its row."""
     parts = name.split(".")
     if parts[-1] == "weight":
         parts = parts[:-1]
     if parts[0] != "layers":
         return params[parts[0]]
-    node = params["layers"]
+    node, row = layer(params, int(parts[1]))
     for key in parts[2:]:
         node = node[key]
-    return node[int(parts[1])]
+    return node if row is None else node[row]
 
 
 @torch.no_grad()
-def lm_from_jax(cfg: ArchConfig, params_np: Mapping, device=None,
-                tp: int = 1) -> LM:
-    """The port's LM with the JAX params' function (`tp` as given to
-    init_lm; it sets the padded vocabulary)."""
-    model = LM(cfg, tp, device="meta").to_empty(device=resolve_device(device))
+def _fill(model: nn.Module, params_np: Mapping, layer: Layer) -> nn.Module:
     for name, p in model.named_parameters():
-        src = _tensor(_leaf(params_np, name))
+        src = _tensor(_leaf(params_np, name, layer))
         if src.shape != p.shape or src.dtype != p.dtype:
             raise ValueError(f"{name}: JAX gives {tuple(src.shape)} "
                              f"{src.dtype}, the port holds "
                              f"{tuple(p.shape)} {p.dtype}")
         p.copy_(src)
     return model
+
+
+def lm_from_jax(cfg: ArchConfig, params_np: Mapping, device=None,
+                tp: int = 1) -> LM:
+    """The port's LM with the JAX params' function (`tp` as given to
+    init_lm; it sets the padded vocabulary)."""
+    model = LM(cfg, tp, device="meta").to_empty(device=resolve_device(device))
+    return _fill(model, params_np, lambda params, i: (params["layers"], i))
+
+
+def rg_from_jax(cfg: ArchConfig, params_np: Mapping, device=None,
+                tp: int = 1) -> RG:
+    """The port's RG with the JAX params' function (`tp` as given to
+    init_rg)."""
+    pat, n_super, _ = superblocks(cfg)
+    stacked = n_super * len(pat)
+
+    def layer(params, i):
+        if i < stacked:
+            s, j = divmod(i, len(pat))
+            return params["supers"][f"{j}_{pat[j]}"], s
+        return params["rem"][i - stacked], None
+
+    model = RG(cfg, tp, device="meta").to_empty(device=resolve_device(device))
+    return _fill(model, params_np, layer)

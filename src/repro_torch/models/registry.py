@@ -1,21 +1,21 @@
 """Uniform model API over the decoder-only architectures.
 
-The port of repro/models/registry.py for the families that models/lm.py
-serves: dense, moe and vlm (seven of the ten configs). vlm serves text
-only, as JAX's `_vlm_api`: the patch prefix enters through `forward`
-alone. The model carries its config, so the calls take the LM where JAX
-takes (params, cfg).
+The port of repro/models/registry.py for the families the port serves:
+dense, moe and vlm (models/lm.py) and hybrid (models/rglru.py), eight
+of the ten configs. vlm serves text only, as JAX's `_vlm_api`: the patch
+prefix enters through `forward` alone. The model carries its config, so
+the calls take the model where JAX takes (params, cfg).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from repro_torch.models import lm
+from repro_torch.models import lm, rglru
 from repro_torch.models.config import ArchConfig
 
 
 class ModelAPI(NamedTuple):
-    init: Callable          # (cfg, tp, device=, generator=) -> LM
+    init: Callable          # (cfg, tp, device=, generator=) -> LM | RG
     forward: Callable       # (model, batch, groups) -> logits (B,S,V)
     init_cache: Callable    # (cfg, batch, max_seq, dtype, device) -> cache
     prefill: Callable       # (model, batch, cache, groups) -> (logits, cache)
@@ -38,20 +38,26 @@ def _vlm_api() -> ModelAPI:
         forward=lambda m, b, g: m(b["tokens"], b.get("patches"), g))
 
 
-_FAMILIES = {"dense": _lm_api, "moe": _lm_api, "vlm": _vlm_api}
+def _rg_api() -> ModelAPI:
+    return _lm_api()._replace(init=rglru.RG,
+                              init_cache=rglru.init_cache_rg)
 
-# The families whose numerical core is not ported yet: each is a separate
-# piece of parity work (ROADMAP.md Queue A item 5(a)).
+
+_FAMILIES = {"dense": _lm_api, "moe": _lm_api, "vlm": _vlm_api,
+             "hybrid": _rg_api}
+
+# The families whose numerical core is not ported yet, each with the
+# ROADMAP.md Queue A item that ports it (one family per PR).
 _LATER = {
-    "hybrid": "rglru.py's RG-LRU scan",
-    "ssm": "rwkv6.py's chunked WKV",
-    "encdec": "whisper.py's encoder and cross-attention cache",
+    "ssm": ("rwkv6.py's chunked WKV", "2(b)"),
+    "encdec": ("whisper.py's encoder and cross-attention cache", "2(c)"),
 }
 
 
 def get_api(cfg: ArchConfig) -> ModelAPI:
     if cfg.family in _LATER:
+        what, item = _LATER[cfg.family]
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family ({_LATER[cfg.family]}) is "
-            "not ported yet; ROADMAP.md Queue A item 5(a) ports it")
+            f"{cfg.name}: the {cfg.family} family ({what}) is not ported "
+            f"yet; ROADMAP.md Queue A item {item} ports it")
     return _FAMILIES[cfg.family]()

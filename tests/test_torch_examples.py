@@ -10,7 +10,7 @@ import pytest
 from test_torch_serve_cluster import REPO, run_world
 
 EXAMPLES = ("torch_quickstart", "torch_serve_async", "torch_stream_refit",
-            "torch_distributed_clustering")
+            "torch_distributed_clustering", "torch_cluster_embeddings")
 
 
 @pytest.mark.parametrize("name", EXAMPLES)

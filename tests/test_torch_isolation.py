@@ -9,8 +9,9 @@ import torch
 from repro_torch.api import KernelKMeans
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
-from repro_torch.models import LM
+from repro_torch.models import LM, RG
 from repro_torch.models.lm import init_cache_lm
+from repro_torch.models.rglru import init_cache_rg
 from repro_torch.kernels import OPS, registry, reset_launches
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -56,7 +57,8 @@ def test_port_covers_the_slice_modules():
                 "distributed/cluster.py", "distributed/fault.py",
                 "launch/mesh.py", "launch/cluster.py",
                 "launch/serve_cluster.py", "models/config.py",
-                "models/layers.py", "models/lm.py", "models/registry.py",
+                "models/layers.py", "models/lm.py", "models/rglru.py",
+                "models/registry.py",
                 "models/convert.py", "train/steps.py", "launch/specs.py",
                 "launch/serve.py", "configs/__init__.py"):
         assert (port / rel).is_file(), rel
@@ -66,7 +68,7 @@ def test_port_covers_the_slice_modules():
                  "whisper_large_v3"):
         assert (port / "configs" / f"{name}.py").is_file(), name
     for name in ("quickstart", "serve_async", "stream_refit",
-                 "distributed_clustering"):
+                 "distributed_clustering", "cluster_embeddings"):
         assert (REPO / "examples" / f"torch_{name}.py").is_file(), name
     for name in ("gram", "kmeans_assign", "extend_embed", "fit_sketch",
                  "fwht"):
@@ -94,6 +96,19 @@ def test_lm_serving_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_cache_lm(cfg, 1, 8)
     assert LM(cfg, device="cpu").device.type == "cpu"
+
+
+def test_hybrid_serving_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("recurrentgemma-2b", smoke=True)
+    with pytest.raises(SystemExit) as stop:
+        serve.main(["--arch", "recurrentgemma-2b"])   # exit 2, no CPU run
+    assert stop.value.code == 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RG(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache_rg(cfg, 1, 8)
+    assert RG(cfg, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("name", sorted(OPS))

@@ -1,18 +1,22 @@
 """The port's decoder-only LMs against repro.models on the CPU, per arch.
 
-The seven decoder-only smoke configs (dense, moe, vlm), f32, JAX's
-init_lm weights carried across by repro_torch.models.convert.lm_from_jax
-and token ids drawn with numpy. Each is driven through both packages'
-registry and step functions: forward, prefill (logits and the f32 KV
-cache), then 8 greedy decode steps. Tolerance: 1e-4 abs on logits (of
-magnitude up to ~5; the two agree to ~3e-6 in f32) and 1e-5 abs on the
-cache; the greedy tokens must be identical. Mixtral's smoke window is
-32, so a prompt of 40 takes prefill's ring branch (lm.py:99-102).
+The seven decoder-only smoke configs (dense, moe, vlm) and the hybrid's
+(recurrentgemma, 5 layers R R A R R, window 32), f32, JAX's init_lm /
+init_rg weights carried across by repro_torch.models.convert
+(lm_from_jax / rg_from_jax) and token ids drawn with numpy. Each is
+driven through both packages' registry and step functions: forward,
+prefill (logits and the f32 cache: k and v, and the hybrid's h and conv
+state), then 8 greedy decode steps. Tolerance: 1e-4 abs on logits (of
+magnitude up to ~5; the two agree to ~1e-5 in f32) and 1e-5 abs on the
+cache; the greedy tokens must be identical. Mixtral's and the hybrid's
+smoke window is 32, so a prompt of 40 takes prefill's ring branch
+(lm.py:99-102, rglru.py:241-253).
 
 The slice as a whole: the port's launcher (`repro_torch.launch.serve
---device cpu`, phi4 smoke) prints the same generated ids as the JAX
-launcher's logic (repro/launch/serve.py: jitted prefill / decode steps,
-f32 cache, argmax) given the port's weights and prompt.
+--device cpu`, phi4 smoke and recurrentgemma smoke) prints the same
+generated ids as the JAX launcher's logic (repro/launch/serve.py: jitted
+prefill / decode steps, f32 cache, argmax) given the port's weights and
+prompt.
 """
 import jax
 import jax.numpy as jnp
@@ -27,7 +31,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models import get_api
 from repro_torch.train import make_decode_step, make_prefill_step
-from torch_lm_common import ARCHS, jax_and_port, np_of, params_of
+from torch_lm_common import SERVED, jax_and_port, np_of, params_of
 
 LOGIT_TOL = dict(rtol=0, atol=1e-4)
 CACHE_TOL = dict(rtol=0, atol=1e-5)
@@ -45,7 +49,7 @@ def _setup(arch):
     return jcfg, pcfg, params, model
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_forward(arch):
     jcfg, pcfg, params, model = _setup(arch)
     tok = _tokens(pcfg, (B, S))
@@ -89,7 +93,8 @@ def _serve_both(arch, prompt_len, max_seq):
     pl, pcache = ppre(model, {"tokens": torch.from_numpy(tok)}, pcache)
     np.testing.assert_allclose(np_of(pl), np.asarray(jl), **LOGIT_TOL)
     assert pcache["pos"] == int(jcache["pos"]) == prompt_len
-    for key in ("k", "v"):
+    keys = ("h", "conv", "k", "v") if pcfg.family == "hybrid" else ("k", "v")
+    for key in keys:
         assert pcache[key].dtype == torch.float32
         np.testing.assert_allclose(np_of(pcache[key]),
                                    np.asarray(jcache[key]), **CACHE_TOL)
@@ -101,13 +106,14 @@ def _serve_both(arch, prompt_len, max_seq):
         pt, pl, pcache = pdec(model, pt, pcache)
         np.testing.assert_allclose(np_of(pl), np.asarray(jl), **LOGIT_TOL)
     np.testing.assert_array_equal(np_of(pt), np.asarray(jt))
-    np.testing.assert_allclose(np_of(pcache["k"]), np.asarray(jcache["k"]),
-                               **CACHE_TOL)
+    for key in keys:
+        np.testing.assert_allclose(np_of(pcache[key]),
+                                   np.asarray(jcache[key]), **CACHE_TOL)
     assert pcache["pos"] == int(jcache["pos"]) == prompt_len + GEN
     return pcache["k"].shape[2]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_prefill_and_greedy_decode(arch):
     assert _serve_both(arch, S, MAX_SEQ) == MAX_SEQ
 
@@ -119,6 +125,13 @@ def test_mixtral_prefill_past_the_window():
     assert _serve_both("mixtral-8x7b", 40, 64) == 32
 
 
+def test_hybrid_prefill_past_the_window():
+    """The same for the hybrid's local attention layer (window 32): a
+    prompt of 40 into a cache of 64 positions keeps 32 ring slots."""
+    assert get_config("recurrentgemma-2b", True).window == 32
+    assert _serve_both("recurrentgemma-2b", 40, 64) == 32
+
+
 def test_full_attention_prompt_longer_than_the_cache_refused():
     _, pcfg, _, model = _setup("phi4-mini-3.8b")
     cache = model.init_cache(1, 8, torch.float32)
@@ -126,16 +139,18 @@ def test_full_attention_prompt_longer_than_the_cache_refused():
         model.prefill(torch.from_numpy(_tokens(pcfg, (1, 9))), cache)
 
 
-def test_launcher_generates_jax_ids(capsys):
-    """The port's launcher on phi4 smoke at --device cpu against
-    repro/launch/serve.py's logic on the same weights and prompt."""
-    args = serve.build_parser().parse_args(["--device", "cpu"])
+def _launcher_against_jax(capsys, arch, smoke_name):
+    """The port's launcher on `arch`'s smoke config at --device cpu
+    against repro/launch/serve.py's logic on the same weights and
+    prompt."""
+    args = serve.build_parser().parse_args(["--device", "cpu", "--arch",
+                                            arch])
     out = serve.run(args)
     printed = capsys.readouterr().out.splitlines()
-    assert printed[0].startswith("arch=phi4-smoke batch=4 prefill 16 tok")
+    assert printed[0].startswith(f"arch={smoke_name} batch=4 prefill 16 tok")
     ids = [int(i) for i in printed[1].split("[")[1].rstrip("]").split(",")]
 
-    cfg = jax_config("phi4-mini-3.8b", smoke=True)
+    cfg = jax_config(arch, smoke=True)
     api = jax_api(cfg)
     params = jax.tree.map(jnp.asarray, params_of(out["model"]))
     prefill = jax.jit(jsteps.make_prefill_step(cfg, api, groups=1))
@@ -154,6 +169,14 @@ def test_launcher_generates_jax_ids(capsys):
     assert ids == gen[0].tolist()
     np.testing.assert_allclose(np_of(out["logits"]), np.asarray(logits),
                                **LOGIT_TOL)
+
+
+def test_launcher_generates_jax_ids(capsys):
+    _launcher_against_jax(capsys, "phi4-mini-3.8b", "phi4-smoke")
+
+
+def test_hybrid_launcher_generates_jax_ids(capsys):
+    _launcher_against_jax(capsys, "recurrentgemma-2b", "recurrentgemma-smoke")
 
 
 def test_launcher_main_exits_zero(capsys):

@@ -11,8 +11,10 @@ on the card) and token ids go through both devices in f32 with TF32 off:
 forward, prefill (logits and cache) and greedy decode agree within 1e-4
 abs on logits (the CPU tests' bound against JAX; the two devices sum in
 other orders) and the greedy tokens are identical. At the smoke configs
-of the seven decoder-only archs (mixtral's prompt of 40 past its window
-of 32 too) and at phi4-mini's published width, depth cut to 2.
+of the seven decoder-only archs and the hybrid (mixtral's and the
+hybrid's prompt of 40 past their window of 32 too) and at phi4-mini's
+published width, depth cut to 2; the launcher's defaults and the hybrid
+through it serve on the card.
 """
 import dataclasses
 
@@ -21,7 +23,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
-from repro_torch.models import LM
+from repro_torch.models import get_api
 
 ARCHS = ("phi4-mini-3.8b", "qwen3-14b", "nemotron-4-340b",
          "command-r-plus-104b", "mixtral-8x7b", "dbrx-132b", "pixtral-12b")
@@ -36,9 +38,10 @@ def card():
 
 
 def _both(cfg):
-    cpu = LM(cfg, tp=1, device="cpu",
-             generator=torch.Generator().manual_seed(0))
-    gpu = LM(cfg, tp=1, device="meta").to_empty(device="cuda")
+    init = get_api(cfg).init
+    cpu = init(cfg, tp=1, device="cpu",
+               generator=torch.Generator().manual_seed(0))
+    gpu = init(cfg, tp=1, device="meta").to_empty(device="cuda")
     gpu.load_state_dict(cpu.state_dict())
     return cpu, gpu
 
@@ -73,7 +76,8 @@ def _hold(cfg, B, S, gen, max_seq):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=TOL)
     for g, w in zip(got["tokens"], want["tokens"]):
         assert torch.equal(g.cpu(), w)
-    for key in ("k", "v"):
+    keys = ("h", "conv", "k", "v") if cfg.family == "hybrid" else ("k", "v")
+    for key in keys:
         torch.testing.assert_close(got["cache"][key].cpu(),
                                    want["cache"][key], rtol=0, atol=TOL)
     assert got["cache"]["pos"] == want["cache"]["pos"] == S + gen
@@ -92,6 +96,15 @@ def test_mixtral_ring_card_equals_cpu(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [12, 40])
+def test_hybrid_smoke_card_equals_cpu(card, S):
+    """recurrentgemma smoke (R R A R R, window 32); S = 40 takes the
+    prefill's ring branch."""
+    _hold(get_config("recurrentgemma-2b", smoke=True), B=2, S=S, gen=8,
+          max_seq=64)
+
+
+@pytest.mark.cuda
 def test_phi4_width_depth2_f32_card_equals_cpu(card):
     cfg = dataclasses.replace(get_config("phi4-mini-3.8b"), n_layers=2,
                               param_dtype="float32", dtype="float32")
@@ -105,3 +118,11 @@ def test_launcher_defaults_serve_on_the_card(card, capsys):
     assert lines[0].startswith("arch=phi4-smoke batch=4 prefill 16 tok")
     assert lines[2].startswith("device cuda: decode")
     assert lines[2].endswith(" GB")
+
+
+@pytest.mark.cuda
+def test_hybrid_launcher_serves_on_the_card(card, capsys):
+    assert serve.main(["--arch", "recurrentgemma-2b"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("arch=recurrentgemma-smoke batch=4 prefill")
+    assert lines[2].startswith("device cuda: decode")

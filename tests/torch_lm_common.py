@@ -5,21 +5,66 @@ import numpy as np
 import torch
 
 from repro.models import lm as jlm
-from repro_torch.models.convert import lm_from_jax
+from repro.models import rglru as jrg
+from repro_torch.models import RG
+from repro_torch.models.convert import lm_from_jax, rg_from_jax
+from repro_torch.models.rglru import superblocks
 
 ARCHS = ("phi4-mini-3.8b", "qwen3-14b", "nemotron-4-340b",
          "command-r-plus-104b", "mixtral-8x7b", "dbrx-132b", "pixtral-12b")
+# The families the port serves: the seven above and the hybrid.
+SERVED = ARCHS + ("recurrentgemma-2b",)
 
 
 def jax_and_port(jcfg, pcfg, seed=0):
-    """(JAX params, the port's LM on the CPU with the same weights)."""
-    params = jlm.init_lm(jax.random.PRNGKey(seed), jcfg, tp=1)
-    model = lm_from_jax(pcfg, jax.tree.map(np.asarray, params), "cpu")
+    """(JAX params, the port's LM or RG on the CPU with the same
+    weights)."""
+    hybrid = jcfg.family == "hybrid"
+    init = jrg.init_rg if hybrid else jlm.init_lm
+    params = init(jax.random.PRNGKey(seed), jcfg, tp=1)
+    model = (rg_from_jax if hybrid else lm_from_jax)(
+        pcfg, jax.tree.map(np.asarray, params), "cpu")
     return params, model
+
+
+def _rg_params_of(model):
+    """An RG's weights as init_rg's tree: "supers" stacked per pattern
+    position, "rem" a list."""
+    pat, n_super, rem = superblocks(model.cfg)
+    stacked = n_super * len(pat)
+    out = {"supers": {}, "rem": [{} for _ in rem]}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[-1] == "weight":
+            parts = parts[:-1]
+        arr = p.detach().cpu().numpy()
+        if parts[0] != "layers":
+            out[parts[0]] = arr
+            continue
+        i = int(parts[1])
+        if i < stacked:
+            j = i % len(pat)
+            node = out["supers"].setdefault(f"{j}_{pat[j]}", {})
+        else:
+            node = out["rem"][i - stacked]
+        for key in parts[2:-1]:
+            node = node.setdefault(key, {})
+        if i < stacked:
+            node.setdefault(parts[-1], []).append(arr)
+        else:
+            node[parts[-1]] = arr
+
+    def stack(node):
+        return {k: stack(v) if isinstance(v, dict) else np.stack(v)
+                for k, v in node.items()}
+    out["supers"] = stack(out["supers"])
+    return out
 
 
 def params_of(model):
     """The port's weights as JAX's params tree of numpy arrays."""
+    if isinstance(model, RG):
+        return _rg_params_of(model)
     out = {"layers": {}}
     for name, p in model.named_parameters():
         parts = name.split(".")
