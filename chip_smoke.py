@@ -180,6 +180,20 @@ Phases, each fatal on failure:
      decode steps, each against forward(2,103) at its position), warm
      times, peak memory and a decode step under the profiler; the same
      checks in f32 at depth 3 (one R R A superblock) within 1e-4;
+  15. ssm (after 14, before 7): the ssm family (models/rwkv6.py: RWKV-6
+     "Finch", the chunked WKV core and the token-shift mixes; no kernel of
+     the port's lies on it): (a) python -m repro_torch.launch.serve
+     --no-smoke --arch rwkv6-1.6b at 13a's batch, prompt, steps and cache,
+     all 24 layers at the published widths, as a process that must exit
+     0, its numbers beside its bounds; (b) the same model in process in
+     bf16: prefill(512) == forward(512)[:, -1], 64 teacher-forced decode
+     steps on tokens 512 .. 575, step i against forward(576)[:, 512 + i]
+     within bf16_tol of i steps (an RWKV layer counting RWKV_ROUNDINGS),
+     the state handoff (prefill(576)'s s, tm, cm against the cache after
+     prefill(512) and the 64 steps), warm times, peak memory and a decode
+     step under the profiler; the same checks in f32 at depth 2 within
+     1e-4, the state within rtol and atol 2e-4. The launch counts read
+     around phases 13-15 must stay 0;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -385,6 +399,38 @@ HY_RING_S, HY_RING_STEPS = 2100, 3
 # E[r^2] = 64 x 1.00 x 0.293 = 18.8 steps for lam ~ U[0, 1) and r the
 # sigmoid of a unit-variance projection (init_rglru_block's draws): 44.
 HY_R_ROUNDINGS = 44
+
+# Phase 15: the ssm family (models/rwkv6.py: RWKV-6 "Finch", no attention).
+# (a) rwkv6-1.6b at its published widths and all 24 layers through the LM
+# launcher as a process, at phase 13's batch, prompt, steps and cache; (b)
+# the same model in process in bf16: prefill(LM_S) == forward(LM_S)[:, -1],
+# then SSM_STEPS teacher-forced decode steps on the next tokens, step i
+# against forward(LM_S + SSM_STEPS) at position LM_S + i (the WKV core
+# takes a prompt longer than a chunk of 64 only in whole chunks, as the JAX
+# package asserts, so forward(LM_S + 1) does not run), and the state
+# handoff: prefill(LM_S + SSM_STEPS)'s s, tm and cm against the cache the
+# steps leave; timed warm, a decode step profiled; the same checks in f32
+# at depth SSM_CUT_DEPTH, the state within rtol and atol SSM_STATE_TOL
+# (tests/test_rwkv_wkv.py's bound).
+SSM_ARCH = "rwkv6-1.6b"
+SSM_SERVE = ["--no-smoke", "--arch", SSM_ARCH, "--batch", str(LM_B),
+             "--prompt-len", str(LM_S), "--gen", str(LM_GEN), "--max-seq",
+             str(LM_MAX_SEQ)]
+SSM_CUT_DEPTH = 2
+SSM_STEPS = 64
+SSM_STATE_TOL = 2e-4
+# An RWKV layer's bf16 roundings, each a step of bf16_tol's random walk:
+# the two norms (2 each), the seven token-shift mixes (x + (xs - x) mu: 3
+# each, 21), the r, k, v, g, W_a and W_o products, tanh and the cast of the
+# silu-gated f32 output (8), the channel mix's two products before relu,
+# the square, its product with c_v, the sigmoid's cast and the gating
+# product (6), the two residual adds (2): 41. The decay's two (W_a, tanh)
+# move log w by |log w| times their size, and the state carries that over
+# its memory of 1 / (1 - w^2) steps as it carries a rounding of k or v:
+# 2 x E[(log w)^2 (d log log w)^2 / (1 - w^2)] = 0.29 of a step at
+# init_rwkv's draws (w0 = -0.6, the LoRA's N(0, 1 / fan-in) weights, 15 %
+# of channels at the clamp), under the two full steps already counted.
+RWKV_ROUNDINGS = 41
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -3137,7 +3183,14 @@ def lm_bounds(torch, cfg, B, S, max_seq) -> dict:
     tokens in prefill and of B in decode), the causal attention's QK and
     PV over the pairs inside the window (decode: over all T slots, as it
     runs), the unembedding of the last position only; the embedding is a
-    gather. Over 989 TFLOP/s bf16. A hybrid's R layer (models/rglru.py)
+    gather. Over 989 TFLOP/s bf16. An ssm's RWKV layer (models/rwkv6.py)
+    has no attention: its six d x d products, W_a (d x 64) and the channel
+    mix's two d x f in bf16; over 67 TFLOP/s f32 the LoRA's @ W_b and the
+    WKV core's four products a chunk of Lc = min(rwkv_chunk, S) tokens
+    (the scores and scores @ v over the causal pairs j < t only, each
+    chunk's k^T v and r @ state; decode: Lc = 1, no pairs); its decay,
+    shifts and gates (~10^2 elementwise flops a channel a token) are left
+    out. A hybrid's R layer (models/rglru.py)
     projects through its five d x d matrices and its MLP and does not
     attend; against the f32 cache its decode runs u @ W_a and u @ W_x in
     f32 (JAX's promotion), over 67 TFLOP/s. Its conv, gates and scan
@@ -3145,13 +3198,16 @@ def lm_bounds(torch, cfg, B, S, max_seq) -> dict:
     projections) are left out. Bytes: the weights read once (of the
     embedding only the rows gathered), the f32 KV cache written (prefill)
     or read over all T slots (decode), and an R layer's f32 h and conv
-    state written (prefill) or read and written (decode), over 3.35 TB/s.
+    state, or an RWKV layer's f32 s (H x dh x dh), tm and cm, written
+    (prefill) or read and written (decode), over 3.35 TB/s.
     Also the coarser prefill bound 2 x parameters x B x S + attention."""
     w = lm_weights(torch, cfg)
     d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     L_, V = cfg.n_layers, cfg.vocab_padded(1)
     n_r = cfg._pattern().count("R") if cfg.family == "hybrid" else 0
-    n_a = L_ - n_r
+    n_s = L_ if cfg.family == "ssm" else 0
+    n_a = L_ - n_r - n_s
+    dh = cfg.rwkv_head_dim
     attn_params = d * hd * (nq + 2 * nkv) + nq * hd * d
     mlp_params = (3 if cfg.activation in ("swiglu", "geglu") else 2) \
         * d * cfg.d_ff
@@ -3170,15 +3226,28 @@ def lm_bounds(torch, cfg, B, S, max_seq) -> dict:
         """An R layer's bf16 projections (f32: u @ W_a, u @ W_x apart)."""
         return 2 * tokens * ((3 if f32 else 5) * d * d + mlp_params)
 
+    def s_flops(seqs, length):
+        """An RWKV layer on `seqs` sequences of `length` tokens: (bf16
+        flops, f32 flops)."""
+        tokens, Lc = seqs * length, min(cfg.rwkv_chunk, length)
+        pairs = seqs * (length // Lc) * Lc * (Lc - 1) // 2
+        return (2 * tokens * (6 * d * d + 64 * d + 2 * d * cfg.d_ff),
+                2 * tokens * 64 * d + 2 * 2 * pairs * d
+                + 2 * 2 * tokens * dh * d)
+
     pairs = sum(min(i + 1, win) if win else i + 1 for i in range(S))
     attn_flops = 2 * 2 * B * nq * hd * pairs
+    pre_s, pre_s_f32 = s_flops(B, S)
+    dec_s, dec_s_f32 = s_flops(B, 1)
     prefill_flops = n_a * (layer_flops(B * S) + attn_flops) \
-        + n_r * r_flops(B * S, False) + 2 * B * d * V
+        + n_r * r_flops(B * S, False) + n_s * pre_s + 2 * B * d * V
+    pre_f32_flops = n_s * pre_s_f32
     dec_flops = n_a * (layer_flops(B) + 2 * 2 * B * nq * hd * T) \
-        + n_r * r_flops(B, True) + 2 * B * d * V
-    dec_f32_flops = n_r * 2 * B * 2 * d * d
+        + n_r * r_flops(B, True) + n_s * dec_s + 2 * B * d * V
+    dec_f32_flops = n_r * 2 * B * 2 * d * d + n_s * dec_s_f32
     cache_bytes = 2 * n_a * B * T * nkv * hd * 4
-    state_bytes = n_r * B * 4 * d * 4               # h (d) and conv (3 d)
+    state_bytes = (n_r * B * 4 * d * 4              # h (d) and conv (3 d)
+                   + n_s * B * (d * dh + 2 * d) * 4)  # s, tm and cm
     weights = w["bytes"] - w["embed_bytes"]
     pre_bytes = weights + B * S * w["row_bytes"] + cache_bytes + state_bytes
     dec_bytes = weights + B * w["row_bytes"] + cache_bytes + 2 * state_bytes
@@ -3189,23 +3258,27 @@ def lm_bounds(torch, cfg, B, S, max_seq) -> dict:
         t_bytes = nbytes / HBM_BYTES_PER_S
         return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                            else "bytes")
-    pre_ms, pre_by = bound(prefill_flops, pre_bytes)
+    pre_ms, pre_by = bound(prefill_flops, pre_bytes, pre_f32_flops)
     dec_ms, dec_by = bound(dec_flops, dec_bytes, dec_f32_flops)
     return {"params": w["params"], "weight_bytes": w["bytes"],
             "cache_slots": T, "kv_cache_bytes": cache_bytes,
             "state_bytes": state_bytes,
-            "prefill_flops": prefill_flops, "prefill_bytes": pre_bytes,
+            "state_what": "s, tm and cm" if n_s else "h and conv state",
+            "prefill_flops": prefill_flops,
+            "prefill_f32_flops": pre_f32_flops, "prefill_bytes": pre_bytes,
             "prefill_bound_ms": pre_ms, "prefill_bound_by": pre_by,
             "prefill_2NBS_bound_ms": coarse / BF16_FLOPS * 1e3,
-            "decode_flops": dec_flops, "decode_bytes": dec_bytes,
+            "decode_flops": dec_flops, "decode_f32_flops": dec_f32_flops,
+            "decode_bytes": dec_bytes,
             "decode_bound_ms": dec_ms, "decode_bound_by": dec_by}
 
 
 def lm_launcher(torch, smi, arch=LM_ARCH, args=None, tag="13a") -> dict:
-    """13a / 14a: `python -m repro_torch.launch.serve --no-smoke` on `arch`
-    (phi4 / recurrentgemma) at full width and depth as a process, with
-    `args` (LM_SERVE / HY_SERVE); it must exit 0 (it checks its logits
-    are finite). Returns its numbers beside their bounds."""
+    """13a / 14a / 15a: `python -m repro_torch.launch.serve --no-smoke` on
+    `arch` (phi4 / recurrentgemma / rwkv6) at full width and depth as a
+    process, with `args` (LM_SERVE / HY_SERVE / SSM_SERVE); it must exit 0
+    (it checks its logits are finite). Returns its numbers beside their
+    bounds."""
     import os
     args = LM_SERVE if args is None else args
     env = {**os.environ, "PYTHONPATH": str(SRC)}
@@ -3236,12 +3309,14 @@ def lm_launcher(torch, smi, arch=LM_ARCH, args=None, tag="13a") -> dict:
             "peak_memory": tail.group(2), "lines": lines, **b}
     log(f"[lm] {tag} {info['cmd']}: exit 0 in {seconds:.1f} s [{smi}]: "
         + " | ".join(lines))
-    state = (f", f32 h and conv state {b['state_bytes'] / 1e9:.4f} GB"
-             if b["state_bytes"] else "")
+    state = [f"f32 KV cache of {b['cache_slots']} slots "
+             f"{b['kv_cache_bytes'] / 1e9:.4f} GB"] if b["kv_cache_bytes"] \
+        else []
+    if b["state_bytes"]:
+        state.append(f"f32 {b['state_what']} {b['state_bytes'] / 1e9:.4f} GB")
     log(f"[lm] {tag} {arch} full width and depth ({cfg.n_layers} layers, "
         f"{b['params']:,} parameters, {b['weight_bytes'] / 1e9:.3f} GB; "
-        f"f32 KV cache of {b['cache_slots']} slots "
-        f"{b['kv_cache_bytes'] / 1e9:.4f} GB{state}) [{smi}]: prefill "
+        f"{', '.join(state)}) [{smi}]: prefill "
         f"{info['prefill_ms']} ms (its first call; flops bound "
         f"{b['prefill_bound_ms']:.3f} ms by {b['prefill_bound_by']}, "
         f"2NBS {b['prefill_2NBS_bound_ms']:.3f}); decode "
@@ -3272,11 +3347,12 @@ def near_ties(torch, got, want) -> dict:
 def decode_roundings(cfg, steps: int = 1) -> int:
     """The bf16 roundings in which `steps` decode steps may part from the
     forward: LM_ROUNDINGS an attention layer, HY_R_ROUNDINGS an R layer,
-    and each step adds its own to the state it carries on (the KV ring,
-    h, the conv's inputs)."""
+    RWKV_ROUNDINGS an RWKV layer, and each step adds its own to the state
+    it carries on (the KV ring, h, the conv's inputs, s, tm, cm)."""
     n_r = cfg._pattern().count("R") if cfg.family == "hybrid" else 0
-    return steps * (HY_R_ROUNDINGS * n_r
-                    + LM_ROUNDINGS * (cfg.n_layers - n_r))
+    n_s = cfg.n_layers if cfg.family == "ssm" else 0
+    return steps * (HY_R_ROUNDINGS * n_r + RWKV_ROUNDINGS * n_s
+                    + LM_ROUNDINGS * (cfg.n_layers - n_r - n_s))
 
 
 def bf16_tol(kind: str, roundings: int, scale: float) -> float:
@@ -3288,18 +3364,21 @@ def bf16_tol(kind: str, roundings: int, scale: float) -> float:
     return math.sqrt(roundings) * 2.0 ** -8 * scale
 
 
-def hold_logits(torch, what, got, want, kind, roundings, f32) -> dict:
+def hold_logits(torch, what, got, want, kind, roundings, f32,
+                say=True) -> dict:
     """got against want within LM_F32_TOL (f32) or bf16_tol; the greedy
     tokens equal (f32), or any that differ a near tie within the
-    tolerance (bf16)."""
+    tolerance (bf16). Logged unless `say` is False."""
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     tol = LM_F32_TOL if f32 else bf16_tol(kind, roundings, scale)
     res = {"max_abs_err": err, "tol": tol, "ref_max_abs": scale,
            **near_ties(torch, got, want)}
-    log(f"[lm] {what}: max abs err {err:.3g} (tol {tol:.3g}, |logits| <= "
-        f"{res['ref_max_abs']:.3g}); argmax equal {res['argmax_equal']}/"
-        f"{res['rows']}, worst gap {res['worst_gap']:.3g}")
+    if say:
+        log(f"[lm] {what}: max abs err {err:.3g} (tol {tol:.3g}, |logits| "
+            f"<= {res['ref_max_abs']:.3g}); argmax equal "
+            f"{res['argmax_equal']}/{res['rows']}, worst gap "
+            f"{res['worst_gap']:.3g}")
     if not err <= tol:
         raise AssertionError(f"{what}: {err} > {tol}")
     if f32 and res["argmax_equal"] != res["rows"]:
@@ -3406,11 +3485,13 @@ def free(torch) -> None:
 
 
 def lm_in_process(torch, smi, arch=LM_ARCH, cut_depth=LM_CUT_DEPTH,
-                  tag="13b", ring=False) -> dict:
-    """13b / 14b: `arch` at full width and depth in bf16 held to its own
-    invariants and timed warm; the same checks in f32 at depth
-    `cut_depth`. With `ring`, also the ring past the window (hy_ring) in
-    both."""
+                  tag="13b", ring=False, checks=None, after=1) -> dict:
+    """13b / 14b / 15b: `arch` at full width and depth in bf16 held to its
+    own invariants and timed warm; the same checks in f32 at depth
+    `cut_depth`. The invariants are `checks(torch, model, tokens, what=)`
+    (lm_invariants by default) on LM_S + `after` tokens. With `ring`,
+    also the ring past the window (hy_ring) in both."""
+    checks = checks or lm_invariants
     cfg = get_lm_config(arch)
     info = {}
     if DEVICE == "cuda":
@@ -3419,9 +3500,8 @@ def lm_in_process(torch, smi, arch=LM_ARCH, cut_depth=LM_CUT_DEPTH,
     model = lm_model(torch, cfg)
     sync(torch)
     info["init_s"] = time.perf_counter() - t0
-    tokens = lm_tokens(torch, cfg, LM_B, LM_S + 1, SEED + 1)
-    info["bf16"] = lm_invariants(torch, model, tokens,
-                                 what=f"{tag} {arch} bf16")
+    tokens = lm_tokens(torch, cfg, LM_B, LM_S + after, SEED + 1)
+    info["bf16"] = checks(torch, model, tokens, what=f"{tag} {arch} bf16")
     info.update(lm_times(torch, model, tokens[:, :LM_S], LM_GEN,
                          LM_MAX_SEQ))
     if DEVICE == "cuda":
@@ -3451,8 +3531,7 @@ def lm_in_process(torch, smi, arch=LM_ARCH, cut_depth=LM_CUT_DEPTH,
                         dtype="float32")
     model = lm_model(torch, cut)
     what = f"{tag} {arch} f32 depth {cut_depth}"
-    info[f"f32_depth{cut_depth}"] = lm_invariants(torch, model, tokens,
-                                                  what=what)
+    info[f"f32_depth{cut_depth}"] = checks(torch, model, tokens, what=what)
     if ring:
         info[f"f32_depth{cut_depth}_ring"] = hy_ring(torch, model, what)
     del model
@@ -3585,47 +3664,133 @@ def lm_ring(torch, smi) -> dict:
     return out
 
 
-def phase_lm(torch, smi) -> dict:
-    """Phase 13: the decoder-only LM serving path on the card (no kernel
-    of the port's: the projections are torch.matmul, attention plain
-    einsums); launch counts are read around it to show it."""
+def hold_state(torch, what, got, want, f32, roundings) -> dict:
+    """The ssm cache `got` against `want`, key by key (s, tm, cm): in f32
+    within rtol and atol SSM_STATE_TOL, in bf16 within bf16_tol of
+    `roundings` of each tensor's largest |value|. `ratio` is the largest
+    error over its bound (<= 1 passes)."""
+    out = {}
+    for key in ("s", "tm", "cm"):
+        err = (got[key] - want[key]).abs()
+        scale = float(want[key].abs().max())
+        bound = (SSM_STATE_TOL * (1 + want[key].abs()) if f32
+                 else bf16_tol("decode", roundings, scale))
+        out[key] = {"max_abs_err": float(err.max()), "ref_max_abs": scale,
+                    "ratio": float((err / bound).max())}
+    log(f"[lm] {what}: " + "; ".join(
+        f"{k} max abs err {v['max_abs_err']:.3g} (|{k}| <= "
+        f"{v['ref_max_abs']:.3g}), {v['ratio']:.3g} of its bound"
+        for k, v in out.items()))
+    bad = [k for k, v in out.items() if not v["ratio"] <= 1]
+    if bad:
+        raise AssertionError(f"{what}: {bad} past the bound: {out}")
+    return out
+
+
+def ssm_checks(torch, model, tokens, what="") -> dict:
+    """15b's invariants of an RWKV model on tokens (B, S + SSM_STEPS):
+    prefill(S) against forward(S)[:, -1]; SSM_STEPS decode steps fed
+    tokens S, S + 1, ... (teacher-forced), step i against
+    forward(S + SSM_STEPS)[:, S + i] within the tolerance of i + 1 steps
+    (decode_roundings); then the state handoff, prefill(S + SSM_STEPS)'s
+    s, tm and cm against the cache those steps leave (hold_state, at
+    SSM_STEPS steps' roundings in bf16)."""
+    cfg = model.cfg
+    B, S = tokens.shape[0], tokens.shape[1] - SSM_STEPS
+    f32 = cfg.param_dtype == "float32"
+    with torch.no_grad():
+        cache = model.init_cache(B, S + SSM_STEPS, torch.float32)
+        logits, cache = model.prefill(tokens[:, :S], cache)
+        out = {"prefill": hold_logits(
+            torch, f"{what} prefill({S}) vs forward({S})[:, -1]", logits,
+            model(tokens[:, :S])[:, -1], "prefill", 0, f32)}
+        full = model(tokens)
+        steps = []
+        for i in range(SSM_STEPS):
+            logits, cache = model.decode(tokens[:, S + i], cache)
+            steps.append(hold_logits(
+                torch, f"{what} decode step {i + 1} vs forward("
+                f"{S + SSM_STEPS})[:, {S + i}]", logits, full[:, S + i],
+                "decode", decode_roundings(cfg, i + 1), f32, say=False))
+        del full
+        whole = model.init_cache(B, S + SSM_STEPS, torch.float32)
+        _, whole = model.prefill(tokens, whole)
+        out["handoff"] = hold_state(
+            torch, f"{what} handoff: prefill({S + SSM_STEPS})'s cache vs "
+            f"prefill({S}) + {SSM_STEPS} decode steps'", cache, whole, f32,
+            decode_roundings(cfg, SSM_STEPS))
+    ratios = [st["max_abs_err"] / st["tol"] for st in steps]
+    worst = max(range(SSM_STEPS), key=ratios.__getitem__)
+    out["decode"] = {
+        "steps": SSM_STEPS, "max_abs_err": [st["max_abs_err"] for st in steps],
+        "tol": [st["tol"] for st in steps], "worst_step": worst + 1,
+        "worst_ratio": ratios[worst],
+        "argmax_equal": sum(st["argmax_equal"] for st in steps),
+        "rows": sum(st["rows"] for st in steps),
+        "worst_gap": max(st["worst_gap"] for st in steps)}
+    d = out["decode"]
+    log(f"[lm] {what} {SSM_STEPS} teacher-forced decode steps vs forward("
+        f"{S + SSM_STEPS}): step 1 max abs err {d['max_abs_err'][0]:.3g} "
+        f"(tol {d['tol'][0]:.3g}), step {SSM_STEPS} "
+        f"{d['max_abs_err'][-1]:.3g} (tol {d['tol'][-1]:.3g}), the worst "
+        f"step {d['worst_step']} at {d['worst_ratio']:.3g} of its tol; "
+        f"argmax equal {d['argmax_equal']}/{d['rows']}, worst gap "
+        f"{d['worst_gap']:.3g}")
+    return out
+
+
+def lm_phase(torch, number: int, parts) -> dict:
+    """The frame of phases 13-15: TF32 off and bf16 GEMMs that reduce in
+    f32 (as the launcher sets them), every launch count set to 0 before
+    `parts()` (a dict of the phase's parts) and read after. No kernel of
+    the port's lies on the LM paths (the products are torch.matmul and
+    einsums), so each count must stay 0."""
     from repro_torch.kernels import OPS, reset_launches
     free(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
     reset_launches()
-    info = {"launcher": lm_launcher(torch, smi),
-            "in_process": lm_in_process(torch, smi),
-            "others": lm_others(torch, smi)}
+    info = parts()
     info["kernel_launches"] = {n: op.launches for n, op in OPS.items()}
     info["phase_s"] = time.perf_counter() - t0
-    info["card"] = smi
-    log(f"[lm] phase 13 took {info['phase_s']:.1f} s; the port's kernels "
-        f"launched {info['kernel_launches']} (none lies on this path)")
+    log(f"[lm] phase {number} took {info['phase_s']:.1f} s; the port's "
+        f"kernels launched {info['kernel_launches']} (none lies on this "
+        f"path)")
+    if any(info["kernel_launches"].values()):
+        raise AssertionError(f"phase {number} launched a kernel of the "
+                             f"port's: {info['kernel_launches']}")
     return info
+
+
+def phase_lm(torch, smi) -> dict:
+    """Phase 13: the decoder-only LM serving path on the card (the
+    projections are torch.matmul, attention plain einsums)."""
+    return lm_phase(torch, 13, lambda: {
+        "launcher": lm_launcher(torch, smi),
+        "in_process": lm_in_process(torch, smi),
+        "others": lm_others(torch, smi), "card": smi})
 
 
 def phase_hybrid(torch, smi) -> dict:
     """Phase 14: the hybrid family's serving path on the card (models/
     rglru.py: RG-LRU blocks, a log-depth scan in plain PyTorch, and the
-    LM path's local attention; no kernel of the port's lies on it);
-    launch counts are read around it to show it."""
-    from repro_torch.kernels import OPS, reset_launches
-    free(torch)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    t0 = time.perf_counter()
-    reset_launches()
-    info = {"launcher": lm_launcher(torch, smi, HY_ARCH, HY_SERVE, "14a"),
-            "in_process": lm_in_process(torch, smi, HY_ARCH, HY_CUT_DEPTH,
-                                        "14b", ring=True)}
-    info["kernel_launches"] = {n: op.launches for n, op in OPS.items()}
-    info["phase_s"] = time.perf_counter() - t0
-    info["card"] = smi
-    log(f"[lm] phase 14 took {info['phase_s']:.1f} s; the port's kernels "
-        f"launched {info['kernel_launches']} (none lies on this path)")
-    return info
+    LM path's local attention)."""
+    return lm_phase(torch, 14, lambda: {
+        "launcher": lm_launcher(torch, smi, HY_ARCH, HY_SERVE, "14a"),
+        "in_process": lm_in_process(torch, smi, HY_ARCH, HY_CUT_DEPTH,
+                                    "14b", ring=True), "card": smi})
+
+
+def phase_ssm(torch, smi) -> dict:
+    """Phase 15: the ssm family's serving path on the card (models/
+    rwkv6.py: the chunked WKV core and the token-shift mixes in plain
+    PyTorch)."""
+    return lm_phase(torch, 15, lambda: {
+        "launcher": lm_launcher(torch, smi, SSM_ARCH, SSM_SERVE, "15a"),
+        "in_process": lm_in_process(torch, smi, SSM_ARCH, SSM_CUT_DEPTH,
+                                    "15b", checks=ssm_checks,
+                                    after=SSM_STEPS), "card": smi})
 
 
 def phase_device(torch, kernels, inputs, model, Xq) -> dict:
@@ -3726,6 +3891,7 @@ def main() -> int:
         kernels[name]["launcher_held"] = held
     summary["lm"] = phase_lm(torch, smi)
     summary["hybrid"] = phase_hybrid(torch, smi)
+    summary["ssm"] = phase_ssm(torch, smi)
     summary["serve"].update(phase_device(torch, kernels, inputs, est.model_,
                                          Xq))
     launches = {name: fit_launches[name] + serve_launches[name]

@@ -2,10 +2,12 @@
 synthetic requests (the port of repro/launch/serve.py).
 
 It does what the JAX launcher does for every family the port serves
-(dense, moe, vlm and the hybrid, through models.registry.get_api): the
-config (the smoke config unless --no-smoke), random weights at tp = 1
-(drawn from --seed), a synthetic prompt (from --seed + 1), a cache in
-f32 (the hybrid's h and conv state too), one prefill, greedy argmax,
+(dense, moe, vlm, the hybrid and the ssm, through
+models.registry.get_api): the config (the smoke config unless
+--no-smoke), random weights at tp = 1 (drawn from --seed), a synthetic
+prompt (from --seed + 1; tokens only, for every family but encdec), a
+cache in f32 (the hybrid's h and conv state, the ssm's s, tm and cm
+too), one prefill, greedy argmax,
 --gen decode steps, the same two printed lines and a check that the
 logits are finite. A third line gives the decode rate and, on the card,
 the peak device memory.
@@ -29,6 +31,13 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \
       --arch recurrentgemma-2b --batch 8 --prompt-len 512 --gen 32 \
       --max-seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \
+      --arch rwkv6-1.6b --batch 8 --prompt-len 512 --gen 32 \
+      --max-seq 1024
+
+The ssm family (rwkv6) runs its prompt in chunks of cfg.rwkv_chunk (64)
+tokens: a prompt longer than that must be a multiple of it, as in the
+JAX package.
 """
 from __future__ import annotations
 

@@ -7,9 +7,11 @@ axis. It unstacks them into the port's nn.ModuleList. `rg_from_jax`
 does the same for `repro.models.rglru.init_rg`'s tree: "supers" holds
 one entry per position of the layer pattern ("0_R", "1_R", "2_A"), each
 stacked on n_super, and "rem" the remainder layers, unstacked; they go
-into the port's ModuleList in `_layer_list`'s order. Both packages keep
-the (in, out) layout, so nothing is transposed; q_norm / k_norm, the
-f32 router and the f32 `lam` come across as they are. A bf16 array
+into the port's ModuleList in `_layer_list`'s order. `rwkv_from_jax`
+takes `repro.models.rwkv6.init_rwkv`'s tree, stacked as init_lm's.
+Both packages keep the (in, out) layout, so nothing is transposed;
+q_norm / k_norm, the f32 router, the f32 `lam` and RWKV's f32 `mu_*`,
+`w0` and `u` come across as they are. A bf16 array
 (ml_dtypes' bfloat16) is carried bit for bit through its uint16 view.
 """
 from __future__ import annotations
@@ -24,6 +26,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import LM
 from repro_torch.models.rglru import RG, superblocks
+from repro_torch.models.rwkv6 import RWKV
 
 # (params, layer index) -> (the layer's subtree, its row there or None)
 Layer = Callable[[Mapping, int], Tuple[Mapping, Optional[int]]]
@@ -63,12 +66,25 @@ def _fill(model: nn.Module, params_np: Mapping, layer: Layer) -> nn.Module:
     return model
 
 
+def _stacked(params: Mapping, i: int) -> Tuple[Mapping, int]:
+    return params["layers"], i
+
+
 def lm_from_jax(cfg: ArchConfig, params_np: Mapping, device=None,
                 tp: int = 1) -> LM:
     """The port's LM with the JAX params' function (`tp` as given to
     init_lm; it sets the padded vocabulary)."""
     model = LM(cfg, tp, device="meta").to_empty(device=resolve_device(device))
-    return _fill(model, params_np, lambda params, i: (params["layers"], i))
+    return _fill(model, params_np, _stacked)
+
+
+def rwkv_from_jax(cfg: ArchConfig, params_np: Mapping, device=None,
+                  tp: int = 1) -> RWKV:
+    """The port's RWKV with the JAX params' function (`tp` as given to
+    init_rwkv)."""
+    model = RWKV(cfg, tp, device="meta").to_empty(
+        device=resolve_device(device))
+    return _fill(model, params_np, _stacked)
 
 
 def rg_from_jax(cfg: ArchConfig, params_np: Mapping, device=None,

@@ -1,21 +1,22 @@
 """Uniform model API over the decoder-only architectures.
 
 The port of repro/models/registry.py for the families the port serves:
-dense, moe and vlm (models/lm.py) and hybrid (models/rglru.py), eight
-of the ten configs. vlm serves text only, as JAX's `_vlm_api`: the patch
-prefix enters through `forward` alone. The model carries its config, so
-the calls take the model where JAX takes (params, cfg).
+dense, moe and vlm (models/lm.py), hybrid (models/rglru.py) and ssm
+(models/rwkv6.py), nine of the ten configs. vlm serves text only, as
+JAX's `_vlm_api`: the patch prefix enters through `forward` alone. The
+model carries its config, so the calls take the model where JAX takes
+(params, cfg).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from repro_torch.models import lm, rglru
+from repro_torch.models import lm, rglru, rwkv6
 from repro_torch.models.config import ArchConfig
 
 
 class ModelAPI(NamedTuple):
-    init: Callable          # (cfg, tp, device=, generator=) -> LM | RG
+    init: Callable          # (cfg, tp, device=, generator=) -> a model
     forward: Callable       # (model, batch, groups) -> logits (B,S,V)
     init_cache: Callable    # (cfg, batch, max_seq, dtype, device) -> cache
     prefill: Callable       # (model, batch, cache, groups) -> (logits, cache)
@@ -43,13 +44,17 @@ def _rg_api() -> ModelAPI:
                               init_cache=rglru.init_cache_rg)
 
 
-_FAMILIES = {"dense": _lm_api, "moe": _lm_api, "vlm": _vlm_api,
-             "hybrid": _rg_api}
+def _rwkv_api() -> ModelAPI:
+    return _lm_api()._replace(init=rwkv6.RWKV,
+                              init_cache=rwkv6.init_cache_rwkv)
 
-# The families whose numerical core is not ported yet, each with the
-# ROADMAP.md Queue A item that ports it (one family per PR).
+
+_FAMILIES = {"dense": _lm_api, "moe": _lm_api, "vlm": _vlm_api,
+             "hybrid": _rg_api, "ssm": _rwkv_api}
+
+# The family whose numerical core is not ported yet, with the ROADMAP.md
+# Queue A item that ports it.
 _LATER = {
-    "ssm": ("rwkv6.py's chunked WKV", "2(b)"),
     "encdec": ("whisper.py's encoder and cross-attention cache", "2(c)"),
 }
 

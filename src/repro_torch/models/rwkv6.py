@@ -1,0 +1,294 @@
+"""RWKV-6 "Finch": attention-free linear recurrence with data-dependent decay.
+
+The port of repro/models/rwkv6.py ([arXiv:2404.05892]). Per head (dk =
+dv = rwkv_head_dim), a matrix-valued state S:
+
+    out_t = r_t . (S_{t-1} + diag(u) k_t^T v_t)
+    S_t   = diag(w_t) S_{t-1} + k_t^T v_t
+
+with w_t = exp(-exp(w0 + tanh(x' W_a) W_b)) per channel, token-shift
+mixing on every projection and a squared-ReLU channel-mix FFN.
+
+`wkv_chunked` keeps JAX's chunked form (chunks of Lc = min(chunk, S)
+tokens; S must be a multiple of Lc, as JAX asserts) and its factorized
+two-sided scores r_s = r exp(lp_prev) <= 1, k_s = k exp(-lp) <= e^60 (the
+decay clamp in `_time_mix`), so every product stays in f32. JAX carries
+the state across chunks with `lax.scan`; here everything local to a
+chunk (the masked scores, the bonus diagonal, each chunk's
+sum_j k_j exp(lp_L - lp_j) (x) v_j) is computed for all chunks at once,
+and a Python loop runs only the (B, H, dh, dh) state recurrence. A
+decode step is the same core at S = 1.
+
+Arithmetic as JAX's, dtype by dtype: the projections in the parameter
+dtype, `mu` cast to x's dtype, the decay's LoRA as a product in x's dtype,
+tanh there, then an f32 product; r, k, v, the core, ln_x and the silu
+gate in f32, cast back before W_o; the channel mix's sigmoid in f32 cast
+to x's dtype. torch.matmul refuses mixed dtypes, so each mixed product
+casts both sides as JAX promotes them.
+
+The cache, {"s": (L, B, H, dh, dh) f32, "tm", "cm": (L, B, d) in the
+cache dtype, "pos": int}, holds each layer's state and the normed input
+of the last token of its time mix (tm) and channel mix (cm). `prefill`
+starts from a zero state, whatever the cache holds, and `decode`
+continues it; both write the cache in place (JAX returns a new one), as
+models/lm.py's do. `maybe_shard` (distributed/sharding.py) is the
+identity on one device and is left out; `cfg.remat` does nothing in
+serving. The model lives on the card unless the caller passes
+device="cpu"; its weights are drawn from an explicit torch.Generator,
+and a model on "meta" is left undrawn.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ArchConfig
+
+_CHUNK = 64
+_LORA = 64
+
+Cache = Dict[str, object]    # {"s", "tm", "cm": tensor, "pos": int}
+State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]   # (s, tm, cm)
+
+
+def shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None):
+    """Token shift: x_{t-1} (B, S, d); prev = the previous segment's last
+    token (B, d), zeros when None."""
+    first = (prev[:, None] if prev is not None
+             else x.new_zeros((x.shape[0], 1, x.shape[2])))
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def mix(x: torch.Tensor, xs: torch.Tensor, mu: torch.Tensor):
+    return x + (xs - x) * mu.to(x.dtype)
+
+
+def heads(x: torch.Tensor, H: int) -> torch.Tensor:
+    B, S, d = x.shape
+    return x.reshape(B, S, H, d // H)
+
+
+def wkv_chunked(r, k, v, logw, u, state0, chunk: int = _CHUNK):
+    """rwkv6.py:80 `_wkv_chunked`. r, k, v, logw: (B, S, H, dh) f32
+    (logw < 0); u: (H, dh); state0: (B, H, dh, dh). Returns (out (B, S,
+    H, dh), state (B, H, dh, dh))."""
+    B, S, H, dh = r.shape
+    Lc = min(chunk, S)
+    if S % Lc:
+        raise ValueError(f"seq {S} not divisible by chunk {Lc}")
+    nC = S // Lc
+
+    def resh(t):                                  # -> (B, H, nC, Lc, dh)
+        return t.reshape(B, nC, Lc, H, dh).permute(0, 3, 1, 2, 4)
+
+    r, k, v, lw = resh(r), resh(k), resh(v), resh(logw)
+    lp = torch.cumsum(lw, dim=3)                  # decreasing along Lc
+    lp_prev = lp - lw                             # lp_{t-1} (exclusive)
+    r_s = r * torch.exp(lp_prev)                  # <= |r|
+    k_s = k * torch.exp(-lp)                      # <= e^60 |k|
+    scores = torch.einsum("bhctd,bhcjd->bhctj", r_s, k_s)
+    tri = torch.tril(torch.ones((Lc, Lc), device=r.device), diagonal=-1)
+    scores = scores * tri                         # strictly lower (j < t)
+    out = torch.einsum("bhctj,bhcjd->bhctd", scores, v)
+    diag = torch.sum(r * u[None, :, None, None, :] * k, dim=-1)
+    out = out + diag[..., None] * v               # the bonus u
+    lp_end = lp[:, :, :, -1:, :]                  # (B, H, nC, 1, dh)
+    kd = k_s * torch.exp(lp_end)
+    kv = torch.einsum("bhctd,bhcte->bhcde", kd, v)
+    decay = torch.exp(lp_end.squeeze(3))[..., None]    # (B, H, nC, dh, 1)
+    states = [state0]                             # the state before chunk c
+    for c in range(nC):
+        states.append(states[-1] * decay[:, :, c] + kv[:, :, c])
+    carried = torch.stack(states[:-1], dim=2)
+    out = out + torch.einsum("bhctd,bhcde->bhcte", r_s, carried)
+    return out.permute(0, 2, 3, 1, 4).reshape(B, S, H, dh), states[-1]
+
+
+class RWKVBlock(nn.Module):
+    """rwkv6.py:32 `init_rwkv_block`'s parameters under JAX's keys, the
+    projections in the (in, out) layout."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, f = cfg.d_model, cfg.d_ff
+        f32 = torch.float32
+        self.ln1 = L.RMSNorm(d, device)
+        for name in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "w0", "u"):
+            setattr(self, name, L.empty_param((d,), f32, device))
+        for name in ("wr", "wk", "wv", "wg", "wo", "cr"):
+            setattr(self, name, L.empty_param((d, d), dtype, device))
+        self.wa = L.empty_param((d, _LORA), dtype, device)
+        self.wb = L.empty_param((_LORA, d), dtype, device)
+        self.ln_x = L.RMSNorm(d, device)
+        self.ln2 = L.RMSNorm(d, device)
+        self.mu_ck = L.empty_param((d,), f32, device)
+        self.mu_cr = L.empty_param((d,), f32, device)
+        self.ck = L.empty_param((d, f), dtype, device)
+        self.cv = L.empty_param((f, d), dtype, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for norm in (self.ln1, self.ln_x, self.ln2):
+            norm.reset_parameters()
+        for mu in (self.mu_r, self.mu_k, self.mu_v, self.mu_w, self.mu_g,
+                   self.mu_ck, self.mu_cr):
+            mu.fill_(0.5)
+        self.w0.fill_(-0.6)
+        for w in (self.wr, self.wk, self.wv, self.wg, self.wa, self.wb,
+                  self.wo, self.ck, self.cv, self.cr):
+            L.dense_init_(w, generator)
+        self.u.copy_(0.5 * torch.randn(self.u.shape, generator=generator,
+                                       device=self.u.device))
+
+    def time_mix(self, x: torch.Tensor, state0: torch.Tensor,
+                 x_prev: Optional[torch.Tensor] = None):
+        """rwkv6.py:131 `_time_mix`. x: (B, S, d) normed. Returns (out,
+        new state, x[:, -1])."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        H = d // cfg.rwkv_head_dim
+        xs = shift(x, x_prev)
+        r = mix(x, xs, self.mu_r) @ self.wr
+        k = mix(x, xs, self.mu_k) @ self.wk
+        v = mix(x, xs, self.mu_v) @ self.wv
+        g = mix(x, xs, self.mu_g) @ self.wg
+        xw = mix(x, xs, self.mu_w)
+        loglog_w = self.w0 + torch.tanh(xw @ self.wa).float() \
+            @ self.wb.float()
+        logw = -torch.exp(loglog_w)                        # < 0, f32
+        # Per-chunk cumulative |log decay| <= 60: exp(-lp) <= e^60 in f32.
+        logw = torch.clamp(logw, min=-60.0 / max(cfg.rwkv_chunk, 1))
+
+        def to_h(t):
+            return heads(t.float(), H)
+
+        out, state = wkv_chunked(
+            to_h(r), to_h(k), to_h(v), heads(logw, H),
+            self.u.reshape(H, cfg.rwkv_head_dim), state0, cfg.rwkv_chunk)
+        out = self.ln_x(out.reshape(B, S, d))
+        out = (out * F.silu(g.float())).to(x.dtype)
+        return out @ self.wo, state, x[:, -1]
+
+    def channel_mix(self, x: torch.Tensor,
+                    x_prev: Optional[torch.Tensor] = None):
+        """rwkv6.py:163 `_channel_mix`: (out, x[:, -1])."""
+        xs = shift(x, x_prev)
+        k = mix(x, xs, self.mu_ck) @ self.ck
+        r = mix(x, xs, self.mu_cr) @ self.cr
+        kk = F.relu(k)
+        return (torch.sigmoid(r.float()).to(x.dtype) * ((kk * kk) @ self.cv),
+                x[:, -1])
+
+    def step(self, x: torch.Tensor, state0: Optional[torch.Tensor] = None,
+             tm_prev: Optional[torch.Tensor] = None,
+             cm_prev: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, State]:
+        """rwkv6.py:172 `apply_rwkv_block`: (x, (state, tm, cm)); no
+        state0 is a zero state, no tm / cm a zero shift."""
+        B, _, d = x.shape
+        dh = self.cfg.rwkv_head_dim
+        if state0 is None:
+            state0 = x.new_zeros((B, d // dh, dh, dh), dtype=torch.float32)
+        a, state, tm_last = self.time_mix(self.ln1(x), state0, tm_prev)
+        x = x + a
+        c, cm_last = self.channel_mix(self.ln2(x), cm_prev)
+        return x + c, (state, tm_last, cm_last)
+
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        return self.step(x)[0]
+
+
+class RWKV(nn.Module):
+    """embed -> RWKVBlock x n_layers -> norm -> unembed."""
+
+    def __init__(self, cfg: ArchConfig, tp: int = 16, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        dtype = L.dtype_of(cfg.param_dtype)
+        V, d = cfg.vocab_padded(tp), cfg.d_model
+        self.embed = L.empty_param((V, d), dtype, device)
+        self.layers = nn.ModuleList(RWKVBlock(cfg, dtype, device)
+                                    for _ in range(cfg.n_layers))
+        self.ln_f = L.RMSNorm(d, device)
+        self.unembed = L.empty_param((d, V), dtype, device)
+        if device.type != "meta":
+            self.reset_parameters(
+                generator or torch.Generator(device).manual_seed(0))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """rwkv6.py:188 `init_rwkv`'s draws, tensor by tensor."""
+        L.dense_init_(self.embed, generator, scale_dim=self.cfg.d_model)
+        for blk in self.layers:
+            blk.reset_parameters(generator)
+        self.ln_f.reset_parameters()
+        L.dense_init_(self.unembed, generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def forward(self, tokens: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        """rwkv6.py:200 `forward_rwkv`: logits (B, S, vocab_padded) f32."""
+        x = self.embed[tokens]
+        for blk in self.layers:
+            x = blk(x)
+        return (self.ln_f(x) @ self.unembed).float()
+
+    def init_cache(self, batch: int, max_seq: int,
+                   dtype: torch.dtype = torch.bfloat16) -> Cache:
+        return init_cache_rwkv(self.cfg, batch, max_seq, dtype, self.device)
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, cache: Cache,
+                groups: int = 1) -> Tuple[torch.Tensor, Cache]:
+        """rwkv6.py:227 `prefill_rwkv`: run the prompt from a zero state,
+        write each layer's state, tm and cm (cast to the cache's dtype)
+        into `cache`; return the last position's logits (B, vocab_padded)
+        f32."""
+        x = self.embed[tokens]
+        for i, blk in enumerate(self.layers):
+            x, state = blk.step(x)
+            self._write(cache, i, state)
+        cache["pos"] = tokens.shape[1]
+        return (self.ln_f(x)[:, -1] @ self.unembed).float(), cache
+
+    @torch.no_grad()
+    def decode(self, tokens: torch.Tensor, cache: Cache,
+               groups: int = 1) -> Tuple[torch.Tensor, Cache]:
+        """rwkv6.py:246 `decode_rwkv`: one step, tokens (B,) int; tm and
+        cm enter in x's dtype. Returns (logits (B, vocab_padded) f32,
+        cache)."""
+        x = self.embed[tokens][:, None, :]
+        for i, blk in enumerate(self.layers):
+            x, state = blk.step(x, cache["s"][i], cache["tm"][i].to(x.dtype),
+                                cache["cm"][i].to(x.dtype))
+            self._write(cache, i, state)
+        cache["pos"] += 1
+        return (self.ln_f(x)[:, 0] @ self.unembed).float(), cache
+
+    @staticmethod
+    def _write(cache: Cache, i: int, state: State) -> None:
+        for key, t in zip(("s", "tm", "cm"), state):
+            cache[key][i].copy_(t)
+
+
+def init_cache_rwkv(cfg: ArchConfig, batch: int, max_seq: int,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device=None) -> Cache:
+    """rwkv6.py:215: zeros; s in f32 whatever `dtype` is. The state does
+    not grow with the sequence, so `max_seq` sizes nothing."""
+    d, dh, Lb = cfg.d_model, cfg.rwkv_head_dim, cfg.n_layers
+    device = resolve_device(device)
+    return {"s": torch.zeros((Lb, batch, d // dh, dh, dh),
+                             dtype=torch.float32, device=device),
+            "tm": torch.zeros((Lb, batch, d), dtype=dtype, device=device),
+            "cm": torch.zeros((Lb, batch, d), dtype=dtype, device=device),
+            "pos": 0}

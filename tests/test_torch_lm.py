@@ -1,19 +1,20 @@
 """The port's decoder-only LMs against repro.models on the CPU, per arch.
 
-The seven decoder-only smoke configs (dense, moe, vlm) and the hybrid's
-(recurrentgemma, 5 layers R R A R R, window 32), f32, JAX's init_lm /
-init_rg weights carried across by repro_torch.models.convert
-(lm_from_jax / rg_from_jax) and token ids drawn with numpy. Each is
-driven through both packages' registry and step functions: forward,
-prefill (logits and the f32 cache: k and v, and the hybrid's h and conv
-state), then 8 greedy decode steps. Tolerance: 1e-4 abs on logits (of
+The seven decoder-only smoke configs (dense, moe, vlm), the hybrid's
+(recurrentgemma, 5 layers R R A R R, window 32) and the ssm's (rwkv6, 2
+layers), f32, JAX's init_lm / init_rg / init_rwkv weights carried across
+by repro_torch.models.convert (lm_from_jax / rg_from_jax /
+rwkv_from_jax) and token ids drawn with numpy. Each is driven through
+both packages' registry and step functions: forward, prefill (logits and
+the f32 cache: k and v, the hybrid's h and conv state, the ssm's s, tm
+and cm), then 8 greedy decode steps. Tolerance: 1e-4 abs on logits (of
 magnitude up to ~5; the two agree to ~1e-5 in f32) and 1e-5 abs on the
 cache; the greedy tokens must be identical. Mixtral's and the hybrid's
 smoke window is 32, so a prompt of 40 takes prefill's ring branch
 (lm.py:99-102, rglru.py:241-253).
 
 The slice as a whole: the port's launcher (`repro_torch.launch.serve
---device cpu`, phi4 smoke and recurrentgemma smoke) prints the same
+--device cpu`, phi4, recurrentgemma and rwkv6 smoke) prints the same
 generated ids as the JAX launcher's logic (repro/launch/serve.py: jitted
 prefill / decode steps, f32 cache, argmax) given the port's weights and
 prompt.
@@ -31,7 +32,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models import get_api
 from repro_torch.train import make_decode_step, make_prefill_step
-from torch_lm_common import SERVED, jax_and_port, np_of, params_of
+from torch_lm_common import SERVED, cache_keys, jax_and_port, np_of, params_of
 
 LOGIT_TOL = dict(rtol=0, atol=1e-4)
 CACHE_TOL = dict(rtol=0, atol=1e-5)
@@ -80,7 +81,7 @@ def test_vlm_forward_with_patch_prefix():
 
 def _serve_both(arch, prompt_len, max_seq):
     """Prefill then GEN greedy decode steps in both packages, held step by
-    step; returns the cache's slot count."""
+    step; returns the port's cache."""
     jcfg, pcfg, params, model = _setup(arch)
     tok = _tokens(pcfg, (B, prompt_len))
     japi, papi = jax_api(jcfg), get_api(pcfg)
@@ -93,7 +94,7 @@ def _serve_both(arch, prompt_len, max_seq):
     pl, pcache = ppre(model, {"tokens": torch.from_numpy(tok)}, pcache)
     np.testing.assert_allclose(np_of(pl), np.asarray(jl), **LOGIT_TOL)
     assert pcache["pos"] == int(jcache["pos"]) == prompt_len
-    keys = ("h", "conv", "k", "v") if pcfg.family == "hybrid" else ("k", "v")
+    keys = cache_keys(pcfg)
     for key in keys:
         assert pcache[key].dtype == torch.float32
         np.testing.assert_allclose(np_of(pcache[key]),
@@ -110,26 +111,32 @@ def _serve_both(arch, prompt_len, max_seq):
         np.testing.assert_allclose(np_of(pcache[key]),
                                    np.asarray(jcache[key]), **CACHE_TOL)
     assert pcache["pos"] == int(jcache["pos"]) == prompt_len + GEN
-    return pcache["k"].shape[2]
+    return pcache
 
 
 @pytest.mark.parametrize("arch", SERVED)
 def test_prefill_and_greedy_decode(arch):
-    assert _serve_both(arch, S, MAX_SEQ) == MAX_SEQ
+    """An attention cache holds MAX_SEQ slots; the ssm's state does not
+    grow with the sequence."""
+    cache = _serve_both(arch, S, MAX_SEQ)
+    if "k" in cache:
+        assert cache["k"].shape[2] == MAX_SEQ
+    else:
+        assert cache["s"].shape[1:] == (B, 4, 16, 16)
 
 
 def test_mixtral_prefill_past_the_window():
     """S = 40 > window 32: the cache keeps the last 32 positions rolled
     into ring order, and decode wraps on from there."""
     assert get_config("mixtral-8x7b", True).window == 32
-    assert _serve_both("mixtral-8x7b", 40, 64) == 32
+    assert _serve_both("mixtral-8x7b", 40, 64)["k"].shape[2] == 32
 
 
 def test_hybrid_prefill_past_the_window():
     """The same for the hybrid's local attention layer (window 32): a
     prompt of 40 into a cache of 64 positions keeps 32 ring slots."""
     assert get_config("recurrentgemma-2b", True).window == 32
-    assert _serve_both("recurrentgemma-2b", 40, 64) == 32
+    assert _serve_both("recurrentgemma-2b", 40, 64)["k"].shape[2] == 32
 
 
 def test_full_attention_prompt_longer_than_the_cache_refused():
@@ -177,6 +184,10 @@ def test_launcher_generates_jax_ids(capsys):
 
 def test_hybrid_launcher_generates_jax_ids(capsys):
     _launcher_against_jax(capsys, "recurrentgemma-2b", "recurrentgemma-smoke")
+
+
+def test_ssm_launcher_generates_jax_ids(capsys):
+    _launcher_against_jax(capsys, "rwkv6-1.6b", "rwkv6-smoke")
 
 
 def test_launcher_main_exits_zero(capsys):

@@ -11,9 +11,10 @@ on the card) and token ids go through both devices in f32 with TF32 off:
 forward, prefill (logits and cache) and greedy decode agree within 1e-4
 abs on logits (the CPU tests' bound against JAX; the two devices sum in
 other orders) and the greedy tokens are identical. At the smoke configs
-of the seven decoder-only archs and the hybrid (mixtral's and the
-hybrid's prompt of 40 past their window of 32 too) and at phi4-mini's
-published width, depth cut to 2; the launcher's defaults and the hybrid
+of the seven decoder-only archs, the hybrid (mixtral's and the hybrid's
+prompt of 40 past their window of 32 too) and the ssm (rwkv6: prompts of
+12 and 64, one chunk; 128, two chunks) and at phi4-mini's published
+width, depth cut to 2; the launcher's defaults, the hybrid and the ssm
 through it serve on the card.
 """
 import dataclasses
@@ -76,7 +77,8 @@ def _hold(cfg, B, S, gen, max_seq):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=TOL)
     for g, w in zip(got["tokens"], want["tokens"]):
         assert torch.equal(g.cpu(), w)
-    keys = ("h", "conv", "k", "v") if cfg.family == "hybrid" else ("k", "v")
+    keys = {"hybrid": ("h", "conv", "k", "v"),
+            "ssm": ("s", "tm", "cm")}.get(cfg.family, ("k", "v"))
     for key in keys:
         torch.testing.assert_close(got["cache"][key].cpu(),
                                    want["cache"][key], rtol=0, atol=TOL)
@@ -105,6 +107,15 @@ def test_hybrid_smoke_card_equals_cpu(card, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [12, 64, 128])
+def test_ssm_smoke_card_equals_cpu(card, S):
+    """rwkv6 smoke (2 layers, heads of 16): S = 128 runs two chunks of 64
+    with the state carried between them."""
+    _hold(get_config("rwkv6-1.6b", smoke=True), B=2, S=S, gen=8,
+          max_seq=S + 8)
+
+
+@pytest.mark.cuda
 def test_phi4_width_depth2_f32_card_equals_cpu(card):
     cfg = dataclasses.replace(get_config("phi4-mini-3.8b"), n_layers=2,
                               param_dtype="float32", dtype="float32")
@@ -125,4 +136,12 @@ def test_hybrid_launcher_serves_on_the_card(card, capsys):
     assert serve.main(["--arch", "recurrentgemma-2b"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("arch=recurrentgemma-smoke batch=4 prefill")
+    assert lines[2].startswith("device cuda: decode")
+
+
+@pytest.mark.cuda
+def test_ssm_launcher_serves_on_the_card(card, capsys):
+    assert serve.main(["--arch", "rwkv6-1.6b"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("arch=rwkv6-smoke batch=4 prefill")
     assert lines[2].startswith("device cuda: decode")

@@ -6,24 +6,32 @@ import torch
 
 from repro.models import lm as jlm
 from repro.models import rglru as jrg
+from repro.models import rwkv6 as jrwkv
 from repro_torch.models import RG
-from repro_torch.models.convert import lm_from_jax, rg_from_jax
+from repro_torch.models.convert import lm_from_jax, rg_from_jax, rwkv_from_jax
 from repro_torch.models.rglru import superblocks
 
 ARCHS = ("phi4-mini-3.8b", "qwen3-14b", "nemotron-4-340b",
          "command-r-plus-104b", "mixtral-8x7b", "dbrx-132b", "pixtral-12b")
-# The families the port serves: the seven above and the hybrid.
-SERVED = ARCHS + ("recurrentgemma-2b",)
+# The families the port serves: the seven above, the hybrid and the ssm.
+SERVED = ARCHS + ("recurrentgemma-2b", "rwkv6-1.6b")
+# Per family: JAX's init and the port's converter of its tree.
+_INIT = {"hybrid": (jrg.init_rg, rg_from_jax),
+         "ssm": (jrwkv.init_rwkv, rwkv_from_jax)}
+# Per family: the cache's tensors (besides "pos").
+CACHE_KEYS = {"hybrid": ("h", "conv", "k", "v"), "ssm": ("s", "tm", "cm")}
+
+
+def cache_keys(cfg):
+    return CACHE_KEYS.get(cfg.family, ("k", "v"))
 
 
 def jax_and_port(jcfg, pcfg, seed=0):
-    """(JAX params, the port's LM or RG on the CPU with the same
+    """(JAX params, the port's LM, RG or RWKV on the CPU with the same
     weights)."""
-    hybrid = jcfg.family == "hybrid"
-    init = jrg.init_rg if hybrid else jlm.init_lm
+    init, convert = _INIT.get(jcfg.family, (jlm.init_lm, lm_from_jax))
     params = init(jax.random.PRNGKey(seed), jcfg, tp=1)
-    model = (rg_from_jax if hybrid else lm_from_jax)(
-        pcfg, jax.tree.map(np.asarray, params), "cpu")
+    model = convert(pcfg, jax.tree.map(np.asarray, params), "cpu")
     return params, model
 
 
