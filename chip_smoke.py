@@ -192,8 +192,24 @@ Phases, each fatal on failure:
      the state handoff (prefill(576)'s s, tm, cm against the cache after
      prefill(512) and the 64 steps), warm times, peak memory and a decode
      step under the profiler; the same checks in f32 at depth 2 within
-     1e-4, the state within rtol and atol 2e-4. The launch counts read
-     around phases 13-15 must stay 0;
+     1e-4, the state within rtol and atol 2e-4;
+  16. encdec (after 15, before 7): the encoder-decoder family
+     (models/whisper.py: 32 encoder and 32 decoder layers over 1,500
+     audio frames, the cross-attention K/V cached once at prefill; no
+     kernel of the port's lies on it): (a) python -m
+     repro_torch.launch.serve --no-smoke --arch whisper-large-v3 at 13a's
+     batch, prompt, steps and cache (a prompt of 512 past whisper's
+     published 448 text positions: the JAX model has no position table)
+     as a process that must exit 0, its numbers beside its bounds; (b)
+     the same model in process in bf16, its frames drawn on the card:
+     prefill(512) == forward(512)[:, -1], the cache's xk and xv bit for
+     bit each layer's _cross_kv of encode(frames), 8 teacher-forced decode
+     steps, step i against forward(520)[:, 512 + i] within bf16_tol of
+     step i (a decoder layer counting ENCDEC_ROUNDINGS once and the k and
+     v of each earlier step), xk and xv unchanged by them; warm times, peak memory and a decode step under
+     the profiler; the same checks in f32 at depth 2 (2 encoder and 2
+     decoder layers) within 1e-4. The launch counts read around phases
+     13-16 must stay 0;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -431,6 +447,33 @@ SSM_STATE_TOL = 2e-4
 # init_rwkv's draws (w0 = -0.6, the LoRA's N(0, 1 / fan-in) weights, 15 %
 # of channels at the clamp), under the two full steps already counted.
 RWKV_ROUNDINGS = 41
+
+# Phase 16: the encoder-decoder family (models/whisper.py: 32 encoder and
+# 32 decoder layers over 1,500 audio frames, cross-attention). (a)
+# whisper-large-v3 at its published widths and full depth through the LM
+# launcher as a process, at phase 13's batch, prompt, steps and cache
+# (whisper's published decoder context is 448 text positions; the JAX
+# model has no position table, so 512 runs, and the four families
+# compare); (b) the same model in process in bf16, its frames drawn on the
+# card from SEED + 2 in cfg.dtype: prefill(LM_S) == forward(LM_S)[:, -1],
+# the cache's xk and xv bit for bit each decoder layer's _cross_kv of
+# encode(frames), ED_STEPS teacher-forced decode steps, step i against
+# forward(LM_S + ED_STEPS)[:, LM_S + i], xk and xv unchanged by them;
+# timed warm, a decode step profiled; the same checks in f32 at depth
+# ED_CUT_DEPTH (encoder and decoder).
+ED_ARCH = "whisper-large-v3"
+ED_SERVE = ["--no-smoke", "--arch", ED_ARCH, "--batch", str(LM_B),
+            "--prompt-len", str(LM_S), "--gen", str(LM_GEN), "--max-seq",
+            str(LM_MAX_SEQ)]
+ED_CUT_DEPTH = 2
+ED_STEPS = 8
+# A decoder layer's decode step rounds what an attention layer's does
+# (LM_ROUNDINGS: q, k, v, scores, probabilities, o-projection, MLP) and
+# its cross-attention's q, scores, probabilities and o-projection: 11.
+# The cross K/V and the encoder's output are the same bits in decode and
+# in the forward (the same products at the same shapes; the f32 cache
+# holds bf16 values exactly), so they add none, at any step.
+ENCDEC_ROUNDINGS = LM_ROUNDINGS + 4
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -3163,12 +3206,24 @@ def phase_fleet(torch, model, Xq) -> tuple:
 
 def lm_weights(torch, cfg) -> dict:
     """Bytes of the model's weights at tp = 1 (from a model on the meta
-    device: shapes and dtypes, no memory) and of its embedding table."""
+    device: shapes and dtypes, no memory), of its embedding table and of
+    an encoder-decoder's encoder (`enc_layers`, `enc_ln`) and its decoder
+    layers' cross-attention wk and wv, whose products the cache holds (0
+    for the others)."""
     from repro_torch.models import get_api
     model = get_api(cfg).init(cfg, tp=1, device="meta")
-    total = sum(p.numel() * p.element_size() for p in model.parameters())
-    embed = model.embed.numel() * model.embed.element_size()
-    return {"bytes": total, "embed_bytes": embed,
+
+    def nbytes(params):
+        return sum(p.numel() * p.element_size() for p in params)
+    enc = [p for name in ("enc_layers", "enc_ln")
+           for p in getattr(model, name, torch.nn.Module()).parameters()]
+    xkv = [p for blk in getattr(model, "dec_layers", ())
+           for p in (blk.xattn.wk, blk.xattn.wv)]
+    return {"bytes": nbytes(model.parameters()),
+            "embed_bytes": nbytes([model.embed]),
+            "encoder_bytes": nbytes(enc),
+            "encoder_params": sum(p.numel() for p in enc),
+            "cross_kv_weight_bytes": nbytes(xkv),
             "row_bytes": model.embed.element_size() * cfg.d_model,
             "params": sum(p.numel() for p in model.parameters())}
 
@@ -3195,18 +3250,29 @@ def lm_bounds(torch, cfg, B, S, max_seq) -> dict:
     attend; against the f32 cache its decode runs u @ W_a and u @ W_x in
     f32 (JAX's promotion), over 67 TFLOP/s. Its conv, gates and scan
     (~10^2 elementwise flops a channel a token, under 0.1 % of its
-    projections) are left out. Bytes: the weights read once (of the
-    embedding only the rows gathered), the f32 KV cache written (prefill)
-    or read over all T slots (decode), and an R layer's f32 h and conv
-    state, or an RWKV layer's f32 s (H x dh x dh), tm and cm, written
-    (prefill) or read and written (decode), over 3.35 TB/s.
-    Also the coarser prefill bound 2 x parameters x B x S + attention."""
+    projections) are left out. An encoder-decoder (models/whisper.py)
+    adds its encoder, every projection on B x F frames and the
+    non-causal attention over F x F pairs, and each decoder layer's
+    cross-attention: Q and O on the B x S tokens, K and V on the B x F
+    frames, QK and PV over S x F pairs (decode: Q, O on B tokens, QK and
+    PV over F). Bytes: the weights read once (of the embedding only the
+    rows gathered; decode reads neither the encoder's weights nor the
+    cross-attention's wk and wv, only their products), the f32 KV cache
+    written (prefill) or read over all T slots (decode), an
+    encoder-decoder's f32 cross K/V written (prefill) or read (decode),
+    and an R layer's f32 h and conv state, or an RWKV layer's f32 s (H x
+    dh x dh), tm and cm, written (prefill) or read and written (decode),
+    over 3.35 TB/s. Also the coarser prefill bound 2 x parameters x the
+    tokens they see (B x S; an encoder's B x F) + attention."""
     w = lm_weights(torch, cfg)
     d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     L_, V = cfg.n_layers, cfg.vocab_padded(1)
     n_r = cfg._pattern().count("R") if cfg.family == "hybrid" else 0
     n_s = L_ if cfg.family == "ssm" else 0
     n_a = L_ - n_r - n_s
+    n_e = cfg.n_encoder_layers if cfg.family == "encdec" else 0
+    n_x = L_ if n_e else 0                   # decoder layers that cross
+    F = cfg.n_audio_frames
     dh = cfg.rwkv_head_dim
     attn_params = d * hd * (nq + 2 * nkv) + nq * hd * d
     mlp_params = (3 if cfg.activation in ("swiglu", "geglu") else 2) \
@@ -3239,19 +3305,32 @@ def lm_bounds(torch, cfg, B, S, max_seq) -> dict:
     attn_flops = 2 * 2 * B * nq * hd * pairs
     pre_s, pre_s_f32 = s_flops(B, S)
     dec_s, dec_s_f32 = s_flops(B, 1)
+    enc_attn_flops = 2 * 2 * B * nq * hd * F * F
+    enc_flops = n_e * (layer_flops(B * F) + enc_attn_flops)
+    xq_params, xkv_params = 2 * d * nq * hd, 2 * d * nkv * hd
+    x_pre = n_x * (2 * B * S * xq_params + 2 * B * F * xkv_params
+                   + 2 * 2 * B * nq * hd * S * F)
+    x_dec = n_x * (2 * B * xq_params + 2 * 2 * B * nq * hd * F)
     prefill_flops = n_a * (layer_flops(B * S) + attn_flops) \
-        + n_r * r_flops(B * S, False) + n_s * pre_s + 2 * B * d * V
+        + n_r * r_flops(B * S, False) + n_s * pre_s + enc_flops + x_pre \
+        + 2 * B * d * V
     pre_f32_flops = n_s * pre_s_f32
     dec_flops = n_a * (layer_flops(B) + 2 * 2 * B * nq * hd * T) \
-        + n_r * r_flops(B, True) + n_s * dec_s + 2 * B * d * V
+        + n_r * r_flops(B, True) + n_s * dec_s + x_dec + 2 * B * d * V
     dec_f32_flops = n_r * 2 * B * 2 * d * d + n_s * dec_s_f32
     cache_bytes = 2 * n_a * B * T * nkv * hd * 4
+    cross_bytes = 2 * n_x * B * F * nkv * hd * 4
     state_bytes = (n_r * B * 4 * d * 4              # h (d) and conv (3 d)
                    + n_s * B * (d * dh + 2 * d) * 4)  # s, tm and cm
     weights = w["bytes"] - w["embed_bytes"]
-    pre_bytes = weights + B * S * w["row_bytes"] + cache_bytes + state_bytes
-    dec_bytes = weights + B * w["row_bytes"] + cache_bytes + 2 * state_bytes
-    coarse = 2 * w["params"] * B * S + n_a * attn_flops
+    pre_bytes = weights + B * S * w["row_bytes"] + cache_bytes \
+        + cross_bytes + state_bytes
+    dec_bytes = weights - w["encoder_bytes"] - w["cross_kv_weight_bytes"] \
+        + B * w["row_bytes"] \
+        + cache_bytes + cross_bytes + 2 * state_bytes
+    coarse = 2 * (w["params"] - w["encoder_params"]) * B * S \
+        + 2 * w["encoder_params"] * B * F + n_a * attn_flops \
+        + n_e * enc_attn_flops
 
     def bound(flops, nbytes, f32_flops=0):
         t_ops = flops / BF16_FLOPS + f32_flops / FP32_FLOPS
@@ -3262,7 +3341,8 @@ def lm_bounds(torch, cfg, B, S, max_seq) -> dict:
     dec_ms, dec_by = bound(dec_flops, dec_bytes, dec_f32_flops)
     return {"params": w["params"], "weight_bytes": w["bytes"],
             "cache_slots": T, "kv_cache_bytes": cache_bytes,
-            "state_bytes": state_bytes,
+            "cross_cache_bytes": cross_bytes, "state_bytes": state_bytes,
+            "encoder_flops": enc_flops,
             "state_what": "s, tm and cm" if n_s else "h and conv state",
             "prefill_flops": prefill_flops,
             "prefill_f32_flops": pre_f32_flops, "prefill_bytes": pre_bytes,
@@ -3274,11 +3354,11 @@ def lm_bounds(torch, cfg, B, S, max_seq) -> dict:
 
 
 def lm_launcher(torch, smi, arch=LM_ARCH, args=None, tag="13a") -> dict:
-    """13a / 14a / 15a: `python -m repro_torch.launch.serve --no-smoke` on
-    `arch` (phi4 / recurrentgemma / rwkv6) at full width and depth as a
-    process, with `args` (LM_SERVE / HY_SERVE / SSM_SERVE); it must exit 0
-    (it checks its logits are finite). Returns its numbers beside their
-    bounds."""
+    """13a / 14a / 15a / 16a: `python -m repro_torch.launch.serve
+    --no-smoke` on `arch` (phi4 / recurrentgemma / rwkv6 / whisper) at
+    full width and depth as a process, with `args` (LM_SERVE / HY_SERVE /
+    SSM_SERVE / ED_SERVE); it must exit 0 (it checks its logits are
+    finite). Returns its numbers beside their bounds."""
     import os
     args = LM_SERVE if args is None else args
     env = {**os.environ, "PYTHONPATH": str(SRC)}
@@ -3312,9 +3392,14 @@ def lm_launcher(torch, smi, arch=LM_ARCH, args=None, tag="13a") -> dict:
     state = [f"f32 KV cache of {b['cache_slots']} slots "
              f"{b['kv_cache_bytes'] / 1e9:.4f} GB"] if b["kv_cache_bytes"] \
         else []
+    if b["cross_cache_bytes"]:
+        state.append(f"f32 cross K/V over {cfg.n_audio_frames} frames "
+                     f"{b['cross_cache_bytes'] / 1e9:.4f} GB")
     if b["state_bytes"]:
         state.append(f"f32 {b['state_what']} {b['state_bytes'] / 1e9:.4f} GB")
-    log(f"[lm] {tag} {arch} full width and depth ({cfg.n_layers} layers, "
+    depth = (f"{cfg.n_encoder_layers} + {cfg.n_layers}"
+             if cfg.family == "encdec" else f"{cfg.n_layers}")
+    log(f"[lm] {tag} {arch} full width and depth ({depth} layers, "
         f"{b['params']:,} parameters, {b['weight_bytes'] / 1e9:.3f} GB; "
         f"{', '.join(state)}) [{smi}]: prefill "
         f"{info['prefill_ms']} ms (its first call; flops bound "
@@ -3345,14 +3430,19 @@ def near_ties(torch, got, want) -> dict:
 
 
 def decode_roundings(cfg, steps: int = 1) -> int:
-    """The bf16 roundings in which `steps` decode steps may part from the
-    forward: LM_ROUNDINGS an attention layer, HY_R_ROUNDINGS an R layer,
-    RWKV_ROUNDINGS an RWKV layer, and each step adds its own to the state
-    it carries on (the KV ring, h, the conv's inputs, s, tm, cm)."""
+    """The bf16 roundings in which the last of `steps` decode steps may
+    part from the forward. A recurrent layer carries every rounding of
+    every step on in its state (h, the conv's inputs, s, tm, cm):
+    HY_R_ROUNDINGS an R layer, RWKV_ROUNDINGS an RWKV layer, each step. An
+    attention layer rounds its own LM_ROUNDINGS (ENCDEC_ROUNDINGS with
+    cross-attention) once, and of each earlier step only the k and v that
+    step left in the KV cache or ring reach this one: 2 a step."""
     n_r = cfg._pattern().count("R") if cfg.family == "hybrid" else 0
     n_s = cfg.n_layers if cfg.family == "ssm" else 0
-    return steps * (HY_R_ROUNDINGS * n_r + RWKV_ROUNDINGS * n_s
-                    + LM_ROUNDINGS * (cfg.n_layers - n_r - n_s))
+    n_a = cfg.n_layers - n_r - n_s
+    attn = ENCDEC_ROUNDINGS if cfg.family == "encdec" else LM_ROUNDINGS
+    return steps * (HY_R_ROUNDINGS * n_r + RWKV_ROUNDINGS * n_s) \
+        + n_a * (attn + 2 * (steps - 1))
 
 
 def bf16_tol(kind: str, roundings: int, scale: float) -> float:
@@ -3410,18 +3500,20 @@ def lm_invariants(torch, model, tokens, decode_too=True, what="") -> dict:
     return out
 
 
-def lm_times(torch, model, tokens, gen, max_seq) -> dict:
+def lm_times(torch, model, tokens, gen, max_seq, frames=None) -> dict:
     """Warm prefill ms and decode ms/step (host clock, synchronized; a
-    prefill and two decode steps first), tokens/s of the decode."""
+    prefill and two decode steps first), tokens/s of the decode. `frames`:
+    an encoder-decoder's, handed to its prefill."""
     B = tokens.shape[0]
+    extra = () if frames is None else (frames,)
     with torch.no_grad():
         cache = model.init_cache(B, max_seq, torch.float32)
-        logits, cache = model.prefill(tokens, cache)         # warm-up
+        logits, cache = model.prefill(tokens, *extra, cache)  # warm-up
         for _ in range(2):
             logits, cache = model.decode(logits.argmax(-1), cache)
         cache = model.init_cache(B, max_seq, torch.float32)
         (logits, cache), t_pre = timed(
-            torch, lambda: model.prefill(tokens, cache))
+            torch, lambda: model.prefill(tokens, *extra, cache))
         nxt = logits.argmax(-1).to(torch.int32)
 
         def steps():
@@ -3437,12 +3529,14 @@ def lm_times(torch, model, tokens, gen, max_seq) -> dict:
             t_dec / gen * 1e3, "tokens_per_s": B * gen / t_dec}
 
 
-def lm_decode_profile(torch, model, tokens, max_seq, steps=4) -> dict:
+def lm_decode_profile(torch, model, tokens, max_seq, steps=4,
+                      frames=None) -> dict:
     """`steps` warm decode steps under torch.profiler: host and card ms a
     step, the card's busy share, and the kernels that take most of it."""
+    extra = () if frames is None else (frames,)
     with torch.no_grad():
         cache = model.init_cache(tokens.shape[0], max_seq, torch.float32)
-        logits, cache = model.prefill(tokens, cache)
+        logits, cache = model.prefill(tokens, *extra, cache)
         state = {"nxt": logits.argmax(-1), "cache": cache}
 
         def step():
@@ -3469,8 +3563,19 @@ def lm_tokens(torch, cfg, B, S, seed):
                          device=DEVICE, dtype=torch.int32)
 
 
+def lm_frames(torch, cfg, B):
+    """An encoder-decoder's audio frames (B, n_audio_frames, d), drawn on
+    the card from SEED + 2 in f32 and cast to cfg.dtype; None for the
+    other families."""
+    if cfg.family != "encdec":
+        return None
+    gen = torch.Generator(DEVICE).manual_seed(SEED + 2)
+    return torch.randn((B, cfg.n_audio_frames, cfg.d_model), generator=gen,
+                       device=DEVICE).to(getattr(torch, cfg.dtype))
+
+
 def lm_model(torch, cfg, seed=SEED):
-    """The family's model (LM, or RG for the hybrid) through get_api."""
+    """The family's model (LM, RG, RWKV or Whisper) through get_api."""
     from repro_torch.models import get_api
     return get_api(cfg).init(
         cfg, tp=1, device=DEVICE,
@@ -3486,11 +3591,13 @@ def free(torch) -> None:
 
 def lm_in_process(torch, smi, arch=LM_ARCH, cut_depth=LM_CUT_DEPTH,
                   tag="13b", ring=False, checks=None, after=1) -> dict:
-    """13b / 14b / 15b: `arch` at full width and depth in bf16 held to its
-    own invariants and timed warm; the same checks in f32 at depth
-    `cut_depth`. The invariants are `checks(torch, model, tokens, what=)`
-    (lm_invariants by default) on LM_S + `after` tokens. With `ring`,
-    also the ring past the window (hy_ring) in both."""
+    """13b / 14b / 15b / 16b: `arch` at full width and depth in bf16 held
+    to its own invariants and timed warm; the same checks in f32 at depth
+    `cut_depth` (an encoder-decoder's encoder too). The invariants are
+    `checks(torch, model, tokens, what=)` (lm_invariants by default) on
+    LM_S + `after` tokens, with `frames=` (lm_frames) for an
+    encoder-decoder. With `ring`, also the ring past the window (hy_ring)
+    in both."""
     checks = checks or lm_invariants
     cfg = get_lm_config(arch)
     info = {}
@@ -3501,13 +3608,16 @@ def lm_in_process(torch, smi, arch=LM_ARCH, cut_depth=LM_CUT_DEPTH,
     sync(torch)
     info["init_s"] = time.perf_counter() - t0
     tokens = lm_tokens(torch, cfg, LM_B, LM_S + after, SEED + 1)
-    info["bf16"] = checks(torch, model, tokens, what=f"{tag} {arch} bf16")
+    frames = lm_frames(torch, cfg, LM_B)
+    extra = {} if frames is None else {"frames": frames}
+    info["bf16"] = checks(torch, model, tokens, what=f"{tag} {arch} bf16",
+                          **extra)
     info.update(lm_times(torch, model, tokens[:, :LM_S], LM_GEN,
-                         LM_MAX_SEQ))
+                         LM_MAX_SEQ, frames))
     if DEVICE == "cuda":
         info["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     info["decode_profile"] = prof = lm_decode_profile(
-        torch, model, tokens[:, :LM_S], LM_MAX_SEQ)
+        torch, model, tokens[:, :LM_S], LM_MAX_SEQ, frames=frames)
     b = lm_bounds(torch, cfg, LM_B, LM_S, LM_MAX_SEQ)
     peak = (f"{info['peak_gb']:.3f} GB" if "peak_gb" in info
             else "not measured")
@@ -3527,11 +3637,17 @@ def lm_in_process(torch, smi, arch=LM_ARCH, cut_depth=LM_CUT_DEPTH,
         info["bf16_ring"] = hy_ring(torch, model, f"{tag} {arch} bf16")
     del model
     free(torch)
-    cut = get_lm_config(arch, n_layers=cut_depth, param_dtype="float32",
+    depth = {"n_layers": cut_depth}
+    if cfg.family == "encdec":
+        depth["n_encoder_layers"] = cut_depth
+    cut = get_lm_config(arch, **depth, param_dtype="float32",
                         dtype="float32")
     model = lm_model(torch, cut)
+    frames = lm_frames(torch, cut, LM_B)
+    extra = {} if frames is None else {"frames": frames}
     what = f"{tag} {arch} f32 depth {cut_depth}"
-    info[f"f32_depth{cut_depth}"] = checks(torch, model, tokens, what=what)
+    info[f"f32_depth{cut_depth}"] = checks(torch, model, tokens, what=what,
+                                           **extra)
     if ring:
         info[f"f32_depth{cut_depth}_ring"] = hy_ring(torch, model, what)
     del model
@@ -3719,28 +3835,87 @@ def ssm_checks(torch, model, tokens, what="") -> dict:
             torch, f"{what} handoff: prefill({S + SSM_STEPS})'s cache vs "
             f"prefill({S}) + {SSM_STEPS} decode steps'", cache, whole, f32,
             decode_roundings(cfg, SSM_STEPS))
+    out["decode"] = steps_summary(what, steps, S)
+    return out
+
+
+def steps_summary(what, steps, S) -> dict:
+    """The teacher-forced steps' hold_logits results after a prompt of S,
+    summed up and logged: each step's error and tolerance, the worst
+    step's share of its tolerance, the greedy agreement."""
+    n = len(steps)
     ratios = [st["max_abs_err"] / st["tol"] for st in steps]
-    worst = max(range(SSM_STEPS), key=ratios.__getitem__)
-    out["decode"] = {
-        "steps": SSM_STEPS, "max_abs_err": [st["max_abs_err"] for st in steps],
-        "tol": [st["tol"] for st in steps], "worst_step": worst + 1,
-        "worst_ratio": ratios[worst],
-        "argmax_equal": sum(st["argmax_equal"] for st in steps),
-        "rows": sum(st["rows"] for st in steps),
-        "worst_gap": max(st["worst_gap"] for st in steps)}
-    d = out["decode"]
-    log(f"[lm] {what} {SSM_STEPS} teacher-forced decode steps vs forward("
-        f"{S + SSM_STEPS}): step 1 max abs err {d['max_abs_err'][0]:.3g} "
-        f"(tol {d['tol'][0]:.3g}), step {SSM_STEPS} "
+    worst = max(range(n), key=ratios.__getitem__)
+    d = {"steps": n, "max_abs_err": [st["max_abs_err"] for st in steps],
+         "tol": [st["tol"] for st in steps], "worst_step": worst + 1,
+         "worst_ratio": ratios[worst],
+         "argmax_equal": sum(st["argmax_equal"] for st in steps),
+         "rows": sum(st["rows"] for st in steps),
+         "worst_gap": max(st["worst_gap"] for st in steps)}
+    log(f"[lm] {what} {n} teacher-forced decode steps vs forward("
+        f"{S + n}): step 1 max abs err {d['max_abs_err'][0]:.3g} "
+        f"(tol {d['tol'][0]:.3g}), step {n} "
         f"{d['max_abs_err'][-1]:.3g} (tol {d['tol'][-1]:.3g}), the worst "
         f"step {d['worst_step']} at {d['worst_ratio']:.3g} of its tol; "
         f"argmax equal {d['argmax_equal']}/{d['rows']}, worst gap "
         f"{d['worst_gap']:.3g}")
+    return d
+
+
+def cross_kv_held(torch, model, enc, cache, what) -> int:
+    """The cache's xk and xv against each decoder layer's _cross_kv of the
+    encoder output `enc`, cast to the cache's dtype: the elements that
+    differ, which must be none."""
+    bad = 0
+    for i, blk in enumerate(model.dec_layers):
+        for key, t in zip(("xk", "xv"), blk.xattn.kv(enc)):
+            bad += int((cache[key][i] != t.to(cache[key].dtype)).sum())
+    log(f"[lm] {what}: xk and xv against _cross_kv(encode(frames)), "
+        f"{bad} elements differ")
+    if bad:
+        raise AssertionError(f"{what}: {bad} elements of xk / xv differ")
+    return bad
+
+
+def encdec_checks(torch, model, tokens, what="", frames=None) -> dict:
+    """16b's invariants of a Whisper model on tokens (B, S + ED_STEPS) and
+    its frames: prefill(S) against forward(S)[:, -1]; the cache's xk and
+    xv bit for bit each layer's _cross_kv of encode(frames)
+    (cross_kv_held); ED_STEPS decode steps fed tokens S, S + 1, ...
+    (teacher-forced), step i against forward(S + ED_STEPS)[:, S + i]
+    within the tolerance of i + 1 steps (decode_roundings: of the earlier
+    steps only the k and v each left in the self-attention cache); then
+    xk and xv again, which
+    the steps must leave as they were."""
+    cfg = model.cfg
+    B, S = tokens.shape[0], tokens.shape[1] - ED_STEPS
+    f32 = cfg.param_dtype == "float32"
+    with torch.no_grad():
+        cache = model.init_cache(B, S + ED_STEPS, torch.float32)
+        logits, cache = model.prefill(tokens[:, :S], frames, cache)
+        out = {"prefill": hold_logits(
+            torch, f"{what} prefill({S}) vs forward({S})[:, -1]", logits,
+            model(tokens[:, :S], frames)[:, -1], "prefill", 0, f32)}
+        enc = model.encode(frames)
+        out["cross_after_prefill"] = cross_kv_held(
+            torch, model, enc, cache, f"{what} after prefill({S})")
+        full = model(tokens, frames)
+        steps = []
+        for i in range(ED_STEPS):
+            logits, cache = model.decode(tokens[:, S + i], cache)
+            steps.append(hold_logits(
+                torch, f"{what} decode step {i + 1} vs forward("
+                f"{S + ED_STEPS})[:, {S + i}]", logits, full[:, S + i],
+                "decode", decode_roundings(cfg, i + 1), f32, say=False))
+        del full
+        out["cross_after_decode"] = cross_kv_held(
+            torch, model, enc, cache, f"{what} after {ED_STEPS} decode steps")
+    out["decode"] = steps_summary(what, steps, S)
     return out
 
 
 def lm_phase(torch, number: int, parts) -> dict:
-    """The frame of phases 13-15: TF32 off and bf16 GEMMs that reduce in
+    """The frame of phases 13-16: TF32 off and bf16 GEMMs that reduce in
     f32 (as the launcher sets them), every launch count set to 0 before
     `parts()` (a dict of the phase's parts) and read after. No kernel of
     the port's lies on the LM paths (the products are torch.matmul and
@@ -3791,6 +3966,17 @@ def phase_ssm(torch, smi) -> dict:
         "in_process": lm_in_process(torch, smi, SSM_ARCH, SSM_CUT_DEPTH,
                                     "15b", checks=ssm_checks,
                                     after=SSM_STEPS), "card": smi})
+
+
+def phase_encdec(torch, smi) -> dict:
+    """Phase 16: the encoder-decoder family's serving path on the card
+    (models/whisper.py: the encoder, cross-attention over its cached K/V
+    and the decoder's self-attention cache, in plain PyTorch)."""
+    return lm_phase(torch, 16, lambda: {
+        "launcher": lm_launcher(torch, smi, ED_ARCH, ED_SERVE, "16a"),
+        "in_process": lm_in_process(torch, smi, ED_ARCH, ED_CUT_DEPTH,
+                                    "16b", checks=encdec_checks,
+                                    after=ED_STEPS), "card": smi})
 
 
 def phase_device(torch, kernels, inputs, model, Xq) -> dict:
@@ -3892,6 +4078,7 @@ def main() -> int:
     summary["lm"] = phase_lm(torch, smi)
     summary["hybrid"] = phase_hybrid(torch, smi)
     summary["ssm"] = phase_ssm(torch, smi)
+    summary["encdec"] = phase_encdec(torch, smi)
     summary["serve"].update(phase_device(torch, kernels, inputs, est.model_,
                                          Xq))
     launches = {name: fit_launches[name] + serve_launches[name]

@@ -1,12 +1,13 @@
 """Batched LM serving launcher: prefill + greedy decode over a batch of
 synthetic requests (the port of repro/launch/serve.py).
 
-It does what the JAX launcher does for every family the port serves
-(dense, moe, vlm, the hybrid and the ssm, through
+It does what the JAX launcher does for every family (dense, moe, vlm,
+the hybrid, the ssm and the encoder-decoder, through
 models.registry.get_api): the config (the smoke config unless
 --no-smoke), random weights at tp = 1 (drawn from --seed), a synthetic
-prompt (from --seed + 1; tokens only, for every family but encdec), a
-cache in f32 (the hybrid's h and conv state, the ssm's s, tm and cm
+prompt (from --seed + 1: tokens, and for encdec the audio frames drawn
+first, in cfg.dtype; vlm serves text only), a cache in f32 (the
+hybrid's h and conv state, the ssm's s, tm and cm, whisper's cross K/V
 too), one prefill, greedy argmax,
 --gen decode steps, the same two printed lines and a check that the
 logits are finite. A third line gives the decode rate and, on the card,
@@ -33,6 +34,9 @@ Usage:
       --max-seq 1024
   PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \
       --arch rwkv6-1.6b --batch 8 --prompt-len 512 --gen 32 \
+      --max-seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \
+      --arch whisper-large-v3 --batch 8 --prompt-len 512 --gen 32 \
       --max-seq 1024
 
 The ssm family (rwkv6) runs its prompt in chunks of cfg.rwkv_chunk (64)
@@ -80,7 +84,8 @@ def _sync(device: torch.device) -> None:
 
 def run(args: argparse.Namespace) -> dict:
     """Serve one batch; print the JAX launcher's lines; return the model,
-    prompt, generated ids (B, gen + 1), last logits and times."""
+    prompt, frames (encdec; None for the others), generated ids (B,
+    gen + 1), last logits and times."""
     device = torch.device(args.device)
     if device.type == "cuda":
         set_matmul_precision()
@@ -124,7 +129,7 @@ def run(args: argparse.Namespace) -> dict:
           f"({t_decode/max(args.gen, 1)*1e3:.2f} ms/step incl. dispatch)")
     print("generated token ids (first request):", gen_ids[0].tolist())
     out = {"model": model, "cfg": cfg, "prompt": pb["tokens"],
-           "generated": gen_ids, "logits": logits,
+           "frames": pb.get("frames"), "generated": gen_ids, "logits": logits,
            "prefill_s": t_prefill, "decode_s": t_decode}
     peak = "not measured"
     if device.type == "cuda":

@@ -8,7 +8,9 @@ does the same for `repro.models.rglru.init_rg`'s tree: "supers" holds
 one entry per position of the layer pattern ("0_R", "1_R", "2_A"), each
 stacked on n_super, and "rem" the remainder layers, unstacked; they go
 into the port's ModuleList in `_layer_list`'s order. `rwkv_from_jax`
-takes `repro.models.rwkv6.init_rwkv`'s tree, stacked as init_lm's.
+takes `repro.models.rwkv6.init_rwkv`'s tree, stacked as init_lm's, and
+`whisper_from_jax` `repro.models.whisper.init_whisper`'s, whose
+"enc_layers" and "dec_layers" are each stacked on a leading axis.
 Both packages keep the (in, out) layout, so nothing is transposed;
 q_norm / k_norm, the f32 router, the f32 `lam` and RWKV's f32 `mu_*`,
 `w0` and `u` come across as they are. A bf16 array
@@ -27,9 +29,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models.lm import LM
 from repro_torch.models.rglru import RG, superblocks
 from repro_torch.models.rwkv6 import RWKV
+from repro_torch.models.whisper import Whisper
 
-# (params, layer index) -> (the layer's subtree, its row there or None)
-Layer = Callable[[Mapping, int], Tuple[Mapping, Optional[int]]]
+# (params, the ModuleList's name, index) -> (the entry's subtree, its row
+# there or None)
+Layer = Callable[[Mapping, str, int], Tuple[Mapping, Optional[int]]]
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -41,14 +45,15 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 def _leaf(params: Mapping, name: str, layer: Layer) -> np.ndarray:
     """The JAX array behind one of the port's parameter names: the norm
-    modules' ".weight" is the bare array there, and "layers.<i>.<path>"
-    is <path> in the subtree `layer` gives for layer i, at its row."""
+    modules' ".weight" is the bare array there, and "<list>.<i>.<path>"
+    (a top-level ModuleList: "layers", "enc_layers", "dec_layers") is
+    <path> in the subtree `layer` gives for entry i, at its row."""
     parts = name.split(".")
     if parts[-1] == "weight":
         parts = parts[:-1]
-    if parts[0] != "layers":
+    if len(parts) < 2 or not parts[1].isdigit():
         return params[parts[0]]
-    node, row = layer(params, int(parts[1]))
+    node, row = layer(params, parts[0], int(parts[1]))
     for key in parts[2:]:
         node = node[key]
     return node if row is None else node[row]
@@ -66,25 +71,36 @@ def _fill(model: nn.Module, params_np: Mapping, layer: Layer) -> nn.Module:
     return model
 
 
-def _stacked(params: Mapping, i: int) -> Tuple[Mapping, int]:
-    return params["layers"], i
+def _stacked(params: Mapping, key: str, i: int) -> Tuple[Mapping, int]:
+    return params[key], i
+
+
+def _from_jax(cls, cfg: ArchConfig, params_np: Mapping, device, tp: int,
+              layer: Layer = _stacked) -> nn.Module:
+    model = cls(cfg, tp, device="meta").to_empty(
+        device=resolve_device(device))
+    return _fill(model, params_np, layer)
 
 
 def lm_from_jax(cfg: ArchConfig, params_np: Mapping, device=None,
                 tp: int = 1) -> LM:
     """The port's LM with the JAX params' function (`tp` as given to
     init_lm; it sets the padded vocabulary)."""
-    model = LM(cfg, tp, device="meta").to_empty(device=resolve_device(device))
-    return _fill(model, params_np, _stacked)
+    return _from_jax(LM, cfg, params_np, device, tp)
 
 
 def rwkv_from_jax(cfg: ArchConfig, params_np: Mapping, device=None,
                   tp: int = 1) -> RWKV:
     """The port's RWKV with the JAX params' function (`tp` as given to
     init_rwkv)."""
-    model = RWKV(cfg, tp, device="meta").to_empty(
-        device=resolve_device(device))
-    return _fill(model, params_np, _stacked)
+    return _from_jax(RWKV, cfg, params_np, device, tp)
+
+
+def whisper_from_jax(cfg: ArchConfig, params_np: Mapping, device=None,
+                     tp: int = 1) -> Whisper:
+    """The port's Whisper with the JAX params' function (`tp` as given to
+    init_whisper)."""
+    return _from_jax(Whisper, cfg, params_np, device, tp)
 
 
 def rg_from_jax(cfg: ArchConfig, params_np: Mapping, device=None,
@@ -94,11 +110,10 @@ def rg_from_jax(cfg: ArchConfig, params_np: Mapping, device=None,
     pat, n_super, _ = superblocks(cfg)
     stacked = n_super * len(pat)
 
-    def layer(params, i):
+    def layer(params, key, i):
         if i < stacked:
             s, j = divmod(i, len(pat))
             return params["supers"][f"{j}_{pat[j]}"], s
         return params["rem"][i - stacked], None
 
-    model = RG(cfg, tp, device="meta").to_empty(device=resolve_device(device))
-    return _fill(model, params_np, layer)
+    return _from_jax(RG, cfg, params_np, device, tp, layer)

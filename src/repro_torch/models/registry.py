@@ -1,17 +1,18 @@
-"""Uniform model API over the decoder-only architectures.
+"""Uniform model API over the architectures.
 
-The port of repro/models/registry.py for the families the port serves:
-dense, moe and vlm (models/lm.py), hybrid (models/rglru.py) and ssm
-(models/rwkv6.py), nine of the ten configs. vlm serves text only, as
-JAX's `_vlm_api`: the patch prefix enters through `forward` alone. The
-model carries its config, so the calls take the model where JAX takes
-(params, cfg).
+The port of repro/models/registry.py for every family, all ten configs:
+dense, moe and vlm (models/lm.py), hybrid (models/rglru.py), ssm
+(models/rwkv6.py) and encdec (models/whisper.py). vlm serves text only,
+as JAX's `_vlm_api`: the patch prefix enters through `forward` alone;
+encdec's forward and prefill take the batch's "frames" too. The model
+carries its config, so the calls take the model where JAX takes (params,
+cfg).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from repro_torch.models import lm, rglru, rwkv6
+from repro_torch.models import lm, rglru, rwkv6, whisper
 from repro_torch.models.config import ArchConfig
 
 
@@ -49,20 +50,17 @@ def _rwkv_api() -> ModelAPI:
                               init_cache=rwkv6.init_cache_rwkv)
 
 
-_FAMILIES = {"dense": _lm_api, "moe": _lm_api, "vlm": _vlm_api,
-             "hybrid": _rg_api, "ssm": _rwkv_api}
+def _whisper_api() -> ModelAPI:
+    return _lm_api()._replace(
+        init=whisper.Whisper, init_cache=whisper.init_cache_whisper,
+        forward=lambda m, b, g: m(b["tokens"], b["frames"], g),
+        prefill=lambda m, b, cache, g: m.prefill(b["tokens"], b["frames"],
+                                                 cache, g))
 
-# The family whose numerical core is not ported yet, with the ROADMAP.md
-# Queue A item that ports it.
-_LATER = {
-    "encdec": ("whisper.py's encoder and cross-attention cache", "2(c)"),
-}
+
+_FAMILIES = {"dense": _lm_api, "moe": _lm_api, "vlm": _vlm_api,
+             "hybrid": _rg_api, "ssm": _rwkv_api, "encdec": _whisper_api}
 
 
 def get_api(cfg: ArchConfig) -> ModelAPI:
-    if cfg.family in _LATER:
-        what, item = _LATER[cfg.family]
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family ({what}) is not ported "
-            f"yet; ROADMAP.md Queue A item {item} ports it")
     return _FAMILIES[cfg.family]()

@@ -9,10 +9,11 @@ import torch
 from repro_torch.api import KernelKMeans
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
-from repro_torch.models import LM, RG, RWKV
+from repro_torch.models import LM, RG, RWKV, Whisper
 from repro_torch.models.lm import init_cache_lm
 from repro_torch.models.rglru import init_cache_rg
 from repro_torch.models.rwkv6 import init_cache_rwkv
+from repro_torch.models.whisper import init_cache_whisper
 from repro_torch.kernels import OPS, registry, reset_launches
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -59,7 +60,7 @@ def test_port_covers_the_slice_modules():
                 "launch/mesh.py", "launch/cluster.py",
                 "launch/serve_cluster.py", "models/config.py",
                 "models/layers.py", "models/lm.py", "models/rglru.py",
-                "models/rwkv6.py", "models/registry.py",
+                "models/rwkv6.py", "models/whisper.py", "models/registry.py",
                 "models/convert.py", "train/steps.py", "launch/specs.py",
                 "launch/serve.py", "configs/__init__.py"):
         assert (port / rel).is_file(), rel
@@ -123,6 +124,19 @@ def test_ssm_serving_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_cache_rwkv(cfg, 1, 8)
     assert RWKV(cfg, device="cpu").device.type == "cpu"
+
+
+def test_encdec_serving_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("whisper-large-v3", smoke=True)
+    with pytest.raises(SystemExit) as stop:
+        serve.main(["--arch", "whisper-large-v3"])    # exit 2, no CPU run
+    assert stop.value.code == 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Whisper(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache_whisper(cfg, 1, 8)
+    assert Whisper(cfg, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("name", sorted(OPS))

@@ -1,20 +1,23 @@
 """The port's decoder-only LMs against repro.models on the CPU, per arch.
 
 The seven decoder-only smoke configs (dense, moe, vlm), the hybrid's
-(recurrentgemma, 5 layers R R A R R, window 32) and the ssm's (rwkv6, 2
-layers), f32, JAX's init_lm / init_rg / init_rwkv weights carried across
-by repro_torch.models.convert (lm_from_jax / rg_from_jax /
-rwkv_from_jax) and token ids drawn with numpy. Each is driven through
-both packages' registry and step functions: forward, prefill (logits and
-the f32 cache: k and v, the hybrid's h and conv state, the ssm's s, tm
-and cm), then 8 greedy decode steps. Tolerance: 1e-4 abs on logits (of
+(recurrentgemma, 5 layers R R A R R, window 32), the ssm's (rwkv6, 2
+layers) and the encoder-decoder's (whisper, 2 + 2 layers, 16 audio
+frames), f32, JAX's init_lm / init_rg / init_rwkv / init_whisper weights
+carried across by repro_torch.models.convert (lm_from_jax / rg_from_jax
+/ rwkv_from_jax / whisper_from_jax), token ids and whisper's frames drawn
+with numpy. Each is driven through both packages' registry and step
+functions: forward, prefill (logits and the f32 cache: k and v, the
+hybrid's h and conv state, the ssm's s, tm and cm, whisper's xk and xv),
+then 8 greedy decode steps. Tolerance: 1e-4 abs on logits (of
 magnitude up to ~5; the two agree to ~1e-5 in f32) and 1e-5 abs on the
 cache; the greedy tokens must be identical. Mixtral's and the hybrid's
 smoke window is 32, so a prompt of 40 takes prefill's ring branch
 (lm.py:99-102, rglru.py:241-253).
 
 The slice as a whole: the port's launcher (`repro_torch.launch.serve
---device cpu`, phi4, recurrentgemma and rwkv6 smoke) prints the same
+--device cpu`, phi4, recurrentgemma, rwkv6 and whisper smoke; whisper's
+frames handed to JAX as the launcher drew them) prints the same
 generated ids as the JAX launcher's logic (repro/launch/serve.py: jitted
 prefill / decode steps, f32 cache, argmax) given the port's weights and
 prompt.
@@ -44,6 +47,19 @@ def _tokens(cfg, shape, seed=0):
         0, cfg.vocab_size, shape).astype(np.int32)
 
 
+def _batches(cfg, tok, seed=1):
+    """The same batch for JAX's registry and the port's: the tokens, and
+    for encdec audio frames (B, n_audio_frames, d) drawn with numpy."""
+    jb, pb = {"tokens": jnp.asarray(tok)}, {"tokens": torch.from_numpy(tok)}
+    if cfg.family == "encdec":
+        frames = np.random.default_rng(seed).standard_normal(
+            (tok.shape[0], cfg.n_audio_frames, cfg.d_model)).astype(
+                cfg.dtype)
+        jb["frames"], pb["frames"] = (jnp.asarray(frames),
+                                      torch.from_numpy(frames))
+    return jb, pb
+
+
 def _setup(arch):
     jcfg, pcfg = jax_config(arch, True), get_config(arch, True)
     params, model = jax_and_port(jcfg, pcfg)
@@ -53,12 +69,10 @@ def _setup(arch):
 @pytest.mark.parametrize("arch", SERVED)
 def test_forward(arch):
     jcfg, pcfg, params, model = _setup(arch)
-    tok = _tokens(pcfg, (B, S))
-    want = jax_api(jcfg).forward(params, jcfg, {"tokens": jnp.asarray(tok)},
-                                 1)
+    jb, pb = _batches(pcfg, _tokens(pcfg, (B, S)))
+    want = jax_api(jcfg).forward(params, jcfg, jb, 1)
     with torch.no_grad():
-        got = get_api(pcfg).forward(model, {"tokens": torch.from_numpy(tok)},
-                                    1)
+        got = get_api(pcfg).forward(model, pb, 1)
     assert got.dtype == torch.float32
     assert got.shape == (B, S, pcfg.vocab_padded(1))
     np.testing.assert_allclose(np_of(got), np.asarray(want), **LOGIT_TOL)
@@ -90,8 +104,9 @@ def _serve_both(arch, prompt_len, max_seq):
     ppre, pdec = make_prefill_step(pcfg, papi), make_decode_step(pcfg, papi)
     jcache = japi.init_cache(jcfg, B, max_seq, jnp.float32)
     pcache = papi.init_cache(pcfg, B, max_seq, torch.float32, "cpu")
-    jl, jcache = jpre(params, {"tokens": jnp.asarray(tok)}, jcache)
-    pl, pcache = ppre(model, {"tokens": torch.from_numpy(tok)}, pcache)
+    jb, pb = _batches(pcfg, tok)
+    jl, jcache = jpre(params, jb, jcache)
+    pl, pcache = ppre(model, pb, pcache)
     np.testing.assert_allclose(np_of(pl), np.asarray(jl), **LOGIT_TOL)
     assert pcache["pos"] == int(jcache["pos"]) == prompt_len
     keys = cache_keys(pcfg)
@@ -163,6 +178,8 @@ def _launcher_against_jax(capsys, arch, smoke_name):
     prefill = jax.jit(jsteps.make_prefill_step(cfg, api, groups=1))
     decode = jax.jit(jsteps.make_decode_step(cfg, api, groups=1))
     pb = {"tokens": jnp.asarray(np_of(out["prompt"]))}
+    if out["frames"] is not None:
+        pb["frames"] = jnp.asarray(np_of(out["frames"]))
     cache = api.init_cache(cfg, args.batch, args.max_seq, jnp.float32)
     logits, cache = prefill(params, pb, cache)
     tokens = jnp.argmax(logits, axis=-1).astype(jnp.int32)
@@ -188,6 +205,10 @@ def test_hybrid_launcher_generates_jax_ids(capsys):
 
 def test_ssm_launcher_generates_jax_ids(capsys):
     _launcher_against_jax(capsys, "rwkv6-1.6b", "rwkv6-smoke")
+
+
+def test_encdec_launcher_generates_jax_ids(capsys):
+    _launcher_against_jax(capsys, "whisper-large-v3", "whisper-smoke")
 
 
 def test_launcher_main_exits_zero(capsys):

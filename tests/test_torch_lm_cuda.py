@@ -12,10 +12,11 @@ forward, prefill (logits and cache) and greedy decode agree within 1e-4
 abs on logits (the CPU tests' bound against JAX; the two devices sum in
 other orders) and the greedy tokens are identical. At the smoke configs
 of the seven decoder-only archs, the hybrid (mixtral's and the hybrid's
-prompt of 40 past their window of 32 too) and the ssm (rwkv6: prompts of
-12 and 64, one chunk; 128, two chunks) and at phi4-mini's published
-width, depth cut to 2; the launcher's defaults, the hybrid and the ssm
-through it serve on the card.
+prompt of 40 past their window of 32 too), the ssm (rwkv6: prompts of
+12 and 64, one chunk; 128, two chunks) and the encoder-decoder (whisper:
+the same frames on both devices, the cross cache xk and xv too) and at
+phi4-mini's published width, depth cut to 2; the launcher's defaults,
+the hybrid, the ssm and whisper through it serve on the card.
 """
 import dataclasses
 
@@ -47,14 +48,16 @@ def _both(cfg):
     return cpu, gpu
 
 
-def _serve(model, tokens, gen, max_seq):
+def _serve(model, tokens, gen, max_seq, frames=None):
     """forward logits, then prefill + `gen` greedy steps: every step's
-    logits and tokens, and the final cache."""
+    logits and tokens, and the final cache. `frames`: an encoder-decoder's
+    audio frames, handed to forward and prefill."""
     tokens = tokens.to(model.device)
+    extra = () if frames is None else (frames.to(model.device),)
     with torch.no_grad():
-        out = {"forward": model(tokens), "logits": [], "tokens": []}
+        out = {"forward": model(tokens, *extra), "logits": [], "tokens": []}
         cache = model.init_cache(tokens.shape[0], max_seq, torch.float32)
-        logits, cache = model.prefill(tokens, cache)
+        logits, cache = model.prefill(tokens, *extra, cache)
         for _ in range(gen):
             nxt = logits.argmax(-1).to(torch.int32)
             out["logits"].append(logits)
@@ -66,19 +69,22 @@ def _serve(model, tokens, gen, max_seq):
 
 def _hold(cfg, B, S, gen, max_seq):
     cpu, gpu = _both(cfg)
-    tokens = torch.randint(0, cfg.vocab_size, (B, S),
-                           generator=torch.Generator().manual_seed(1),
+    draws = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=draws,
                            dtype=torch.int32)
-    want, got = _serve(cpu, tokens, gen, max_seq), \
-        _serve(gpu, tokens, gen, max_seq)
+    frames = (torch.randn((B, cfg.n_audio_frames, cfg.d_model),
+                          generator=draws).to(getattr(torch, cfg.dtype))
+              if cfg.family == "encdec" else None)
+    want, got = _serve(cpu, tokens, gen, max_seq, frames), \
+        _serve(gpu, tokens, gen, max_seq, frames)
     torch.testing.assert_close(got["forward"].cpu(), want["forward"],
                                rtol=0, atol=TOL)
     for g, w in zip(got["logits"], want["logits"]):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=TOL)
     for g, w in zip(got["tokens"], want["tokens"]):
         assert torch.equal(g.cpu(), w)
-    keys = {"hybrid": ("h", "conv", "k", "v"),
-            "ssm": ("s", "tm", "cm")}.get(cfg.family, ("k", "v"))
+    keys = {"hybrid": ("h", "conv", "k", "v"), "ssm": ("s", "tm", "cm"),
+            "encdec": ("k", "v", "xk", "xv")}.get(cfg.family, ("k", "v"))
     for key in keys:
         torch.testing.assert_close(got["cache"][key].cpu(),
                                    want["cache"][key], rtol=0, atol=TOL)
@@ -116,6 +122,15 @@ def test_ssm_smoke_card_equals_cpu(card, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [12, 24])
+def test_encdec_smoke_card_equals_cpu(card, S):
+    """whisper smoke (2 + 2 layers, 16 audio frames): text shorter and
+    longer than the frames."""
+    _hold(get_config("whisper-large-v3", smoke=True), B=2, S=S, gen=8,
+          max_seq=S + 8)
+
+
+@pytest.mark.cuda
 def test_phi4_width_depth2_f32_card_equals_cpu(card):
     cfg = dataclasses.replace(get_config("phi4-mini-3.8b"), n_layers=2,
                               param_dtype="float32", dtype="float32")
@@ -144,4 +159,12 @@ def test_ssm_launcher_serves_on_the_card(card, capsys):
     assert serve.main(["--arch", "rwkv6-1.6b"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("arch=rwkv6-smoke batch=4 prefill")
+    assert lines[2].startswith("device cuda: decode")
+
+
+@pytest.mark.cuda
+def test_encdec_launcher_serves_on_the_card(card, capsys):
+    assert serve.main(["--arch", "whisper-large-v3"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("arch=whisper-smoke batch=4 prefill")
     assert lines[2].startswith("device cuda: decode")

@@ -7,19 +7,24 @@ import torch
 from repro.models import lm as jlm
 from repro.models import rglru as jrg
 from repro.models import rwkv6 as jrwkv
+from repro.models import whisper as jwh
 from repro_torch.models import RG
-from repro_torch.models.convert import lm_from_jax, rg_from_jax, rwkv_from_jax
+from repro_torch.models.convert import (lm_from_jax, rg_from_jax,
+                                        rwkv_from_jax, whisper_from_jax)
 from repro_torch.models.rglru import superblocks
 
 ARCHS = ("phi4-mini-3.8b", "qwen3-14b", "nemotron-4-340b",
          "command-r-plus-104b", "mixtral-8x7b", "dbrx-132b", "pixtral-12b")
-# The families the port serves: the seven above, the hybrid and the ssm.
-SERVED = ARCHS + ("recurrentgemma-2b", "rwkv6-1.6b")
+# The families the port serves: the seven above, the hybrid, the ssm and
+# the encoder-decoder, all ten configs.
+SERVED = ARCHS + ("recurrentgemma-2b", "rwkv6-1.6b", "whisper-large-v3")
 # Per family: JAX's init and the port's converter of its tree.
 _INIT = {"hybrid": (jrg.init_rg, rg_from_jax),
-         "ssm": (jrwkv.init_rwkv, rwkv_from_jax)}
+         "ssm": (jrwkv.init_rwkv, rwkv_from_jax),
+         "encdec": (jwh.init_whisper, whisper_from_jax)}
 # Per family: the cache's tensors (besides "pos").
-CACHE_KEYS = {"hybrid": ("h", "conv", "k", "v"), "ssm": ("s", "tm", "cm")}
+CACHE_KEYS = {"hybrid": ("h", "conv", "k", "v"), "ssm": ("s", "tm", "cm"),
+              "encdec": ("k", "v", "xk", "xv")}
 
 
 def cache_keys(cfg):
@@ -27,8 +32,8 @@ def cache_keys(cfg):
 
 
 def jax_and_port(jcfg, pcfg, seed=0):
-    """(JAX params, the port's LM, RG or RWKV on the CPU with the same
-    weights)."""
+    """(JAX params, the port's LM, RG, RWKV or Whisper on the CPU with the
+    same weights)."""
     init, convert = _INIT.get(jcfg.family, (jlm.init_lm, lm_from_jax))
     params = init(jax.random.PRNGKey(seed), jcfg, tp=1)
     model = convert(pcfg, jax.tree.map(np.asarray, params), "cpu")
@@ -70,19 +75,22 @@ def _rg_params_of(model):
 
 
 def params_of(model):
-    """The port's weights as JAX's params tree of numpy arrays."""
+    """The port's weights as JAX's params tree of numpy arrays: each
+    top-level ModuleList ("layers", "enc_layers", "dec_layers") stacked
+    on a leading axis."""
     if isinstance(model, RG):
         return _rg_params_of(model)
-    out = {"layers": {}}
+    out, lists = {}, set()
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[-1] == "weight":
             parts = parts[:-1]
         arr = p.detach().cpu().numpy()
-        if parts[0] != "layers":
+        if len(parts) < 2 or not parts[1].isdigit():
             out[parts[0]] = arr
             continue
-        node = out["layers"]
+        lists.add(parts[0])
+        node = out.setdefault(parts[0], {})
         for key in parts[2:-1]:
             node = node.setdefault(key, {})
         node.setdefault(parts[-1], []).append(arr)
@@ -90,7 +98,8 @@ def params_of(model):
     def stack(node):
         return {k: stack(v) if isinstance(v, dict) else np.stack(v)
                 for k, v in node.items()}
-    out["layers"] = stack(out["layers"])
+    for key in lists:
+        out[key] = stack(out[key])
     return out
 
 
