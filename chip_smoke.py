@@ -136,7 +136,7 @@ Phases, each fatal on failure:
      --fused-embed off --bench sync, which launches kmeans_assign; each
      with every launch count set to 0 just before, its seconds, launches
      and the bench's headline numbers printed; (c) --sharded --bench sync
-     under torchrun (--standalone --nproc_per_node=1) and (d) the five
+     under torchrun (--standalone --nproc_per_node=1) and (d) the six
      examples (examples/torch_*.py; the distributed one under torchrun),
      started together as processes, each of which must exit 0. While
      (a) and (b) run, a stand-in beside each kernel wrapper keeps the
@@ -208,8 +208,29 @@ Phases, each fatal on failure:
      step i (a decoder layer counting ENCDEC_ROUNDINGS once and the k and
      v of each earlier step), xk and xv unchanged by them; warm times, peak memory and a decode step under
      the profiler; the same checks in f32 at depth 2 (2 encoder and 2
-     decoder layers) within 1e-4. The launch counts read around phases
-     13-16 must stay 0;
+     decoder layers) within 1e-4;
+  17. train (after 16, before 7): the single-process training loop
+     (train/optimizer.py's AdamW, train/steps.py's step with its
+     gradient hook and remat, launch/train.py with its checkpoints; no
+     kernel of the port's lies on it): (a) python -m
+     repro_torch.launch.train --no-smoke --arch phi4-mini-3.8b --batch 4
+     --seq 512 --steps 8 as a process (all 32 layers at the published
+     widths, the config's microbatches 2 and remat, JAX's lr 3e-3), which
+     must exit 0 with the loss fallen, its warm step and tokens/s beside
+     the step's bound (lm_bounds' train branch) and its peak memory; (b)
+     in process: the smoke config at M 2 with remat, f32, 3 steps on the
+     card against 3 on the CPU from the same weights and batch, loss,
+     grad norm, every parameter and both moments within TRAIN_TOL; a
+     checkpoint / restart through launch.train.run at --smoke under
+     build/ (4 steps saving every 2, then --steps 8, which must restore
+     at step 4; the restored state equal to the saved one bit for bit,
+     the final state to an uninterrupted run's within TRAIN_TOL); one
+     full-width layer's bf16 parameters and bf16 moments saved and
+     restored bit for bit; (c) one warm step of (a)'s configuration in
+     process, split by CUDA events into forward + backward and grad
+     norm + AdamW beside a no-grad forward, then profiled: host and card
+     ms, busy share, records, the largest card parts and each class's
+     sum. The launch counts read around phases 13-17 must stay 0;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -330,7 +351,7 @@ FIT_SCALING_NS = (25_000, 50_000, 100_000)
 # Phase 12: the serving launcher at n = 100,000 on its own data
 # (blob_ring, p = 2, k = 2, r = 2): the main run with every check and
 # every bench, a Nystrom run and a two-pass run in-process; the sharded
-# run under torchrun and the five examples as processes, all at once.
+# run under torchrun and the six examples as processes, all at once.
 LAUNCHER_RUNS = {
     "main": ["--n", "100000", "--k", "2", "--r", "2", "--swap", "--stream",
              "--fleet", "--bench", "all", "--batch-sizes", "64,512,4096",
@@ -349,7 +370,7 @@ BENCH_SECTIONS = ("results", "async", "fused", "swap", "backends", "stream",
                   "fit_scaling", "fleet")
 LAUNCHER_SHARDED_N = 100_000
 EXAMPLES = ("torch_quickstart", "torch_serve_async", "torch_stream_refit",
-            "torch_cluster_embeddings")
+            "torch_cluster_embeddings", "torch_train_lm")
 TORCHRUN = ["-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node=1"]
 # Output arguments of a wrapper, left out of the calls phase 12 keeps.
@@ -474,6 +495,37 @@ ED_STEPS = 8
 # in the forward (the same products at the same shapes; the f32 cache
 # holds bf16 values exactly), so they add none, at any step.
 ENCDEC_ROUNDINGS = LM_ROUNDINGS + 4
+
+# Phase 17: the single-process training loop (train/optimizer.py,
+# train/steps.py, launch/train.py; no kernel of the port's lies on it).
+# (a) phi4-mini-3.8b at its published widths and all 32 layers through the
+# training launcher as a process: TRAIN_STEPS steps on a fixed batch of
+# TRAIN_B x TRAIN_S tokens, the config's microbatches (2) and remat, lr
+# TRAIN_LR; the loss must fall; (b) in process: the smoke config at M 2
+# with remat, f32, on the card against the CPU (TRAIN_PARITY_STEPS
+# steps, TRAIN_TOL), a checkpoint / restart through launch.train.run at
+# --smoke under build/ (TRAIN_CKPT_STEPS then TRAIN_RESUME_STEPS against
+# an uninterrupted run), one full-width layer's bf16 parameters and bf16
+# moments saved and restored bit for bit; (c) one warm step of (a)'s
+# configuration in process, split by CUDA events and profiled.
+TRAIN_ARCH = "phi4-mini-3.8b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 8
+TRAIN_LR = 3e-3                  # the JAX launcher's default
+TRAIN_RUN = ["--no-smoke", "--arch", TRAIN_ARCH, "--batch", str(TRAIN_B),
+             "--seq", str(TRAIN_S), "--steps", str(TRAIN_STEPS), "--lr",
+             str(TRAIN_LR)]
+TRAIN_PARITY_STEPS = 3
+TRAIN_CKPT_STEPS, TRAIN_RESUME_STEPS = 4, 8
+# The card against the CPU in f32 (TF32 off), as tests/test_torch_train.py
+# holds the port against JAX: loss and grad norm relative; m and v against
+# their tensor's largest |value|; parameters against lr (a step moves an
+# element by lr m_hat / (sqrt(v_hat) + eps), whose relative error is the
+# gradient's where the gradient is small). An element may miss only if its
+# gradient at some step was below `small` of its tensor's largest (the
+# first step's m_hat / sqrt(v_hat) is g / |g|: noise there flips +-lr),
+# and such elements stay under `miss` of each tensor.
+TRAIN_TOL = {"loss": 1e-5, "gnorm": 1e-5, "moments": 5e-4, "lr_frac": 0.05,
+             "small": 1e-6, "miss": 1e-3}
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -1162,7 +1214,7 @@ def bench_headlines(bench) -> dict:
 
 
 def launcher_processes(work, smi) -> dict:
-    """The launcher with --sharded under torchrun and the five examples
+    """The launcher with --sharded under torchrun and the six examples
     (the distributed one under torchrun), started together; each must
     exit 0. Returns each one's seconds (they overlap) and its last
     lines."""
@@ -1219,7 +1271,7 @@ def phase_launcher(torch, smi) -> tuple:
     in-process at n = 100,000: the main run (every check, every bench,
     the bench file's eight sections), a Nystrom run and a two-pass run,
     launches counted in each; then the sharded launcher under torchrun
-    and the five examples as processes."""
+    and the six examples as processes."""
     t_phase = time.perf_counter()
     BUILD.mkdir(parents=True, exist_ok=True)
     work_dir = tempfile.TemporaryDirectory(dir=BUILD)
@@ -3206,7 +3258,8 @@ def phase_fleet(torch, model, Xq) -> tuple:
 
 def lm_weights(torch, cfg) -> dict:
     """Bytes of the model's weights at tp = 1 (from a model on the meta
-    device: shapes and dtypes, no memory), of its embedding table and of
+    device: shapes and dtypes, no memory; `shapes` its meta parameters),
+    of its embedding table and of
     an encoder-decoder's encoder (`enc_layers`, `enc_ln`) and its decoder
     layers' cross-attention wk and wv, whose products the cache holds (0
     for the others)."""
@@ -3220,6 +3273,7 @@ def lm_weights(torch, cfg) -> dict:
     xkv = [p for blk in getattr(model, "dec_layers", ())
            for p in (blk.xattn.wk, blk.xattn.wv)]
     return {"bytes": nbytes(model.parameters()),
+            "shapes": list(model.parameters()),
             "embed_bytes": nbytes([model.embed]),
             "encoder_bytes": nbytes(enc),
             "encoder_params": sum(p.numel() for p in enc),
@@ -3263,7 +3317,17 @@ def lm_bounds(torch, cfg, B, S, max_seq) -> dict:
     and an R layer's f32 h and conv state, or an RWKV layer's f32 s (H x
     dh x dh), tm and cm, written (prefill) or read and written (decode),
     over 3.35 TB/s. Also the coarser prefill bound 2 x parameters x the
-    tokens they see (B x S; an encoder's B x F) + attention."""
+    tokens they see (B x S; an encoder's B x F) + attention.
+
+    The train step on B sequences of S tokens (phase 17): its products'
+    flops, 3 x the forward's on every position (forward, and the
+    backward's two products a forward product; the unembedding on all B
+    x S positions; no recompute counted; the embedding a gather) over
+    989 TFLOP/s bf16, plus the optimizer's bytes over 3.35 TB/s: each
+    parameter read and written, m and v read and written in their dtype,
+    the gradient read (f32 with cfg.microbatches > 1, else the
+    parameter's dtype). The two run one after the other, so their times
+    add."""
     w = lm_weights(torch, cfg)
     d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     L_, V = cfg.n_layers, cfg.vocab_padded(1)
@@ -3339,7 +3403,21 @@ def lm_bounds(torch, cfg, B, S, max_seq) -> dict:
                                            else "bytes")
     pre_ms, pre_by = bound(prefill_flops, pre_bytes, pre_f32_flops)
     dec_ms, dec_by = bound(dec_flops, dec_bytes, dec_f32_flops)
+    train_flops = 3 * (prefill_flops + 2 * B * (S - 1) * d * V)
+    train_f32_flops = 3 * pre_f32_flops
+    mom = 4 if cfg.optimizer_dtype == "float32" else 2
+    opt_bytes = sum(p.numel() * (2 * p.element_size() + 4 * mom + (
+        4 if cfg.microbatches > 1 else p.element_size()))
+        for p in w["shapes"])
+    t_train_ops = train_flops / BF16_FLOPS + train_f32_flops / FP32_FLOPS
+    t_opt = opt_bytes / HBM_BYTES_PER_S
     return {"params": w["params"], "weight_bytes": w["bytes"],
+            "train_flops": train_flops, "train_f32_flops": train_f32_flops,
+            "train_attention_flops": 3 * n_a * attn_flops,
+            "optimizer_bytes": opt_bytes,
+            "train_products_ms": t_train_ops * 1e3,
+            "train_optimizer_ms": t_opt * 1e3,
+            "train_bound_ms": (t_train_ops + t_opt) * 1e3,
             "cache_slots": T, "kv_cache_bytes": cache_bytes,
             "cross_cache_bytes": cross_bytes, "state_bytes": state_bytes,
             "encoder_flops": enc_flops,
@@ -3915,7 +3993,7 @@ def encdec_checks(torch, model, tokens, what="", frames=None) -> dict:
 
 
 def lm_phase(torch, number: int, parts) -> dict:
-    """The frame of phases 13-16: TF32 off and bf16 GEMMs that reduce in
+    """The frame of phases 13-17: TF32 off and bf16 GEMMs that reduce in
     f32 (as the launcher sets them), every launch count set to 0 before
     `parts()` (a dict of the phase's parts) and read after. No kernel of
     the port's lies on the LM paths (the products are torch.matmul and
@@ -3977,6 +4055,400 @@ def phase_encdec(torch, smi) -> dict:
         "in_process": lm_in_process(torch, smi, ED_ARCH, ED_CUT_DEPTH,
                                     "16b", checks=encdec_checks,
                                     after=ED_STEPS), "card": smi})
+
+
+# -- phase 17: the single-process training loop ------------------------------
+
+def train_launcher(torch, smi) -> dict:
+    """17a: `python -m repro_torch.launch.train` with TRAIN_RUN as a
+    process; it must exit 0 (it asserts the loss fell). Its lines parsed,
+    its warm step beside the step's bound."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    cmd = [sys.executable, "-m", "repro_torch.launch.train"] + TRAIN_RUN + [
+        "--device", DEVICE]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=900, cwd=str(ROOT))
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0:
+        raise AssertionError(f"repro_torch.launch.train exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    steps = [re.search(r"^step +(\d+) loss ([\d.]+) gnorm ([\d.]+)", ln)
+             for ln in lines]
+    final = re.search(r"final loss ([\d.]+) \(start ([\d.]+)\)",
+                      "\n".join(lines))
+    speed = re.search(r"warm step ([\d.]+) ms over (\d+) steps, ([\d.]+) "
+                      r"tokens/s; peak device memory ([\d.]+ GB|not "
+                      r"measured)", lines[-1])
+    if not (final and speed and any(steps)):
+        raise AssertionError(f"unexpected launcher output: {lines}")
+    cfg = get_lm_config(TRAIN_ARCH)
+    b = lm_bounds(torch, cfg, TRAIN_B, TRAIN_S, TRAIN_S)
+    info = {"cmd": "python -m repro_torch.launch.train " + " ".join(
+                TRAIN_RUN), "process_s": seconds, "lines": lines,
+            "first_loss": float(final.group(2)),
+            "final_loss": float(final.group(1)),
+            "step_losses": {int(m.group(1)): float(m.group(2))
+                            for m in steps if m},
+            "warm_ms": float(speed.group(1)),
+            "tokens_per_s": float(speed.group(3)),
+            "peak_memory": speed.group(4),
+            **{k: b[k] for k in ("params", "train_flops",
+                                 "train_attention_flops", "optimizer_bytes",
+                                 "train_products_ms", "train_optimizer_ms",
+                                 "train_bound_ms")}}
+    if not info["final_loss"] < info["first_loss"]:
+        raise AssertionError(f"17a: the loss did not fall: {lines}")
+    log(f"[train] 17a {info['cmd']}: exit 0 in {seconds:.1f} s [{smi}]: "
+        + " | ".join(lines))
+    log(f"[train] 17a {TRAIN_ARCH} full width and depth ({cfg.n_layers} "
+        f"layers, {b['params']:,} parameters; M {cfg.microbatches}, remat "
+        f"{cfg.remat}, moments {cfg.optimizer_dtype}) [{smi}]: loss "
+        f"{info['first_loss']} -> {info['final_loss']}; warm step "
+        f"{info['warm_ms']} ms against its bound {b['train_bound_ms']:.2f}"
+        f" ms ({b['train_flops'] / 1e12:.2f} TFLOP over 989 TFLOP/s, "
+        f"{b['train_products_ms']:.2f} ms, + {b['optimizer_bytes'] / 1e9:.2f}"
+        f" GB of AdamW over 3.35 TB/s, {b['train_optimizer_ms']:.2f} ms; "
+        f"{info['warm_ms'] / b['train_bound_ms']:.2f}x); "
+        f"{info['tokens_per_s']} tokens/s; peak memory "
+        f"{info['peak_memory']}")
+    return info
+
+
+def held_train(what, got, want, small, tol, lr) -> dict:
+    """Two {name: tensor} sets (parameters or a moment) held by TRAIN_TOL's
+    rule; `small`: the elements whose gradient was small at some step.
+    Returns the worst error in the rule's unit and the small-gradient
+    elements off."""
+    worst, off = 0.0, 0
+    for name, g in got.items():
+        g, w = g.detach().float().cpu(), want[name].detach().float().cpu()
+        err = (g - w).abs()
+        unit = (tol["lr_frac"] * lr if what == "params"
+                else tol["moments"] * float(w.abs().max()))
+        bad = err > unit
+        s = small[name].cpu()
+        if bool((bad & ~s).any()):
+            raise AssertionError(
+                f"{what} {name}: {int((bad & ~s).sum())} elements off, the "
+                f"worst {float(err[bad & ~s].max())} against {unit}")
+        n_off = int((bad & s).sum())
+        if n_off >= tol["miss"] * g.numel():
+            raise AssertionError(f"{what} {name}: {n_off} of {g.numel()} "
+                                 f"small-gradient elements off")
+        off += n_off
+        if unit > 0:
+            worst = max(worst, float(err[~s].max() / unit) if bool(
+                (~s).any()) else 0.0)
+    return {"worst_of_tol": worst, "small_gradient_off": off}
+
+
+def train_parity(torch, smi) -> dict:
+    """17b: the smoke config at M 2 with remat, f32, the same weights and
+    batch on the card and on the CPU, TRAIN_PARITY_STEPS steps each; loss,
+    grad norm, every parameter and both moments within TRAIN_TOL."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs
+    from repro_torch.models import get_api
+    from repro_torch.train import (AdamWConfig, TrainState, adamw_init,
+                                   make_train_step)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, smoke=True),
+                              microbatches=2, remat=True)
+    api = get_api(cfg)
+    cpu = api.init(cfg, tp=1, device="cpu",
+                   generator=torch.Generator().manual_seed(SEED))
+    card = api.init(cfg, tp=1, device="meta").to_empty(device=DEVICE)
+    card.load_state_dict(cpu.state_dict())
+    batch = specs.train_inputs(cfg, 64, 4, torch.Generator().manual_seed(1))
+    opt = AdamWConfig(lr=TRAIN_LR)
+    small = {}
+
+    def record(grads):
+        for name, g in grads.items():
+            s = g.abs() < TRAIN_TOL["small"] * g.abs().max()
+            small[name] = small[name] | s if name in small else s
+        return grads
+
+    states, steps = [], []
+    for model, transform in ((cpu, record), (card, None)):
+        states.append(TrainState(model, adamw_init(
+            dict(model.named_parameters()), opt)))
+        steps.append(make_train_step(cfg, api, grad_transform=transform,
+                                     opt_cfg=opt))
+    out = {"steps": []}
+    for i in range(1, TRAIN_PARITY_STEPS + 1):
+        _, m_cpu = steps[0](states[0], batch)
+        _, m_card = steps[1](states[1], {k: v.to(DEVICE)
+                                         for k, v in batch.items()})
+        rel = {k: abs(float(m_card[k]) - float(m_cpu[k])) / abs(
+            float(m_cpu[k])) for k in ("loss", "grad_norm")}
+        if rel["loss"] > TRAIN_TOL["loss"] or \
+                rel["grad_norm"] > TRAIN_TOL["gnorm"]:
+            raise AssertionError(f"17b step {i}: card {m_card} against the "
+                                 f"CPU's {m_cpu}")
+        held = {"params": held_train(
+            "params", dict(card.named_parameters()),
+            dict(cpu.named_parameters()), small, TRAIN_TOL, TRAIN_LR)}
+        for key in ("m", "v"):
+            held[key] = held_train(key, states[1].opt[key],
+                                   states[0].opt[key], small, TRAIN_TOL,
+                                   TRAIN_LR)
+        out["steps"].append({"loss": float(m_card["loss"]),
+                             "loss_rel_err": rel["loss"],
+                             "grad_norm_rel_err": rel["grad_norm"], **held})
+    log(f"[train] 17b {TRAIN_ARCH} smoke, M 2, remat, f32: "
+        f"{TRAIN_PARITY_STEPS} steps on the card against the CPU [{smi}]: "
+        + json.dumps(out["steps"]))
+    return out
+
+
+def same_state(torch, what, a, b) -> None:
+    """Two train states (TrainState) equal bit for bit."""
+    pa, pb = dict(a.params.named_parameters()), dict(b.params.named_parameters())
+    for name in pa:
+        for x, y in ((pa[name], pb[name]), (a.opt["m"][name],
+                                            b.opt["m"][name]),
+                     (a.opt["v"][name], b.opt["v"][name])):
+            if not torch.equal(x.cpu(), y.cpu()):
+                raise AssertionError(f"{what}: {name} differs")
+    if int(a.opt["step"]) != int(b.opt["step"]):
+        raise AssertionError(f"{what}: step {int(a.opt['step'])} against "
+                             f"{int(b.opt['step'])}")
+
+
+def train_restart(torch, smi) -> dict:
+    """17b: launch.train.run at --smoke with a checkpoint directory under
+    build/: TRAIN_CKPT_STEPS steps saving every 2, then --steps
+    TRAIN_RESUME_STEPS, which must restore at TRAIN_CKPT_STEPS; what it
+    restores equals the state saved bit for bit, and its final state an
+    uninterrupted run's within TRAIN_TOL."""
+    import contextlib
+    import io
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import get_api
+    from repro_torch.train import init_train_state
+    BUILD.mkdir(parents=True, exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=BUILD)
+    ckpt = str(pathlib.Path(work.name) / "ckpt")
+    base = ["--smoke", "--arch", TRAIN_ARCH, "--device", DEVICE, "--lr",
+            str(TRAIN_LR)]
+
+    def run(*argv):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            out = launch_train.run(launch_train.build_parser().parse_args(
+                base + list(argv)))
+        return out, text.getvalue()
+
+    first, _ = run("--steps", str(TRAIN_CKPT_STEPS), "--ckpt-dir", ckpt,
+                   "--ckpt-every", "2")
+    cfg = first["cfg"]
+    fresh = init_train_state(cfg, get_api(cfg), tp=1, device=DEVICE,
+                             generator=torch.Generator(DEVICE).manual_seed(
+                                 SEED + 9))
+    at = launch_train.restore_into(CheckpointManager(ckpt), fresh)
+    if at != TRAIN_CKPT_STEPS:
+        raise AssertionError(f"17b: the newest checkpoint is at step {at}")
+    same_state(torch, "17b restored against saved", fresh, first["state"])
+    del fresh
+    resumed, text = run("--steps", str(TRAIN_RESUME_STEPS), "--ckpt-dir",
+                        ckpt, "--ckpt-every", "2")
+    if f"restored checkpoint at step {TRAIN_CKPT_STEPS}" not in text:
+        raise AssertionError(f"17b: no restore printed: {text}")
+    whole, _ = run("--steps", str(TRAIN_RESUME_STEPS))
+    no_small = {n: torch.zeros(p.shape, dtype=torch.bool) for n, p in
+                whole["state"].params.named_parameters()}
+    held = {"params": held_train(
+        "params", dict(resumed["state"].params.named_parameters()),
+        dict(whole["state"].params.named_parameters()), no_small,
+        TRAIN_TOL, TRAIN_LR)}
+    for key in ("m", "v"):
+        held[key] = held_train(key, resumed["state"].opt[key],
+                               whole["state"].opt[key], no_small, TRAIN_TOL,
+                               TRAIN_LR)
+    losses = {"resumed": resumed["losses"],
+              "whole": whole["losses"][TRAIN_CKPT_STEPS:]}
+    worst = max(abs(a - b) / abs(b) for a, b in zip(*losses.values()))
+    if worst > TRAIN_TOL["loss"]:
+        raise AssertionError(f"17b: resumed losses {losses}")
+    work.cleanup()
+    info = {"restored_at": at, "restored_bitwise": True,
+            "losses": losses, "loss_rel_err": worst, **held,
+            "bitwise_with_whole": all(
+                torch.equal(p, dict(whole["state"].params.named_parameters(
+                ))[n]) for n, p in resumed["state"].params.named_parameters())}
+    log(f"[train] 17b checkpoint / restart through launch.train.run "
+        f"(--smoke, {TRAIN_CKPT_STEPS} steps then {TRAIN_RESUME_STEPS}) "
+        f"[{smi}]: " + json.dumps(info))
+    return info
+
+
+def train_bf16_round_trip(torch, smi) -> dict:
+    """17b: one full-width phi4 layer's bf16 parameters and bf16 moments
+    (drawn on the card) saved and restored bit for bit, the leaves read
+    back as JAX's void words."""
+    from repro_torch.distributed.checkpoint import (_flatten,
+                                                    restore_checkpoint,
+                                                    save_checkpoint)
+    from repro_torch.models import layers as L
+    cfg = get_lm_config(TRAIN_ARCH)
+    gen = torch.Generator(DEVICE).manual_seed(SEED + 3)
+    block = L.Block(cfg, torch.bfloat16, DEVICE)
+    block.reset_parameters(gen)
+    params = {n: p.detach() for n, p in block.named_parameters()}
+    state = {"params": params, "opt": {
+        key: {n: torch.randn(p.shape, generator=gen, device=DEVICE).to(
+            torch.bfloat16) for n, p in params.items()}
+        for key in ("m", "v")}}
+    state["opt"]["step"] = torch.tensor(3, dtype=torch.int32, device=DEVICE)
+    BUILD.mkdir(parents=True, exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=BUILD)
+    t0 = time.perf_counter()
+    save_checkpoint(work.name, 3, state)
+    like = {"params": {n: torch.empty_like(p) for n, p in params.items()},
+            "opt": {key: {n: torch.empty_like(t) for n, t in
+                          state["opt"][key].items()} for key in ("m", "v")}}
+    like["opt"]["step"] = torch.zeros((), dtype=torch.int32, device=DEVICE)
+    got, step = restore_checkpoint(work.name, like)
+    seconds = time.perf_counter() - t0
+    words = np.load(pathlib.Path(work.name) / "step_3" / "leaf_0.npy")
+    n, nbytes = 0, 0
+    for (path, want), (_, have) in zip(_flatten(state), _flatten(got)):
+        if want.dtype != have.dtype or not torch.equal(
+                want.view(torch.int16) if want.dtype == torch.bfloat16
+                else want, have.view(torch.int16)
+                if have.dtype == torch.bfloat16 else have):
+            raise AssertionError(f"17b bf16 round trip: {path} differs")
+        n += 1
+        nbytes += want.numel() * want.element_size()
+    work.cleanup()
+    if step != 3 or words.dtype != np.dtype("V2"):
+        raise AssertionError(f"17b bf16 round trip: step {step}, leaf dtype "
+                             f"{words.dtype}")
+    info = {"leaves": n, "bytes": nbytes, "seconds": seconds}
+    log(f"[train] 17b bf16 round trip of one full-width {TRAIN_ARCH} layer "
+        f"(parameters and bf16 m, v: {n} leaves, {nbytes / 1e9:.3f} GB) "
+        f"[{smi}]: bit for bit in {seconds:.2f} s, the leaves |V2 on disk")
+    return info
+
+
+def train_kind(name: str) -> str:
+    """A coarse class of a card record's name, for the step's breakdown."""
+    low = name.lower()
+    if any(k in low for k in ("gemm", "cutlass", "xmma", "sm90", "nvjet",
+                              "wgmma", "ampere")):
+        return "gemm"
+    if "memcpy" in low or "memset" in low or "copy" in low:
+        return "copy"
+    if "reduce" in low or "norm" in low or "softmax" in low or \
+            "logsumexp" in low:
+        return "reduction"
+    if "index" in low or "embedding" in low or "scatter" in low or \
+            "gather" in low:
+        return "index"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
+
+
+def train_profile(torch, smi) -> dict:
+    """17c: (a)'s configuration in process (the launcher's state, batch,
+    step): one warm step split by CUDA events into forward + backward
+    (with remat's recompute) and grad norm + AdamW (an event recorded in
+    the grad_transform hook), a no-grad forward of both microbatches
+    alone, then one step under torch.profiler: host and card ms, busy
+    share, records, the largest card parts and each class's sum."""
+    from repro_torch.launch import specs
+    from repro_torch.models import get_api
+    from repro_torch.train import (AdamWConfig, cross_entropy,
+                                   init_train_state, make_train_step)
+    cfg = get_lm_config(TRAIN_ARCH)
+    api = get_api(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, api, tp=1, device=DEVICE,
+                             generator=torch.Generator(DEVICE).manual_seed(
+                                 SEED))
+    batch = specs.train_inputs(cfg, TRAIN_S, TRAIN_B,
+                               torch.Generator(DEVICE).manual_seed(7))
+    opt = AdamWConfig(lr=TRAIN_LR, moment_dtype=cfg.optimizer_dtype)
+    marks = []
+
+    def mark(grads):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        return grads
+
+    step = make_train_step(cfg, api, grad_transform=mark, opt_cfg=opt)
+    step(state, batch)                                     # warm-up
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    marks.clear()
+    a.record()
+    _, metrics = step(state, batch)
+    b.record()
+    b.synchronize()
+    split = {"step_ms": a.elapsed_time(b),
+             "forward_backward_ms": a.elapsed_time(marks[0]),
+             "gnorm_adamw_ms": marks[0].elapsed_time(b)}
+    M = cfg.microbatches
+
+    def forward():
+        with torch.no_grad():
+            for i in range(M):
+                mb = {k: x.reshape(M, x.shape[0] // M, *x.shape[1:])[i]
+                      for k, x in batch.items()}
+                cross_entropy(api.forward(state.params, mb, 1), mb["labels"])
+    split["forward_ms"] = cuda_ms(torch, forward, reps=3, warm=1)
+    split["backward_recompute_ms"] = split["forward_backward_ms"] - \
+        split["forward_ms"]
+    host_ms, device = profiled(torch, lambda: step(state, batch))
+    busy = sum(ms for _, ms in device.values())
+    kinds = {}
+    for name, (n, ms) in device.items():
+        k = kinds.setdefault(train_kind(name), {"ms": 0.0, "records": 0})
+        k["ms"] += ms
+        k["records"] += n
+    top = sorted(device.items(), key=lambda kv: -kv[1][1])[:8]
+    b_ = lm_bounds(torch, cfg, TRAIN_B, TRAIN_S, TRAIN_S)
+    info = {**split, "host_ms": host_ms, "device_ms": busy,
+            "busy_share": busy / host_ms if busy else None,
+            "records": sum(n for n, _ in device.values()),
+            "kinds": kinds, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss": float(metrics["loss"]),
+            "train_bound_ms": b_["train_bound_ms"],
+            "top": [{"kernel": k[:90], "ms": ms, "calls": n}
+                    for k, (n, ms) in top]}
+    log(f"[train] 17c one warm step of 17a's configuration in process "
+        f"[{smi}]: {split['step_ms']:.1f} ms by CUDA events (bound "
+        f"{b_['train_bound_ms']:.2f}): forward + backward "
+        f"{split['forward_backward_ms']:.1f} (a no-grad forward of both "
+        f"microbatches {split['forward_ms']:.1f}, so backward + recompute "
+        f"{split['backward_recompute_ms']:.1f}), grad norm + AdamW "
+        f"{split['gnorm_adamw_ms']:.1f}; under the profiler host "
+        f"{host_ms:.1f} ms, card {busy:.1f} ms (busy share "
+        f"{info['busy_share']}), {info['records']} records; by class "
+        f"{json.dumps(kinds)}; peak memory {info['peak_gb']:.3f} GB; most "
+        f"card time: {json.dumps(info['top'])}")
+    del state, batch
+    free(torch)
+    return info
+
+
+def phase_train(torch, smi) -> dict:
+    """Phase 17: the single-process training loop on the card (train/
+    optimizer.py's AdamW, train/steps.py's step with the gradient hook
+    and remat, launch/train.py with its checkpoints)."""
+    return lm_phase(torch, 17, lambda: {
+        "launcher": train_launcher(torch, smi),
+        "parity": train_parity(torch, smi),
+        "restart": train_restart(torch, smi),
+        "bf16_round_trip": train_bf16_round_trip(torch, smi),
+        "profile": train_profile(torch, smi), "card": smi})
 
 
 def phase_device(torch, kernels, inputs, model, Xq) -> dict:
@@ -4079,6 +4551,7 @@ def main() -> int:
     summary["hybrid"] = phase_hybrid(torch, smi)
     summary["ssm"] = phase_ssm(torch, smi)
     summary["encdec"] = phase_encdec(torch, smi)
+    summary["train"] = phase_train(torch, smi)
     summary["serve"].update(phase_device(torch, kernels, inputs, est.model_,
                                          Xq))
     launches = {name: fit_launches[name] + serve_launches[name]

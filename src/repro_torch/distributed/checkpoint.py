@@ -15,6 +15,13 @@ A state is a tree of dicts (keys in sorted order, as JAX flattens them),
 lists and tuples over tensors or numpy arrays. `paths` are JAX keystr
 paths ("['X_train']", "[0]"), `dtypes` numpy dtype names.
 
+A bf16 leaf is written as JAX writes one (ml_dtypes' bfloat16 through
+np.save): its raw 2-byte words under the header descr '<V2', which
+np.load reads back as a `|V2` array, and "bfloat16" in `dtypes`. The
+words go through torch's int16 view, so no numpy bfloat16 type is needed.
+On restore a `|V2` leaf, or one whose manifest dtype is "bfloat16", is
+viewed back as bf16 bit for bit before the cast to the like's dtype.
+
 Restoring onto a mesh (restore_checkpoint's mesh= and pspecs=): pspecs
 mirrors the state with one placement per leaf, a
 torch.distributed.tensor Shard(dim) or Replicate() for the mesh's first
@@ -64,11 +71,50 @@ def _unflatten(like, leaves: Iterator):
     return next(leaves)
 
 
+_BF16 = "bfloat16"
+_BF16_DESCR = "<V2"             # ml_dtypes' bfloat16 in an .npy header
+
+
 def to_host(leaf) -> np.ndarray:
-    """A leaf as a numpy array on the host."""
+    """A leaf as a numpy array on the host, copied: a tensor the caller
+    updates in place (the port's train state) does not change under an
+    asynchronous write. A bf16 tensor comes back as its raw words, a
+    `|V2` array."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach()
+        host = t.cpu() if t.device.type != "cpu" else t.clone()
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(np.dtype("V2"))
+        return host.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(leaf, host: np.ndarray) -> str:
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        return _BF16
+    return str(host.dtype)
+
+
+def _save_leaf(path: pathlib.Path, arr: np.ndarray, dtype: str) -> None:
+    """np.save, but a bf16 leaf under JAX's header descr '<V2' (np.save
+    would write '|V2' for the void words)."""
+    if dtype != _BF16:
+        np.save(path, arr)
+        return
+    header = np.lib.format.header_data_from_array_1_0(arr)
+    header["descr"] = _BF16_DESCR
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, header)
+        f.write(np.ascontiguousarray(arr).tobytes())
+
+
+def _as_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A loaded leaf as a tensor; bf16 words (a `|V2` array, or a leaf the
+    manifest calls bfloat16) viewed back as bf16 bit for bit."""
+    if dtype == _BF16 or (arr.dtype.kind == "V" and arr.dtype.itemsize == 2):
+        words = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(words).view(torch.bfloat16)
+    return torch.as_tensor(arr)
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state: Any,
@@ -89,15 +135,17 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any,
         "time": time.time(),
         "paths": [path for path, _ in flat],
         "shapes": [list(leaf.shape) for leaf in host_leaves],
-        "dtypes": [str(leaf.dtype) for leaf in host_leaves],
+        "dtypes": [_dtype_name(leaf, host) for (_, leaf), host in
+                   zip(flat, host_leaves)],
     }
 
     def write():
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
-        for i, leaf in enumerate(host_leaves):
-            np.save(tmp / f"leaf_{i}.npy", leaf)
+        for i, (leaf, dtype) in enumerate(zip(host_leaves,
+                                              manifest["dtypes"])):
+            _save_leaf(tmp / f"leaf_{i}.npy", leaf, dtype)
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         if final.exists():
             shutil.rmtree(final)
@@ -223,6 +271,7 @@ def restore_checkpoint(ckpt_dir: str, state_like: Any,
             raise ValueError(f"pspecs has {len(specs)} leaves, the state "
                              f"{n}")
     out = []
+    dtypes = manifest["dtypes"]
     for i, (like, spec) in enumerate(zip(likes, specs)):
         arr = np.load(path / f"leaf_{i}.npy")
         if list(arr.shape) != list(like.shape):
@@ -232,10 +281,11 @@ def restore_checkpoint(ckpt_dir: str, state_like: Any,
             dtype = (like.dtype if isinstance(like, torch.Tensor)
                      else torch.from_numpy(
                          np.zeros((), np.asarray(like).dtype)).dtype)
-            t = torch.as_tensor(arr).to(dtype)
+            t = _as_tensor(arr, dtypes[i]).to(dtype)
             out.append(local_chunk(t, mesh, spec).to(_mesh_device(mesh)))
         elif isinstance(like, torch.Tensor):
-            out.append(torch.as_tensor(arr).to(like.device, like.dtype))
+            out.append(_as_tensor(arr, dtypes[i]).to(like.device,
+                                                      like.dtype))
         else:
             out.append(arr.astype(np.asarray(like).dtype, copy=False))
     return _unflatten(state_like, iter(out)), step

@@ -15,10 +15,16 @@ Both packages keep the (in, out) layout, so nothing is transposed;
 q_norm / k_norm, the f32 router, the f32 `lam` and RWKV's f32 `mu_*`,
 `w0` and `u` come across as they are. A bf16 array
 (ml_dtypes' bfloat16) is carried bit for bit through its uint16 view.
+
+`decayed_names(model)` reads the same layout for the optimizer: JAX's
+AdamW decays a leaf of ndim >= 2, and a stacked leaf has one more
+dimension than the port's tensor (every per-layer norm scale is decayed
+there; the final norm and recurrentgemma's unstacked remainder layers'
+vectors are not).
 """
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional, Tuple
+from typing import Callable, FrozenSet, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,9 +37,10 @@ from repro_torch.models.rglru import RG, superblocks
 from repro_torch.models.rwkv6 import RWKV
 from repro_torch.models.whisper import Whisper
 
-# (params, the ModuleList's name, index) -> (the entry's subtree, its row
-# there or None)
-Layer = Callable[[Mapping, str, int], Tuple[Mapping, Optional[int]]]
+# (the ModuleList's name, index) -> (the keys of the entry's subtree in
+# JAX's tree, its row there or None when the entry is not stacked)
+Layer = Callable[[str, int], Tuple[Tuple[Union[str, int], ...],
+                                   Optional[int]]]
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -43,18 +50,26 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _leaf(params: Mapping, name: str, layer: Layer) -> np.ndarray:
-    """The JAX array behind one of the port's parameter names: the norm
-    modules' ".weight" is the bare array there, and "<list>.<i>.<path>"
-    (a top-level ModuleList: "layers", "enc_layers", "dec_layers") is
-    <path> in the subtree `layer` gives for entry i, at its row."""
+def _where(name: str, layer: Layer) -> Tuple[Tuple, Optional[int]]:
+    """(JAX's keys, row or None) of one of the port's parameter names: the
+    norm modules' ".weight" is the bare array there, and
+    "<list>.<i>.<path>" (a top-level ModuleList: "layers", "enc_layers",
+    "dec_layers") is <path> in the subtree `layer` gives for entry i, at
+    its row."""
     parts = name.split(".")
     if parts[-1] == "weight":
         parts = parts[:-1]
     if len(parts) < 2 or not parts[1].isdigit():
-        return params[parts[0]]
-    node, row = layer(params, parts[0], int(parts[1]))
-    for key in parts[2:]:
+        return (parts[0],), None
+    keys, row = layer(parts[0], int(parts[1]))
+    return keys + tuple(parts[2:]), row
+
+
+def _leaf(params: Mapping, name: str, layer: Layer) -> np.ndarray:
+    """The JAX array behind one of the port's parameter names."""
+    keys, row = _where(name, layer)
+    node = params
+    for key in keys:
         node = node[key]
     return node if row is None else node[row]
 
@@ -71,8 +86,30 @@ def _fill(model: nn.Module, params_np: Mapping, layer: Layer) -> nn.Module:
     return model
 
 
-def _stacked(params: Mapping, key: str, i: int) -> Tuple[Mapping, int]:
-    return params[key], i
+def _stacked(key: str, i: int) -> Tuple[Tuple[str], int]:
+    return (key,), i
+
+
+def _rg_layer(cfg: ArchConfig) -> Layer:
+    """init_rg's tree: "supers" holds one entry per pattern position,
+    stacked on n_super; "rem" the remainder layers, unstacked."""
+    pat, n_super, _ = superblocks(cfg)
+    stacked = n_super * len(pat)
+
+    def layer(key, i):
+        if i < stacked:
+            s, j = divmod(i, len(pat))
+            return ("supers", f"{j}_{pat[j]}"), s
+        return ("rem", i - stacked), None
+    return layer
+
+
+def decayed_names(model: nn.Module) -> FrozenSet[str]:
+    """The names of the parameters that JAX's adamw_update decays: those
+    whose leaf in JAX's tree has ndim >= 2 (optimizer.py:53)."""
+    layer = _rg_layer(model.cfg) if isinstance(model, RG) else _stacked
+    return frozenset(name for name, p in model.named_parameters()
+                     if p.dim() + (_where(name, layer)[1] is not None) >= 2)
 
 
 def _from_jax(cls, cfg: ArchConfig, params_np: Mapping, device, tp: int,
@@ -107,13 +144,4 @@ def rg_from_jax(cfg: ArchConfig, params_np: Mapping, device=None,
                 tp: int = 1) -> RG:
     """The port's RG with the JAX params' function (`tp` as given to
     init_rg)."""
-    pat, n_super, _ = superblocks(cfg)
-    stacked = n_super * len(pat)
-
-    def layer(params, key, i):
-        if i < stacked:
-            s, j = divmod(i, len(pat))
-            return params["supers"][f"{j}_{pat[j]}"], s
-        return params["rem"][i - stacked], None
-
-    return _from_jax(RG, cfg, params_np, device, tp, layer)
+    return _from_jax(RG, cfg, params_np, device, tp, _rg_layer(cfg))

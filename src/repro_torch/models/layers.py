@@ -18,7 +18,9 @@ The port of repro/models/layers.py, function for function:
 - `act`, `DenseMLP` (swiglu / geglu / relu2 / gelu; gelu is the tanh
   approximation, jax.nn.gelu's default) and `MoE`, the grouped capacity
   routing of layers.py:213;
-- `Block`: the pre-norm attention + MLP block.
+- `Block`: the pre-norm attention + MLP block;
+- `remat`: a block run under activation checkpointing when cfg.remat is
+  set and autograd records (JAX's `jax.checkpoint` of its scan body).
 
 Weight layout: every projection keeps the JAX package's (in, out) layout
 and computes x @ W as JAX does; the MoE experts are (E, d, f) and
@@ -41,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ArchConfig
 
@@ -70,6 +73,17 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator,
 
 def empty_param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+def remat(cfg: ArchConfig, fn, *args, **kwargs):
+    """fn(*args, **kwargs), under torch.utils.checkpoint when cfg.remat is
+    set and autograd is recording: only the inputs are kept and the
+    backward recomputes the rest, as JAX's jax.checkpoint of a scan body
+    does. The recompute runs the same operations, so no number changes;
+    serving (no_grad) runs fn as it is."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,

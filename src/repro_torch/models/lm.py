@@ -74,7 +74,7 @@ class LM(nn.Module):
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         win = window_of(self.cfg)
         for blk in self.layers:
-            x = blk(x, groups=groups, window=win)
+            x = L.remat(self.cfg, blk, x, groups=groups, window=win)
         x = self.ln_f(x)
         return (x @ self.unembed).float()
 

@@ -207,8 +207,9 @@ class RG(nn.Module):
         """rglru.py:159 `forward_rg`: logits (B, S, vocab_padded) f32."""
         x = self.embed[tokens]
         for kind, blk in zip(self.kinds, self.layers):
-            x = (blk(x, groups) if kind == "R"
-                 else blk(x, groups, window=self.cfg.window))
+            x = (L.remat(self.cfg, blk, x, groups) if kind == "R"
+                 else L.remat(self.cfg, blk, x, groups,
+                              window=self.cfg.window))
         return (self.ln_f(x) @ self.unembed).float()
 
     def init_cache(self, batch: int, max_seq: int,

@@ -32,8 +32,10 @@ of the last token of its time mix (tm) and channel mix (cm). `prefill`
 starts from a zero state, whatever the cache holds, and `decode`
 continues it; both write the cache in place (JAX returns a new one), as
 models/lm.py's do. `maybe_shard` (distributed/sharding.py) is the
-identity on one device and is left out; `cfg.remat` does nothing in
-serving. The model lives on the card unless the caller passes
+identity on one device and is left out. With `cfg.remat` a forward
+that autograd records runs each block under activation checkpointing
+(`layers.remat`, JAX's jax.checkpoint of the scan body); serving does not
+record, so remat does not touch it. The model lives on the card unless the caller passes
 device="cpu"; its weights are drawn from an explicit torch.Generator,
 and a model on "meta" is left undrawn.
 """
@@ -239,7 +241,7 @@ class RWKV(nn.Module):
         """rwkv6.py:200 `forward_rwkv`: logits (B, S, vocab_padded) f32."""
         x = self.embed[tokens]
         for blk in self.layers:
-            x = blk(x)
+            x = L.remat(self.cfg, blk, x)
         return (self.ln_f(x) @ self.unembed).float()
 
     def init_cache(self, batch: int, max_seq: int,

@@ -40,8 +40,11 @@ Dtypes follow JAX's promotion. The launchers' cache is f32 and holds
 bf16 values exactly, so the cross K/V a decode step reads are the bits
 the forward computes. torch.matmul refuses mixed dtypes, so every cast
 JAX's promotion makes is written out. `maybe_shard` is the identity on
-one device and is left out; `cfg.remat` does nothing in serving. The
-model lives on the card unless the caller passes device="cpu"; its
+one device and is left out. With `cfg.remat` a forward that autograd
+records runs each encoder and decoder block (the cross K/V products
+included, as in JAX's scan body) under activation checkpointing
+(`layers.remat`); serving does not record, so remat does not touch it.
+The model lives on the card unless the caller passes device="cpu"; its
 weights are drawn from an explicit torch.Generator, and a model on
 "meta" is left undrawn.
 """
@@ -151,6 +154,13 @@ class DecBlock(nn.Module):
         return self.cross_and_mlp(x, xk, xv, groups)
 
 
+def _dec_body(blk: "DecBlock", x: torch.Tensor, enc: torch.Tensor,
+              groups: int) -> torch.Tensor:
+    """whisper.py:111's scan body: the layer's cross K/V of the encoder's
+    output, then the block."""
+    return blk(x, *blk.xattn.kv(enc), groups)
+
+
 class Whisper(nn.Module):
     """embed + sinusoid -> DecBlock x n_layers (over the encoder's output)
     -> norm -> unembed."""
@@ -195,7 +205,7 @@ class Whisper(nn.Module):
         x = frames + sinusoid(frames.shape[1], self.cfg.d_model,
                               frames.device).to(frames.dtype)
         for blk in self.enc_layers:
-            x = blk(x, causal=False)
+            x = L.remat(self.cfg, blk, x, causal=False)
         return self.enc_ln(x)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -210,7 +220,7 @@ class Whisper(nn.Module):
         enc = self.encode(frames)
         x = self._embed(tokens)
         for blk in self.dec_layers:
-            x = blk(x, *blk.xattn.kv(enc), groups)
+            x = L.remat(self.cfg, _dec_body, blk, x, enc, groups)
         return (self.ln_f(x) @ self.unembed).float()
 
     def init_cache(self, batch: int, max_seq: int,

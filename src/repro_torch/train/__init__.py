@@ -1,5 +1,10 @@
-"""The serving step builders of repro.train (the training half comes
-with the training slice)."""
-from repro_torch.train.steps import make_decode_step, make_prefill_step
+"""The training and serving step builders and AdamW (repro.train's
+exports, on the port)."""
+from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
+from repro_torch.train.steps import (TrainState, cross_entropy,
+                                     init_train_state, make_decode_step,
+                                     make_prefill_step, make_train_step)
 
-__all__ = ["make_prefill_step", "make_decode_step"]
+__all__ = ["adamw_init", "adamw_update", "AdamWConfig",
+           "make_train_step", "make_prefill_step", "make_decode_step",
+           "cross_entropy", "TrainState", "init_train_state"]

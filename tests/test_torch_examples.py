@@ -10,7 +10,8 @@ import pytest
 from test_torch_serve_cluster import REPO, run_world
 
 EXAMPLES = ("torch_quickstart", "torch_serve_async", "torch_stream_refit",
-            "torch_distributed_clustering", "torch_cluster_embeddings")
+            "torch_distributed_clustering", "torch_cluster_embeddings",
+            "torch_train_lm")
 
 
 @pytest.mark.parametrize("name", EXAMPLES)

@@ -8,13 +8,14 @@ import torch
 
 from repro_torch.api import KernelKMeans
 from repro_torch.configs import get_config
-from repro_torch.launch import serve
-from repro_torch.models import LM, RG, RWKV, Whisper
+from repro_torch.launch import serve, train
+from repro_torch.models import LM, RG, RWKV, Whisper, get_api
 from repro_torch.models.lm import init_cache_lm
 from repro_torch.models.rglru import init_cache_rg
 from repro_torch.models.rwkv6 import init_cache_rwkv
 from repro_torch.models.whisper import init_cache_whisper
 from repro_torch.kernels import OPS, registry, reset_launches
+from repro_torch.train import init_train_state
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -62,7 +63,8 @@ def test_port_covers_the_slice_modules():
                 "models/layers.py", "models/lm.py", "models/rglru.py",
                 "models/rwkv6.py", "models/whisper.py", "models/registry.py",
                 "models/convert.py", "train/steps.py", "launch/specs.py",
-                "launch/serve.py", "configs/__init__.py"):
+                "launch/serve.py", "configs/__init__.py",
+                "train/optimizer.py", "launch/train.py"):
         assert (port / rel).is_file(), rel
     for name in ("command_r_plus_104b", "dbrx_132b", "mixtral_8x7b",
                  "nemotron_4_340b", "phi4_mini_3_8b", "pixtral_12b",
@@ -70,7 +72,7 @@ def test_port_covers_the_slice_modules():
                  "whisper_large_v3"):
         assert (port / "configs" / f"{name}.py").is_file(), name
     for name in ("quickstart", "serve_async", "stream_refit",
-                 "distributed_clustering", "cluster_embeddings"):
+                 "distributed_clustering", "cluster_embeddings", "train_lm"):
         assert (REPO / "examples" / f"torch_{name}.py").is_file(), name
     for name in ("gram", "kmeans_assign", "extend_embed", "fit_sketch",
                  "fwht"):
@@ -137,6 +139,21 @@ def test_encdec_serving_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_cache_whisper(cfg, 1, 8)
     assert Whisper(cfg, device="cpu").device.type == "cpu"
+
+
+def test_training_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("phi4-mini-3.8b", smoke=True)
+    api = get_api(cfg)
+    assert train.build_parser().parse_args([]).device == "cuda"
+    with pytest.raises(SystemExit) as stop:
+        train.main(["--smoke"])              # ap.error: exit 2, no CPU run
+    assert stop.value.code == 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg, api, tp=1)
+    state = init_train_state(cfg, api, tp=1, device="cpu")
+    assert state.params.device.type == "cpu"
+    assert state.opt["step"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("name", sorted(OPS))

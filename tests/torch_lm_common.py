@@ -31,22 +31,28 @@ def cache_keys(cfg):
     return CACHE_KEYS.get(cfg.family, ("k", "v"))
 
 
+def port_of(pcfg, params):
+    """The port's LM, RG, RWKV or Whisper on the CPU holding the JAX
+    params tree `params` (init's layout at tp = 1)."""
+    convert = _INIT.get(pcfg.family, (None, lm_from_jax))[1]
+    return convert(pcfg, jax.tree.map(np.asarray, params), "cpu")
+
+
 def jax_and_port(jcfg, pcfg, seed=0):
     """(JAX params, the port's LM, RG, RWKV or Whisper on the CPU with the
     same weights)."""
-    init, convert = _INIT.get(jcfg.family, (jlm.init_lm, lm_from_jax))
+    init = _INIT.get(jcfg.family, (jlm.init_lm, None))[0]
     params = init(jax.random.PRNGKey(seed), jcfg, tp=1)
-    model = convert(pcfg, jax.tree.map(np.asarray, params), "cpu")
-    return params, model
+    return params, port_of(pcfg, params)
 
 
-def _rg_params_of(model):
+def _rg_params_of(model, named):
     """An RG's weights as init_rg's tree: "supers" stacked per pattern
     position, "rem" a list."""
     pat, n_super, rem = superblocks(model.cfg)
     stacked = n_super * len(pat)
     out = {"supers": {}, "rem": [{} for _ in rem]}
-    for name, p in model.named_parameters():
+    for name, p in named:
         parts = name.split(".")
         if parts[-1] == "weight":
             parts = parts[:-1]
@@ -74,14 +80,17 @@ def _rg_params_of(model):
     return out
 
 
-def params_of(model):
+def params_of(model, named=None):
     """The port's weights as JAX's params tree of numpy arrays: each
     top-level ModuleList ("layers", "enc_layers", "dec_layers") stacked
-    on a leading axis."""
+    on a leading axis. `named`: {parameter name: tensor} laid out in
+    place of the weights (an optimizer's moments, a mask)."""
+    pairs = (model.named_parameters() if named is None
+             else [(n, named[n]) for n, _ in model.named_parameters()])
     if isinstance(model, RG):
-        return _rg_params_of(model)
+        return _rg_params_of(model, pairs)
     out, lists = {}, set()
-    for name, p in model.named_parameters():
+    for name, p in pairs:
         parts = name.split(".")
         if parts[-1] == "weight":
             parts = parts[:-1]
