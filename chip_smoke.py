@@ -231,6 +231,25 @@ Phases, each fatal on failure:
      norm + AdamW beside a no-grad forward, then profiled: host and card
      ms, busy share, records, the largest card parts and each class's
      sum. The launch counts read around phases 13-17 must stay 0;
+  18. train-mesh (after 17, before 7): the mesh half of training
+     (distributed/sharding.py's rules, shard_train_state and the sharded
+     step, the sketched gradients of distributed/compression.py, the
+     launcher's --data / --model / --sketch-grads): (a) python -m
+     torch.distributed.run --standalone --nproc_per_node 1 chip_smoke.py
+     --train-mesh-worker (launch.train.run at --data 1 --model 1 on phi4's
+     full width and depth, 17a's batch, 3 steps, in a NCCL world of one),
+     then the meshless step in process from the same seed: loss, grad
+     norm and every parameter's and moment's checksum bit for bit, the
+     peak within 5 % of 17a's; (b) launch.train.run in process on
+     rwkv6-1.6b at full width and depth (n_pad = 2^31) with
+     --sketch-grads 2^28, 8 steps: the loss falls, the ratio is n / r',
+     the transform's ms a step, the peak <= 75 GB, fwht launched twice a
+     step (counted); on the first step's gradient the projection's
+     identities (|g_hat| = |s| and <g_hat, e'> ~ 0 over the padded
+     vectors, v = g_hat + e' to e''s rounding) and fwht_op at (2^31, 1)
+     against fwht_ref, the same bits, timed beside its bound; (c)
+     compress / decompress at the ten smoke configs' n, the card
+     against the CPU's plain path within 2e-4;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -526,6 +545,34 @@ TRAIN_CKPT_STEPS, TRAIN_RESUME_STEPS = 4, 8
 # and such elements stay under `miss` of each tensor.
 TRAIN_TOL = {"loss": 1e-5, "gnorm": 1e-5, "moments": 5e-4, "lr_frac": 0.05,
              "small": 1e-6, "miss": 1e-3}
+
+# Phase 18 (train-mesh): (a) the launcher under torchrun (one rank,
+# --data 1 --model 1: the mesh, the sharded state and step) at phi4's full
+# width and depth, MESH_STEPS steps of TRAIN_RUN's batch, against the
+# meshless step in process from the same seed: loss, grad norm and a
+# checksum of every parameter and moment bit for bit, the peak within
+# MESH_PEAK_TOL of phase 17's; (b) rwkv6-1.6b (n_pad = 2^31) at full width
+# and depth with --sketch-grads SKETCH_R in process: the loss falls, the
+# ratio is n / r', the transform's ms and the peak (<= SKETCH_PEAK_GB);
+# the projection's identities on the first step's gradient, fwht_op at
+# (2^31, 1) against fwht_ref (the same bits) and its bound; (c) compress
+# and decompress at the ten smoke configs' n, the card against the CPU's
+# plain path, within FWHT_TOL.
+MESH_STEPS = 3
+MESH_RUN = ["--no-smoke", "--arch", TRAIN_ARCH, "--batch", str(TRAIN_B),
+            "--seq", str(TRAIN_S), "--steps", str(MESH_STEPS), "--lr",
+            str(TRAIN_LR), "--data", "1", "--model", "1"]
+MESH_PEAK_TOL = 0.05
+SKETCH_ARCH = "rwkv6-1.6b"
+SKETCH_R = 1 << 28                       # ratio n / r' = 5.90 at rwkv6
+SKETCH_STEPS = 8
+SKETCH_RUN = ["--no-smoke", "--arch", SKETCH_ARCH, "--batch", str(TRAIN_B),
+              "--seq", str(TRAIN_S), "--steps", str(SKETCH_STEPS), "--lr",
+              str(TRAIN_LR), "--sketch-grads", str(SKETCH_R)]
+SKETCH_PEAK_GB = 75.0
+SKETCH_SMOKE_R = 4096
+FWHT_TOL = 2e-4                          # fwht's registry tolerance
+CHECK_CHUNK = 1 << 26                    # elements a checksum pass reads
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -4451,6 +4498,379 @@ def phase_train(torch, smi) -> dict:
         "profile": train_profile(torch, smi), "card": smi})
 
 
+def checksums(torch, named) -> dict:
+    """{name: [sum of the words, sum of the words times (index mod 65521)
+    + 1]} of each tensor's raw bits (int64 sums, which wrap the same way
+    whatever the order): equal bits give equal sums."""
+    out = {}
+    for name, t in named.items():
+        words = t.detach().reshape(-1).view(
+            torch.int32 if t.element_size() == 4 else torch.int16)
+        s1 = s2 = 0
+        for a in range(0, words.numel(), CHECK_CHUNK):
+            w = words[a:a + CHECK_CHUNK].long()
+            idx = torch.arange(a, a + w.numel(), device=w.device)
+            s1 += int(w.sum())
+            s2 += int((w * (idx % 65521 + 1)).sum())
+        out[name] = [s1, s2]
+    return out
+
+
+def state_checksums(torch, state) -> dict:
+    named = dict(state.params.named_parameters())
+    return {"params": checksums(torch, named),
+            "m": checksums(torch, state.opt["m"]),
+            "v": checksums(torch, state.opt["v"])}
+
+
+def train_mesh_worker(argv) -> int:
+    """`chip_smoke.py --train-mesh-worker OUT -- LAUNCHER ARGS`, one rank
+    under torchrun: launch.train.run on the args, then the losses, grad
+    norms, peak and the state's checksums to OUT (JSON)."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch import train as launch_train
+    out_path, args = argv[0], argv[argv.index("--") + 1:]
+    out = launch_train.run(launch_train.build_parser().parse_args(args))
+    pathlib.Path(out_path).write_text(json.dumps({
+        "losses": out["losses"], "grad_norms": out["grad_norms"],
+        "peak_bytes": out.get("peak_bytes", 0), "warm_ms": out["warm_ms"],
+        "tokens_per_s": out["tokens_per_s"],
+        "checksums": state_checksums(torch, out["state"])}))
+    return 0
+
+
+def mesh_world_one(torch, smi, peak17) -> dict:
+    """18a: MESH_RUN under torchrun (--standalone --nproc_per_node 1; a NCCL
+    world of one, the sharded state and step) as a process, then the
+    meshless step in process from the same seed and batch: loss, grad
+    norm and every parameter's and moment's checksum bit for bit; the
+    peak beside phase 17's."""
+    import os
+    from repro_torch.launch import specs
+    from repro_torch.models import get_api
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    BUILD.mkdir(parents=True, exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=BUILD)
+    out_path = pathlib.Path(work.name) / "mesh.json"
+    cmd = [sys.executable] + TORCHRUN + [
+        str(ROOT / "chip_smoke.py"), "--train-mesh-worker", str(out_path),
+        "--"] + MESH_RUN + ["--device", DEVICE]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env={**os.environ, "PYTHONPATH": str(SRC)},
+                          capture_output=True, text=True, timeout=900,
+                          cwd=str(ROOT))
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"18a: the launcher under torchrun exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    mesh = json.loads(out_path.read_text())
+    work.cleanup()
+    free(torch)
+    cfg = get_lm_config(TRAIN_ARCH)
+    api = get_api(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, api, tp=1, device=DEVICE,
+                             generator=torch.Generator(DEVICE).manual_seed(
+                                 SEED))
+    batch = specs.train_inputs(cfg, TRAIN_S, TRAIN_B,
+                               torch.Generator(DEVICE).manual_seed(7))
+    step = make_train_step(cfg, api, opt_cfg=AdamWConfig(
+        lr=TRAIN_LR, moment_dtype=cfg.optimizer_dtype))
+    losses, gnorms = [], []
+    for _ in range(MESH_STEPS):
+        _, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    sums = state_checksums(torch, state)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, batch
+    free(torch)
+    differ = [f"{what} {name}" for what in sums for name in sums[what]
+              if sums[what][name] != mesh["checksums"][what][name]]
+    if losses != mesh["losses"] or gnorms != mesh["grad_norms"] or differ:
+        raise AssertionError(f"18a: the mesh of one against the meshless "
+                             f"step: losses {mesh['losses']} / {losses}, "
+                             f"grad norms {mesh['grad_norms']} / {gnorms}, "
+                             f"checksums differ at {differ[:8]}")
+    mesh_peak = mesh["peak_bytes"] / 1e9
+    if abs(mesh_peak - peak17) > MESH_PEAK_TOL * peak17:
+        raise AssertionError(f"18a: peak {mesh_peak:.3f} GB against phase "
+                             f"17's {peak17:.3f} GB")
+    info = {"cmd": "torchrun --standalone --nproc_per_node 1 -m "
+                   "repro_torch.launch.train " + " ".join(MESH_RUN),
+            "process_s": seconds, "losses": losses, "grad_norms": gnorms,
+            "tensors_held": sum(len(v) for v in sums.values()),
+            "bitwise": True, "mesh_peak_gb": mesh_peak,
+            "meshless_peak_gb": peak, "phase17_peak_gb": peak17,
+            "mesh_warm_ms": mesh["warm_ms"],
+            "mesh_tokens_per_s": mesh["tokens_per_s"]}
+    log(f"[train-mesh] 18a {info['cmd']} [{smi}]: exit 0 in {seconds:.1f} "
+        f"s; {MESH_STEPS} steps of {TRAIN_ARCH} (full width and depth) at "
+        f"world 1 equal the meshless step bit for bit: losses {losses}, "
+        f"grad norms {gnorms}, {info['tensors_held']} parameters and "
+        f"moments by checksum; peak {mesh_peak:.3f} GB (meshless "
+        f"{peak:.3f}, phase 17 {peak17:.3f}); warm step "
+        f"{mesh['warm_ms']:.1f} ms, {mesh['tokens_per_s']:.1f} tokens/s")
+    return info
+
+
+def dot64(torch, a, b) -> float:
+    """<a, b> of two f32 vectors accumulated in f64, CHECK_CHUNK at a
+    time."""
+    out = 0.0
+    for i in range(0, a.numel(), CHECK_CHUNK):
+        out += float((a[i:i + CHECK_CHUNK].double()
+                      * b[i:i + CHECK_CHUNK].double()).sum())
+    return out
+
+
+def first_gradient(torch, cfg, api) -> tuple:
+    """The first step's f32 gradient sum of SKETCH_RUN's model and batch
+    (the meshless step stopped in its grad_transform hook), flattened in
+    JAX's order, and the model's n."""
+    from repro_torch.launch import specs
+    from repro_torch.models.convert import jax_order
+    from repro_torch.train import TrainState, make_train_step
+
+    class Stop(Exception):
+        pass
+
+    model = api.init(cfg, 1, device=DEVICE,
+                     generator=torch.Generator(DEVICE).manual_seed(SEED))
+    batch = specs.train_inputs(cfg, TRAIN_S, TRAIN_B,
+                               torch.Generator(DEVICE).manual_seed(7))
+    n = sum(p.numel() for p in model.parameters())
+    v = torch.empty((n,), dtype=torch.float32, device=DEVICE)
+
+    def take(grads):
+        at = 0
+        for name in jax_order(model):
+            g = grads[name].reshape(-1)
+            v[at:at + g.numel()] = g
+            at += g.numel()
+        raise Stop
+
+    try:
+        make_train_step(cfg, api, grad_transform=take)(TrainState(model, {}),
+                                                       batch)
+    except Stop:
+        pass
+    del model, batch
+    free(torch)
+    return v, n
+
+
+def sketch_identities(torch, smi) -> dict:
+    """18b, on the first step's gradient v with the launcher's first draw
+    (seed 0): s = compress(v), g_hat = decompress(s); over the padded
+    vectors |g_hat| = |s| and <g_hat, v - g_hat> ~ 0. The launcher's
+    transform (make_sketched_grad_transform on the model's names, shapes
+    and dtypes) run on v at ef = 0 with the same draw: its g_hat is
+    decompress(s) cast to each parameter's dtype, bit for bit, and its
+    ef' is v - g_hat within one f32 rounding (v = g_hat + e'). fwht_op at (2^31, 1) against fwht_ref, the
+    same bits, both timed beside the bound."""
+    from repro_torch.distributed.compression import (
+        compress, decompress, make_sketched_grad_transform, sketch_params)
+    from repro_torch.kernels.fwht.ops import fwht_op
+    from repro_torch.kernels.fwht.ref import fwht_ref
+    from repro_torch.models import get_api
+    from repro_torch.models.convert import jax_order
+    cfg = get_lm_config(SKETCH_ARCH)
+    api = get_api(cfg)
+    v, n = first_gradient(torch, cfg, api)
+    signs, rows = sketch_params(torch.Generator(DEVICE).manual_seed(0), n,
+                                SKETCH_R)
+    n_pad = signs.shape[0]
+    s = compress(v, signs, rows)
+    g = decompress(s, signs, rows, n_pad)
+    s2, g2, vv = dot64(torch, s, s), dot64(torch, g, g), dot64(torch, v, v)
+    gv = dot64(torch, g[:n], v)               # v_pad is 0 past n
+    ge, ee = gv - g2, vv - 2 * gv + g2        # <g, e>, |e|^2, e = v - g
+    del s
+    free(torch)
+    meta = api.init(cfg, 1, device="meta")
+    transform, _ = make_sketched_grad_transform(meta, SKETCH_R)
+    grads, at = {}, 0
+    for name in jax_order(meta):
+        shape = meta.get_parameter(name).shape
+        grads[name] = v[at:at + shape.numel()].view(shape)
+        at += shape.numel()
+    ef = torch.zeros((n,), dtype=torch.float32, device=DEVICE)
+    g_hat, ef = transform(grads, ef, (signs, rows))
+    del grads
+    g_same, at = True, 0
+    for name in jax_order(meta):               # bf16 and f32 leaves
+        t = g_hat[name].reshape(-1)
+        g_same &= bool(torch.equal(t, g[at:at + t.numel()].to(t.dtype)))
+        at += t.numel()
+    del g_hat, meta
+    free(torch)
+    worst, gn = 0.0, g[:n]
+    for i in range(0, n, CHECK_CHUNK):
+        vc, gc = v[i:i + CHECK_CHUNK], gn[i:i + CHECK_CHUNK]
+        ec = ef[i:i + CHECK_CHUNK].double()
+        off = (vc.double() - gc.double() - ec).abs() - 2.0 ** -24 * ec.abs()
+        worst = max(worst, float(off.max()))
+    del g, gn, ef
+    free(torch)
+    info = {"n": n, "n_pad": n_pad, "r_prime": SKETCH_R,
+            "norm_ratio_minus_1": math.sqrt(g2 / s2) - 1,
+            "cos_g_e": ge / math.sqrt(g2 * ee),
+            "transform_g_hat_same_bits": g_same,
+            "v_minus_g_minus_ef_beyond_rounding": worst}
+    if abs(info["norm_ratio_minus_1"]) > 1e-5 or \
+            abs(info["cos_g_e"]) > 1e-5 or not g_same or worst > 0:
+        raise AssertionError(f"18b: the projection's identities: {info}")
+    x = torch.zeros((n_pad, 1), dtype=torch.float32, device=DEVICE)
+    x[:n, 0] = v
+    del v
+    x[:, 0].mul_(signs)
+    del signs, rows
+    free(torch)
+    got = fwht_op(x)
+    want = fwht_ref(x)
+    same = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    del got, want
+    free(torch)
+    if not same:
+        raise AssertionError(f"18b: fwht_op at ({n_pad}, 1) differs from "
+                             f"fwht_ref by {err}")
+    info.update({"fwht_ms": cuda_ms(torch, lambda: fwht_op(x), reps=3,
+                                    warm=1),
+                 "fwht_plain_ms": cuda_ms(torch, lambda: fwht_ref(x), reps=3,
+                                          warm=1),
+                 "fwht_same_bits": same, "fwht_max_abs_err": err,
+                 **fwht_bound(n_pad, 1)})
+    del x
+    free(torch)
+    log(f"[train-mesh] 18b identities on the first step's gradient of "
+        f"{SKETCH_ARCH} (n {n:,}, n_pad {n_pad:,}, r' {SKETCH_R:,}) "
+        f"[{smi}]: |g_hat| / |s| - 1 = {info['norm_ratio_minus_1']:.3e}, "
+        f"cos(g_hat, e') = {info['cos_g_e']:.3e}; the transform's g_hat "
+        f"is decompress(s) in each parameter's dtype bit for bit and its "
+        f"ef' is v - g_hat to one f32 rounding; fwht_op at ({n_pad}, 1) {info['fwht_ms']:.3f} ms "
+        f"(bound {info['bound_ms']:.3f} ms by {info['bound_by']}, "
+        f"{info['fwht_ms'] / info['bound_ms']:.1f}x), fwht_ref "
+        f"{info['fwht_plain_ms']:.3f} ms, the same bits")
+    return info
+
+
+def sketch_launcher(torch, smi) -> dict:
+    """18b: launch.train.run with SKETCH_RUN in process (its mesh a NCCL
+    world of one): the loss falls (the launcher asserts it), the ratio
+    printed is n / r', the transform's ms a step, the peak <=
+    SKETCH_PEAK_GB; every launch count set to 0 just before and read
+    just after."""
+    import contextlib
+    import io
+    from repro_torch.kernels import OPS, reset_launches
+    from repro_torch.launch import train as launch_train
+    args = launch_train.build_parser().parse_args(SKETCH_RUN + [
+        "--device", DEVICE])
+    text = io.StringIO()
+    free(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        out = launch_train.run(args)
+    seconds = time.perf_counter() - t0
+    launches = {name: op.launches for name, op in OPS.items()}
+    n = sum(p.numel() for p in out["state"].params.parameters())
+    lines = [ln for ln in text.getvalue().splitlines() if ln.strip()]
+    peak = out["peak_bytes"] / 1e9
+    info = {"cmd": "python -m repro_torch.launch.train " + " ".join(
+                SKETCH_RUN), "seconds": seconds, "lines": lines,
+            "losses": out["losses"], "ratio": out["ratio"],
+            "n": n, "transform_ms": out["transform_ms"],
+            "warm_ms": out["warm_ms"], "tokens_per_s": out["tokens_per_s"],
+            "peak_gb": peak, "launches": launches}
+    del out
+    free(torch)
+    if info["ratio"] != n / SKETCH_R:
+        raise AssertionError(f"18b: ratio {info['ratio']} against n / r' "
+                             f"{n / SKETCH_R}")
+    if peak > SKETCH_PEAK_GB:
+        raise AssertionError(f"18b: peak {peak:.3f} GB > {SKETCH_PEAK_GB}")
+    if launches["fwht"] != 2 * SKETCH_STEPS or any(
+            c for name, c in launches.items() if name != "fwht"):
+        raise AssertionError(f"18b: launches {launches}; fwht should run 2 "
+                             f"a step")
+    warm = info["transform_ms"][1:]
+    log(f"[train-mesh] 18b {info['cmd']} in process [{smi}]: "
+        + " | ".join(lines))
+    log(f"[train-mesh] 18b {SKETCH_ARCH} full width and depth ({n:,} "
+        f"parameters) with sketched gradients r' {SKETCH_R:,} [{smi}]: loss "
+        f"{info['losses'][0]} -> {info['losses'][-1]}; ratio "
+        f"{info['ratio']:.4f} = n / r'; transform {statistics.mean(warm):.1f}"
+        f" ms a warm step ({info['transform_ms']}); warm step "
+        f"{info['warm_ms']:.1f} ms, {info['tokens_per_s']:.1f} tokens/s; "
+        f"peak {peak:.3f} GB (gate {SKETCH_PEAK_GB}); launches {launches}")
+    return info
+
+
+def sketch_smoke_configs(torch, smi) -> dict:
+    """18c: compress and decompress at each smoke config's n (r'
+    SKETCH_SMOKE_R), on the card (fwht_op) against the CPU's plain path
+    (fwht_ref) on the same inputs, within FWHT_TOL."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.distributed.compression import (compress, decompress,
+                                                     sketch_params)
+    from repro_torch.models import get_api
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, smoke=True)
+        n = sum(p.numel() for p in get_api(cfg).init(
+            cfg, 1, device="meta").parameters())
+        gen = torch.Generator().manual_seed(SEED)
+        signs, rows = sketch_params(gen, n, SKETCH_SMOKE_R)
+        v = torch.randn((n,), generator=gen)
+        s_cpu = compress(v, signs, rows)
+        s_card = compress(v.to(DEVICE), signs.to(DEVICE), rows.to(DEVICE))
+        g_cpu = decompress(s_cpu, signs, rows, n)
+        g_card = decompress(s_cpu.to(DEVICE), signs.to(DEVICE),
+                            rows.to(DEVICE), n)
+        err = max(max_err(torch, s_card, s_cpu), max_err(torch, g_card,
+                                                         g_cpu))
+        if err > FWHT_TOL:
+            raise AssertionError(f"18c {arch}: the card against the plain "
+                                 f"path {err} > {FWHT_TOL}")
+        out[arch] = {"n": n, "n_pad": int(signs.shape[0]),
+                     "max_abs_err": err}
+    log(f"[train-mesh] 18c compress / decompress at the smoke configs, "
+        f"fwht_op on the card against fwht_ref on the CPU [{smi}]: "
+        + json.dumps(out))
+    return out
+
+
+def phase_train_mesh(torch, smi, phase17) -> tuple:
+    """Phase 18: the mesh half of training (distributed/sharding.py,
+    shard_train_state and the sharded step, the sketched gradients,
+    launch/train.py's --data / --model / --sketch-grads). Its kernel is
+    fwht (compress and decompress, 2 launches a step in 18b); 18a and 18c
+    launch none that count."""
+    from repro_torch.kernels import OPS, reset_launches
+    free(torch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    peak17 = float(phase17["launcher"]["peak_memory"].split()[0])
+    info = {"mesh": mesh_world_one(torch, smi, peak17)}
+    info["sketch"] = sketch_launcher(torch, smi)
+    launches = dict(info["sketch"]["launches"])
+    info["identities"] = sketch_identities(torch, smi)
+    info["smoke_configs"] = sketch_smoke_configs(torch, smi)
+    reset_launches()
+    info["phase_s"] = time.perf_counter() - t0
+    info["card"] = smi
+    log(f"[train-mesh] phase 18 took {info['phase_s']:.1f} s; launches "
+        f"counted {launches}")
+    return {name: launches.get(name, 0) for name in OPS}, info
+
+
 def phase_device(torch, kernels, inputs, model, Xq) -> dict:
     """Card time alone, from torch.profiler traces, taken last so that no
     earlier phase runs after the profiler: kmeans_assign at its main shape
@@ -4552,12 +4972,23 @@ def main() -> int:
     summary["ssm"] = phase_ssm(torch, smi)
     summary["encdec"] = phase_encdec(torch, smi)
     summary["train"] = phase_train(torch, smi)
+    mesh_launches, summary["train_mesh"] = phase_train_mesh(
+        torch, smi, summary["train"])
+    ident = summary["train_mesh"]["identities"]
+    kernels["fwht"]["sketch_shape"] = {
+        k: ident[k] for k in ("n_pad", "fwht_ms", "fwht_plain_ms",
+                              "fwht_max_abs_err", "fwht_same_bits",
+                              "bound_ms", "bound_by")}
+    kernels["fwht"]["sketch_shape"].update(
+        launches_a_step=2, launches=mesh_launches["fwht"],
+        transform_ms=summary["train_mesh"]["sketch"]["transform_ms"])
     summary["serve"].update(phase_device(torch, kernels, inputs, est.model_,
                                          Xq))
     launches = {name: fit_launches[name] + serve_launches[name]
                 + stream_launches[name] + backend_launches[name]
                 + lifecycle_launches[name] + fleet_launches[name]
                 + dist_launches[name] + launcher_launches[name]
+                + mesh_launches.get(name, 0)
                 for name in SOURCES}
     summary["launches"] = {"fit": fit_launches, "serve": serve_launches,
                            "stream": stream_launches,
@@ -4565,7 +4996,8 @@ def main() -> int:
                            "lifecycle": lifecycle_launches,
                            "fleet": fleet_launches,
                            "distributed": dist_launches,
-                           "launcher": launcher_launches}
+                           "launcher": launcher_launches,
+                           "train_mesh": mesh_launches}
     log(f"[main path] launches {launches}")
     idle = [name for name in MAIN_PATH if launches[name] == 0]
     if idle:
@@ -4598,7 +5030,8 @@ def main() -> int:
                                  "dynamic_smem_bytes", "serving_widths",
                                  "plan", "tiled", "deep", "tf32_matmul",
                                  "registry_case", "landmark_widths",
-                                 "drift_shape", "launcher_held")}})
+                                 "drift_shape", "launcher_held",
+                                 "sketch_shape")}})
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"kernels": line}))
     log(smi)
@@ -4609,4 +5042,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-mesh-worker"]:
+        sys.exit(train_mesh_worker(sys.argv[2:]))
     sys.exit(main())

@@ -20,11 +20,15 @@ q_norm / k_norm, the f32 router, the f32 `lam` and RWKV's f32 `mu_*`,
 AdamW decays a leaf of ndim >= 2, and a stacked leaf has one more
 dimension than the port's tensor (every per-layer norm scale is decayed
 there; the final norm and recurrentgemma's unstacked remainder layers'
-vectors are not).
+vectors are not). `jax_leaves(model)` gives each parameter's place in
+JAX's tree (its keys and row), which the sharding rules key off, and
+`jax_order(model)` the parameter names in `jax.tree.flatten`'s order, in
+which the sketched gradients flatten a gradient.
 """
 from __future__ import annotations
 
-from typing import Callable, FrozenSet, Mapping, Optional, Tuple, Union
+from typing import (Callable, Dict, FrozenSet, List, Mapping, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -104,12 +108,29 @@ def _rg_layer(cfg: ArchConfig) -> Layer:
     return layer
 
 
+def jax_leaves(model: nn.Module) -> Dict[str, Tuple[Tuple, Optional[int]]]:
+    """{parameter name: (the keys of its leaf in JAX's tree, its row there
+    or None when the leaf is not stacked)}, in named_parameters' order."""
+    layer = _rg_layer(model.cfg) if isinstance(model, RG) else _stacked
+    return {name: _where(name, layer) for name, _ in model.named_parameters()}
+
+
+def jax_order(model: nn.Module) -> List[str]:
+    """The parameter names in `jax.tree.flatten` order of JAX's tree: its
+    leaves by their sorted dict keys (list entries by index), a stacked
+    leaf's rows in order. Concatenating the parameters flattened in this
+    order gives JAX's flattened vector element for element."""
+    where = jax_leaves(model)
+    return sorted(where, key=lambda name: (where[name][0],
+                                           where[name][1] or 0))
+
+
 def decayed_names(model: nn.Module) -> FrozenSet[str]:
     """The names of the parameters that JAX's adamw_update decays: those
     whose leaf in JAX's tree has ndim >= 2 (optimizer.py:53)."""
-    layer = _rg_layer(model.cfg) if isinstance(model, RG) else _stacked
+    where = jax_leaves(model)
     return frozenset(name for name, p in model.named_parameters()
-                     if p.dim() + (_where(name, layer)[1] is not None) >= 2)
+                     if p.dim() + (where[name][1] is not None) >= 2)
 
 
 def _from_jax(cls, cfg: ArchConfig, params_np: Mapping, device, tp: int,

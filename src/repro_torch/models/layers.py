@@ -32,9 +32,11 @@ and casts to the parameter's dtype (layers.py:26 `_dense_init`), a chunk
 of rows at a time so that no f32 copy of a whole weight exists.
 
 The KV cache is written in place (JAX returns a new cache): one layer's
-(B, T, Hkv, hd) view of the model's stacked cache. `maybe_shard`
-(distributed/sharding.py:76) is a no-op outside a mesh and is left out;
-the sharding rules come with the training slice.
+(B, T, Hkv, hd) view of the model's stacked cache. JAX's `maybe_shard`
+calls (activation layout hints that change no value) are left out: the
+port's `distributed.sharding.maybe_shard` returns its input, and compute
+is replicated over a mesh's model axis until tensor-parallel compute is
+ported (ROADMAP Queue A).
 """
 from __future__ import annotations
 

@@ -7,7 +7,36 @@ make_train_step builds train_step(state, batch) -> (state, metrics):
   - the f32 loss with label masking (-1 = ignore);
   - the AdamW update (train/optimizer.py);
   - an optional grad_transform hook applied to the accumulated gradient
-    before the optimizer (the sketched gradients of the mesh half).
+    before the optimizer (e.g. the sketched gradients of
+    distributed/compression.py).
+
+On a mesh (mesh=, after shard_train_state), JAX's sharded step with its
+meanings, across the ranks of a torch DeviceMesh ("data", "model", and
+"pod" where present; every rank calls the step with the same global
+batch):
+  - each parameter and both moments are stored as this rank's shard under
+    distributed/sharding.py's state_pspecs; the step gathers the
+    parameters whole once at entry (JAX's pregather_spec: once per step,
+    not per microbatch; a mesh dim of size 1 gathers without a copy) and
+    puts the shards back before the update;
+  - rows: JAX runs microbatch m's rows [m B/M, (m+1) B/M) at groups = the
+    data axes' size dp, as dp contiguous routing groups; here data rank r
+    runs group r itself, rows [m B/M + r B/(M dp), + B/(M dp)), at
+    groups / dp (capacity routing sees JAX's groups);
+  - each rank's loss is normalized by the microbatch's global label count
+    (read from the global batch), so the sum over ranks is JAX's loss;
+  - each microbatch's gradient is reduce-scattered over the data axes as
+    autograd produces it, into grad_spec's layout (the moments' by
+    default); over the model axis every rank computed the same gradient
+    and keeps its chunk (no collective). A grad_transform instead gets
+    each rank's whole, unreduced gradient, reduces over the data axes
+    itself (the sketched gradients average their r'-float sketch) and
+    returns the global gradient, which JAX's hook sees;
+  - AdamW runs on the local shards; the grad norm counts each element
+    once (a chunk replicated over an axis counts on its coordinate 0).
+The model axis shards storage only: compute is replicated across it
+(tensor-parallel compute is ROADMAP Queue A). A world of one rank runs
+the same operations as the meshless step, bit for bit.
 
 Differences from JAX's step, by design:
   - the state is updated in place and the same TrainState is returned (a
@@ -18,8 +47,11 @@ Differences from JAX's step, by design:
     as autograd has it (Tensor.register_post_accumulate_grad_hook) and
     dropped, so a microbatch's gradients never live beside the sum: the
     same arithmetic as JAX's scan;
-  - JAX's pregather_spec / grad_spec are mesh placements and come with
-    the mesh half (distributed/sharding.py); they are left out.
+  - a step on a mesh gathers the parameters whole at entry whatever
+    pregather_spec says, since compute is replicated over the model axis:
+    a pregather_spec that keeps a dim sharded (JAX's TP-only spec at
+    tp > 1) is refused until tensor-parallel compute is ported;
+  - the batch (B / M) must divide by dp, where JAX would replicate.
 
 No host sync runs inside the step: the metrics are tensors on the step's
 device. `cfg` is kept for the JAX signature of the serving builders; the
@@ -27,12 +59,18 @@ model carries it.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (P, gather, local_shape,
+                                              local_shard, owns,
+                                              reduce_shard, state_pspecs)
+from repro_torch.launch.mesh import dp_axes, mesh_axis
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.convert import decayed_names
 from repro_torch.models.registry import ModelAPI
@@ -44,16 +82,28 @@ class TrainState(NamedTuple):
     opt: Dict
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+class ShardLayout(NamedTuple):
+    """How a sharded train state is stored (shard_train_state): the mesh,
+    the stored parameters' specs, the moments' specs, and the whole
+    parameters' shapes."""
+    mesh: object
+    params: Dict[str, P]
+    moments: Dict[str, P]
+    shapes: Dict[str, torch.Size]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked mean CE. logits (B,S,V) f32, labels (B,S) int (-1 ignored);
     the logsumexp over the whole (padded) vocabulary, the mean over
-    max(count, 1) labels."""
+    max(count, 1) labels. `count`: the labels to divide by when these rows
+    are a part of the batch (default: this batch's own)."""
     mask = labels >= 0
     safe = labels.clamp_min(0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
-    return nll.sum() / mask.sum().clamp_min(1)
+    return nll.sum() / (mask.sum() if count is None else count).clamp_min(1)
 
 
 def init_train_state(cfg: ArchConfig, api: ModelAPI, tp: int = 16, *,
@@ -70,18 +120,71 @@ def init_train_state(cfg: ArchConfig, api: ModelAPI, tp: int = 16, *,
                                         opt_cfg))
 
 
+@torch.no_grad()
+def shard_train_state(state: TrainState, mesh,
+                      zero1: bool = False) -> TrainState:
+    """Cut each parameter and both moments to this rank's shard under
+    state_pspecs(state, mesh, zero1), in place (a mesh dim of size 1 cuts
+    without a copy). The model keeps the layout as `shard_layout`, which
+    the sharded step and the launcher's checkpoints read."""
+    model = state.params
+    if getattr(model, "shard_layout", None) is not None:
+        raise ValueError("the train state is already sharded")
+    shapes = {name: p.shape for name, p in model.named_parameters()}
+    spec = state_pspecs(state, mesh, zero1)
+    for name, p in model.named_parameters():
+        p.data = local_shard(p.data, spec.params[name], mesh)
+    opt = {key: {name: local_shard(t, spec.opt[key][name], mesh)
+                 for name, t in state.opt[key].items()}
+           for key in ("m", "v")}
+    opt["step"] = state.opt["step"]
+    model.shard_layout = ShardLayout(mesh, spec.params, spec.opt["m"],
+                                     shapes)
+    return TrainState(model, opt)
+
+
+def _relayout(t: torch.Tensor, src: P, dst: P, mesh) -> torch.Tensor:
+    """A chunk under `src` as this rank's chunk under `dst`."""
+    if tuple(src) == tuple(dst):
+        return t
+    return local_shard(gather(t, src, mesh), dst, mesh)
+
+
 def make_train_step(cfg: ArchConfig, api: ModelAPI, groups: int = 1,
                     grad_transform: Optional[Callable] = None,
-                    opt_cfg: Optional[AdamWConfig] = None) -> Callable:
+                    opt_cfg: Optional[AdamWConfig] = None,
+                    pregather_spec: Optional[Dict[str, P]] = None,
+                    grad_spec: Optional[Dict[str, P]] = None, *,
+                    mesh=None) -> Callable:
     """Returns train_step(state, batch) -> (state, {"loss", "grad_norm"}).
 
     batch: dict of (B, ...) tensors; B must divide by cfg.microbatches.
     grad_transform: optional ({name: grad} -> {name: grad}) hook on the
     accumulated gradients. With M = 1 the gradients stay in the parameter
     dtype, as JAX's do; with M > 1 they are the f32 mean.
+
+    mesh: run the sharded step (module docstring) on a state from
+    shard_train_state; groups must divide by the data axes' size dp.
+    pregather_spec ({name: spec}): JAX's pre-gather target; the parameters
+    gather whole in any case, so only a replicated spec is taken.
+    grad_spec ({name: spec}): the layout each microbatch's gradient is
+    reduce-scattered into and summed in (the moments' by default); a
+    gradient in another layout is moved to the moments' before AdamW.
+    On a mesh, grad_transform sees the gradient JAX's hook sees, the
+    global one: it gets each rank's whole, unreduced gradient as a local
+    mean (times dp, so the ranks' mean is the global gradient, JAX's pmean
+    convention), reduces over the data axes itself (the sketched gradients
+    with axis="data") and returns the global gradient, the same on every
+    rank, which the step cuts to the moments' layout (grad_spec is then
+    unused).
     """
     opt_cfg = opt_cfg or AdamWConfig(moment_dtype=cfg.optimizer_dtype)
     M = cfg.microbatches
+    if mesh is not None:
+        return _make_mesh_step(cfg, api, groups, grad_transform, opt_cfg,
+                               pregather_spec, grad_spec, mesh)
+    if pregather_spec is not None or grad_spec is not None:
+        raise ValueError("pregather_spec and grad_spec need a mesh")
 
     def loss_fn(model, mb):
         return cross_entropy(api.forward(model, mb, groups), mb["labels"])
@@ -125,6 +228,8 @@ def make_train_step(cfg: ArchConfig, api: ModelAPI, groups: int = 1,
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState,
                                                            Dict]:
         model = state.params
+        if getattr(model, "shard_layout", None) is not None:
+            raise ValueError("a sharded train state needs the step's mesh")
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
@@ -136,6 +241,135 @@ def make_train_step(cfg: ArchConfig, api: ModelAPI, groups: int = 1,
             for g in grads.values()))
         adamw_update(params, grads, state.opt, opt_cfg,
                      decay=decayed_names(model))
+        return state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
+
+
+def _make_mesh_step(cfg, api, groups, grad_transform, opt_cfg,
+                    pregather_spec, grad_spec, mesh) -> Callable:
+    M = cfg.microbatches
+    whole_grads = grad_transform is not None   # it reduces them itself
+    names = tuple(mesh.mesh_dim_names)
+    dp = dp_axes(mesh)
+    n_dp = math.prod(mesh.shape[names.index(a)] for a in dp)
+    if groups % n_dp:
+        raise ValueError(f"groups {groups} must divide by the data axes' "
+                         f"size {n_dp}: each data rank runs whole groups")
+    if pregather_spec is not None and any(
+            e is not None for spec in pregather_spec.values() for e in spec):
+        raise NotImplementedError(
+            "the parameters gather whole (compute is replicated over the "
+            "model axis); a pregather_spec that keeps a dim sharded needs "
+            "tensor-parallel compute (ROADMAP Queue A)")
+    coord = mesh.get_coordinate()
+    rank = 0                               # this rank's data index
+    for a in dp:
+        i = names.index(a)
+        rank = rank * mesh.shape[i] + coord[i]
+    world = math.prod(mesh.shape)
+    dp_groups = [mesh_axis(mesh, a) for a in dp
+                 if mesh.shape[names.index(a)] > 1]
+
+    def grads_of(model, params, batch, lay, gspec):
+        """(loss, {name: grad}): this rank's rows of each microbatch, the
+        gradients reduced as autograd produces them (whole and unreduced
+        for a grad_transform), then the f32 mean for M > 1."""
+        B = next(iter(batch.values())).shape[0]
+        b = B // M // n_dp
+        acc = {}
+        if M > 1:
+            acc = {name: torch.zeros(
+                lay.shapes[name] if whole_grads else local_shape(
+                    lay.shapes[name], gspec[name], mesh),
+                dtype=torch.float32, device=p.device)
+                for name, p in params.items()}
+
+        def fold(name):
+            def hook(p):
+                g = p.grad if whole_grads else reduce_shard(
+                    p.grad, gspec[name], mesh, dp)
+                p.grad = None
+                if M == 1:
+                    acc[name] = g
+                else:
+                    acc[name].add_(g.float())
+            return hook
+
+        hooks = [p.register_post_accumulate_grad_hook(fold(name))
+                 for name, p in params.items()]
+        try:
+            loss_sum = None
+            for i in range(M):
+                whole = {k: x.reshape(M, B // M, *x.shape[1:])[i]
+                         for k, x in batch.items()}
+                count = (whole["labels"] >= 0).sum()
+                mb = {k: x[rank * b:(rank + 1) * b]
+                      for k, x in whole.items()}
+                loss = cross_entropy(api.forward(model, mb, groups // n_dp),
+                                     mb["labels"], count)
+                loss.backward()
+                loss = loss.detach()
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+        finally:
+            for h in hooks:
+                h.remove()
+        for ax in dp_groups:
+            ax.all_reduce(loss_sum)
+        if M > 1:
+            for a in acc.values():
+                a.div_(M)
+        # In the parameters' order (the hooks fire in the backward's).
+        return loss_sum / M, {name: acc[name] for name in params}
+
+    def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState,
+                                                           Dict]:
+        model = state.params
+        lay = getattr(model, "shard_layout", None)
+        if lay is None or lay.mesh is not mesh:
+            raise ValueError("the train state is not sharded on this "
+                             "step's mesh (shard_train_state)")
+        B = next(iter(batch.values())).shape[0]
+        if B % M or (B // M) % n_dp:
+            raise ValueError(
+                f"a batch of {B} rows in {M} microbatches does not split "
+                f"over {n_dp} data ranks (JAX would replicate it)")
+        gspec = grad_spec or lay.moments
+        params = dict(model.named_parameters())
+        shards = {name: p.data for name, p in params.items()}
+        try:
+            with torch.no_grad():
+                for name, p in params.items():
+                    p.data = gather(shards[name], lay.params[name], mesh)
+                    p.grad = None
+            loss, grads = grads_of(model, params, batch, lay, gspec)
+        finally:
+            for name, p in params.items():
+                p.data = shards[name]
+        if whole_grads:
+            if n_dp > 1:
+                for g in grads.values():
+                    g.mul_(n_dp)
+            grads = {name: local_shard(g, lay.moments[name], mesh)
+                     for name, g in grad_transform(grads).items()}
+        else:
+            grads = {name: _relayout(g, gspec[name], lay.moments[name],
+                                     mesh) for name, g in grads.items()}
+        zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+        total = sum((torch.linalg.vector_norm(g, dtype=torch.float32).square()
+                     for name, g in grads.items()
+                     if owns(lay.moments[name], mesh)), zero)
+        if world > 1:
+            dist.all_reduce(total)
+        gnorm = torch.sqrt(total)
+        at = {name: _relayout(shards[name], lay.params[name],
+                              lay.moments[name], mesh) for name in params}
+        adamw_update(at, grads, state.opt, opt_cfg,
+                     decay=decayed_names(model))
+        for name, p in params.items():
+            if at[name] is not shards[name]:
+                p.data = _relayout(at[name], lay.moments[name],
+                                   lay.params[name], mesh)
         return state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step

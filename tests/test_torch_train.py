@@ -43,8 +43,9 @@ moments, the decay set against the leaves JAX's adamw_update decays (all
 ten configs), remat on == off bit for bit (one config per family), and
 the launcher (`repro_torch.launch.train` in process, --device cpu
 --smoke): the loss falls, a run cut at step 2 and resumed to 6 equals an
-uninterrupted 6-step run bit for bit, the mesh flags are refused, and
-without a card and without --device it fails.
+uninterrupted 6-step run bit for bit, a mesh larger than the world and a
+negative --sketch-grads are refused, and without a card and without
+--device it fails. The mesh itself is tests/test_torch_train_mesh.py's.
 """
 import argparse
 import dataclasses
@@ -317,12 +318,16 @@ def test_launcher_resume_is_bitwise(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", (["--data", "2"], ["--model", "2"],
-                                  ["--sketch-grads", "8"]))
+                                  ["--sketch-grads", "-8"]))
 def test_launcher_refuses_the_mesh_flags(flag, capsys):
+    """A mesh larger than the world (this process is a world of one: a
+    mesh of 2 needs torchrun), and a negative r'."""
     with pytest.raises(SystemExit) as exc:
         launch_train.main(["--device", "cpu", "--smoke", *flag])
     assert exc.value.code == 2
-    assert "3(b)" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert ("torchrun --nproc_per_node 2" in err if flag[0] != "--sketch-grads"
+            else "at least 0" in err)
 
 
 def test_launcher_needs_the_card_by_default(tmp_path):

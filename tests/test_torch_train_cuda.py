@@ -26,6 +26,7 @@ import dataclasses
 
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
@@ -117,3 +118,83 @@ def test_launcher_trains_and_restores_on_the_card(card, tmp_path, capsys):
         base + ["--steps", "4"]))
     assert "restored checkpoint at step 2" in capsys.readouterr().out
     assert again["start"] == 2 and len(again["losses"]) == 2
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(card):
+    from repro_torch.launch.mesh import make_debug_mesh
+    made = not dist.is_initialized()
+    yield make_debug_mesh(1, 1)
+    if made and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,cut", [
+    ("phi4-mini-3.8b", {"microbatches": 2, "remat": True}),
+    ("mixtral-8x7b", {})])
+def test_sharded_step_at_world_one_is_the_meshless_step(nccl_mesh, arch,
+                                                        cut):
+    from repro_torch.train import shard_train_state
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **cut)
+    api = get_api(cfg)
+    cpu = api.init(cfg, tp=1, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+    opt = AdamWConfig(lr=LR)
+    models = []
+    for _ in range(2):
+        m = api.init(cfg, tp=1, device="meta").to_empty(device="cuda")
+        m.load_state_dict(cpu.state_dict())
+        models.append(m)
+    states = [TrainState(m, adamw_init(dict(m.named_parameters()), opt))
+              for m in models]
+    states[1] = shard_train_state(states[1], nccl_mesh)
+    steps = [make_train_step(cfg, api, opt_cfg=opt),
+             make_train_step(cfg, api, opt_cfg=opt, mesh=nccl_mesh)]
+    batch = {k: v.cuda() for k, v in specs.train_inputs(
+        cfg, 64, 4, torch.Generator().manual_seed(1)).items()}
+    for i in range(STEPS):
+        (_, a), (_, b) = (step(s, batch) for step, s in zip(steps, states))
+        assert torch.equal(a["loss"], b["loss"]), i
+        assert torch.equal(a["grad_norm"], b["grad_norm"]), i
+    pa = dict(models[0].named_parameters())
+    for name, p in models[1].named_parameters():
+        assert torch.equal(p, pa[name]), name
+        for key in ("m", "v"):
+            assert torch.equal(states[1].opt[key][name],
+                               states[0].opt[key][name]), (key, name)
+
+
+@pytest.mark.cuda
+def test_sketched_gradients_on_the_card_equal_the_plain_path(card):
+    from repro_torch.distributed import compression as comp
+    from repro_torch.kernels import fwht_op
+    n, r_prime = 300_000, 4096
+    gen = torch.Generator().manual_seed(3)
+    signs, rows = comp.sketch_params(gen, n, r_prime)
+    v = torch.randn((n,), generator=gen)
+    before = fwht_op.launches
+    s_card = comp.compress(v.cuda(), signs.cuda(), rows.cuda())
+    s_cpu = comp.compress(v, signs, rows)
+    assert float((s_card.cpu() - s_cpu).abs().max()) <= 2e-4
+    g_card = comp.decompress(s_cpu.cuda(), signs.cuda(), rows.cuda(), n)
+    g_cpu = comp.decompress(s_cpu, signs, rows, n)
+    assert float((g_card.cpu() - g_cpu).abs().max()) <= 2e-4
+    assert fwht_op.launches == before + 2
+    params = {"a": torch.zeros(1000, 300), "b": torch.zeros(7)}
+    t_cpu, init_cpu = comp.make_sketched_grad_transform(params, r_prime)
+    t_card, init_card = comp.make_sketched_grad_transform(
+        {k: p.cuda() for k, p in params.items()}, r_prime)
+    ef_cpu, ef_card = init_cpu(), init_card()
+    for t in range(2):
+        grads = {k: torch.randn(p.shape, generator=gen)
+                 for k, p in params.items()}
+        draws = comp.sketch_params(torch.Generator().manual_seed(t),
+                                   300_007, r_prime)
+        out_cpu, ef_cpu = t_cpu(grads, ef_cpu, draws)
+        out_card, ef_card = t_card({k: g.cuda() for k, g in grads.items()},
+                                   ef_card, tuple(d.cuda() for d in draws))
+        assert float((ef_card.cpu() - ef_cpu).abs().max()) <= 2e-4
+        for k in params:
+            assert float((out_card[k].cpu() - out_cpu[k]).abs().max()) \
+                <= 2e-4, (t, k)
