@@ -250,6 +250,17 @@ Phases, each fatal on failure:
      against fwht_ref, the same bits, timed beside its bound; (c)
      compress / decompress at the ten smoke configs' n, the card
      against the CPU's plain path within 2e-4;
+  19. dryrun (after 18, before 7): the dry run (launch/dryrun.py: rank 0
+     of a fake world, fake tensors, op_analysis.py's counts), which
+     allocates no device memory and launches no kernel: (a) phase 17's
+     step (phi4-mini-3.8b at full width and depth, B 4 x S 512, M 2,
+     remat) in a dry-run world of one rank: its peak within 5 % of 17a's
+     measured peak, its flops within 3 % of lm_bounds' train flops plus
+     the attention's masked pairs and remat's recompute, its traffic
+     printed; (b) phi4-mini-3.8b x train_4k on the 16 x 16 mesh (rank 0
+     of 256): status ok, collective bytes by kind equal to the sharded
+     step's plan, the peak a rank and seconds printed; the card's
+     total_memory printed; the phase within 120 s;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -573,6 +584,17 @@ SKETCH_PEAK_GB = 75.0
 SKETCH_SMOKE_R = 4096
 FWHT_TOL = 2e-4                          # fwht's registry tolerance
 CHECK_CHUNK = 1 << 26                    # elements a checksum pass reads
+
+# Phase 19 (dryrun): (a) the dry run of phase 17's step in a dry-run world
+# of one rank: its peak within DRY_PEAK_TOL of 17a's measured
+# max_memory_allocated, its flops within DRY_FLOPS_TOL of lm_bounds' plus
+# the masked attention pairs and remat's recompute (dryrun_flops); (b)
+# phi4-mini-3.8b x train_4k on the 16 x 16 dry-run mesh, its collective
+# bytes equal to the step's plan. No device memory, no kernel; the whole
+# phase within DRY_SECONDS.
+DRY_PEAK_TOL = 0.05
+DRY_FLOPS_TOL = 0.03
+DRY_SECONDS = 120
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -4871,6 +4893,137 @@ def phase_train_mesh(torch, smi, phase17) -> tuple:
     return {name: launches.get(name, 0) for name in OPS}, info
 
 
+def dryrun_flops(torch, cfg, B, S) -> dict:
+    """The train step's flops as the port runs them, term by term from
+    lm_bounds' train_flops (3 x the forward's products, the attention over
+    the causal pairs only, no recompute): (1) the attention's masked pairs,
+    since the port scores every (query, key) pair and masks the later
+    ones: 4 B nq hd (S^2 - S (S + 1) / 2) a layer, 3 times (forward and
+    the backward's two products); (2) remat's recomputed forward: each
+    block's forward again in the backward, with the full S^2 attention,
+    less the MLP's down projection, which checkpoint's early stop does not
+    rerun (its output is saved by no op of the backward). A dense config
+    (phase 19a runs phi4-mini-3.8b)."""
+    b = lm_bounds(torch, cfg, B, S, S)
+    d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    T, L_ = B * S, cfg.n_layers
+    full_attn = 4 * B * nq * hd * S * S
+    masked = 3 * L_ * 4 * B * nq * hd * (S * S - S * (S + 1) // 2)
+    proj = 2 * T * (d * hd * (nq + 2 * nkv) + nq * hd * d
+                    + 3 * d * cfg.d_ff)
+    remat = L_ * (proj + full_attn - 2 * T * cfg.d_ff * d) if cfg.remat \
+        else 0
+    return {"lm_bounds": b["train_flops"], "masked_pairs": masked,
+            "remat": remat, "expected": b["train_flops"] + masked + remat}
+
+
+def dryrun_one_rank(torch, smi, peak17) -> dict:
+    """19a: the dry run of phase 17's step (phi4-mini-3.8b at full width
+    and depth, B TRAIN_B x S TRAIN_S, M 2, remat) in a dry-run world of one
+    rank: its peak against 17a's measured max_memory_allocated, its flops
+    against dryrun_flops."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import destroy_dryrun_mesh, make_dryrun_mesh
+    cfg = get_lm_config(TRAIN_ARCH)
+    mesh = make_dryrun_mesh(shape=(1, 1))
+    try:
+        rec = dryrun.measure(cfg, "train", TRAIN_B, TRAIN_S, mesh)
+    finally:
+        destroy_dryrun_mesh(mesh)
+    res = rec["analysis"]
+    want = dryrun_flops(torch, cfg, TRAIN_B, TRAIN_S)
+    info = {"peak_bytes": res["memory"]["peak"],
+            "argument_bytes": res["memory"]["argument"],
+            "temp_bytes": res["memory"]["temp"],
+            "measured_peak_bytes": peak17,
+            "peak_off": res["memory"]["peak"] / peak17 - 1,
+            "flops": res["flops"], "traffic_bytes": res["traffic_bytes"],
+            **{f"flops_{k}": v for k, v in want.items()},
+            "flops_off": res["flops"] / want["expected"] - 1,
+            "microbatches": rec["microbatches"],
+            "build_s": res["build_s"], "run_s": res["run_s"]}
+    log(f"[dryrun] 19a {TRAIN_ARCH} B {TRAIN_B} x S {TRAIN_S}, M "
+        f"{rec['microbatches']}, remat, a dry-run world of one rank "
+        f"(fake tensors; built in {res['build_s']:.1f} s, run in "
+        f"{res['run_s']:.1f} s): peak {info['peak_bytes'] / 1e9:.3f} GB "
+        f"(argument {info['argument_bytes'] / 1e9:.3f} + temp "
+        f"{info['temp_bytes'] / 1e9:.3f}) against 17a's measured "
+        f"{peak17 / 1e9:.3f} GB [{smi}] ({info['peak_off']:+.4%}, within "
+        f"{DRY_PEAK_TOL:.0%}); flops {res['flops'] / 1e12:.4f} TFLOP against"
+        f" {want['expected'] / 1e12:.4f} = lm_bounds' "
+        f"{want['lm_bounds'] / 1e12:.4f} + masked pairs "
+        f"{want['masked_pairs'] / 1e12:.4f} + remat "
+        f"{want['remat'] / 1e12:.4f} ({info['flops_off']:+.4%}, within "
+        f"{DRY_FLOPS_TOL:.0%}); traffic {res['traffic_bytes'] / 1e12:.3f} "
+        f"TB")
+    if abs(info["peak_off"]) > DRY_PEAK_TOL:
+        raise AssertionError(f"19a: the dry run's peak is {info['peak_off']:+.2%} "
+                             f"from 17a's")
+    if abs(info["flops_off"]) > DRY_FLOPS_TOL:
+        raise AssertionError(f"19a: the dry run's flops are "
+                             f"{info['flops_off']:+.2%} from the expected")
+    return info
+
+
+def dryrun_mesh_cell(torch) -> dict:
+    """19b: phi4-mini-3.8b x train_4k on the 16 x 16 dry-run mesh to
+    status ok, its collective bytes by kind equal to the step's plan
+    (dryrun.train_plan)."""
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(TRAIN_ARCH, "train_4k", False,
+                          str(BUILD / "dryrun"))
+    if rec["status"] != "ok":
+        raise AssertionError(f"19b: {rec}")
+    plan = dryrun.train_plan(get_lm_config(TRAIN_ARCH), rec["microbatches"],
+                             MeshShape(("data", "model"), (16, 16)))
+    got = {k: v for k, v in rec["collectives"]["bytes"].items() if v}
+    log(f"[dryrun] 19b {TRAIN_ARCH} x train_4k on 16 x 16 (rank 0 of 256 "
+        f"fake ranks; M {rec['microbatches']}, groups {rec['groups']}): "
+        f"status ok, peak {rec['memory']['peak_mb']} MiB a rank (rules "
+        f"{rec['rules_mb']['total']} MiB), flops {rec['hlo_flops']:.4e}, "
+        f"collective bytes {got} against the plan {plan}; built in "
+        f"{rec['lower_s']} s, run in {rec['compile_s']} s")
+    if got != {k: float(v) for k, v in plan.items() if v}:
+        raise AssertionError(f"19b: collective bytes {got} against the "
+                             f"plan {plan}")
+    return {k: rec[k] for k in ("memory", "rules_mb", "hlo_flops",
+                                "hlo_traffic_bytes", "collectives",
+                                "microbatches", "groups", "lower_s",
+                                "compile_s")} | {"plan": plan}
+
+
+def phase_dryrun(torch, smi, phase17) -> dict:
+    """Phase 19: the dry run (launch/dryrun.py over op_analysis.py and a
+    fake process group), which allocates none of the card's memory and
+    launches no kernel: 19a against phase 17's measured step, 19b the
+    production mesh's cell. Held to DRY_SECONDS."""
+    from repro_torch.kernels import OPS, reset_launches
+    free(torch)
+    t0 = time.perf_counter()
+    allocated = torch.cuda.memory_allocated()
+    reset_launches()
+    peak17 = float(phase17["launcher"]["peak_memory"].split()[0]) * 1e9
+    info = {"one_rank": dryrun_one_rank(torch, smi, peak17),
+            "mesh_cell": dryrun_mesh_cell(torch),
+            "kernel_launches": {n: op.launches for n, op in OPS.items()},
+            "card_total_memory": torch.cuda.get_device_properties(
+                0).total_memory,
+            "allocated_change": torch.cuda.memory_allocated() - allocated,
+            "phase_s": time.perf_counter() - t0, "card": smi}
+    log(f"[dryrun] phase 19 took {info['phase_s']:.1f} s (held to "
+        f"{DRY_SECONDS} s); the card's total_memory "
+        f"{info['card_total_memory']} bytes; device memory allocated by "
+        f"the phase {info['allocated_change']} bytes; the port's kernels "
+        f"launched {info['kernel_launches']}")
+    if info["allocated_change"] or any(info["kernel_launches"].values()):
+        raise AssertionError("phase 19 allocated device memory or launched "
+                             "a kernel")
+    if info["phase_s"] > DRY_SECONDS:
+        raise AssertionError(f"phase 19 took {info['phase_s']:.1f} s")
+    return info
+
+
 def phase_device(torch, kernels, inputs, model, Xq) -> dict:
     """Card time alone, from torch.profiler traces, taken last so that no
     earlier phase runs after the profiler: kmeans_assign at its main shape
@@ -4974,6 +5127,7 @@ def main() -> int:
     summary["train"] = phase_train(torch, smi)
     mesh_launches, summary["train_mesh"] = phase_train_mesh(
         torch, smi, summary["train"])
+    summary["dryrun"] = phase_dryrun(torch, smi, summary["train"])
     ident = summary["train_mesh"]["identities"]
     kernels["fwht"]["sketch_shape"] = {
         k: ident[k] for k in ("n_pad", "fwht_ms", "fwht_plain_ms",

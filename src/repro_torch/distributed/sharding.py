@@ -285,10 +285,13 @@ def local_shard(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     """This rank's chunk of the whole tensor `t` under `spec`: the chunk
     checkpoint.local_chunk cuts under placements(spec, mesh) (the rules
     shard only dims that divide, so an even split). `t` itself when no
-    mesh dim of size > 1 shards it, else a contiguous copy."""
+    mesh dim of size > 1 shards it, else a contiguous copy: a chunk that
+    local_chunk leaves as a view (one cut along the leading dim) is copied
+    too, so that it does not keep the whole tensor's storage alive."""
     if not _sharded(spec, mesh):
         return t
-    return local_chunk(t, mesh, placements(spec, mesh))
+    out = local_chunk(t, mesh, placements(spec, mesh))
+    return out.clone() if out._base is not None else out
 
 
 def gather(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:

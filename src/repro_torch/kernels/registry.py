@@ -7,6 +7,14 @@ form of fwht, and embed_assign, the assignment folded into extend_embed's
 summing launch, have no entry there: their cases are the port's own. `build`
 makes one case's inputs with numpy from a seed, so the same arrays can be
 handed to both packages.
+
+The registry itself keeps JAX's semantics (repro/kernels/registry.py:65,
+:82): `register_kernel` refuses an entry with no parity cases and
+replaces an entry of the same name, `registered_kernels` gives the names
+sorted, and `kernel_entries` the entries in that order. The port's
+entries below are registered when this module is imported. JAX's memory
+contracts (KernelContract, register_contract, get_contract) wait for the
+analysis slice (ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -222,17 +230,37 @@ ENTRIES: Tuple[KernelEntry, ...] = (
 )
 
 
+_REGISTRY: Dict[str, KernelEntry] = {}
+
+
+def register_kernel(entry: KernelEntry) -> KernelEntry:
+    """Register one kernel (re-registering a name replaces it)."""
+    if not entry.cases:
+        raise ValueError(f"kernel {entry.name!r} registered with no "
+                         f"parity cases")
+    _REGISTRY[entry.name] = entry
+    return entry
+
+
+def registered_kernels() -> list:
+    """Registered kernel names, sorted."""
+    return sorted(_REGISTRY)
+
+
 def kernel_entries() -> Tuple[KernelEntry, ...]:
     """All entries, name-sorted."""
-    return ENTRIES
+    return tuple(_REGISTRY[name] for name in registered_kernels())
 
 
 def get_kernel(name: str) -> KernelEntry:
-    for entry in ENTRIES:
-        if entry.name == name:
-            return entry
-    raise KeyError(f"unknown kernel {name!r}; have "
-                   f"{[e.name for e in ENTRIES]}")
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown kernel {name!r}; registered: "
+                       f"{registered_kernels()}")
+    return _REGISTRY[name]
+
+
+for _entry in ENTRIES:
+    register_kernel(_entry)
 
 
 def compare(entry: KernelEntry, got, want, inputs=None) -> None:

@@ -1,0 +1,339 @@
+"""Dry run: each (arch x shape x mesh) cell's step as rank 0 of the
+production mesh runs it, on fake tensors (the port of
+repro/launch/dryrun.py).
+
+JAX lowers and compiles each cell's step with the production shardings
+against ShapeDtypeStruct inputs and reads XLA's memory and cost analyses.
+The port runs the step itself: rank 0 of a fake world of the production
+size (launch/mesh.py `make_dryrun_mesh`: torch's fake backend, whose
+collectives move nothing), every tensor a fake tensor (torch's
+FakeTensorMode: shapes, dtypes and devices, no memory and no values), and
+counts what the step does op by op (launch/op_analysis.py, which stands
+for hlo_analysis.py). The dry run touches no card and allocates no device
+memory, on a machine without one or with one: that is what it is, as in
+JAX, and not a fallback. Nothing in it looks for a card or chooses a
+device; its fake tensors and its mesh are on mesh.DRYRUN_DEVICE.
+
+Cells, as JAX's (specs.SHAPES; specs.cell_supported decides the skips,
+with JAX's status / reason file): groups = the data axes' size dp where
+B divides by it, else 1; JAX's microbatch count (the config's, lowered
+until B / M divides by dp).
+  - train_4k: the model built on "meta", then fake; its AdamW state cut
+    to rank 0's shards by shard_train_state(zero1=cfg.zero1); the step
+    from make_train_step(mesh=) with JAX's pregather spec (TP-only, when
+    cfg.pregather) and gradient spec (fsdp x tp); run on the global batch
+    of specs.train_inputs(abstract=True), of which the step takes rank
+    0's rows of each microbatch;
+  - prefill_32k: make_prefill_step; decode_32k and long_500k:
+    make_decode_step. The port has no sharded serving compute (ROADMAP
+    Queue A item 2), so each rank holds the whole parameters and, when
+    groups == dp, its own B / dp rows of the batch and cache (JAX's group
+    r, run at one group), else the whole batch and cache.
+
+The record has JAX's keys (dryrun.py:155-175) with JAX's meanings, but:
+  - lower_s: the seconds of building the fake state and inputs, and
+    compile_s: the seconds of running the fake step;
+  - memory: op_analysis's argument / output / temp / peak of rank 0 (MiB);
+  - cost: the same flops and bytes as hlo_flops / hlo_traffic_bytes (XLA's
+    cost_analysis counts a loop body once; eager runs every trip, so there
+    is no such count to tell apart);
+and one key more, rules_mb: rank 0's bytes of the parameters, the
+optimizer state and the cache under the sharding rules (the sum of
+local_shape x itemsize over state_pspecs, or over param_pspecs and
+cache_pspecs for a serving cell; the cache's "pos" is a host int in the
+port). For a serving cell, memory.peak_mb less rules_mb is what
+tensor-parallel serving would take off each rank.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch ARCH \\
+        --shape {train_4k,prefill_32k,decode_32k,long_500k} [--multipod] \\
+        [--out artifacts/dryrun_torch] [--overrides JSON]
+
+One cell a process, as JAX's (benchmarks/dryrun_all.py fans them out).
+The world is torn down when the cell ends; a failure raises.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import pathlib
+import time
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs import get_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import specs
+from repro_torch.launch.mesh import (DRYRUN_DEVICE, destroy_dryrun_mesh,
+                                     dp_axes, make_dryrun_mesh,
+                                     mesh_axis_sizes)
+from repro_torch.launch.op_analysis import analyze
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.registry import get_api
+from repro_torch.train.optimizer import AdamWConfig, adamw_init
+from repro_torch.train.steps import (TrainState, make_decode_step,
+                                     make_prefill_step, make_train_step,
+                                     shard_train_state)
+
+MIB = 2 ** 20
+
+
+def _mb(nbytes: float) -> float:
+    return round(nbytes / MIB, 1)
+
+
+def _sizes(mesh) -> Tuple[int, int]:
+    """(dp, tp): the data axes' size and the model axis's."""
+    sizes = mesh_axis_sizes(mesh)
+    return math.prod(sizes[a] for a in dp_axes(mesh)), sizes.get("model", 1)
+
+
+def plan_cell(cfg: ArchConfig, B: int, mesh) -> Tuple[int, int]:
+    """(groups, microbatches) as JAX's run_cell sets them (dryrun.py:70-72,
+    :88-90)."""
+    dp, _ = _sizes(mesh)
+    groups = dp if B % dp == 0 else 1
+    micro = min(cfg.microbatches, max(1, B // dp))
+    while (B // micro) % dp and micro > 1:
+        micro -= 1
+    return groups, micro
+
+
+def _fake(x):
+    """A fake tensor on DRYRUN_DEVICE in place of each meta tensor of x (a
+    tensor, a dict of them, or an nn.Module, whose parameters and buffers
+    are replaced in place); must run under a FakeTensorMode."""
+    if isinstance(x, torch.Tensor):
+        return torch.empty(x.shape, dtype=x.dtype, device=DRYRUN_DEVICE)
+    if isinstance(x, dict):
+        return {k: _fake(v) for k, v in x.items()}
+    if isinstance(x, nn.Module):
+        for mod in x.modules():
+            for name, p in mod._parameters.items():
+                if p is not None:
+                    mod._parameters[name] = nn.Parameter(
+                        _fake(p), requires_grad=p.requires_grad)
+            for name, b in mod._buffers.items():
+                if b is not None:
+                    mod._buffers[name] = _fake(b)
+        return x
+    return x
+
+
+def _local_bytes(tensors: Dict[str, torch.Tensor], spec: Dict[str, object],
+                 mesh) -> int:
+    """Sum of local_shape x itemsize over the tensors (not "pos")."""
+    return sum(math.prod(shd.local_shape(t.shape, spec[name], mesh))
+               * t.element_size() for name, t in tensors.items()
+               if isinstance(t, torch.Tensor))
+
+
+def rules_bytes(cfg: ArchConfig, kind: str, B: int, S: int,
+                mesh) -> Dict[str, int]:
+    """Rank 0's bytes under the sharding rules, from a model on "meta"
+    (no world needed: `mesh` may be a sharding.MeshShape): {"params",
+    "opt", "cache"}. train: state_pspecs(zero1=cfg.zero1) over the
+    parameters and the AdamW state (m, v and the int32 step); prefill and
+    decode: param_pspecs over the parameters and cache_pspecs over the
+    cache of the whole batch for max_seq S."""
+    api = get_api(cfg)
+    _, tp = _sizes(mesh)
+    model = api.init(cfg, tp, device="meta")
+    params = dict(model.named_parameters())
+    if kind == "train":
+        state = TrainState(model, adamw_init(
+            params, AdamWConfig(moment_dtype=cfg.optimizer_dtype)))
+        spec = shd.state_pspecs(state, mesh, zero1=cfg.zero1)
+        opt = sum(_local_bytes(state.opt[k], spec.opt[k], mesh)
+                  for k in ("m", "v")) + state.opt["step"].element_size()
+        return {"params": _local_bytes(params, spec.params, mesh),
+                "opt": opt, "cache": 0}
+    cache = specs.cache_specs(cfg, api, B, S, abstract=True)
+    return {"params": _local_bytes(params, shd.param_pspecs(model, mesh),
+                                   mesh),
+            "opt": 0,
+            "cache": _local_bytes(cache, shd.cache_pspecs(cache, mesh),
+                                  mesh)}
+
+
+def train_plan(cfg: ArchConfig, micro: int, mesh) -> Dict[str, float]:
+    """The collective bytes by kind that make_train_step's sharded step
+    issues on rank 0 (train/steps.py), each sized by its result as
+    op_analysis sizes it: the parameters gathered whole once a step (an
+    all-gather over each mesh dim of size > 1 that shards one, innermost
+    first); each microbatch's gradient, in the parameter's dtype, summed
+    over the data axes into the moments' layout (a reduce-scatter over a
+    dim that shards it, else an all-reduce); the f32 loss summed over each
+    data axis of size > 1 and the grad norm's f32 sum over the world.
+    zero1 adds the moves of each parameter between its layouts."""
+    _, tp = _sizes(mesh)
+    model = get_api(cfg).init(cfg, tp, device="meta")
+    spec = shd.state_pspecs(TrainState(model, {}), mesh, zero1=cfg.zero1)
+    names = tuple(mesh.mesh_dim_names)
+    dp = dp_axes(mesh)
+    out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0}
+
+    def gathers(shape, pspec, itemsize):
+        n = math.prod(shd.local_shape(shape, pspec, mesh)) * itemsize
+        for i, _, _ in reversed(shd._sharded(pspec, mesh)):
+            n *= mesh.shape[i]
+            out["all-gather"] += n
+
+    for name, p in model.named_parameters():
+        size = p.element_size()
+        gathers(p.shape, spec.params[name], size)
+        grad = spec.opt["m"][name]
+        n = p.numel() * size
+        dims = {axis: d for _, axis, d in shd._sharded(grad, mesh)}
+        for i, axis in enumerate(names):
+            if axis not in dp or mesh.shape[i] == 1:
+                continue
+            if axis in dims:
+                n //= mesh.shape[i]
+                out["reduce-scatter"] += micro * n
+            else:
+                out["all-reduce"] += micro * n
+        if tuple(spec.params[name]) != tuple(grad):
+            gathers(p.shape, spec.params[name], size)   # to the moments'
+            gathers(p.shape, grad, size)                # and back
+    out["all-reduce"] += 4 * sum(1 for a in dp
+                                 if mesh.shape[names.index(a)] > 1)
+    if math.prod(mesh.shape) > 1:
+        out["all-reduce"] += 4
+    return out
+
+
+def measure(cfg: ArchConfig, kind: str, B: int, S: int, mesh) -> dict:
+    """Build rank 0's fake state and inputs for one cell on `mesh` (a
+    make_dryrun_mesh world), run its step under op_analysis and return
+    the cell's record (module docstring) and, under "analysis", the
+    analysis in bytes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    api = get_api(cfg)
+    dp, tp = _sizes(mesh)
+    groups, micro = plan_cell(cfg, B, mesh)
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        model = _fake(api.init(cfg, tp, device="meta"))
+        if kind == "train":
+            cfg_run = dataclasses.replace(cfg, microbatches=micro)
+            state = TrainState(model, adamw_init(
+                dict(model.named_parameters()),
+                AdamWConfig(moment_dtype=cfg.optimizer_dtype)))
+            pregather = (shd.param_pspecs(model, mesh, use_fsdp=False)
+                         if cfg.pregather else None)
+            grad_spec = shd.param_pspecs(model, mesh, use_fsdp=True)
+            state = shard_train_state(state, mesh, zero1=cfg.zero1)
+            batch = _fake(specs.train_inputs(cfg, S, B, abstract=True))
+            step = make_train_step(cfg_run, api, groups,
+                                   pregather_spec=pregather,
+                                   grad_spec=grad_spec, mesh=mesh)
+            args = (state, batch)
+        else:
+            micro = 1
+            rows, run_groups = (B // dp, 1) if groups == dp > 1 else (
+                B, groups)
+            cache = _fake(specs.cache_specs(cfg, api, rows, S,
+                                            abstract=True))
+            if kind == "prefill":
+                inputs = _fake(specs.prefill_inputs(cfg, S, rows,
+                                                    abstract=True))
+                step = make_prefill_step(cfg, api, groups=run_groups)
+            else:
+                inputs = _fake(specs.decode_tokens(cfg, rows,
+                                                   abstract=True))
+                step = make_decode_step(cfg, api, groups=run_groups)
+            args = (model, inputs, cache)
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = analyze(step, *args)
+        t_run = time.perf_counter() - t0
+        del res["result"], args
+    mem = res["memory"]
+    rules = rules_bytes(cfg, kind, B, S, mesh)
+    return {
+        "status": "ok",
+        "lower_s": round(t_build, 1), "compile_s": round(t_run, 1),
+        "n_devices": int(math.prod(mesh.shape)),
+        "memory": {"argument_mb": _mb(mem["argument"]),
+                   "output_mb": _mb(mem["output"]),
+                   "temp_mb": _mb(mem["temp"]),
+                   "peak_mb": _mb(mem["argument"] + mem["temp"])},
+        "cost": {"flops": res["flops"],
+                 "bytes_accessed": res["traffic_bytes"]},
+        "hlo_flops": res["flops"],
+        "hlo_traffic_bytes": res["traffic_bytes"],
+        "collectives": {"bytes": res["collective_bytes"],
+                        "counts": res["collective_counts"],
+                        "total_bytes": res["collective_total"]},
+        "params": cfg.param_count(),
+        "active_params": cfg.active_param_count(),
+        "microbatches": micro,
+        "groups": groups,
+        "rules_mb": {**{k: _mb(v) for k, v in rules.items()},
+                     "total": _mb(sum(rules.values()))},
+        "analysis": {**res, "rules": rules, "build_s": t_build,
+                     "run_s": t_run},
+    }
+
+
+def _write(res: dict, out_dir: str, name: str) -> None:
+    path = pathlib.Path(out_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    (path / name).write_text(json.dumps(res, indent=1))
+
+
+def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
+             overrides: Optional[dict] = None) -> dict:
+    """One cell (module docstring); writes {arch}__{shape}__{sp|mp}.json
+    under out_dir and returns its record."""
+    cfg = get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    ok, why = specs.cell_supported(cfg, shape)
+    res = {"arch": arch, "shape": shape,
+           "mesh": "2x16x16" if multi_pod else "16x16"}
+    name = f"{arch}__{shape}__{'mp' if multi_pod else 'sp'}.json"
+    if not ok:
+        res.update(status="skipped", reason=why)
+        _write(res, out_dir, name)
+        return res
+    sh = specs.SHAPES[shape]
+    mesh = make_dryrun_mesh(multi_pod)
+    try:
+        rec = measure(cfg, sh["kind"], sh["batch"], sh["seq"], mesh)
+    finally:
+        destroy_dryrun_mesh(mesh)
+    rec.pop("analysis")
+    res.update(rec)
+    _write(res, out_dir, name)
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", required=True, choices=list(specs.SHAPES))
+    ap.add_argument("--multipod", action="store_true")
+    ap.add_argument("--out", default="artifacts/dryrun_torch")
+    ap.add_argument("--overrides", default="",
+                    help="JSON dict of ArchConfig overrides")
+    args = ap.parse_args(argv)
+    overrides = json.loads(args.overrides) if args.overrides else None
+    res = run_cell(args.arch, args.shape, args.multipod, args.out,
+                   overrides)
+    print(json.dumps(res, indent=1))
+    if res["status"] == "ok":
+        print(f"\nOK {args.arch} x {args.shape} [{res['mesh']}] "
+              f"peak={res['memory']['peak_mb']} MiB/rank "
+              f"rules={res['rules_mb']['total']} MiB "
+              f"flops={res['hlo_flops']:.3e} "
+              f"coll={res['collectives']['total_bytes']:.3e}B")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

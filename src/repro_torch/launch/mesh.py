@@ -10,13 +10,20 @@ for a CPU mesh. A mesh whose group runs another backend, or a tensor on
 another device type than its mesh, raises. Every group gets a timeout, so
 a collective that one rank never joins fails instead of hanging.
 
+The one exception is the dry run's world (`make_dryrun_mesh`): rank 0 of
+a production-sized world in one process, over torch's fake backend, whose
+collectives move nothing. Only a mesh that make_dryrun_mesh made accepts
+that backend (`make_mesh` and `mesh_axis` refuse it on any other).
+
 Functions only: importing this module touches no process group.
 """
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import tempfile
+import weakref
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -25,6 +32,16 @@ import torch.distributed as dist
 # How long a collective waits for every rank before it fails.
 TIMEOUT = datetime.timedelta(seconds=300)
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+# The dry run's meshes: the only ones whose groups may run the fake
+# backend. The dry run's fake tensors carry autograd, which a CPU-only
+# torch cannot do for a "cuda" tensor (the process aborts), and which on
+# a machine with a card would start the card's autograd threads: so they,
+# and the mesh whose device type they must share, are "cpu" everywhere.
+DRYRUN_DEVICE = "cpu"
+FAKE_BACKEND = "fake"       # registered by torch's fake_pg module
+# id -> mesh, held weakly: a DeviceMesh compares equal to any mesh of its
+# shape and names, so membership goes by identity.
+_DRYRUN_MESHES = weakref.WeakValueDictionary()
 
 
 def _device_type(device) -> str:
@@ -91,6 +108,57 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
     return make_mesh(shape, names, device)
 
 
+def make_dryrun_mesh(multi_pod: bool = False, *, shape=None):
+    """The dry run's world: a process group of the fake backend (no
+    communication; every collective returns at once and leaves its output
+    as it was) of JAX's production size, (16, 16) ("data", "model") or
+    (2, 16, 16) with a leading "pod", this process as its rank 0, and a
+    DeviceMesh of type DRYRUN_DEVICE over it. `shape`: a ("data",
+    "model") shape in place of the production one (a world of one for a
+    measured step). Refuses to start where any process group exists: it
+    never reuses one. Tear it down with destroy_dryrun_mesh."""
+    if dist.is_initialized():
+        raise RuntimeError("a dry-run world starts only where no process "
+                           "group exists; this process has one")
+    if shape is not None:
+        names = ("data", "model")
+        shape = tuple(int(s) for s in shape)
+        if len(shape) != 2:
+            raise ValueError(f"shape {shape}: a (data, model) pair")
+    elif multi_pod:
+        shape, names = (2, 16, 16), ("pod", "data", "model")
+    else:
+        shape, names = (16, 16), ("data", "model")
+    # Importing the module registers the backend (once per process).
+    from torch.testing._internal.distributed import fake_pg
+    world = math.prod(shape)
+    dist.init_process_group(FAKE_BACKEND, store=fake_pg.FakeStore(),
+                            rank=0, world_size=world)
+    try:
+        from torch.distributed.device_mesh import DeviceMesh
+        mesh = DeviceMesh(DRYRUN_DEVICE, torch.arange(world).reshape(shape),
+                          mesh_dim_names=names)
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+    _DRYRUN_MESHES[id(mesh)] = mesh
+    return mesh
+
+
+def destroy_dryrun_mesh(mesh) -> None:
+    """Tear down the world make_dryrun_mesh made: every process group of
+    this process goes."""
+    if not _is_dryrun(mesh):
+        raise ValueError("not a mesh of make_dryrun_mesh")
+    del _DRYRUN_MESHES[id(mesh)]
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _is_dryrun(mesh) -> bool:
+    return _DRYRUN_MESHES.get(id(mesh)) is mesh
+
+
 def make_debug_mesh(data: int = 1, model: int = 1, device=None):
     """A (data, model) mesh over the world (tests, one card, torchrun);
     makes a world of one rank when no process group exists."""
@@ -113,6 +181,8 @@ def tp_axis(mesh) -> Optional[str]:
 def _check_backend(mesh, group) -> None:
     want = BACKENDS.get(mesh.device_type)
     have = str(dist.get_backend(group))
+    if have == FAKE_BACKEND and _is_dryrun(mesh):
+        return
     if want is None or want not in have:
         raise ValueError(f"a {mesh.device_type} mesh needs the {want} "
                          f"backend; its group runs {have}")

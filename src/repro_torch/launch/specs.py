@@ -7,10 +7,13 @@ The assigned shape grid (all 10 LM-family archs):
     long_500k    seq=524288 global_batch=1     -> decode_step, sub-quadratic
                                                   archs only
 
-Only the concrete branch is ported: real tensors drawn from a
+The concrete branch (the default): real tensors drawn from a
 torch.Generator on its device (the generator's device, unless `device`
-is given), for smoke tests and the serving launcher. The
-ShapeDtypeStruct branch belongs to dryrun, which comes later.
+is given), for smoke tests and the launchers. The abstract branch
+(`abstract=True`, JAX's ShapeDtypeStructs): tensors of the same shapes
+and dtypes on the "meta" device, which hold no memory and draw nothing;
+the dry run (launch/dryrun.py) turns them into fake tensors. As in JAX's
+abstract branch, the vlm's labels are then one (batch, seq) int32 tensor.
 """
 from __future__ import annotations
 
@@ -48,8 +51,11 @@ def _generator(generator: Optional[torch.Generator],
     return torch.Generator(resolve_device(device)).manual_seed(0)
 
 
-def _mk(shape, dtype: torch.dtype, gen: torch.Generator,
+def _mk(shape, dtype: torch.dtype, gen: Optional[torch.Generator],
         maxval: Optional[int] = None) -> torch.Tensor:
+    """A drawn tensor, or with no generator an abstract one (meta)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     if dtype == torch.int32:
         return torch.randint(0, maxval or 2, shape, generator=gen,
                              device=gen.device, dtype=torch.int32)
@@ -59,11 +65,12 @@ def _mk(shape, dtype: torch.dtype, gen: torch.Generator,
 
 def train_inputs(cfg: ArchConfig, seq: int, batch: int,
                  generator: Optional[torch.Generator] = None,
-                 device=None) -> Dict[str, torch.Tensor]:
+                 device=None, *, abstract: bool = False
+                 ) -> Dict[str, torch.Tensor]:
     """Batch dict for a train step. Token budget == seq per sample;
     modality prefixes (whisper frames / pixtral patches) take their
-    slice of it."""
-    gen = _generator(generator, device)
+    slice of it. abstract: meta tensors of the same shapes and dtypes."""
+    gen = None if abstract else _generator(generator, device)
     act_dtype = dtype_of(cfg.dtype)
     V = cfg.vocab_size
     if cfg.family == "encdec":
@@ -77,6 +84,9 @@ def train_inputs(cfg: ArchConfig, seq: int, batch: int,
         n_patch = min(cfg.n_patch_tokens, seq // 2)
         patches = _mk((batch, n_patch, cfg.d_model), act_dtype, gen)
         tokens = _mk((batch, seq - n_patch), torch.int32, gen, V)
+        if gen is None:
+            return {"patches": patches, "tokens": tokens,
+                    "labels": _mk((batch, seq), torch.int32, None)}
         # labels cover the patch prefix (masked -1) + text.
         labels = torch.cat([
             torch.full((batch, n_patch), -1, dtype=torch.int32,
@@ -89,20 +99,24 @@ def train_inputs(cfg: ArchConfig, seq: int, batch: int,
 
 def prefill_inputs(cfg: ArchConfig, seq: int, batch: int,
                    generator: Optional[torch.Generator] = None,
-                   device=None) -> Dict[str, torch.Tensor]:
-    b = train_inputs(cfg, seq, batch, generator, device)
+                   device=None, *, abstract: bool = False
+                   ) -> Dict[str, torch.Tensor]:
+    b = train_inputs(cfg, seq, batch, generator, device, abstract=abstract)
     b.pop("labels", None)
     return b
 
 
 def decode_tokens(cfg: ArchConfig, batch: int,
                   generator: Optional[torch.Generator] = None,
-                  device=None) -> torch.Tensor:
-    return _mk((batch,), torch.int32, _generator(generator, device),
-               cfg.vocab_size)
+                  device=None, *, abstract: bool = False) -> torch.Tensor:
+    gen = None if abstract else _generator(generator, device)
+    return _mk((batch,), torch.int32, gen, cfg.vocab_size)
 
 
 def cache_specs(cfg: ArchConfig, api, batch: int, max_seq: int,
-                dtype: torch.dtype = torch.bfloat16, device=None):
-    """The zero cache (the concrete branch of JAX's cache_specs)."""
-    return api.init_cache(cfg, batch, max_seq, dtype, device)
+                dtype: torch.dtype = torch.bfloat16, device=None, *,
+                abstract: bool = False):
+    """The zero cache (JAX's concrete branch), or with abstract=True the
+    same leaves on the "meta" device (its ShapeDtypeStructs)."""
+    return api.init_cache(cfg, batch, max_seq, dtype,
+                          "meta" if abstract else device)

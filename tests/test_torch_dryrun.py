@@ -1,0 +1,265 @@
+"""launch/dryrun.py, the abstract half of launch/specs.py and the dry-run
+world of launch/mesh.py, against the JAX package on the CPU.
+
+- specs: for all ten configs at each of the four shapes, every abstract
+  input (train, prefill, decode) and cache leaf has the shape and dtype of
+  JAX's ShapeDtypeStruct (JAX's cache through jax.eval_shape); the cache's
+  "pos", an int32 scalar in JAX, is a host int 0 in the port.
+- rules_mb: for all ten configs on the 16 x 16 and 2 x 16 x 16 meshes,
+  the port's per-rank parameter and optimizer bytes equal JAX's sum of
+  local shape x itemsize over state_pspecs, on an AbstractMesh over
+  eval_shape of its train state; no step runs.
+- the dry run at smoke widths on the production mesh: the argument bytes
+  are rules_mb plus the global batch the step takes, and the collective
+  bytes by kind are train_plan's.
+- run_cell: phi4 x long_500k writes JAX's skip file byte for byte (JAX's
+  dryrun.py run in a subprocess: importing it in process would set its
+  512-device XLA_FLAGS for every later subprocess); an ok cell's JSON has
+  the keys of JAX's record (read from JAX's dryrun.py source) plus
+  rules_mb; no process group is left after a cell, one that fails
+  included; a cell refuses to start under an existing group; make_mesh
+  refuses the fake backend.
+"""
+import ast
+import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from jax.sharding import AbstractMesh
+
+from repro.configs import get_config as jax_config
+from repro.distributed import sharding as jshd
+from repro.launch import specs as jspecs
+from repro.models.registry import get_api as jax_api
+from repro.train import steps as jsteps
+from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import MeshShape
+from repro_torch.launch import dryrun, specs
+from repro_torch.launch.mesh import (destroy_dryrun_mesh, make_dryrun_mesh,
+                                     make_mesh, mesh_axis)
+from repro_torch.models import get_api
+from torch_lm_common import SERVED
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+MESHES = {"16x16": (("data", "model"), (16, 16)),
+          "2x16x16": (("pod", "data", "model"), (2, 16, 16))}
+
+
+@pytest.fixture(autouse=True)
+def no_world_left():
+    assert not dist.is_initialized()
+    yield
+    assert not dist.is_initialized()
+
+
+def _same_leaf(got, want, what):
+    assert isinstance(got, torch.Tensor) and got.device.type == "meta", what
+    assert tuple(got.shape) == tuple(want.shape), what
+    assert str(got.dtype).removeprefix("torch.") == jnp.dtype(
+        want.dtype).name, what
+
+
+@pytest.mark.parametrize("shape", list(specs.SHAPES))
+@pytest.mark.parametrize("arch", SERVED)
+def test_abstract_specs_match_jax(arch, shape):
+    jcfg, pcfg = jax_config(arch), get_config(arch)
+    sh = specs.SHAPES[shape]
+    S, B = sh["seq"], sh["batch"]
+    for name, got, want in (
+            ("train", specs.train_inputs(pcfg, S, B, abstract=True),
+             jspecs.train_inputs(jcfg, S, B)),
+            ("prefill", specs.prefill_inputs(pcfg, S, B, abstract=True),
+             jspecs.prefill_inputs(jcfg, S, B))):
+        assert got.keys() == want.keys(), name
+        for k in got:
+            _same_leaf(got[k], want[k], (name, k))
+    _same_leaf(specs.decode_tokens(pcfg, B, abstract=True),
+               jspecs.decode_tokens(jcfg, B), "decode")
+    got = specs.cache_specs(pcfg, get_api(pcfg), B, S, abstract=True)
+    want = jspecs.cache_specs(jcfg, jax_api(jcfg), B, S)
+    assert got.keys() == want.keys()
+    for k in got:
+        if k == "pos":
+            assert got[k] == 0 and want[k].shape == () \
+                and want[k].dtype == jnp.int32
+        else:
+            _same_leaf(got[k], want[k], ("cache", k))
+
+
+def _jax_local_bytes(tree, spec_tree, amesh):
+    sizes = dict(zip(amesh.axis_names, amesh.axis_sizes))
+    total = 0
+    for leaf, spec in zip(jax.tree.leaves(tree), jax.tree.leaves(
+            spec_tree, is_leaf=lambda x: isinstance(x, jax.sharding.
+                                                    PartitionSpec))):
+        shape = list(leaf.shape)
+        for d, entry in enumerate(spec):
+            for axis in ((entry,) if isinstance(entry, str)
+                         else entry or ()):
+                shape[d] //= sizes[axis]
+        total += int(np.prod(shape)) * leaf.dtype.itemsize
+    return total
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", SERVED)
+def test_rules_bytes_match_jax_state_pspecs(arch, mesh):
+    names, sizes = MESHES[mesh]
+    jcfg, pcfg = jax_config(arch), get_config(arch)
+    amesh = AbstractMesh(sizes, names)
+    state = jax.eval_shape(lambda: jsteps.init_train_state(
+        jax.random.PRNGKey(0), jcfg, jax_api(jcfg), tp=16))
+    spec = jshd.state_pspecs(state, amesh, zero1=jcfg.zero1)
+    got = dryrun.rules_bytes(pcfg, "train", 256, 4096,
+                             MeshShape(names, sizes))
+    assert got["params"] == _jax_local_bytes(state.params, spec.params,
+                                             amesh)
+    assert got["opt"] == _jax_local_bytes(state.opt, spec.opt, amesh)
+    assert got["cache"] == 0
+
+
+@pytest.mark.parametrize("arch,zero1", (
+    ("phi4-mini-3.8b", False), ("phi4-mini-3.8b", True),
+    ("mixtral-8x7b", False), ("recurrentgemma-2b", False),
+    ("rwkv6-1.6b", False), ("whisper-large-v3", False),
+    ("pixtral-12b", False)))
+def test_smoke_cell_argument_and_collectives(arch, zero1):
+    """train_4k's batch of 256 (groups 16, each rank 16 rows) at sequence
+    64 on the 16 x 16 dry-run mesh, one config per family, and phi4 with
+    zero1 (the parameters TP-only, moved to the moments' layout and back
+    each step)."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), zero1=zero1)
+    B, S = specs.SHAPES["train_4k"]["batch"], 64
+    mesh = make_dryrun_mesh()
+    try:
+        rec = dryrun.measure(cfg, "train", B, S, mesh)
+        plan = dryrun.train_plan(cfg, rec["microbatches"], mesh)
+    finally:
+        destroy_dryrun_mesh(mesh)
+    res = rec["analysis"]
+    batch = specs.train_inputs(cfg, S, B, abstract=True)
+    batch_bytes = sum(t.numel() * t.element_size() for t in batch.values())
+    rules = dryrun.rules_bytes(cfg, "train", B, S,
+                               MeshShape(("data", "model"), (16, 16)))
+    assert res["rules"] == rules
+    assert res["memory"]["argument"] == sum(rules.values()) + batch_bytes
+    assert res["memory"]["peak"] == res["memory"]["argument"] \
+        + res["memory"]["temp"]
+    assert rec["groups"] == 16
+    assert {k: v for k, v in res["collective_bytes"].items() if v} == {
+        k: float(v) for k, v in plan.items() if v}
+    assert plan["all-gather"] > 0 and plan["reduce-scatter"] > 0
+
+
+def test_skip_cell_writes_jax_skip_file(tmp_path):
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
+           "JAX_PLATFORMS": "cpu"}
+    subprocess.run([sys.executable, "-m", "repro.launch.dryrun", "--arch",
+                    "phi4-mini-3.8b", "--shape", "long_500k", "--out",
+                    str(tmp_path / "jax")], check=True, env=env,
+                   capture_output=True, timeout=300)
+    assert dryrun.main(["--arch", "phi4-mini-3.8b", "--shape", "long_500k",
+                        "--out", str(tmp_path / "port")]) == 0
+    name = "phi4-mini-3.8b__long_500k__sp.json"
+    want = (tmp_path / "jax" / name).read_text()
+    assert (tmp_path / "port" / name).read_text() == want
+    assert json.loads(want)["status"] == "skipped"
+
+
+def _jax_record_keys():
+    """The keys of JAX's ok record: run_cell's res dict, its res.update(...)
+    and the dicts inside it (src/repro/launch/dryrun.py)."""
+    tree = ast.parse((REPO / "src/repro/launch/dryrun.py").read_text())
+    keys = {"arch", "shape", "mesh"}
+    nested, names = {}, {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict):
+            names[node.targets[0].id] = {k.value for k in node.value.keys}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(
+                node.func, "attr", None) == "update" and any(
+                kw.arg == "lower_s" for kw in node.keywords):
+            for kw in node.keywords:
+                keys.add(kw.arg)
+                value = kw.value
+                if isinstance(value, ast.Call) and getattr(
+                        value.func, "id", None) == "dict":
+                    nested[kw.arg] = {k.arg for k in value.keywords}
+                elif isinstance(value, ast.Name) and value.id in names:
+                    nested[kw.arg] = names[value.id]
+    return keys, nested
+
+
+def test_ok_cell_has_jax_keys(tmp_path):
+    keys, nested = _jax_record_keys()
+    assert {"memory", "cost", "collectives", "hlo_flops"} <= keys
+    assert nested["collectives"] == {"bytes", "counts", "total_bytes"}
+    res = dryrun.run_cell("rwkv6-1.6b", "long_500k", False, str(tmp_path),
+                          {"n_layers": 2})
+    on_disk = json.loads((tmp_path / "rwkv6-1.6b__long_500k__sp.json")
+                         .read_text())
+    assert on_disk == res
+    assert set(res) == keys | {"rules_mb"}
+    for key, inner in nested.items():
+        assert set(res[key]) == inner, key
+    assert set(res["collectives"]["bytes"]) >= {
+        "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+        "collective-permute"}
+    assert set(res["rules_mb"]) == {"params", "opt", "cache", "total"}
+    assert res["status"] == "ok" and res["n_devices"] == 256
+    assert res["groups"] == 1 and res["microbatches"] == 1
+
+
+def test_failing_cell_raises_and_leaves_no_group(tmp_path):
+    # JAX's pregather spec keeps the model dim sharded: the port's step
+    # refuses it until tensor-parallel compute is ported.
+    with pytest.raises(NotImplementedError):
+        dryrun.run_cell("phi4-mini-3.8b", "train_4k", False, str(tmp_path),
+                        {"n_layers": 1, "pregather": True})
+    assert not dist.is_initialized()
+    assert not list(tmp_path.iterdir())
+
+
+def test_cell_refuses_an_existing_group(tmp_path):
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="no process group"):
+            dryrun.run_cell("rwkv6-1.6b", "long_500k", False,
+                            str(tmp_path), {"n_layers": 2})
+        assert dist.get_backend() == "gloo"
+    finally:
+        dist.destroy_process_group()
+
+
+def test_fake_backend_only_on_a_dryrun_mesh():
+    mesh = make_dryrun_mesh(multi_pod=True)
+    try:
+        assert mesh.mesh_dim_names == ("pod", "data", "model")
+        assert tuple(mesh.shape) == (2, 16, 16)
+        assert tuple(mesh.get_coordinate()) == (0, 0, 0)
+        assert mesh_axis(mesh, "model").size == 16
+        with pytest.raises(ValueError, match="backend"):
+            make_mesh((2, 16, 16), ("pod", "data", "model"), device="cpu")
+    finally:
+        destroy_dryrun_mesh(mesh)
+    with pytest.raises(ValueError):
+        destroy_dryrun_mesh(mesh)
+
+
+def test_plan_cell_follows_jax():
+    mesh = MeshShape(("data", "model"), (16, 16))
+    cfg = get_config("nemotron-4-340b")
+    assert dryrun.plan_cell(cfg, 256, mesh) == (16, cfg.microbatches)
+    assert dryrun.plan_cell(cfg, 1, mesh) == (1, 1)
+    assert dryrun.plan_cell(dataclasses.replace(cfg, microbatches=3), 256,
+                            mesh) == (16, 2)

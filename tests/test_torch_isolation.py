@@ -65,7 +65,8 @@ def test_port_covers_the_slice_modules():
                 "models/convert.py", "train/steps.py", "launch/specs.py",
                 "launch/serve.py", "configs/__init__.py",
                 "train/optimizer.py", "launch/train.py",
-                "distributed/sharding.py"):
+                "distributed/sharding.py", "launch/dryrun.py",
+                "launch/op_analysis.py"):
         assert (port / rel).is_file(), rel
     for name in ("command_r_plus_104b", "dbrx_132b", "mixtral_8x7b",
                  "nemotron_4_340b", "phi4_mini_3_8b", "pixtral_12b",

@@ -126,6 +126,29 @@ def test_cases_and_tolerances_equal_the_jax_registry(jax_side):
         assert (entry.rtol, entry.atol) == (ref.rtol, ref.atol), entry.name
 
 
+def test_registered_names_are_the_entries():
+    """register_kernel / registered_kernels with JAX's semantics
+    (repro/kernels/registry.py:65, :82): the names sorted, each entry's,
+    an entry with no cases refused, a name registered again replaced."""
+    names = registry.registered_kernels()
+    assert names == sorted(names)
+    assert names == [entry.name for entry in registry.kernel_entries()]
+    assert set(names) == {entry.name for entry in registry.ENTRIES}
+    fwht = registry.get_kernel("fwht")
+    with pytest.raises(ValueError, match="no parity cases"):
+        registry.register_kernel(fwht._replace(cases=()))
+    assert registry.get_kernel("fwht") is fwht
+    try:
+        wider = registry.register_kernel(fwht._replace(rtol=1.0))
+        assert registry.get_kernel("fwht") is wider
+        assert registry.registered_kernels() == names
+    finally:
+        registry.register_kernel(fwht)
+    assert registry.get_kernel("fwht") is fwht
+    with pytest.raises(KeyError, match="unknown kernel"):
+        registry.get_kernel("nope")
+
+
 @pytest.mark.parametrize("name,i", _cases())
 def test_plain_matches_jax_ref(jax_side, name, i):
     _, refs, jax_args = jax_side

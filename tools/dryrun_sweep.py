@@ -1,0 +1,97 @@
+"""Run the port's dry run over a list of cells, one process a cell (as
+benchmarks/dryrun_all.py runs JAX's), and print a table per cell: rank 0's
+peak and rules bytes, flops, collective bytes by kind, seconds, and
+whether the peak fits one card.
+
+    PYTHONPATH=src python tools/dryrun_sweep.py [--jobs 2] \\
+        [--out artifacts/dryrun_torch] [--card-bytes N] [CELL ...]
+
+A CELL is ARCH:SHAPE[:mp]; the default list is all ten configs at
+train_4k on 16 x 16, the three long_500k archs and phi4-mini-3.8b at
+prefill_32k and decode_32k. A cell whose JSON exists under --out is read,
+not run again. --card-bytes: one card's memory
+(torch.cuda.get_device_properties(0).total_memory, which chip_smoke's
+phase 19 prints); without it the fit column says "not known". Needs no
+card: the dry run runs on fake tensors.
+"""
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+ARCHS = ["rwkv6-1.6b", "recurrentgemma-2b", "whisper-large-v3",
+         "phi4-mini-3.8b", "qwen3-14b", "pixtral-12b", "mixtral-8x7b",
+         "dbrx-132b", "command-r-plus-104b", "nemotron-4-340b"]
+LONG = ["recurrentgemma-2b", "rwkv6-1.6b", "mixtral-8x7b"]
+CELLS = ([f"{a}:train_4k" for a in ARCHS] + [f"{a}:long_500k" for a in LONG]
+         + ["phi4-mini-3.8b:prefill_32k", "phi4-mini-3.8b:decode_32k"])
+GB = 1e9
+
+
+def run(cell: str, out: pathlib.Path, timeout: int) -> dict:
+    arch, shape, *mp = cell.split(":")
+    multi = mp == ["mp"]
+    path = out / f"{arch}__{shape}__{'mp' if multi else 'sp'}.json"
+    if not path.exists():
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(out)] + (
+                   ["--multipod"] if multi else [])
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        t0 = time.time()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                              timeout=timeout, cwd=str(ROOT))
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cell} exited {proc.returncode}:\n"
+                               f"{proc.stderr[-3000:]}")
+        print(f"[dryrun_sweep] {cell} done in {time.time() - t0:.0f} s",
+              flush=True)
+    return json.loads(path.read_text())
+
+
+def row(res: dict, card_bytes) -> str:
+    if res["status"] != "ok":
+        return (f"| {res['arch']} | {res['shape']} | {res['mesh']} | "
+                f"{res['status']}: {res['reason']} |||||||")
+    mem, rules = res["memory"], res["rules_mb"]
+    peak = mem["peak_mb"] * 2 ** 20
+    coll = res["collectives"]["bytes"]
+    kinds = ", ".join(f"{k} {v / GB:.3f}" for k, v in coll.items() if v)
+    fits = ("not known" if card_bytes is None
+            else "yes" if peak <= card_bytes else "no")
+    return (f"| {res['arch']} | {res['shape']} | {res['mesh']} | "
+            f"{peak / GB:.2f} | {rules['total'] * 2 ** 20 / GB:.3f} | "
+            f"{res['hlo_flops']:.4e} | {kinds or 'none'} | "
+            f"{res['lower_s']} + {res['compile_s']} | {fits} |")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("cells", nargs="*", default=CELLS)
+    ap.add_argument("--out", default=str(ROOT / "artifacts" /
+                                         "dryrun_torch"))
+    ap.add_argument("--jobs", type=int, default=2)
+    ap.add_argument("--timeout", type=int, default=3600)
+    ap.add_argument("--card-bytes", type=int, default=None)
+    args = ap.parse_args(argv)
+    out = pathlib.Path(args.out)
+    with concurrent.futures.ThreadPoolExecutor(args.jobs) as pool:
+        futures = [pool.submit(run, c, out, args.timeout)
+                   for c in args.cells]
+        results = [f.result() for f in futures]
+    print("| arch | shape | mesh | peak GB / rank | rules GB / rank | "
+          "flops / rank | collective GB by kind | build + run s | fits |")
+    print("|---|---|---|---|---|---|---|---|---|")
+    for res in results:
+        print(row(res, args.card_bytes))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
