@@ -4967,30 +4967,41 @@ def dryrun_one_rank(torch, smi, peak17) -> dict:
 
 def dryrun_mesh_cell(torch) -> dict:
     """19b: phi4-mini-3.8b x train_4k on the 16 x 16 dry-run mesh to
-    status ok, its collective bytes by kind equal to the step's plan
-    (dryrun.train_plan)."""
+    status ok, tensor-parallel over the model axis: its collective bytes
+    by kind equal to the step's plan (dryrun.train_plan), its rank-0 peak
+    at most the card's total_memory."""
     from repro_torch.distributed.sharding import MeshShape
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, specs
     rec = dryrun.run_cell(TRAIN_ARCH, "train_4k", False,
                           str(BUILD / "dryrun"))
     if rec["status"] != "ok":
         raise AssertionError(f"19b: {rec}")
+    shape = specs.SHAPES["train_4k"]
     plan = dryrun.train_plan(get_lm_config(TRAIN_ARCH), rec["microbatches"],
-                             MeshShape(("data", "model"), (16, 16)))
+                             MeshShape(("data", "model"), (16, 16)),
+                             shape["batch"], shape["seq"])
     got = {k: v for k, v in rec["collectives"]["bytes"].items() if v}
+    card = torch.cuda.get_device_properties(0).total_memory
+    peak = rec["memory"]["peak_mb"] * 2 ** 20
     log(f"[dryrun] 19b {TRAIN_ARCH} x train_4k on 16 x 16 (rank 0 of 256 "
-        f"fake ranks; M {rec['microbatches']}, groups {rec['groups']}): "
-        f"status ok, peak {rec['memory']['peak_mb']} MiB a rank (rules "
-        f"{rec['rules_mb']['total']} MiB), flops {rec['hlo_flops']:.4e}, "
-        f"collective bytes {got} against the plan {plan}; built in "
-        f"{rec['lower_s']} s, run in {rec['compile_s']} s")
+        f"fake ranks, tensor-parallel over the model axis; M "
+        f"{rec['microbatches']}, groups {rec['groups']}): status ok, peak "
+        f"{rec['memory']['peak_mb']} MiB a rank = {peak:.0f} bytes against "
+        f"the card's total_memory {card} (rules {rec['rules_mb']['total']} "
+        f"MiB), flops {rec['hlo_flops']:.4e}, collective bytes {got} "
+        f"against the plan {plan}; built in {rec['lower_s']} s, run in "
+        f"{rec['compile_s']} s")
     if got != {k: float(v) for k, v in plan.items() if v}:
         raise AssertionError(f"19b: collective bytes {got} against the "
                              f"plan {plan}")
+    if peak > card:
+        raise AssertionError(f"19b: rank 0's peak {peak:.0f} bytes is over "
+                             f"the card's {card}")
     return {k: rec[k] for k in ("memory", "rules_mb", "hlo_flops",
                                 "hlo_traffic_bytes", "collectives",
                                 "microbatches", "groups", "lower_s",
-                                "compile_s")} | {"plan": plan}
+                                "compile_s")} | {"plan": plan,
+                                                 "card_total_memory": card}
 
 
 def phase_dryrun(torch, smi, phase17) -> dict:

@@ -7,6 +7,9 @@ training, checkpoints and fault tolerance.
   sharding.py     the LM side's rules (param / state / batch / cache specs,
                   JAX's letter for letter), placements, moving a tensor
                   between layouts
+  tensor_parallel.py  the train step's compute over the model axis (heads,
+                  MLP and expert columns, the vocab-parallel lookup and
+                  loss): what GSPMD derives on JAX's side
   checkpoint.py   checkpoints in the JAX layout, restored onto a mesh
   fault.py        heartbeats, stragglers, elastic re-mesh, restart
   compression.py  sketched gradients with error feedback; the artifact

@@ -25,15 +25,27 @@ leaf's lead None is dropped, since the port holds one tensor per layer.
 Moving a tensor between layouts (collective over the mesh dims involved;
 every rank calls them in the same order): `local_shard` cuts this rank's
 chunk of a whole tensor (a view where the chunk is the whole), `gather`
-rebuilds the whole tensor from the chunks, `reduce_shard` sums a tensor
-over some mesh dims into a layout's chunk (a reduce-scatter where the
-layout shards the dim, an all-reduce where it does not). A mesh dim of
-size 1 costs neither a collective nor a copy.
+rebuilds the whole tensor from the chunks (or a less sharded layout's
+chunk), `reduce_shard` sums a tensor over some mesh dims into a layout's
+chunk (a reduce-scatter where the layout shards the dim, an all-reduce
+where it does not). A mesh dim of size 1 costs neither a collective nor
+a copy.
+
+The sharded train step (train/steps.py) stores the state under these
+rules, gathers each parameter over the data axes only, to the layout it
+is computed in (distributed/tensor_parallel.py's compute_specs: the
+TP-only spec for the dense, moe and vlm families' projections,
+embeddings and experts, which compute tensor-parallel over "model";
+replicated for the rest and for the hybrid, ssm and encdec families),
+and reduces each gradient over the data axes into the moments' chunk.
+Serving computes replicated.
 
 `activation_sharding` and `maybe_shard` keep JAX's signatures as layout
 hints that return their input unchanged: eager PyTorch has no sharding
-propagation to steer, and JAX's constraint changes no value. Nothing in
-the port calls them yet (tensor-parallel compute, ROADMAP Queue A).
+propagation to steer, and JAX's constraint changes no value. The port's
+models do not call them; its tensor-parallel modules place their
+collectives themselves. Sequence parallelism (JAX's seq_axis) is not
+ported.
 """
 from __future__ import annotations
 
@@ -294,31 +306,47 @@ def local_shard(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     return out.clone() if out._base is not None else out
 
 
-def gather(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+def gather(t: torch.Tensor, spec: P, mesh, to: Optional[P] = None
+           ) -> torch.Tensor:
     """The whole tensor from each rank's chunk `t` under `spec`:
     all-gathers over the mesh dims that shard it, innermost first; `t`
-    itself when none of size > 1 does."""
+    itself when none of size > 1 does. `to`: a layout that keeps some of
+    spec's cuts (the same mesh dim on the same tensor dim); the chunk
+    under `to` comes back, gathered over the other mesh dims only."""
+    keep = set(_sharded(to, mesh)) if to is not None else set()
     for i, axis, d in reversed(_sharded(spec, mesh)):
-        t = mesh_axis(mesh, axis).all_gather_cat(t, dim=d)
+        if (i, axis, d) not in keep:
+            t = mesh_axis(mesh, axis).all_gather_cat(t, dim=d)
     return t
 
 
 def reduce_shard(t: torch.Tensor, spec: P, mesh,
-                 over: Tuple[str, ...]) -> torch.Tensor:
+                 over: Tuple[str, ...], held: Optional[P] = None
+                 ) -> torch.Tensor:
     """Sum the whole tensor `t` over the mesh dims `over` and return this
     rank's chunk of the sum under `spec`: a reduce-scatter along the dim
     where `spec` shards it over that mesh dim, an all-reduce where it does
     not; a mesh dim outside `over` that `spec` shards only cuts the local
     chunk (every rank there holds the same sum). `t` itself when no mesh
-    dim of size > 1 is involved."""
+    dim of size > 1 is involved. `held`: `t` is already this rank's chunk
+    under `held` along the mesh dims outside `over` that it shards (a
+    tensor-parallel gradient): kept where `spec` cuts the same tensor dim
+    there, else gathered first."""
     names = tuple(mesh.mesh_dim_names)
     shard_dims = {axis: d for _, axis, d in _sharded(spec, mesh)}
+    held_dims = ({axis: d for _, axis, d in _sharded(held, mesh)}
+                 if held is not None else {})
     coord = None
     for i, axis in enumerate(names):
         size = mesh.shape[i]
         if size == 1:
             continue
         d = shard_dims.get(axis)
+        h = held_dims.get(axis)
+        if h is not None and axis not in over:
+            if h == d:                      # already this rank's chunk
+                continue
+            t = mesh_axis(mesh, axis).all_gather_cat(t, dim=h)
         if axis in over:
             ax = mesh_axis(mesh, axis)
             ax.check("reduce_shard", t)

@@ -23,7 +23,10 @@ until B / M divides by dp).
     from make_train_step(mesh=) with JAX's pregather spec (TP-only, when
     cfg.pregather) and gradient spec (fsdp x tp); run on the global batch
     of specs.train_inputs(abstract=True), of which the step takes rank
-    0's rows of each microbatch;
+    0's rows of each microbatch. The step computes tensor-parallel over
+    the model axis as it does on a real mesh (dense, moe and vlm;
+    distributed/tensor_parallel.py), rank 0 taking the most heads;
+    `train_plan` gives the collective bytes it must move;
   - prefill_32k: make_prefill_step; decode_32k and long_500k:
     make_decode_step. The port has no sharded serving compute (ROADMAP
     Queue A item 2), so each rank holds the whole parameters and, when
@@ -66,6 +69,7 @@ from torch import nn
 
 from repro_torch.configs import get_config
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.launch import specs
 from repro_torch.launch.mesh import (DRYRUN_DEVICE, destroy_dryrun_mesh,
                                      dp_axes, make_dryrun_mesh,
@@ -159,34 +163,59 @@ def rules_bytes(cfg: ArchConfig, kind: str, B: int, S: int,
                                   mesh)}
 
 
-def train_plan(cfg: ArchConfig, micro: int, mesh) -> Dict[str, float]:
+def train_plan(cfg: ArchConfig, micro: int, mesh, B: int,
+               S: int) -> Dict[str, float]:
     """The collective bytes by kind that make_train_step's sharded step
-    issues on rank 0 (train/steps.py), each sized by its result as
-    op_analysis sizes it: the parameters gathered whole once a step (an
-    all-gather over each mesh dim of size > 1 that shards one, innermost
-    first); each microbatch's gradient, in the parameter's dtype, summed
-    over the data axes into the moments' layout (a reduce-scatter over a
-    dim that shards it, else an all-reduce); the f32 loss summed over each
-    data axis of size > 1 and the grad norm's f32 sum over the world.
-    zero1 adds the moves of each parameter between its layouts."""
-    _, tp = _sizes(mesh)
+    runs on rank 0 (train/steps.py) for a global batch of B rows of S
+    positions, each sized by its result as op_analysis sizes it:
+      - each parameter gathered once a step over the mesh dims that shard
+        its stored layout and not the layout it is computed in
+        (tensor_parallel.compute_specs): an all-gather a dim, innermost
+        first;
+      - each microbatch's gradient, in the parameter's dtype and the
+        computed layout, summed over the data axes into the moments'
+        layout (a reduce-scatter over a dim that shards it, else an
+        all-reduce); the f32 loss summed over each data axis of size > 1
+        and the grad norm's f32 sum over the world; zero1 adds the moves
+        of each parameter between its layouts;
+      - over a model axis > 1, each microbatch's tensor-parallel
+        collectives (distributed/tensor_parallel.py) on its b = B / (M dp)
+        rows: per tensor-parallel attention, the all-gather of each of
+        wq / wk / wv / wo whose rows a rank takes are not its chunk and
+        its reduce-scatter backward, the all-reduce after wo and the
+        gradient's all-reduce before the input, and with qk_norm the two
+        norm scales' f32 gradients; per tensor-parallel MLP, the
+        all-reduce after w2 (MoE: of the (G, E, C, d) expert outputs) and
+        the gradient's before the input (MoE: of the (G, Tg, d) groups);
+        the vocab-parallel embedding's all-reduce, the gradient's before
+        the unembedding, and the loss's three f32 all-reduces of (b, S)
+        (the max, the sum of exp, the gold logit). With remat the
+        backward replays a block's forward as far as the last tensor it
+        saves (torch's checkpoint stops there): the attention's gathers
+        and its all-reduce, and the MoE's all-reduce, whose output the
+        gates' product saves; not the dense MLP's, which ends the
+        block."""
+    dp_n, tp = _sizes(mesh)
     model = get_api(cfg).init(cfg, tp, device="meta")
     spec = shd.state_pspecs(TrainState(model, {}), mesh, zero1=cfg.zero1)
+    cspec = TP.compute_specs(model, mesh)
     names = tuple(mesh.mesh_dim_names)
     dp = dp_axes(mesh)
     out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0}
 
-    def gathers(shape, pspec, itemsize):
+    def gathers(shape, pspec, itemsize, to=None):
         n = math.prod(shd.local_shape(shape, pspec, mesh)) * itemsize
-        for i, _, _ in reversed(shd._sharded(pspec, mesh)):
-            n *= mesh.shape[i]
-            out["all-gather"] += n
+        keep = set(shd._sharded(to, mesh)) if to is not None else set()
+        for i, axis, d in reversed(shd._sharded(pspec, mesh)):
+            if (i, axis, d) not in keep:
+                n *= mesh.shape[i]
+                out["all-gather"] += n
 
     for name, p in model.named_parameters():
         size = p.element_size()
-        gathers(p.shape, spec.params[name], size)
+        gathers(p.shape, spec.params[name], size, to=cspec[name])
         grad = spec.opt["m"][name]
-        n = p.numel() * size
+        n = math.prod(shd.local_shape(p.shape, cspec[name], mesh)) * size
         dims = {axis: d for _, axis, d in shd._sharded(grad, mesh)}
         for i, axis in enumerate(names):
             if axis not in dp or mesh.shape[i] == 1:
@@ -203,6 +232,47 @@ def train_plan(cfg: ArchConfig, micro: int, mesh) -> Dict[str, float]:
                                  if mesh.shape[names.index(a)] > 1)
     if math.prod(mesh.shape) > 1:
         out["all-reduce"] += 4
+    if tp > 1:
+        for kind, n in _tp_plan(cfg, model, cspec, B // micro // dp_n, S,
+                                plan_cell(cfg, B, mesh)[0] // dp_n,
+                                tp).items():
+            out[kind] += micro * n
+    return out
+
+
+def _tp_plan(cfg: ArchConfig, model, cspec, b: int, S: int, groups: int,
+             tp: int) -> Dict[str, float]:
+    """One microbatch's tensor-parallel collectives (train_plan)."""
+    from repro_torch.models import layers as L
+    out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0}
+    cut = {name for name, s in cspec.items() if any(s)}
+    ai = L.dtype_of(cfg.param_dtype).itemsize       # the residual stream's
+    d, T = cfg.d_model, b * S
+    spans = TP.attention_spans(cfg, tp)
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, L.Attention) and f"{prefix}.wq" in cut:
+            for n, dim in (("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0)):
+                w = getattr(mod, n)
+                if TP.needs_gather(w.shape[dim] // tp, spans[n], tp):
+                    whole = w.numel() * w.element_size()
+                    out["all-gather"] += whole * (2 if cfg.remat else 1)
+                    out["reduce-scatter"] += whole // tp
+            out["all-reduce"] += T * d * ai * (3 if cfg.remat else 2)
+            if cfg.qk_norm:
+                out["all-reduce"] += 2 * cfg.head_dim * 4
+        elif isinstance(mod, L.DenseMLP) and f"{prefix}.w1" in cut:
+            out["all-reduce"] += 2 * T * d * ai
+        elif isinstance(mod, L.MoE) and f"{prefix}.w1" in cut:
+            G = min(groups, T)
+            C = max(1, int(cfg.top_k * (T // G) * 1.25 / cfg.n_experts))
+            out["all-reduce"] += G * cfg.n_experts * C * d * ai * (
+                2 if cfg.remat else 1) + G * (T // G) * d * ai
+    if "embed" in cut:
+        text = S - (min(cfg.n_patch_tokens, S // 2)
+                    if cfg.family == "vlm" else 0)
+        out["all-reduce"] += b * text * d * ai
+    if "unembed" in cut:
+        out["all-reduce"] += T * d * ai + 3 * T * 4
     return out
 
 

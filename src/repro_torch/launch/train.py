@@ -5,13 +5,17 @@ It does what the JAX launcher does: the config (the smoke config with
 --smoke), a (--data, --model) mesh built always (make_debug_mesh; a world
 of one rank without torchrun, NCCL on the card, gloo on the CPU), random
 weights at tp = --model (drawn from --seed; JAX's PRNGKey(0)) sharded by
-state_pspecs, a fixed synthetic batch (specs.train_inputs from a
+state_pspecs and computed tensor-parallel over --model > 1 for the dense,
+moe and vlm families (distributed/tensor_parallel.py), a fixed synthetic
+batch (specs.train_inputs from a
 generator seeded 7, JAX's PRNGKey(7)) that the model must drive the loss
 down on, the train step of train/steps.py on the mesh (cfg.microbatches,
 cfg.remat, AdamW at --lr, JAX's groups = --data), a CheckpointManager
 under --ckpt-dir saving every --ckpt-every steps and restoring the newest
 checkpoint first, the same printed lines and the assertion that the loss
-fell. A further line gives the warm step time (the steps after the
+fell. A line before them gives the bytes of parameters a rank holds while
+it computes (each parameter in the layout it is computed in). A further
+line gives the warm step time (the steps after the
 first), tokens/s, on the card the peak device memory, and with
 --sketch-grads the transform's time a step.
 
@@ -51,6 +55,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import sys
 import time
@@ -65,6 +70,7 @@ from repro_torch.distributed.checkpoint import (CheckpointManager, _flatten,
 from repro_torch.distributed.compression import (compression_ratio,
                                                  make_sketched_grad_transform)
 from repro_torch.distributed.sharding import gather, local_shard
+from repro_torch.distributed.tensor_parallel import compute_bytes
 from repro_torch.launch import specs
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.serve import set_matmul_precision
@@ -240,6 +246,14 @@ def _train(args: argparse.Namespace, mesh) -> dict:
     step_fn = make_train_step(cfg, api, groups=args.data,
                               grad_transform=grad_transform,
                               opt_cfg=opt_cfg, mesh=mesh)
+    shapes = state.params.shard_layout.shapes
+    out["compute_param_bytes"] = compute_bytes(state.params, mesh, shapes)
+    if rank0:
+        whole = sum(math.prod(shapes[n]) * p.element_size()
+                    for n, p in state.params.named_parameters())
+        print(f"parameters held a rank while computing: "
+              f"{out['compute_param_bytes']} bytes of {whole} "
+              f"(--data {args.data} --model {args.model})", flush=True)
     losses, gnorms, step_s = [], [], []
     t0 = time.time()
     for step in range(start, args.steps):

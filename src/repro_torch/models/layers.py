@@ -34,9 +34,14 @@ of rows at a time so that no f32 copy of a whole weight exists.
 The KV cache is written in place (JAX returns a new cache): one layer's
 (B, T, Hkv, hd) view of the model's stacked cache. JAX's `maybe_shard`
 calls (activation layout hints that change no value) are left out: the
-port's `distributed.sharding.maybe_shard` returns its input, and compute
-is replicated over a mesh's model axis until tensor-parallel compute is
-ported (ROADMAP Queue A).
+port's `distributed.sharding.maybe_shard` returns its input.
+
+Tensor-parallel compute: inside distributed/tensor_parallel.py's context,
+the full-sequence forward of `Attention`, `DenseMLP` and `MoE` computes
+with the model-axis shard of its weights where the sharded train step
+gave it one (a weight narrower than the config's width); the module
+docstring there says how each splits. Serving, and every call outside
+that context, runs on whole weights as above.
 """
 from __future__ import annotations
 
@@ -50,6 +55,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.config import ArchConfig
 
 _INIT_CHUNK = 1 << 26          # f32 elements drawn at once (256 MB)
+
+
+def tp_ops():
+    """distributed/tensor_parallel.py, imported on first use (the
+    distributed package imports the models)."""
+    from repro_torch.distributed import tensor_parallel
+    return tensor_parallel
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -163,6 +175,12 @@ def causal_mask(S: int, window: int = 0, device=None) -> torch.Tensor:
     return m[None, None]   # (1,1,S,S)
 
 
+def _mask(S: int, window: int, causal: bool, device) -> torch.Tensor:
+    if causal:
+        return causal_mask(S, window, device)
+    return torch.ones((1, 1, S, S), dtype=torch.bool, device=device)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device=None):
         super().__init__()
@@ -204,13 +222,49 @@ class Attention(nn.Module):
         S = x.shape[1]
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :]
+        axis = tp_ops().active()
+        if axis is not None and \
+                self.wq.shape[1] != self.cfg.n_heads * self.cfg.head_dim:
+            return self._forward_tp(x, positions, window, causal, axis)
         q, k, v = self.qkv(x, positions)
-        if causal:
-            mask = causal_mask(S, window, x.device)
-        else:
-            mask = torch.ones((1, 1, S, S), dtype=torch.bool, device=x.device)
+        mask = _mask(S, window, causal, x.device)
         out = sdpa(q, k, v, mask, self.cfg.q_per_kv, self.cfg.attn_scores_f32)
         return out @ self.wo
+
+    def _forward_tp(self, x, positions, window, causal, axis) -> torch.Tensor:
+        """forward on this rank's query heads (tensor_parallel's split) and
+        the KV heads they read; the sum over the model axis after wo."""
+        cfg, TP = self.cfg, tp_ops()
+        B, S = x.shape[:2]
+        hd, g = cfg.head_dim, cfg.q_per_kv
+        spans = TP.attention_spans(cfg, axis.size)
+        wq, wk, wv, wo = (TP.take(getattr(self, n), 1 if n != "wo" else 0,
+                                  spans[n], axis)
+                          for n in ("wq", "wk", "wv", "wo"))
+        h0, h1 = TP.head_span(cfg.n_heads, axis.size, axis.index)
+        k0, k1 = TP.kv_span(cfg.n_heads, g, axis.size, axis.index)
+        x = TP.copy_to_model(x, axis)
+        q = (x @ wq).reshape(B, S, h1 - h0, hd)
+        k = (x @ wk).reshape(B, S, k1 - k0, hd)
+        v = (x @ wv).reshape(B, S, k1 - k0, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, TP.copy_to_model(self.q_norm.weight, axis),
+                         self.q_norm.eps)
+            k = rms_norm(k, TP.copy_to_model(self.k_norm.weight, axis),
+                         self.k_norm.eps)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        mask = _mask(S, window, causal, x.device)
+        if k1 - k0 == 1:                    # every head reads one KV head
+            group = h1 - h0
+        elif h0 % g == 0 and h1 % g == 0:   # whole GQA groups
+            group = g
+        else:                               # a KV head for each query head
+            idx = torch.tensor([h // g - k0 for h in range(h0, h1)],
+                               device=x.device)
+            k, v, group = k[:, :, idx], v[:, :, idx], 1
+        out = sdpa(q, k, v, mask, group, cfg.attn_scores_f32)
+        return TP.reduce_from_model(out @ wo, axis)
 
     def prefill(self, x: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, window: int = 0) -> torch.Tensor:
@@ -302,8 +356,13 @@ class DenseMLP(nn.Module):
                 dense_init_(getattr(self, name), generator)
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        axis = tp_ops().active()
+        tp = axis is not None and self.w1.shape[1] != self.cfg.d_ff
+        if tp:                              # w1 / w3 by columns, w2 by rows
+            x = tp_ops().copy_to_model(x, axis)
         b = x @ self.w3 if gated(self.cfg) else None
-        return act(self.cfg, x @ self.w1, b) @ self.w2
+        y = act(self.cfg, x @ self.w1, b) @ self.w2
+        return tp_ops().reduce_from_model(y, axis) if tp else y
 
 
 class MoE(nn.Module):
@@ -361,11 +420,20 @@ class MoE(nn.Module):
         xg = x.reshape(G, Tg, d)
         sel_vals, sel_idx = self.route(xg, capacity_factor)
         E, C = sel_idx.shape[1:]
-        xe = xg[torch.arange(G, device=x.device)[:, None, None], sel_idx]
+        # Tensor-parallel: the expert ffn dim over the model axis (JAX's
+        # moe_gecf pin), the routing replicated, the partial sums reduced
+        # before the gates weigh them (the router's gradient sees whole
+        # expert outputs).
+        axis = tp_ops().active()
+        tp = axis is not None and self.w1.shape[2] != self.cfg.d_ff
+        xs = tp_ops().copy_to_model(xg, axis) if tp else xg
+        xe = xs[torch.arange(G, device=x.device)[:, None, None], sel_idx]
         a = torch.einsum("gecd,edf->gecf", xe, self.w1)
         b = (torch.einsum("gecd,edf->gecf", xe, self.w3)
              if gated(self.cfg) else None)
         y = torch.einsum("gecf,efd->gecd", act(self.cfg, a, b), self.w2)
+        if tp:
+            y = tp_ops().reduce_from_model(y, axis)
         y = y * sel_vals[..., None].to(y.dtype)
         # Scatter-add back to token order, in y's dtype (as JAX's .at[].add).
         out = torch.zeros((G, Tg, d), dtype=y.dtype, device=x.device)

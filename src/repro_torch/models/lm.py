@@ -16,6 +16,10 @@ device="cpu"; without a card that default raises. Weights are drawn
 from an explicit torch.Generator (a new one seeded 0 when none is
 given); a model built on the "meta" device is left undrawn for
 `to_empty` (as repro_torch.models.convert does).
+
+`forward` computes tensor-parallel inside distributed/tensor_parallel.py's
+context (the sharded train step's); `prefill` and `decode` always run on
+whole weights.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ class LM(nn.Module):
         self.cfg = cfg
         dtype = L.dtype_of(cfg.param_dtype)
         V, d = cfg.vocab_padded(tp), cfg.d_model
+        self.vocab = V
         self.embed = L.empty_param((V, d), dtype, device)
         self.layers = nn.ModuleList(L.Block(cfg, dtype, device)
                                     for _ in range(cfg.n_layers))
@@ -68,14 +73,22 @@ class LM(nn.Module):
                 prefix_embeds: Optional[torch.Tensor] = None,
                 groups: int = 1) -> torch.Tensor:
         """tokens: (B, S_text) int; prefix_embeds: (B, S_img, d) (the
-        pixtral stub). Returns logits (B, S, vocab_padded) in f32."""
-        x = self.embed[tokens]                            # (B, S_text, d)
+        pixtral stub). Returns logits (B, S, vocab_padded) in f32; under
+        tensor-parallel compute with the vocabulary sharded, this rank's
+        chunk of them (distributed/tensor_parallel.py)."""
+        axis = L.tp_ops().active()
+        if axis is not None and self.embed.shape[0] != self.vocab:
+            x = L.tp_ops().embedding(self.embed, tokens, axis)
+        else:
+            x = self.embed[tokens]                        # (B, S_text, d)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         win = window_of(self.cfg)
         for blk in self.layers:
             x = L.remat(self.cfg, blk, x, groups=groups, window=win)
         x = self.ln_f(x)
+        if axis is not None and self.unembed.shape[1] != self.vocab:
+            x = L.tp_ops().copy_to_model(x, axis)
         return (x @ self.unembed).float()
 
     def init_cache(self, batch: int, max_seq: int,

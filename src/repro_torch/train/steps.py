@@ -15,28 +15,40 @@ meanings, across the ranks of a torch DeviceMesh ("data", "model", and
 "pod" where present; every rank calls the step with the same global
 batch):
   - each parameter and both moments are stored as this rank's shard under
-    distributed/sharding.py's state_pspecs; the step gathers the
-    parameters whole once at entry (JAX's pregather_spec: once per step,
-    not per microbatch; a mesh dim of size 1 gathers without a copy) and
-    puts the shards back before the update;
+    distributed/sharding.py's state_pspecs; the step gathers each
+    parameter over the data axes once at entry (JAX's pregather_spec: once
+    per step, not per microbatch; a mesh dim of size 1 gathers without a
+    copy) to the layout it is computed in, and puts the shards back before
+    the update;
+  - over the model axis the dense, moe and vlm families compute
+    tensor-parallel (distributed/tensor_parallel.py: heads, MLP and expert
+    ffn columns, the vocabulary of the embedding, the logits and the
+    loss), each such weight kept as its model-axis chunk under JAX's
+    TP-only spec; the hybrid, ssm and encdec families, and any module
+    whose weights JAX's divisibility guard leaves whole, gather over the
+    model axis too and compute replicated there;
   - rows: JAX runs microbatch m's rows [m B/M, (m+1) B/M) at groups = the
     data axes' size dp, as dp contiguous routing groups; here data rank r
     runs group r itself, rows [m B/M + r B/(M dp), + B/(M dp)), at
     groups / dp (capacity routing sees JAX's groups);
   - each rank's loss is normalized by the microbatch's global label count
     (read from the global batch), so the sum over ranks is JAX's loss;
-  - each microbatch's gradient is reduce-scattered over the data axes as
-    autograd produces it, into grad_spec's layout (the moments' by
-    default); over the model axis every rank computed the same gradient
-    and keeps its chunk (no collective). A grad_transform instead gets
-    each rank's whole, unreduced gradient, reduces over the data axes
-    itself (the sketched gradients average their r'-float sketch) and
-    returns the global gradient, which JAX's hook sees;
+  - each microbatch's gradient is reduced over the data axes as autograd
+    produces it, into grad_spec's layout (the moments' by default): a
+    tensor-parallel weight's gradient is already its model-axis chunk,
+    and a replicated parameter's is the same on every model rank, which
+    keeps its chunk (no collective over "model"). A grad_transform
+    instead gets each rank's whole, unreduced gradient (a
+    tensor-parallel one gathered over "model"), reduces over the data
+    axes itself (the sketched gradients average their r'-float sketch)
+    and returns the global gradient, which JAX's hook sees;
   - AdamW runs on the local shards; the grad norm counts each element
     once (a chunk replicated over an axis counts on its coordinate 0).
-The model axis shards storage only: compute is replicated across it
-(tensor-parallel compute is ROADMAP Queue A). A world of one rank runs
-the same operations as the meshless step, bit for bit.
+A world whose model axis has size 1 runs the same operations as before
+tensor-parallel compute, and a world of one rank the same as the meshless
+step, bit for bit. Over a model axis > 1 the row-parallel sums and the
+split logsumexp change the order of sums, so the numbers match JAX's to
+f32 rounding, not bit for bit.
 
 Differences from JAX's step, by design:
   - the state is updated in place and the same TrainState is returned (a
@@ -47,10 +59,9 @@ Differences from JAX's step, by design:
     as autograd has it (Tensor.register_post_accumulate_grad_hook) and
     dropped, so a microbatch's gradients never live beside the sum: the
     same arithmetic as JAX's scan;
-  - a step on a mesh gathers the parameters whole at entry whatever
-    pregather_spec says, since compute is replicated over the model axis:
-    a pregather_spec that keeps a dim sharded (JAX's TP-only spec at
-    tp > 1) is refused until tensor-parallel compute is ported;
+  - a step on a mesh gathers over the data axes once a step whether or
+    not pregather_spec is given (JAX gathers at each use without it);
+    the one pregather_spec taken is JAX's TP-only spec;
   - the batch (B / M) must divide by dp, where JAX would replicate.
 
 No host sync runs inside the step: the metrics are tensors on the step's
@@ -67,10 +78,12 @@ import torch.distributed as dist
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import (P, gather, local_shape,
                                               local_shard, owns,
-                                              reduce_shard, state_pspecs)
-from repro_torch.launch.mesh import dp_axes, mesh_axis
+                                              param_pspecs, reduce_shard,
+                                              state_pspecs)
+from repro_torch.launch.mesh import dp_axes, mesh_axis, tp_axis
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.convert import decayed_names
 from repro_torch.models.registry import ModelAPI
@@ -165,8 +178,9 @@ def make_train_step(cfg: ArchConfig, api: ModelAPI, groups: int = 1,
 
     mesh: run the sharded step (module docstring) on a state from
     shard_train_state; groups must divide by the data axes' size dp.
-    pregather_spec ({name: spec}): JAX's pre-gather target; the parameters
-    gather whole in any case, so only a replicated spec is taken.
+    pregather_spec ({name: spec}): JAX's pre-gather target, which must be
+    JAX's TP-only spec (param_pspecs(..., use_fsdp=False)); the step
+    gathers over the data axes once a step in any case.
     grad_spec ({name: spec}): the layout each microbatch's gradient is
     reduce-scattered into and summed in (the moments' by default); a
     gradient in another layout is moved to the moments' before AdamW.
@@ -256,12 +270,6 @@ def _make_mesh_step(cfg, api, groups, grad_transform, opt_cfg,
     if groups % n_dp:
         raise ValueError(f"groups {groups} must divide by the data axes' "
                          f"size {n_dp}: each data rank runs whole groups")
-    if pregather_spec is not None and any(
-            e is not None for spec in pregather_spec.values() for e in spec):
-        raise NotImplementedError(
-            "the parameters gather whole (compute is replicated over the "
-            "model axis); a pregather_spec that keeps a dim sharded needs "
-            "tensor-parallel compute (ROADMAP Queue A)")
     coord = mesh.get_coordinate()
     rank = 0                               # this rank's data index
     for a in dp:
@@ -270,8 +278,25 @@ def _make_mesh_step(cfg, api, groups, grad_transform, opt_cfg,
     world = math.prod(mesh.shape)
     dp_groups = [mesh_axis(mesh, a) for a in dp
                  if mesh.shape[names.index(a)] > 1]
+    tp = tp_axis(mesh)
+    model_axis = mesh_axis(mesh, tp) if tp is not None else None
 
-    def grads_of(model, params, batch, lay, gspec):
+    def layouts(model, lay):
+        """{name: the layout it is computed in}; pregather_spec checked
+        against JAX's TP-only spec."""
+        if pregather_spec is not None:
+            want = param_pspecs(model, mesh, use_fsdp=False,
+                                shapes=lay.shapes)
+            bad = [n for n in want
+                   if tuple(pregather_spec.get(n, ())) != tuple(want[n])]
+            if bad:
+                raise ValueError(
+                    f"pregather_spec must be JAX's TP-only spec "
+                    f"(param_pspecs(..., use_fsdp=False)); {bad[0]} is "
+                    f"{pregather_spec.get(bad[0])}, not {want[bad[0]]}")
+        return TP.compute_specs(model, mesh, lay.shapes)
+
+    def grads_of(model, params, batch, lay, gspec, cspec):
         """(loss, {name: grad}): this rank's rows of each microbatch, the
         gradients reduced as autograd produces them (whole and unreduced
         for a grad_transform), then the f32 mean for M > 1."""
@@ -284,11 +309,15 @@ def _make_mesh_step(cfg, api, groups, grad_transform, opt_cfg,
                     lay.shapes[name], gspec[name], mesh),
                 dtype=torch.float32, device=p.device)
                 for name, p in params.items()}
+        axis = TP.active()
+        vocab_cut = (axis is not None and "unembed" in cspec
+                     and tp in cspec["unembed"].names(1))
 
         def fold(name):
             def hook(p):
-                g = p.grad if whole_grads else reduce_shard(
-                    p.grad, gspec[name], mesh, dp)
+                g = (gather(p.grad, cspec[name], mesh) if whole_grads
+                     else reduce_shard(p.grad, gspec[name], mesh, dp,
+                                       held=cspec[name]))
                 p.grad = None
                 if M == 1:
                     acc[name] = g
@@ -306,8 +335,11 @@ def _make_mesh_step(cfg, api, groups, grad_transform, opt_cfg,
                 count = (whole["labels"] >= 0).sum()
                 mb = {k: x[rank * b:(rank + 1) * b]
                       for k, x in whole.items()}
-                loss = cross_entropy(api.forward(model, mb, groups // n_dp),
-                                     mb["labels"], count)
+                logits = api.forward(model, mb, groups // n_dp)
+                loss = (TP.cross_entropy(logits, mb["labels"], count, axis)
+                        if vocab_cut else
+                        cross_entropy(logits, mb["labels"], count))
+                del logits          # autograd keeps what it needs
                 loss.backward()
                 loss = loss.detach()
                 loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -335,14 +367,18 @@ def _make_mesh_step(cfg, api, groups, grad_transform, opt_cfg,
                 f"a batch of {B} rows in {M} microbatches does not split "
                 f"over {n_dp} data ranks (JAX would replicate it)")
         gspec = grad_spec or lay.moments
+        cspec = layouts(model, lay)
         params = dict(model.named_parameters())
         shards = {name: p.data for name, p in params.items()}
         try:
             with torch.no_grad():
                 for name, p in params.items():
-                    p.data = gather(shards[name], lay.params[name], mesh)
+                    p.data = gather(shards[name], lay.params[name], mesh,
+                                    to=cspec[name])
                     p.grad = None
-            loss, grads = grads_of(model, params, batch, lay, gspec)
+            with TP.tensor_parallel(model_axis):
+                loss, grads = grads_of(model, params, batch, lay, gspec,
+                                       cspec)
         finally:
             for name, p in params.items():
                 p.data = shards[name]

@@ -142,7 +142,7 @@ def test_smoke_cell_argument_and_collectives(arch, zero1):
     mesh = make_dryrun_mesh()
     try:
         rec = dryrun.measure(cfg, "train", B, S, mesh)
-        plan = dryrun.train_plan(cfg, rec["microbatches"], mesh)
+        plan = dryrun.train_plan(cfg, rec["microbatches"], mesh, B, S)
     finally:
         destroy_dryrun_mesh(mesh)
     res = rec["analysis"]
@@ -158,6 +158,51 @@ def test_smoke_cell_argument_and_collectives(arch, zero1):
     assert {k: v for k, v in res["collective_bytes"].items() if v} == {
         k: float(v) for k, v in plan.items() if v}
     assert plan["all-gather"] > 0 and plan["reduce-scatter"] > 0
+
+
+@pytest.mark.parametrize("arch,cut,shape", (
+    ("phi4-mini-3.8b", {}, (2, 2)),
+    ("phi4-mini-3.8b", {"pregather": True, "remat": True,
+                        "microbatches": 2}, (2, 2)),
+    ("phi4-mini-3.8b", {"n_heads": 6, "n_kv_heads": 2, "head_dim": 16},
+     (1, 4)),
+    ("qwen3-14b", {"remat": True}, (2, 2)),
+    ("mixtral-8x7b", {"remat": True, "microbatches": 2}, (2, 2)),
+    ("pixtral-12b", {}, (2, 2)),
+    ("rwkv6-1.6b", {}, (2, 2))),
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else
+    "-".join(f"{k}{v}" for k, v in v.items()) if isinstance(v, dict) else v)
+def test_tensor_parallel_cell_follows_the_plan(arch, cut, shape):
+    """train_4k's batch of 256 at sequence 64 on a fake (2, 2) or (1, 4)
+    dry-run mesh, tensor-parallel over the model axis: the collective
+    bytes by kind are train_plan's (the data-axis gathers, the attention's
+    weight gathers where a rank's heads are not its chunk of wq or wk,
+    the row-parallel all-reduces and remat's replay of them, the MoE's,
+    the vocab-parallel embedding and loss; JAX's TP-only pregather spec
+    taken), the argument bytes rules_mb plus the batch; the dense, moe
+    and vlm cells move activation-sized all-reduces over the model axis,
+    the ssm cell none."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **cut)
+    B, S = specs.SHAPES["train_4k"]["batch"], 64
+    mesh = make_dryrun_mesh(shape=shape)
+    try:
+        rec = dryrun.measure(cfg, "train", B, S, mesh)
+        plan = dryrun.train_plan(cfg, rec["microbatches"], mesh, B, S)
+    finally:
+        destroy_dryrun_mesh(mesh)
+    res = rec["analysis"]
+    batch = specs.train_inputs(cfg, S, B, abstract=True)
+    rules = dryrun.rules_bytes(cfg, "train", B, S,
+                               MeshShape(("data", "model"), shape))
+    assert res["memory"]["argument"] == sum(rules.values()) + sum(
+        t.numel() * t.element_size() for t in batch.values())
+    assert {k: v for k, v in res["collective_bytes"].items() if v} == {
+        k: float(v) for k, v in plan.items() if v}
+    tokens = B // shape[0] // rec["microbatches"] * S
+    assert (plan["all-reduce"] > tokens * cfg.d_model * 4) == (
+        cfg.family != "ssm")
+    if shape[0] == 1:       # no data axis: the attention's gathers alone
+        assert plan["all-gather"] and plan["reduce-scatter"]
 
 
 def test_skip_cell_writes_jax_skip_file(tmp_path):
@@ -220,11 +265,10 @@ def test_ok_cell_has_jax_keys(tmp_path):
 
 
 def test_failing_cell_raises_and_leaves_no_group(tmp_path):
-    # JAX's pregather spec keeps the model dim sharded: the port's step
-    # refuses it until tensor-parallel compute is ported.
-    with pytest.raises(NotImplementedError):
+    # top_k above the expert count: the router's top-k fails in the step.
+    with pytest.raises(RuntimeError, match="k not in range"):
         dryrun.run_cell("phi4-mini-3.8b", "train_4k", False, str(tmp_path),
-                        {"n_layers": 1, "pregather": True})
+                        {"n_layers": 1, "n_experts": 2, "top_k": 4})
     assert not dist.is_initialized()
     assert not list(tmp_path.iterdir())
 

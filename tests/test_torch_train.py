@@ -391,7 +391,9 @@ def test_launcher_loss_falls(capsys):
     assert len(out["losses"]) == 5
     assert out["losses"][-1] < out["losses"][0]
     lines = capsys.readouterr().out.splitlines()
-    assert lines[0].startswith("step     0 loss ")
+    # The compute layout's bytes, then JAX's lines.
+    assert lines[0].startswith("parameters held a rank while computing: ")
+    assert lines[1].startswith("step     0 loss ")
     assert any(ln.startswith("final loss ") for ln in lines)
     assert any("tokens/s" in ln for ln in lines)
 

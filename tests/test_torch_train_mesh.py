@@ -1,28 +1,38 @@
 """The sharded train step, the mesh launcher and its checkpoints against
 repro.train on the CPU, over gloo worlds.
 
-Six cases at the smoke configs (phi4-mini-3.8b at M 1 and at M 2 with
-remat, mixtral-8x7b, rwkv6-1.6b, recurrentgemma-2b, whisper-large-v3),
-JAX's weights (seed 0) carried into the port and JAX's batch (PRNGKey(1),
-4 rows a microbatch, tests/test_torch_train.py's batch, at which its
+Seven cases at the smoke configs (phi4-mini-3.8b at M 1, at M 2 with
+remat, and with 6 query heads over 2 KV heads of width 16, "phi4-h6";
+mixtral-8x7b, rwkv6-1.6b, recurrentgemma-2b, whisper-large-v3), JAX's
+weights (seed 0) carried into the port and JAX's batch (PRNGKey(1), 4
+rows a microbatch, tests/test_torch_train.py's batch, at which its
 tolerances were set, x S 16), train 3 steps at the launcher's lr 3e-3 on
-each of the gloo worlds (data, model) = (2, 1), (1, 2), (2, 2), (4, 1)
+the gloo worlds (data, model) = (2, 1), (1, 2), (2, 2), (4, 1), (1, 4)
 (`tests/torch_train_mesh_worker.py`, one process per rank, a FileStore in
 the test's tmp dir, run one world after another while JAX computes its
-references). After every step the loss, the grad norm, and every
-parameter and both moments gathered whole are held to JAX's jitted
-make_train_step at groups = dp, the data axis's size, by
-tests/test_torch_train.py's f32 tolerances and its small-gradient rule
-(the elements whose gradient was small come from the port's meshless step
-at the same groups). `groups` reaches only the MoE layers, so JAX runs
-once per case at groups 1 and again at 2 and 4 for mixtral, whose
-capacity routing sees the data ranks as JAX's routing groups.
+references): the first six cases on the first four worlds, phi4-h6 on the
+worlds with a model axis, and phi4, phi4-m2, mixtral and phi4-h6 on
+(1, 4). Over a model axis the dense and moe cases compute tensor-parallel
+(distributed/tensor_parallel.py); at (1, 4) phi4-h6's wq chunk is 1.5
+heads and a KV head spans two ranks' chunks of wk, as phi4-mini's at 16.
+The hybrid, ssm and encdec cases compute replicated over the model axis.
+After every step the loss, the grad norm, and every parameter and both
+moments gathered whole are held to JAX's jitted make_train_step at
+groups = dp, the data axis's size, by tests/test_torch_train.py's f32
+tolerances and its small-gradient rule (the elements whose gradient was
+small come from the port's meshless step at the same groups). `groups`
+reaches only the MoE layers, so JAX runs once per case at groups 1 and
+again at 2 and 4 for mixtral, whose capacity routing sees the data ranks
+as JAX's routing groups. Over a model axis, each parameter's shape when
+its module runs (the worker's forward pre-hooks) is its local shape under
+JAX's TP-only spec for the dense and moe cases, and whole for the others.
 
-Also: at (2, 2) phi4 with zero1 and a TP-only grad_spec against JAX; a
-world of one rank, made in this process, steps bit for bit as the
-meshless step for every case; a batch whose microbatch rows do not split
-over the data ranks is refused; a pregather_spec that keeps a dim sharded
-is refused. The launcher (`launch.train.run`, smoke phi4, B 4 x S 32):
+Also: at (2, 2) phi4 with zero1 and a TP-only grad_spec, and phi4 with
+JAX's TP-only pregather_spec, against JAX (the latter's step with the
+same spec, on a mesh of this process's one device); a world of one rank,
+made in this process, steps bit for bit as the meshless step for every
+case; a batch whose microbatch rows do not split over the data ranks is
+refused. The launcher (`launch.train.run`, smoke phi4, B 4 x S 32):
 --sketch-grads 4096 at (2, 1) against (1, 1) in this process, at
 compression_ratio's n / r'; a checkpoint saved at (2, 1) after 2 steps
 restores at (1, 2) and at (1, 1) bit for bit, and the runs resumed from
@@ -44,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from repro.configs import get_config as jax_config
+from repro.distributed import sharding as jshd
 from repro.launch import specs as jspecs
 from repro.models.registry import get_api as jax_api
 from repro.train import optimizer as jopt
@@ -51,7 +62,8 @@ from repro.train import steps as jsteps
 from repro_torch.configs import get_config
 from repro_torch.distributed.checkpoint import CheckpointManager
 from repro_torch.distributed.compression import compression_ratio
-from repro_torch.distributed.sharding import P
+from repro_torch.distributed.sharding import (MeshShape, local_shape,
+                                              param_pspecs)
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import get_api
@@ -68,9 +80,17 @@ CASES = {"phi4": ("phi4-mini-3.8b", {}),
          "mixtral": ("mixtral-8x7b", {}),
          "rwkv6": ("rwkv6-1.6b", {}),
          "recurrentgemma": ("recurrentgemma-2b", {}),
-         "whisper": ("whisper-large-v3", {})}
+         "whisper": ("whisper-large-v3", {}),
+         "phi4-h6": ("phi4-mini-3.8b", {"n_heads": 6, "n_kv_heads": 2,
+                                        "head_dim": 16})}
 MOE = {"mixtral"}
-WORLDS = ((2, 1), (1, 2), (2, 2), (4, 1))
+TP_FAMILIES = {"dense", "moe", "vlm"}
+WORLDS = ((2, 1), (1, 2), (2, 2), (4, 1), (1, 4))
+# (world, case) pairs that run (module docstring).
+PAIRS = tuple((w, c) for w in WORLDS[:4] for c in tuple(CASES)[:6]) + (
+    ((1, 2), "phi4-h6"), ((2, 2), "phi4-h6"),
+    *(((1, 4), c) for c in ("phi4", "phi4-m2", "mixtral", "phi4-h6")))
+TP_PAIRS = tuple((w, c) for w, c in PAIRS if w[1] > 1)
 WORLD_DEADLINE = 240.0        # seconds for all four worlds, start to join
 LAUNCH = ["--device", "cpu", "--smoke", "--arch", "phi4-mini-3.8b",
           "--batch", "4", "--seq", "32"]
@@ -124,12 +144,13 @@ def _run_world(work, data, tp, deadline):
     return dict(np.load(wdir / "out.npz"))
 
 
-def _jax_steps(jcfg, params, jb, groups):
+def _jax_steps(jcfg, params, jb, groups, pregather_spec=None):
     """JAX's jitted step, STEPS times: (loss, grad norm, params, m, v)."""
     jo = jopt.AdamWConfig(lr=LR, moment_dtype=jcfg.optimizer_dtype)
     jstate = jsteps.TrainState(params, jopt.adamw_init(params, jo))
     jstep = jax.jit(jsteps.make_train_step(jcfg, jax_api(jcfg),
-                                           groups=groups, opt_cfg=jo))
+                                           groups=groups, opt_cfg=jo,
+                                           pregather_spec=pregather_spec))
     out = []
     for _ in range(STEPS):
         jstate, jm = jstep(jstate, jb)
@@ -178,7 +199,8 @@ def runs(tmp_path_factory):
         for k, v in pb.items():
             inputs[f"{case}/b/{k}"] = v.numpy()
         cases.append({"case": case, "arch": CASES[case][0],
-                      "cut": CASES[case][1]})
+                      "cut": CASES[case][1],
+                      "worlds": [list(w) for w, c in PAIRS if c == case]})
         jax_in[case] = (jcfg, pcfg, params, jb, pb)
     np.savez(work / "inputs.npz", **inputs)
     (work / "cases.json").write_text(json.dumps(cases))
@@ -237,11 +259,34 @@ def _hold_case(out, key, ref, model, masks):
         assert int(out[f"{key}/{i}/step"]) == i
 
 
-@pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("world", WORLDS, ids=lambda w: f"{w[0]}x{w[1]}")
+def _ids(v):
+    return f"{v[0]}x{v[1]}" if isinstance(v, tuple) else v
+
+
+@pytest.mark.parametrize("world,case", PAIRS, ids=_ids)
 def test_mesh_step_matches_jax(runs, world, case):
     groups = world[0] if case in MOE else 1
     _hold_case(runs["worlds"][world], case, *runs["refs"][(case, groups)])
+
+
+@pytest.mark.parametrize("world,case", TP_PAIRS, ids=_ids)
+def test_weights_have_their_compute_shape(runs, world, case):
+    """Over a model axis no rank holds a whole tensor-parallel weight:
+    each parameter, when its module runs, has its local shape under JAX's
+    TP-only spec (dense and moe), or its whole shape (replicated
+    compute: hybrid, ssm, encdec)."""
+    pcfg = _configs(case)[1]
+    model = get_api(pcfg).init(pcfg, 1, device="meta")
+    mesh = MeshShape(("data", "model"), world)
+    spec = param_pspecs(model, mesh, use_fsdp=False)
+    out = runs["worlds"][world]
+    cut = 0
+    for name, p in model.named_parameters():
+        want = (local_shape(p.shape, spec[name], mesh)
+                if pcfg.family in TP_FAMILIES else p.shape)
+        assert tuple(out[f"{case}/shape/{name}"]) == tuple(want), name
+        cut += tuple(want) != tuple(p.shape)
+    assert cut if pcfg.family in TP_FAMILIES else not cut
 
 
 def test_zero1_with_a_grad_spec_matches_jax(runs):
@@ -281,16 +326,18 @@ def test_batch_that_does_not_split_is_refused(runs):
         runs["worlds"][(2, 1)]["refused"])
 
 
-def test_sharded_pregather_is_refused(world1):
-    cfg = get_config("phi4-mini-3.8b", smoke=True)
-    state = shard_train_state(init_train_state(cfg, get_api(cfg), tp=1,
-                                               device="cpu"), world1)
-    names = [n for n, _ in state.params.named_parameters()]
-    make_train_step(cfg, get_api(cfg), mesh=world1,
-                    pregather_spec={n: P(None, None) for n in names})
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        make_train_step(cfg, get_api(cfg), mesh=world1,
-                        pregather_spec={n: P("model", None) for n in names})
+def test_tp_only_pregather_matches_jax(runs):
+    """(2, 2), phi4 with JAX's TP-only pregather_spec against JAX's step
+    with the same spec (param_pspecs(use_fsdp=False) on a mesh of this
+    process's one device, where it moves nothing)."""
+    jcfg, _, params, jb, _ = runs["jax"]["phi4"]
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                             ("data", "model"))
+    with jax.set_mesh(mesh):
+        ref = _jax_steps(jcfg, params, jb, 1,
+                         jshd.param_pspecs(params, mesh, use_fsdp=False))
+    _hold_case(runs["worlds"][(2, 2)], "phi4-pregather", ref,
+               *runs["refs"][("phi4", 1)][1:])
 
 
 def _launch(*argv):

@@ -2,13 +2,17 @@
 
     python tests/torch_train_mesh_worker.py RANK DATA MODEL WORKDIR
 
-WORKDIR holds `store` (the FileStore), `cases.json` (each case's arch and
-config cut) and `inputs.npz` (each case's weights by the port's parameter
-names and its batch). On the (DATA, MODEL) mesh the rank trains each case
-STEPS steps with the sharded step and, at world (2, 1) and (1, 2), runs
-the launcher (`launch.train.run`) as the test asks. Rank 0 writes the
-metrics and the whole state gathered after every step to `out.npz`. No
-JAX runs here and no check asserts here: the test compares.
+WORKDIR holds `store` (the FileStore), `cases.json` (each case's arch,
+config cut and the worlds it runs on) and `inputs.npz` (each case's
+weights by the port's parameter names and its batch). On the (DATA,
+MODEL) mesh the rank trains each of its cases STEPS steps with the
+sharded step (tensor-parallel over MODEL > 1 for the dense, moe and vlm
+families) and, at world (2, 1) and (1, 2), runs the launcher
+(`launch.train.run`) as the test asks. Rank 0 writes the metrics and the
+whole state gathered after every step to `out.npz`, and, over a model
+axis, the shape each parameter has when its module runs in the first
+step (a forward pre-hook). No JAX runs here and no check asserts here:
+the test compares.
 """
 import dataclasses
 import datetime
@@ -50,10 +54,24 @@ def whole_state(state, res, key):
     res[f"{key}/step"] = np.asarray(int(tree["opt"]["step"]))
 
 
-def train_case(mesh, data, tp, inp, case, res, zero1=False):
+def record_shapes(model, res, key):
+    """Forward pre-hooks that record each parameter's shape when its
+    module runs (the first call); returns the hooks' handles."""
+    def pre(mod, _args, prefix):
+        for pname, p in mod.named_parameters(recurse=False):
+            name = f"{prefix}.{pname}" if prefix else pname
+            res.setdefault(f"{key}/shape/{name}", np.asarray(p.shape))
+    return [mod.register_forward_pre_hook(
+        lambda m, a, prefix=prefix: pre(m, a, prefix))
+        for prefix, mod in model.named_modules()]
+
+
+def train_case(mesh, data, tp, inp, case, res, zero1=False,
+               pregather=False):
     """STEPS sharded steps of `case`; with zero1, the parameters stored
     TP-only and the gradients reduce-scattered into that layout too
-    (grad_spec), so both move to the moments' layout for AdamW."""
+    (grad_spec), so both move to the moments' layout for AdamW; with
+    pregather, JAX's TP-only pregather_spec."""
     cfg = dataclasses.replace(get_config(case["arch"], smoke=True),
                               **case["cut"])
     api = get_api(cfg)
@@ -65,14 +83,22 @@ def train_case(mesh, data, tp, inp, case, res, zero1=False):
     batch = {k[len(f"{name}/b/"):]: torch.from_numpy(v)
              for k, v in inp.items() if k.startswith(f"{name}/b/")}
     opt = AdamWConfig(lr=LR)
-    grad_spec = param_pspecs(model, mesh, use_fsdp=False) if zero1 else None
+    tp_only = param_pspecs(model, mesh, use_fsdp=False)
     state = shard_train_state(TrainState(model, adamw_init(
         dict(model.named_parameters()), opt)), mesh, zero1=zero1)
     step = make_train_step(cfg, api, groups=data, opt_cfg=opt,
-                           grad_spec=grad_spec, mesh=mesh)
-    key = f"{name}-zero1" if zero1 else name
+                           grad_spec=tp_only if zero1 else None,
+                           pregather_spec=tp_only if pregather else None,
+                           mesh=mesh)
+    key = (f"{name}-zero1" if zero1 else
+           f"{name}-pregather" if pregather else name)
+    hooks = (record_shapes(model, res, key)
+             if tp > 1 and not (zero1 or pregather) else [])
     for i in range(1, STEPS + 1):
         _, m = step(state, batch)
+        for h in hooks:
+            h.remove()
+        hooks = []
         res[f"{key}/{i}/loss"] = np.asarray(float(m["loss"]))
         res[f"{key}/{i}/grad_norm"] = np.asarray(float(m["grad_norm"]))
         whole_state(state, res, f"{key}/{i}")
@@ -133,7 +159,8 @@ def main():
     mesh = make_debug_mesh(data, tp, device="cpu")
     res = {}
     for case in cases:
-        train_case(mesh, data, tp, inp, case, res)
+        if [data, tp] in case["worlds"]:
+            train_case(mesh, data, tp, inp, case, res)
     ckpt = os.path.join(workdir, "ckpt")
     if (data, tp) == (2, 1):
         refused(mesh, cases[0], inp, res)
@@ -143,6 +170,7 @@ def main():
         launch(data, tp, ["--steps", "4"], res, "whole")
     elif (data, tp) == (2, 2):
         train_case(mesh, data, tp, inp, cases[0], res, zero1=True)
+        train_case(mesh, data, tp, inp, cases[0], res, pregather=True)
     elif (data, tp) == (1, 2):
         restored(workdir, data, tp, res)
         launch(data, tp, ["--steps", "4", "--ckpt-dir", ckpt,
