@@ -259,8 +259,12 @@ Phases, each fatal on failure:
      the attention's masked pairs and remat's recompute, its traffic
      printed; (b) phi4-mini-3.8b x train_4k on the 16 x 16 mesh (rank 0
      of 256): status ok, collective bytes by kind equal to the sharded
-     step's plan, the peak a rank and seconds printed; the card's
-     total_memory printed; the phase within 120 s;
+     step's plan, the peak a rank at most the card's total_memory, the
+     peak and seconds printed; (c) the same for recurrentgemma-2b (the
+     tensor-parallel hybrid: 10 heads over 16 ranks) at full width and
+     train_4k's 16 rows a rank (M 4, S 4,096) at 5 layers, one (R, R, A)
+     superblock and the (R, R) remainder; the card's total_memory
+     printed; the phase within 120 s;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -590,11 +594,14 @@ CHECK_CHUNK = 1 << 26                    # elements a checksum pass reads
 # max_memory_allocated, its flops within DRY_FLOPS_TOL of lm_bounds' plus
 # the masked attention pairs and remat's recompute (dryrun_flops); (b)
 # phi4-mini-3.8b x train_4k on the 16 x 16 dry-run mesh, its collective
-# bytes equal to the step's plan. No device memory, no kernel; the whole
-# phase within DRY_SECONDS.
+# bytes equal to the step's plan; (c) the same for recurrentgemma-2b,
+# tensor-parallel hybrid, at DRY_HY_LAYERS layers (one (R, R, A)
+# superblock and the (R, R) remainder). No device memory, no kernel; the
+# whole phase within DRY_SECONDS.
 DRY_PEAK_TOL = 0.05
 DRY_FLOPS_TOL = 0.03
 DRY_SECONDS = 120
+DRY_HY_LAYERS = 5
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -4965,50 +4972,52 @@ def dryrun_one_rank(torch, smi, peak17) -> dict:
     return info
 
 
-def dryrun_mesh_cell(torch) -> dict:
-    """19b: phi4-mini-3.8b x train_4k on the 16 x 16 dry-run mesh to
-    status ok, tensor-parallel over the model axis: its collective bytes
-    by kind equal to the step's plan (dryrun.train_plan), its rank-0 peak
-    at most the card's total_memory."""
+def dryrun_mesh_cell(torch, tag: str, arch: str, **cut) -> dict:
+    """19b / 19c: `arch` x train_4k (with `cut` applied to its config) on
+    the 16 x 16 dry-run mesh to status ok, tensor-parallel over the model
+    axis: its collective bytes by kind equal to the step's plan
+    (dryrun.train_plan), its rank-0 peak at most the card's
+    total_memory."""
     from repro_torch.distributed.sharding import MeshShape
     from repro_torch.launch import dryrun, specs
-    rec = dryrun.run_cell(TRAIN_ARCH, "train_4k", False,
-                          str(BUILD / "dryrun"))
+    rec = dryrun.run_cell(arch, "train_4k", False, str(BUILD / "dryrun"),
+                          cut or None)
     if rec["status"] != "ok":
-        raise AssertionError(f"19b: {rec}")
+        raise AssertionError(f"{tag}: {rec}")
     shape = specs.SHAPES["train_4k"]
-    plan = dryrun.train_plan(get_lm_config(TRAIN_ARCH), rec["microbatches"],
+    plan = dryrun.train_plan(get_lm_config(arch, **cut), rec["microbatches"],
                              MeshShape(("data", "model"), (16, 16)),
                              shape["batch"], shape["seq"])
     got = {k: v for k, v in rec["collectives"]["bytes"].items() if v}
     card = torch.cuda.get_device_properties(0).total_memory
     peak = rec["memory"]["peak_mb"] * 2 ** 20
-    log(f"[dryrun] 19b {TRAIN_ARCH} x train_4k on 16 x 16 (rank 0 of 256 "
-        f"fake ranks, tensor-parallel over the model axis; M "
-        f"{rec['microbatches']}, groups {rec['groups']}): status ok, peak "
-        f"{rec['memory']['peak_mb']} MiB a rank = {peak:.0f} bytes against "
-        f"the card's total_memory {card} (rules {rec['rules_mb']['total']} "
-        f"MiB), flops {rec['hlo_flops']:.4e}, collective bytes {got} "
-        f"against the plan {plan}; built in {rec['lower_s']} s, run in "
-        f"{rec['compile_s']} s")
+    log(f"[dryrun] {tag} {arch} x train_4k{f' {cut}' if cut else ''} on 16 "
+        f"x 16 (rank 0 of 256 fake ranks, tensor-parallel over the model "
+        f"axis; M {rec['microbatches']}, groups {rec['groups']}): status "
+        f"ok, peak {rec['memory']['peak_mb']} MiB a rank = {peak:.0f} bytes "
+        f"against the card's total_memory {card} (rules "
+        f"{rec['rules_mb']['total']} MiB), flops {rec['hlo_flops']:.4e}, "
+        f"collective bytes {got} against the plan {plan}; built in "
+        f"{rec['lower_s']} s, run in {rec['compile_s']} s")
     if got != {k: float(v) for k, v in plan.items() if v}:
-        raise AssertionError(f"19b: collective bytes {got} against the "
+        raise AssertionError(f"{tag}: collective bytes {got} against the "
                              f"plan {plan}")
     if peak > card:
-        raise AssertionError(f"19b: rank 0's peak {peak:.0f} bytes is over "
-                             f"the card's {card}")
+        raise AssertionError(f"{tag}: rank 0's peak {peak:.0f} bytes is "
+                             f"over the card's {card}")
     return {k: rec[k] for k in ("memory", "rules_mb", "hlo_flops",
                                 "hlo_traffic_bytes", "collectives",
                                 "microbatches", "groups", "lower_s",
-                                "compile_s")} | {"plan": plan,
+                                "compile_s")} | {"plan": plan, "cut": cut,
                                                  "card_total_memory": card}
 
 
 def phase_dryrun(torch, smi, phase17) -> dict:
     """Phase 19: the dry run (launch/dryrun.py over op_analysis.py and a
     fake process group), which allocates none of the card's memory and
-    launches no kernel: 19a against phase 17's measured step, 19b the
-    production mesh's cell. Held to DRY_SECONDS."""
+    launches no kernel: 19a against phase 17's measured step, 19b and
+    19c the production mesh's cells, dense and hybrid. Held to
+    DRY_SECONDS."""
     from repro_torch.kernels import OPS, reset_launches
     free(torch)
     t0 = time.perf_counter()
@@ -5016,7 +5025,9 @@ def phase_dryrun(torch, smi, phase17) -> dict:
     reset_launches()
     peak17 = float(phase17["launcher"]["peak_memory"].split()[0]) * 1e9
     info = {"one_rank": dryrun_one_rank(torch, smi, peak17),
-            "mesh_cell": dryrun_mesh_cell(torch),
+            "mesh_cell": dryrun_mesh_cell(torch, "19b", TRAIN_ARCH),
+            "hybrid_cell": dryrun_mesh_cell(torch, "19c", HY_ARCH,
+                                            n_layers=DRY_HY_LAYERS),
             "kernel_launches": {n: op.launches for n, op in OPS.items()},
             "card_total_memory": torch.cuda.get_device_properties(
                 0).total_memory,

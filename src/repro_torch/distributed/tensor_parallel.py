@@ -7,8 +7,9 @@ The sharded train step (train/steps.py) gathers each parameter over the
 data axes only, to `compute_specs` (JAX's TP-only spec, param_pspecs(...,
 use_fsdp=False), for the leaves of a module that computes with its shard;
 replicated for the rest), and runs the forward and backward inside
-`tensor_parallel(axis)`. Inside it the modules of models/layers.py and
-models/lm.py read `active()` and compute with their model-axis shards:
+`tensor_parallel(axis)`. Inside it the modules of models/layers.py,
+models/lm.py and models/rglru.py read `active()` and compute with their
+model-axis shards:
 
 - `Attention` by whole query heads: rank r of tp takes heads [ceil(r H /
   tp), ceil((r + 1) H / tp)) (rank 0 the most; each head once, so the sum
@@ -16,20 +17,26 @@ models/lm.py read `active()` and compute with their model-axis shards:
   matching wo rows. Where a rank's heads are not its stored chunk of wq
   (H % tp != 0, phi4-mini's 24 heads at tp 16 are 1.5 a chunk) or of
   wk / wv (fewer KV heads than ranks), the weight is gathered over the
-  model axis for the layer only and cut to the rank's columns (`take`);
+  model axis for the layer only and cut to the rank's columns (`take`).
+  With fewer heads than ranks (recurrentgemma-2b's 10 at tp 16) some
+  ranks hold no head: their spans are empty, they add zeros to the sum
+  after wo and make every collective the others make;
 - `DenseMLP`: w1 / w3 column-parallel, w2 row-parallel;
 - `MoE`: JAX's moe_gecf pin, the expert ffn dim over the model axis; the
   router and the routing replicated (the same on every rank), the sum
   over the model axis before the gates weigh the expert outputs;
-- `LM`: the vocab-parallel embedding lookup (`embedding`) and the
-  vocab-sharded f32 logits, which go to the vocab-parallel loss
+- `RGLRUBlock` (models/rglru.py): w_in, w_gate and conv_w by channels;
+  w_a / w_x by output channels on the whole conv output (all-gathered),
+  lam replicated and cut to the rank's channels, the scan on those
+  channels, w_out row-parallel;
+- `LM` and `RG`: the vocab-parallel embedding lookup (`embedding`) and
+  the vocab-sharded f32 logits, which go to the vocab-parallel loss
   (`cross_entropy`).
 
 A module computes with its shard only when every weight it cuts is
 sharded under the TP-only spec (JAX's divisibility guard may leave a dim
-replicated) and, for attention, there are at least as many heads as
-ranks; otherwise it computes replicated, on whole weights, as off the
-model axis. The hybrid, ssm and encdec families compute replicated.
+replicated); otherwise it computes replicated, on whole weights, as off
+the model axis. The ssm and encdec families compute replicated.
 
 Collectives (each rank calls them in the same order; every one goes
 through torch.distributed's c10d ops, which launch/op_analysis.py counts):
@@ -166,8 +173,11 @@ def head_span(n_heads: int, tp: int, r: int) -> Span:
 
 
 def kv_span(n_heads: int, q_per_kv: int, tp: int, r: int) -> Span:
-    """The KV heads that rank r's query heads read."""
+    """The KV heads that rank r's query heads read (none where it holds
+    no query head)."""
     h0, h1 = head_span(n_heads, tp, r)
+    if h0 == h1:
+        return h0 // q_per_kv, h0 // q_per_kv
     return h0 // q_per_kv, (h1 - 1) // q_per_kv + 1
 
 
@@ -230,17 +240,20 @@ def compute_specs(model, mesh, shapes=None) -> Dict[str, P]:
     sharding.MeshShape (no world)."""
     from repro_torch.models import layers as L
     from repro_torch.models.lm import LM
+    from repro_torch.models.rglru import RG, RGLRUBlock
     tp_only = param_pspecs(model, mesh, use_fsdp=False, shapes=shapes)
     out = {name: P(*(None,) * len(spec)) for name, spec in tp_only.items()}
     tp = mesh_axis_sizes(mesh).get(tp_axis(mesh), 1)
-    if tp == 1 or not isinstance(model, LM):
+    if tp == 1 or not isinstance(model, (LM, RG)):
         return out
     whole = {name: tuple(shapes[name] if shapes is not None else p.shape)
              for name, p in model.named_parameters()}
     units = [["embed"], ["unembed"]]        # the weights a module cuts
     for prefix, mod in model.named_modules():
-        if isinstance(mod, L.Attention) and model.cfg.n_heads >= tp:
+        if isinstance(mod, L.Attention):
             names = ("wq", "wk", "wv", "wo")
+        elif isinstance(mod, RGLRUBlock):     # lam (1-D) stays replicated
+            names = ("w_in", "w_gate", "conv_w", "w_a", "w_x", "w_out")
         elif isinstance(mod, (L.DenseMLP, L.MoE)):
             names = tuple(n for n in ("w1", "w2", "w3") if hasattr(mod, n))
         else:

@@ -24,7 +24,7 @@ until B / M divides by dp).
     cfg.pregather) and gradient spec (fsdp x tp); run on the global batch
     of specs.train_inputs(abstract=True), of which the step takes rank
     0's rows of each microbatch. The step computes tensor-parallel over
-    the model axis as it does on a real mesh (dense, moe and vlm;
+    the model axis as it does on a real mesh (dense, moe, vlm and hybrid;
     distributed/tensor_parallel.py), rank 0 taking the most heads;
     `train_plan` gives the collective bytes it must move;
   - prefill_32k: make_prefill_step; decode_32k and long_500k:
@@ -187,14 +187,20 @@ def train_plan(cfg: ArchConfig, micro: int, mesh, B: int,
         norm scales' f32 gradients; per tensor-parallel MLP, the
         all-reduce after w2 (MoE: of the (G, E, C, d) expert outputs) and
         the gradient's before the input (MoE: of the (G, Tg, d) groups);
-        the vocab-parallel embedding's all-reduce, the gradient's before
-        the unembedding, and the loss's three f32 all-reduces of (b, S)
-        (the max, the sum of exp, the gold logit). With remat the
-        backward replays a block's forward as far as the last tensor it
-        saves (torch's checkpoint stops there): the attention's gathers
-        and its all-reduce, and the MoE's all-reduce, whose output the
-        gates' product saves; not the dense MLP's, which ends the
-        block."""
+        per tensor-parallel RG-LRU block, the all-gather of u, (b, S, d)
+        in the parameter dtype, and its reduce-scatter backward, the
+        all-reduce after w_out, the gradient's all-reduce before its
+        input and lam's f32 gradient all-reduce; the vocab-parallel
+        embedding's all-reduce, the gradient's before the unembedding,
+        and the loss's three f32 all-reduces of (b, S) (the max, the sum
+        of exp, the gold logit). Attention with fewer heads than ranks
+        counts as any other: a rank with no head makes the same calls.
+        With remat the backward replays a block's forward as far as the
+        last tensor it saves (torch's checkpoint stops there): the
+        attention's gathers and its all-reduce, the RG-LRU block's
+        gather of u and its all-reduce after w_out (the next norm saves
+        the sum), and the MoE's all-reduce, whose output the gates'
+        product saves; not the dense MLP's, which ends the block."""
     dp_n, tp = _sizes(mesh)
     model = get_api(cfg).init(cfg, tp, device="meta")
     spec = shd.state_pspecs(TrainState(model, {}), mesh, zero1=cfg.zero1)
@@ -244,6 +250,7 @@ def _tp_plan(cfg: ArchConfig, model, cspec, b: int, S: int, groups: int,
              tp: int) -> Dict[str, float]:
     """One microbatch's tensor-parallel collectives (train_plan)."""
     from repro_torch.models import layers as L
+    from repro_torch.models.rglru import RGLRUBlock
     out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0}
     cut = {name for name, s in cspec.items() if any(s)}
     ai = L.dtype_of(cfg.param_dtype).itemsize       # the residual stream's
@@ -260,6 +267,11 @@ def _tp_plan(cfg: ArchConfig, model, cspec, b: int, S: int, groups: int,
             out["all-reduce"] += T * d * ai * (3 if cfg.remat else 2)
             if cfg.qk_norm:
                 out["all-reduce"] += 2 * cfg.head_dim * 4
+        elif isinstance(mod, RGLRUBlock) and f"{prefix}.w_in" in cut:
+            replay = 2 if cfg.remat else 1
+            out["all-gather"] += T * d * ai * replay
+            out["reduce-scatter"] += T * d * ai // tp
+            out["all-reduce"] += T * d * ai * (replay + 1) + d * 4
         elif isinstance(mod, L.DenseMLP) and f"{prefix}.w1" in cut:
             out["all-reduce"] += 2 * T * d * ai
         elif isinstance(mod, L.MoE) and f"{prefix}.w1" in cut:

@@ -37,11 +37,12 @@ calls (activation layout hints that change no value) are left out: the
 port's `distributed.sharding.maybe_shard` returns its input.
 
 Tensor-parallel compute: inside distributed/tensor_parallel.py's context,
-the full-sequence forward of `Attention`, `DenseMLP` and `MoE` computes
-with the model-axis shard of its weights where the sharded train step
-gave it one (a weight narrower than the config's width); the module
-docstring there says how each splits. Serving, and every call outside
-that context, runs on whole weights as above.
+the full-sequence forward of `Attention`, `DenseMLP` and `MoE`, and the
+models' `embed_lookup` and `logits`, compute with the model-axis shard
+of their weights where the sharded train step gave them one (a weight
+narrower than the config's width); the module docstring there says how
+each splits. Serving, and every call outside that context, runs on
+whole weights as above.
 """
 from __future__ import annotations
 
@@ -62,6 +63,27 @@ def tp_ops():
     distributed package imports the models)."""
     from repro_torch.distributed import tensor_parallel
     return tensor_parallel
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """table[tokens]; the vocab-parallel lookup (tensor_parallel's
+    `embedding`) where the sharded step gave the table a vocab chunk."""
+    axis = tp_ops().active()
+    if axis is not None and table.shape[0] != vocab:
+        return tp_ops().embedding(table, tokens, axis)
+    return table[tokens]
+
+
+def logits(x: torch.Tensor, unembed: torch.Tensor, vocab: int
+           ) -> torch.Tensor:
+    """(x @ unembed) in f32; this rank's vocab chunk of them where the
+    sharded step gave the unembedding one (x's gradient summed over the
+    model axis)."""
+    axis = tp_ops().active()
+    if axis is not None and unembed.shape[1] != vocab:
+        x = tp_ops().copy_to_model(x, axis)
+    return (x @ unembed).float()
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -233,7 +255,9 @@ class Attention(nn.Module):
 
     def _forward_tp(self, x, positions, window, causal, axis) -> torch.Tensor:
         """forward on this rank's query heads (tensor_parallel's split) and
-        the KV heads they read; the sum over the model axis after wo."""
+        the KV heads they read; the sum over the model axis after wo. A
+        rank with no head runs the same operations on empty heads: it
+        makes every collective the others make and adds zeros."""
         cfg, TP = self.cfg, tp_ops()
         B, S = x.shape[:2]
         hd, g = cfg.head_dim, cfg.q_per_kv
@@ -255,7 +279,9 @@ class Attention(nn.Module):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         mask = _mask(S, window, causal, x.device)
-        if k1 - k0 == 1:                    # every head reads one KV head
+        if h0 == h1:                        # no head: zeros reach the sum
+            group = 1
+        elif k1 - k0 == 1:                  # every head reads one KV head
             group = h1 - h0
         elif h0 % g == 0 and h1 % g == 0:   # whole GQA groups
             group = g

@@ -76,20 +76,13 @@ class LM(nn.Module):
         pixtral stub). Returns logits (B, S, vocab_padded) in f32; under
         tensor-parallel compute with the vocabulary sharded, this rank's
         chunk of them (distributed/tensor_parallel.py)."""
-        axis = L.tp_ops().active()
-        if axis is not None and self.embed.shape[0] != self.vocab:
-            x = L.tp_ops().embedding(self.embed, tokens, axis)
-        else:
-            x = self.embed[tokens]                        # (B, S_text, d)
+        x = L.embed_lookup(self.embed, tokens, self.vocab)  # (B, S_text, d)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         win = window_of(self.cfg)
         for blk in self.layers:
             x = L.remat(self.cfg, blk, x, groups=groups, window=win)
-        x = self.ln_f(x)
-        if axis is not None and self.unembed.shape[1] != self.vocab:
-            x = L.tp_ops().copy_to_model(x, axis)
-        return (x @ self.unembed).float()
+        return L.logits(self.ln_f(x), self.unembed, self.vocab)
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16) -> Cache:

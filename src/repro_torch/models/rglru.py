@@ -32,6 +32,13 @@ min(max_seq, window), is written in place by `prefill` and `decode`
 (JAX returns a new cache), as models/lm.py's is. The model lives on the
 card unless the caller passes device="cpu"; its weights are drawn from
 an explicit torch.Generator, and a model on "meta" is left undrawn.
+
+`forward` computes tensor-parallel inside distributed/tensor_parallel.py's
+context (the sharded train step's), where the step gave the blocks their
+model-axis shards: the vocab-parallel embedding and logits, the
+attention by heads, the MLP by columns, and each RG-LRU block by its
+lru channels (`RGLRUBlock._forward_tp`); `step`, `prefill` and `decode`
+always run on whole weights.
 """
 from __future__ import annotations
 
@@ -142,7 +149,34 @@ class RGLRUBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
         """rglru.py:100 `apply_rglru_block`."""
+        axis = L.tp_ops().active()
+        if axis is not None and self.w_in.shape[1] != self.lam.shape[0]:
+            return self._forward_tp(x, groups, axis)    # lam is never cut
         return self.step(x, groups=groups)[0]
+
+    def _forward_tp(self, x: torch.Tensor, groups: int, axis) -> torch.Tensor:
+        """forward on this rank's chunk of the lru channels, JAX's TP-only
+        layout: u = xin @ w_in and the conv on the rank's channels; u
+        all-gathered for w_a / w_x, whose columns give the rank's gates;
+        lam cut to its channels (its gradient summed over the axis); the
+        scan on those channels; the gate by columns; w_out row-parallel,
+        summed over the axis."""
+        TP = L.tp_ops()
+        n = self.w_in.shape[1]
+        xin = TP.copy_to_model(self.ln(x), axis)
+        u, _ = causal_conv4(xin @ self.w_in, self.conv_w)
+        whole = TP.gather_from_model(u, -1, axis)
+        r = torch.sigmoid(_mm(whole, self.w_a).float())
+        i = torch.sigmoid(_mm(whole, self.w_x).float())
+        lam = TP.copy_to_model(self.lam, axis).narrow(0, axis.index * n, n)
+        log_a = -_C * F.softplus(lam) * r
+        beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
+                                      min=1e-9))
+        h = rglru_scan(log_a, beta * (i * u.float())).to(x.dtype)
+        gate = F.gelu((xin @ self.w_gate).float(),
+                      approximate="tanh").to(x.dtype)
+        x = x + TP.reduce_from_model((h * gate) @ self.w_out, axis)
+        return x + self.mlp(self.ln2(x), groups)
 
     def step(self, x: torch.Tensor, h0: Optional[torch.Tensor] = None,
              conv0: Optional[torch.Tensor] = None, groups: int = 1):
@@ -181,6 +215,7 @@ class RG(nn.Module):
         self.cfg = cfg
         dtype = L.dtype_of(cfg.param_dtype)
         V, d = cfg.vocab_padded(tp), cfg.d_model
+        self.vocab = V
         self.kinds = layer_kinds(cfg)
         self.embed = L.empty_param((V, d), dtype, device)
         self.layers = nn.ModuleList(
@@ -204,13 +239,15 @@ class RG(nn.Module):
         return self.embed.device
 
     def forward(self, tokens: torch.Tensor, groups: int = 1) -> torch.Tensor:
-        """rglru.py:159 `forward_rg`: logits (B, S, vocab_padded) f32."""
-        x = self.embed[tokens]
+        """rglru.py:159 `forward_rg`: logits (B, S, vocab_padded) f32;
+        under tensor-parallel compute with the vocabulary sharded, this
+        rank's chunk of them (distributed/tensor_parallel.py)."""
+        x = L.embed_lookup(self.embed, tokens, self.vocab)
         for kind, blk in zip(self.kinds, self.layers):
             x = (L.remat(self.cfg, blk, x, groups) if kind == "R"
                  else L.remat(self.cfg, blk, x, groups,
                               window=self.cfg.window))
-        return (self.ln_f(x) @ self.unembed).float()
+        return L.logits(self.ln_f(x), self.unembed, self.vocab)
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16) -> Cache:

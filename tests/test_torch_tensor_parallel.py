@@ -2,18 +2,29 @@
 
 - The head split: every query head on exactly one rank, rank 0 the most,
   and the KV heads a rank reads, for head counts that do and do not
-  divide by the model axis.
+  divide by the model axis, and for fewer heads than ranks (a rank with
+  no query head reads no KV head).
 - compute_specs on all ten full configs at the production meshes (no
-  world): the dense, moe and vlm families compute each projection,
-  expert weight and embedding in JAX's TP-only layout, their norms and
-  routers replicated; the other families replicated; which attention
-  weights a rank gathers (phi4-mini's 24 heads over 16 ranks).
-- The vocab-parallel loss and lookup on gloo worlds of 2 and 4 ranks
-  (this file run as a worker, one process a rank): the loss and the
-  gradient of each rank's logits chunk against train/steps.py's
-  cross_entropy on the whole logits; the lookup bit for bit against
-  indexing the whole table, and the table's gradient.
+  world): the dense, moe, vlm and hybrid families compute each
+  projection, expert weight, RG-LRU weight and embedding in JAX's TP-only
+  layout, their norms, routers and lam replicated; the ssm and encdec
+  families replicated; which attention weights a rank gathers (phi4-mini's
+  24 heads over 16 ranks).
+- On gloo worlds of 2 and 4 ranks (this file run as a worker, one process
+  a rank, each world spawned once for the module):
+  - the vocab-parallel loss and lookup: the loss and the gradient of
+    each rank's logits chunk against train/steps.py's cross_entropy on
+    the whole logits; the lookup bit for bit against indexing the whole
+    table, and the table's gradient;
+  - recurrentgemma's smoke `RGLRUBlock` computed tensor-parallel on its
+    TP-only shards against the whole block on the same weights: the
+    output, the input's gradient and every parameter's gradient gathered
+    whole (lam and conv_w included), within BLOCK_TOL;
+  - at 4 ranks, its `Attention` (2 heads over 4 ranks: ranks 1 and 3 hold
+    no head) the same way, once as it is and once under remat (the
+    backward replays the forward's collectives on every rank).
 """
+import dataclasses
 import datetime
 import math
 import os
@@ -35,11 +46,17 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 MESHES = {"16x16": (("data", "model"), (16, 16)),
           "2x16x16": (("pod", "data", "model"), (2, 16, 16))}
 B, S, V, D = 3, 5, 64, 8
+TP_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+# The blocks' f32 tolerance: the row-parallel sums over the model axis
+# change the order of sums (measured: at most 6.2e-7 of the tensor's
+# largest magnitude, on every rank and tensor).
+BLOCK_TOL = {"rtol": 1e-5, "atol_of_max": 5e-6}
+BLOCK_B, BLOCK_S = 2, 40          # 40 positions: past the smoke window 32
 
 
 @pytest.mark.parametrize("heads,kv,tp", (
     (24, 8, 16), (40, 8, 16), (32, 8, 16), (96, 8, 16), (6, 2, 4),
-    (6, 3, 4), (4, 2, 4), (7, 7, 3)))
+    (6, 3, 4), (4, 2, 4), (7, 7, 3), (10, 1, 16), (2, 1, 4), (2, 2, 4)))
 def test_every_head_on_one_rank(heads, kv, tp):
     q_per_kv = heads // kv
     spans = [TP.head_span(heads, tp, r) for r in range(tp)]
@@ -62,12 +79,12 @@ def test_compute_specs(arch, mesh):
     assert got.keys() == tp_only.keys()
     cut = 0
     for name, p in model.named_parameters():
-        if cfg.family in ("dense", "moe", "vlm"):
+        if cfg.family in TP_FAMILIES:
             assert got[name] == tp_only[name], name
         else:
             assert all(e is None for e in got[name]), name
         cut += tuple(local_shape(p.shape, got[name], shape)) != p.shape
-    assert bool(cut) == (cfg.family in ("dense", "moe", "vlm"))
+    assert bool(cut) == (cfg.family in TP_FAMILIES)
     assert TP.compute_bytes(model, shape) == sum(
         math.prod(local_shape(p.shape, got[name], shape)) * p.element_size()
         for name, p in model.named_parameters())
@@ -102,6 +119,63 @@ def _inputs():
     return logits, labels, table, tokens
 
 
+def _blocks():
+    """recurrentgemma's smoke model cut to one (R, R, A) superblock, drawn
+    from a seed; its first RGLRUBlock and the Attention of its A layer,
+    their prefixes in it, their input and the weights the output is
+    summed with."""
+    from repro_torch.models.rglru import RG
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b", smoke=True),
+                              n_layers=3)
+    g = torch.Generator().manual_seed(11)
+    model = RG(cfg, 1, device="cpu", generator=g)
+    mods = {"rglru": ("layers.0", model.layers[0]),
+            "attn": ("layers.2.attn", model.layers[2].attn)}
+    x = torch.randn((BLOCK_B, BLOCK_S, cfg.d_model), generator=g)
+    w = torch.randn((BLOCK_B, BLOCK_S, cfg.d_model), generator=g)
+    return cfg, model, mods, x, w
+
+
+def _run_block(cfg, name, mod, x, w, remat=False):
+    """(output, the input's gradient, {parameter: gradient}) of
+    sum(mod(x) * w), under remat's checkpoint when asked."""
+    from repro_torch.models import layers as L
+    x = x.clone().requires_grad_()
+    for p in mod.parameters():
+        p.grad = None
+    args = {"window": cfg.window} if name == "attn" else {}
+    rcfg = dataclasses.replace(cfg, remat=remat)
+    y = L.remat(rcfg, mod, x, **args)
+    (y * w).sum().backward()
+    return y.detach(), x.grad, {n: p.grad for n, p in
+                                mod.named_parameters()}
+
+
+def _block_worker(world, mesh, axis, out):
+    from repro_torch.distributed.sharding import gather, local_shard
+    cfg, model, mods, x, w = _blocks()
+    spec_of = TP.compute_specs(model, mesh)
+    cases = [("rglru", False)] + ([("attn", False), ("attn", True)]
+                                  if world == 4 else [])
+    for name, remat in cases:
+        prefix, mod = mods[name]
+        spec = {n: spec_of[f"{prefix}.{n}"]
+                for n, _ in mod.named_parameters()}
+        whole = {n: p.data for n, p in mod.named_parameters()}
+        with torch.no_grad():
+            for pname, p in mod.named_parameters():
+                p.data = local_shard(whole[pname].clone(), spec[pname], mesh)
+        with TP.tensor_parallel(axis):
+            y, dx, grads = _run_block(cfg, name, mod, x, w, remat)
+        key = f"{name}{'_remat' if remat else ''}"
+        out[f"{key}/y"], out[f"{key}/dx"] = y, dx
+        for pname, p in mod.named_parameters():
+            out[f"{key}/shape/{pname}"] = np.asarray(p.shape)
+            out[f"{key}/d/{pname}"] = gather(grads[pname], spec[pname],
+                                             mesh)
+            p.data, p.grad = whole[pname], None
+
+
 def _worker(rank: int, world: int, work: str) -> None:
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh, mesh_axis
@@ -109,7 +183,8 @@ def _worker(rank: int, world: int, work: str) -> None:
     dist.init_process_group(
         "gloo", store=dist.FileStore(os.path.join(work, "store"), world),
         rank=rank, world_size=world, timeout=datetime.timedelta(seconds=60))
-    axis = mesh_axis(make_debug_mesh(1, world, device="cpu"), "model")
+    mesh = make_debug_mesh(1, world, device="cpu")
+    axis = mesh_axis(mesh, "model")
     logits, labels, table, tokens = _inputs()
     n = V // world
     part = logits[..., rank * n:(rank + 1) * n].clone().requires_grad_()
@@ -119,20 +194,37 @@ def _worker(rank: int, world: int, work: str) -> None:
     rows = table[rank * n:(rank + 1) * n].clone().requires_grad_()
     x = TP.embedding(rows, tokens, axis)
     (x * torch.arange(D)).sum().backward()
-    np.savez(os.path.join(work, f"out_{rank}.npz"), loss=loss.detach(),
-             dlogits=part.grad, x=x.detach(), drows=rows.grad)
+    out = {"loss": loss.detach(), "dlogits": part.grad, "x": x.detach(),
+           "drows": rows.grad}
+    _block_worker(world, mesh, axis, out)
+    np.savez(os.path.join(work, f"out_{rank}.npz"),
+             **{k: np.asarray(v) for k, v in out.items()})
     dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("world", (2, 4))
-def test_vocab_parallel_loss_and_lookup(tmp_path, world):
-    from repro_torch.train import cross_entropy
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """Each world's ranks' outputs, {world: [out of rank r]}: the worlds
+    of 2 and 4 ranks run together."""
     env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
            "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, __file__, str(r), str(world),
-                               str(tmp_path)], env=env)
-             for r in range(world)]
-    assert [p.wait(timeout=120) for p in procs] == [0] * world
+    runs = {}
+    for world in (2, 4):
+        work = tmp_path_factory.mktemp(f"tp{world}")
+        runs[world] = (work, [subprocess.Popen(
+            [sys.executable, __file__, str(r), str(world), str(work)],
+            env=env) for r in range(world)])
+    out = {}
+    for world, (work, procs) in runs.items():
+        assert [p.wait(timeout=180) for p in procs] == [0] * world
+        out[world] = [dict(np.load(work / f"out_{r}.npz"))
+                      for r in range(world)]
+    return out
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_vocab_parallel_loss_and_lookup(worlds, world):
+    from repro_torch.train import cross_entropy
     logits, labels, table, tokens = _inputs()
     logits.requires_grad_()
     want = cross_entropy(logits, labels)
@@ -142,7 +234,7 @@ def test_vocab_parallel_loss_and_lookup(tmp_path, world):
     (x * torch.arange(D)).sum().backward()
     n = V // world
     for r in range(world):
-        out = np.load(tmp_path / f"out_{r}.npz")
+        out = worlds[world][r]
         np.testing.assert_allclose(out["loss"], want.item(), rtol=1e-6)
         np.testing.assert_allclose(
             out["dlogits"], logits.grad[..., r * n:(r + 1) * n].numpy(),
@@ -150,6 +242,56 @@ def test_vocab_parallel_loss_and_lookup(tmp_path, world):
         assert np.array_equal(out["x"], x.detach().numpy())
         assert np.array_equal(out["drows"],
                               whole.grad[r * n:(r + 1) * n].numpy())
+
+
+def _close(got, want, what):
+    want = want.numpy()
+    np.testing.assert_allclose(
+        got, want, rtol=BLOCK_TOL["rtol"],
+        atol=BLOCK_TOL["atol_of_max"] * float(np.abs(want).max()),
+        err_msg=what)
+
+
+def _hold_block(worlds, world, name, remat):
+    """Every rank's output and input gradient, and the parameters'
+    gradients gathered whole, against the whole module's; each weight a
+    rank held was its chunk under JAX's TP-only spec."""
+    cfg, model, mods, x, w = _blocks()
+    prefix, mod = mods[name]
+    y, dx, grads = _run_block(cfg, name, mod, x, w, remat)
+    key = f"{name}{'_remat' if remat else ''}"
+    mesh = MeshShape(("data", "model"), (1, world))
+    spec = param_pspecs(model, mesh, use_fsdp=False)
+    cut = 0
+    for r in range(world):
+        out = worlds[world][r]
+        _close(out[f"{key}/y"], y, f"rank {r} output")
+        _close(out[f"{key}/dx"], dx, f"rank {r} input gradient")
+        for pname, p in mod.named_parameters():
+            want = tuple(local_shape(p.shape, spec[f"{prefix}.{pname}"],
+                                     mesh))
+            assert tuple(out[f"{key}/shape/{pname}"]) == want, pname
+            cut += want != tuple(p.shape)
+            _close(out[f"{key}/d/{pname}"], grads[pname],
+                   f"rank {r} gradient of {pname}")
+    assert cut
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_rglru_block_tensor_parallel(worlds, world):
+    _hold_block(worlds, world, "rglru", False)
+
+
+@pytest.mark.parametrize("remat", (False, True), ids=("plain", "remat"))
+def test_attention_with_ranks_that_hold_no_head(worlds, remat):
+    """2 heads over 4 ranks: ranks 1 and 3 hold no query head and no KV
+    head, add zeros after wo and make every collective the others make
+    (a rank that skipped one would hang the world)."""
+    assert [TP.head_span(2, 4, r) for r in range(4)] == [
+        (0, 1), (1, 1), (1, 2), (2, 2)]
+    assert [TP.kv_span(2, 2, 4, r) for r in range(4)] == [
+        (0, 1), (0, 0), (0, 1), (1, 1)]
+    _hold_block(worlds, 4, "attn", remat)
 
 
 if __name__ == "__main__":
