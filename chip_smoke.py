@@ -263,8 +263,12 @@ Phases, each fatal on failure:
      peak and seconds printed; (c) the same for recurrentgemma-2b (the
      tensor-parallel hybrid: 10 heads over 16 ranks) at full width and
      train_4k's 16 rows a rank (M 4, S 4,096) at 5 layers, one (R, R, A)
-     superblock and the (R, R) remainder; the card's total_memory
-     printed; the phase within 120 s;
+     superblock and the (R, R) remainder; (d) the same for rwkv6-1.6b
+     (the tensor-parallel ssm: 32 heads of 64, 2 a rank) at 4 layers;
+     (e) the same for whisper-large-v3 (the tensor-parallel encdec: 20
+     heads over 16 ranks, the encoder over 1,500 frames a row) at 4
+     encoder and 4 decoder layers; the card's total_memory printed; the
+     phase within 120 s;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -596,12 +600,16 @@ CHECK_CHUNK = 1 << 26                    # elements a checksum pass reads
 # phi4-mini-3.8b x train_4k on the 16 x 16 dry-run mesh, its collective
 # bytes equal to the step's plan; (c) the same for recurrentgemma-2b,
 # tensor-parallel hybrid, at DRY_HY_LAYERS layers (one (R, R, A)
-# superblock and the (R, R) remainder). No device memory, no kernel; the
-# whole phase within DRY_SECONDS.
+# superblock and the (R, R) remainder); (d) rwkv6-1.6b, tensor-parallel
+# ssm, at DRY_SSM_LAYERS layers; (e) whisper-large-v3, tensor-parallel
+# encdec, at DRY_ED_LAYERS encoder and decoder layers. No device memory,
+# no kernel; the whole phase within DRY_SECONDS.
 DRY_PEAK_TOL = 0.05
 DRY_FLOPS_TOL = 0.03
 DRY_SECONDS = 120
 DRY_HY_LAYERS = 5
+DRY_SSM_LAYERS = 4
+DRY_ED_LAYERS = 4
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -4973,7 +4981,7 @@ def dryrun_one_rank(torch, smi, peak17) -> dict:
 
 
 def dryrun_mesh_cell(torch, tag: str, arch: str, **cut) -> dict:
-    """19b / 19c: `arch` x train_4k (with `cut` applied to its config) on
+    """19b-19e: `arch` x train_4k (with `cut` applied to its config) on
     the 16 x 16 dry-run mesh to status ok, tensor-parallel over the model
     axis: its collective bytes by kind equal to the step's plan
     (dryrun.train_plan), its rank-0 peak at most the card's
@@ -5015,8 +5023,8 @@ def dryrun_mesh_cell(torch, tag: str, arch: str, **cut) -> dict:
 def phase_dryrun(torch, smi, phase17) -> dict:
     """Phase 19: the dry run (launch/dryrun.py over op_analysis.py and a
     fake process group), which allocates none of the card's memory and
-    launches no kernel: 19a against phase 17's measured step, 19b and
-    19c the production mesh's cells, dense and hybrid. Held to
+    launches no kernel: 19a against phase 17's measured step, 19b-19e
+    the production mesh's cells, dense, hybrid, ssm and encdec. Held to
     DRY_SECONDS."""
     from repro_torch.kernels import OPS, reset_launches
     free(torch)
@@ -5028,6 +5036,11 @@ def phase_dryrun(torch, smi, phase17) -> dict:
             "mesh_cell": dryrun_mesh_cell(torch, "19b", TRAIN_ARCH),
             "hybrid_cell": dryrun_mesh_cell(torch, "19c", HY_ARCH,
                                             n_layers=DRY_HY_LAYERS),
+            "ssm_cell": dryrun_mesh_cell(torch, "19d", SSM_ARCH,
+                                         n_layers=DRY_SSM_LAYERS),
+            "encdec_cell": dryrun_mesh_cell(
+                torch, "19e", ED_ARCH, n_layers=DRY_ED_LAYERS,
+                n_encoder_layers=DRY_ED_LAYERS),
             "kernel_launches": {n: op.launches for n, op in OPS.items()},
             "card_total_memory": torch.cuda.get_device_properties(
                 0).total_memory,

@@ -34,10 +34,9 @@ a copy.
 The sharded train step (train/steps.py) stores the state under these
 rules, gathers each parameter over the data axes only, to the layout it
 is computed in (distributed/tensor_parallel.py's compute_specs: the
-TP-only spec for the dense, moe, vlm and hybrid families' projections,
-embeddings, experts and RG-LRU weights, which compute tensor-parallel
-over "model"; replicated for the rest and for the ssm and encdec
-families),
+TP-only spec for every family's projections, embeddings, experts,
+RG-LRU and RWKV weights, which compute tensor-parallel over "model";
+replicated for the rest),
 and reduces each gradient over the data axes into the moments' chunk.
 Serving computes replicated.
 

@@ -29,24 +29,47 @@ model-axis shards:
   w_a / w_x by output channels on the whole conv output (all-gathered),
   lam replicated and cut to the rank's channels, the scan on those
   channels, w_out row-parallel;
-- `LM` and `RG`: the vocab-parallel embedding lookup (`embedding`) and
-  the vocab-sharded f32 logits, which go to the vocab-parallel loss
-  (`cross_entropy`).
+- `RWKVBlock` (models/rwkv6.py), two units. The time mix by whole heads
+  (`head_span` over d / rwkv_head_dim heads, `take` where they are not
+  the rank's chunk): wr / wk / wv / wg column-parallel, wo row-parallel;
+  the decay LoRA's tanh(xw @ wa) on the rank's wa columns all-gathered,
+  (b, S, 64), and multiplied by wb's columns for the rank's channels (wb
+  gathered whole, 64 x d); the mu_* vectors, w0, u and ln_x's scale
+  replicated and cut to the rank's channels; ln_x's sum of squares over
+  the whole width summed over the axis; the scan on the rank's heads.
+  The channel mix: ck column-parallel over d_ff, cv row-parallel, its
+  partial sums reduce-scattered to the rank's chunk of d, there
+  multiplied by the sigmoid of cr's columns (column-parallel over d),
+  and the product all-gathered into the residual stream;
+- whisper's `CrossAttention` (models/whisper.py) as `Attention`: the
+  rank's query heads, the KV heads they read computed from the encoder
+  output, wo row-parallel;
+- `LM`, `RG`, `RWKV` and `Whisper`: the vocab-parallel embedding lookup
+  (`embedding`) and the vocab-sharded f32 logits, which go to the
+  vocab-parallel loss (`cross_entropy`).
 
 A module computes with its shard only when every weight it cuts is
 sharded under the TP-only spec (JAX's divisibility guard may leave a dim
 replicated); otherwise it computes replicated, on whole weights, as off
-the model axis. The ssm and encdec families compute replicated.
+the model axis.
 
 Collectives (each rank calls them in the same order; every one goes
 through torch.distributed's c10d ops, which launch/op_analysis.py counts):
 `copy_to_model` is identity forward and an all-reduce of the gradient
 backward (before a column-parallel input, and on a replicated weight used
-on a rank's part of the heads: the qk norms); `reduce_from_model` an
-all-reduce forward and identity backward (after a row-parallel output;
-torch.distributed.nn.functional.all_reduce would all-reduce the gradient
-too); `gather_from_model` an all-gather forward and a reduce-scatter
-backward. Outside the context every module runs as it did.
+on a rank's part of the channels: the qk norms, lam, mu_*);
+`reduce_from_model` an all-reduce forward and identity backward (after a
+row-parallel output; torch.distributed.nn.functional.all_reduce would
+all-reduce the gradient too); `sum_over_model` an all-reduce both ways
+(a statistic that every rank reads whole: ln_x's sum of squares);
+`gather_from_model` an all-gather forward and a reduce-scatter backward
+(right where the gathered tensor feeds a column-parallel product, so
+each rank's gradient is a partial sum); `scatter_from_model` a
+reduce-scatter forward and an all-gather backward; `gather_to_stream` an
+all-gather forward whose backward is this rank's chunk of the gradient
+(the gathered tensor joins the replicated residual stream, whose
+gradient every rank holds whole). Outside the context every module runs
+as it did.
 """
 from __future__ import annotations
 
@@ -101,6 +124,7 @@ class _CopyToModel(torch.autograd.Function):
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
+        ctx.axis = axis
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=axis.group)
         return out
@@ -108,6 +132,19 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SumOverModel(_ReduceFromModel):
+    backward = staticmethod(_CopyToModel.backward)
+
+
+def _scatter(x: torch.Tensor, dim: int, axis: MeshAxis) -> torch.Tensor:
+    """x summed over the axis and cut to this rank's chunk along dim."""
+    front = x.movedim(dim, 0).contiguous()
+    out = torch.empty((front.shape[0] // axis.size,) + front.shape[1:],
+                      dtype=x.dtype, device=x.device)
+    _reduce_scatter(out, front, group=axis.group)
+    return out.movedim(0, dim).contiguous()
 
 
 class _GatherFromModel(torch.autograd.Function):
@@ -118,12 +155,29 @@ class _GatherFromModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        axis = ctx.axis
-        front = g.movedim(ctx.dim, 0).contiguous()
-        out = torch.empty((front.shape[0] // axis.size,) + front.shape[1:],
-                          dtype=g.dtype, device=g.device)
-        _reduce_scatter(out, front, group=axis.group)
-        return out.movedim(0, ctx.dim).contiguous(), None, None
+        return _scatter(g, ctx.dim, ctx.axis), None, None
+
+
+class _ScatterFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _scatter(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_gather_cat(g, ctx.dim), None, None
+
+
+class _GatherToStream(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis, ctx.n = dim, axis, x.shape[dim]
+        return axis.all_gather_cat(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n), None, None
 
 
 def copy_to_model(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
@@ -142,6 +196,27 @@ def gather_from_model(w: torch.Tensor, dim: int,
     """The ranks' chunks of w concatenated along dim; backward, the
     gradient's sum over the axis cut to this rank's chunk."""
     return _GatherFromModel.apply(w, dim, axis)
+
+
+def sum_over_model(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """x summed over the model axis forward, and its gradient summed
+    backward (each rank's loss reads the whole sum)."""
+    return _SumOverModel.apply(x, axis)
+
+
+def scatter_from_model(x: torch.Tensor, dim: int,
+                       axis: MeshAxis) -> torch.Tensor:
+    """The ranks' partial sums x summed and cut to this rank's chunk along
+    dim; backward, the ranks' gradient chunks concatenated."""
+    return _ScatterFromModel.apply(x, dim, axis)
+
+
+def gather_to_stream(x: torch.Tensor, dim: int,
+                     axis: MeshAxis) -> torch.Tensor:
+    """The ranks' chunks of x concatenated along dim, for a replicated
+    consumer; backward, this rank's chunk of the gradient, which every
+    rank holds whole."""
+    return _GatherToStream.apply(x, dim, axis)
 
 
 Span = Tuple[int, int]
@@ -181,14 +256,20 @@ def kv_span(n_heads: int, q_per_kv: int, tp: int, r: int) -> Span:
     return h0 // q_per_kv, (h1 - 1) // q_per_kv + 1
 
 
+def head_channels(n_heads: int, head_dim: int,
+                  tp: int) -> Callable[[int], Span]:
+    """spans(r): the channels [h0 hd, h1 hd) of rank r's heads."""
+    def spans(r):
+        h0, h1 = head_span(n_heads, tp, r)
+        return h0 * head_dim, h1 * head_dim
+    return spans
+
+
 def attention_spans(cfg, tp: int) -> Dict[str, Callable[[int], Span]]:
     """Per attention weight, rank r's range along the dim the rules shard
     (wq / wk / wv columns, wo rows)."""
     hd, H, g = cfg.head_dim, cfg.n_heads, cfg.q_per_kv
-
-    def heads(r):
-        h0, h1 = head_span(H, tp, r)
-        return h0 * hd, h1 * hd
+    heads = head_channels(H, hd, tp)
 
     def kvs(r):
         k0, k1 = kv_span(H, g, tp, r)
@@ -235,30 +316,33 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def compute_specs(model, mesh, shapes=None) -> Dict[str, P]:
     """{parameter name: the layout it is computed in}: JAX's TP-only spec
     for the weights of the modules that compute tensor-parallel (module
-    docstring), replicated for every other parameter. `shapes`: the whole
+    docstring; every model of models/registry.py), replicated for every
+    other parameter. `shapes`: the whole
     parameters' shapes when the model holds shards. Works on a
     sharding.MeshShape (no world)."""
     from repro_torch.models import layers as L
-    from repro_torch.models.lm import LM
-    from repro_torch.models.rglru import RG, RGLRUBlock
+    from repro_torch.models.rglru import RGLRUBlock
+    from repro_torch.models.rwkv6 import RWKVBlock
+    from repro_torch.models.whisper import CrossAttention
     tp_only = param_pspecs(model, mesh, use_fsdp=False, shapes=shapes)
     out = {name: P(*(None,) * len(spec)) for name, spec in tp_only.items()}
-    tp = mesh_axis_sizes(mesh).get(tp_axis(mesh), 1)
-    if tp == 1 or not isinstance(model, (LM, RG)):
+    if mesh_axis_sizes(mesh).get(tp_axis(mesh), 1) == 1:
         return out
     whole = {name: tuple(shapes[name] if shapes is not None else p.shape)
              for name, p in model.named_parameters()}
     units = [["embed"], ["unembed"]]        # the weights a module cuts
     for prefix, mod in model.named_modules():
-        if isinstance(mod, L.Attention):
-            names = ("wq", "wk", "wv", "wo")
+        if isinstance(mod, (L.Attention, CrossAttention)):
+            names = [("wq", "wk", "wv", "wo")]
         elif isinstance(mod, RGLRUBlock):     # lam (1-D) stays replicated
-            names = ("w_in", "w_gate", "conv_w", "w_a", "w_x", "w_out")
+            names = [("w_in", "w_gate", "conv_w", "w_a", "w_x", "w_out")]
+        elif isinstance(mod, RWKVBlock):      # mu_*, w0, u: replicated
+            names = [RWKVBlock.TIME_MIX, RWKVBlock.CHANNEL_MIX]
         elif isinstance(mod, (L.DenseMLP, L.MoE)):
-            names = tuple(n for n in ("w1", "w2", "w3") if hasattr(mod, n))
+            names = [tuple(n for n in ("w1", "w2", "w3") if hasattr(mod, n))]
         else:
             continue
-        units.append([f"{prefix}.{n}" for n in names])
+        units += [[f"{prefix}.{n}" for n in unit] for unit in names]
     for unit in units:
         if all(tuple(local_shape(whole[n], tp_only[n], mesh)) != whole[n]
                for n in unit):

@@ -24,7 +24,7 @@ until B / M divides by dp).
     cfg.pregather) and gradient spec (fsdp x tp); run on the global batch
     of specs.train_inputs(abstract=True), of which the step takes rank
     0's rows of each microbatch. The step computes tensor-parallel over
-    the model axis as it does on a real mesh (dense, moe, vlm and hybrid;
+    the model axis as it does on a real mesh (every family;
     distributed/tensor_parallel.py), rank 0 taking the most heads;
     `train_plan` gives the collective bytes it must move;
   - prefill_32k: make_prefill_step; decode_32k and long_500k:
@@ -190,17 +190,34 @@ def train_plan(cfg: ArchConfig, micro: int, mesh, B: int,
         per tensor-parallel RG-LRU block, the all-gather of u, (b, S, d)
         in the parameter dtype, and its reduce-scatter backward, the
         all-reduce after w_out, the gradient's all-reduce before its
-        input and lam's f32 gradient all-reduce; the vocab-parallel
+        input and lam's f32 gradient all-reduce; per RWKV block's time
+        mix, the gathers of wr / wk / wv / wg / wo where a rank's heads
+        are not its chunk, wb's gather (64 x d) and the decay LoRA's
+        (b, S, 64) in the parameter dtype, each with its reduce-scatter
+        backward, the all-reduce after wo, ln_x's f32 (b, S, 1) sum of
+        squares forward and backward, the input's gradient and eight f32
+        (d,) gradients (mu_r, mu_k, mu_v, mu_w, mu_g, w0, u, ln_x's
+        scale); per RWKV channel mix, cv's reduce-scatter to (b, S, d /
+        tp) and its all-gather backward, the product's all-gather, the
+        input's gradient and mu_ck / mu_cr's; whisper's encoder attention
+        and MLP at b x n_audio_frames rows, its cross-attention as an
+        attention (q and the all-reduces at b S rows; its K / V weights'
+        gathers) and one all-reduce of the encoder output's gradient,
+        (b, n_audio_frames, d), a microbatch; the vocab-parallel
         embedding's all-reduce, the gradient's before the unembedding,
         and the loss's three f32 all-reduces of (b, S) (the max, the sum
         of exp, the gold logit). Attention with fewer heads than ranks
         counts as any other: a rank with no head makes the same calls.
         With remat the backward replays a block's forward as far as the
         last tensor it saves (torch's checkpoint stops there): the
-        attention's gathers and its all-reduce, the RG-LRU block's
-        gather of u and its all-reduce after w_out (the next norm saves
-        the sum), and the MoE's all-reduce, whose output the gates'
-        product saves; not the dense MLP's, which ends the block."""
+        attention's gathers and its all-reduce, the cross-attention's
+        (and its K / V gathers), the RG-LRU block's gather of u and its
+        all-reduce after w_out (the next norm saves the sum), the RWKV
+        time mix's gathers and all-reduces and the channel mix's
+        reduce-scatter (the gate saves its output), and the MoE's
+        all-reduce, whose output the gates' product saves; not the dense
+        MLP's, which ends the block, nor the channel mix's final
+        all-gather (as measured on the dry run)."""
     dp_n, tp = _sizes(mesh)
     model = get_api(cfg).init(cfg, tp, device="meta")
     spec = shd.state_pspecs(TrainState(model, {}), mesh, zero1=cfg.zero1)
@@ -251,27 +268,63 @@ def _tp_plan(cfg: ArchConfig, model, cspec, b: int, S: int, groups: int,
     """One microbatch's tensor-parallel collectives (train_plan)."""
     from repro_torch.models import layers as L
     from repro_torch.models.rglru import RGLRUBlock
+    from repro_torch.models.rwkv6 import RWKVBlock, _LORA
+    from repro_torch.models.whisper import CrossAttention
     out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0}
     cut = {name for name, s in cspec.items() if any(s)}
     ai = L.dtype_of(cfg.param_dtype).itemsize       # the residual stream's
-    d, T = cfg.d_model, b * S
+    d, replay = cfg.d_model, 2 if cfg.remat else 1
+    T_enc = b * cfg.n_audio_frames                  # whisper's encoder
+    enc_grad = 0
     spans = TP.attention_spans(cfg, tp)
+
+    def weights(mod, names):
+        """The all-gather of each weight whose rows a rank takes are not
+        its chunk (each forward run) and its reduce-scatter backward."""
+        for n, dim, span in names:
+            w = getattr(mod, n)
+            if TP.needs_gather(w.shape[dim] // tp, span, tp):
+                whole = w.numel() * w.element_size()
+                out["all-gather"] += whole * replay
+                out["reduce-scatter"] += whole // tp
+
+    attention = tuple((n, 1 if n != "wo" else 0, spans[n])
+                      for n in ("wq", "wk", "wv", "wo"))
     for prefix, mod in model.named_modules():
+        T = T_enc if prefix.startswith("enc_layers.") else b * S
         if isinstance(mod, L.Attention) and f"{prefix}.wq" in cut:
-            for n, dim in (("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0)):
-                w = getattr(mod, n)
-                if TP.needs_gather(w.shape[dim] // tp, spans[n], tp):
-                    whole = w.numel() * w.element_size()
-                    out["all-gather"] += whole * (2 if cfg.remat else 1)
-                    out["reduce-scatter"] += whole // tp
-            out["all-reduce"] += T * d * ai * (3 if cfg.remat else 2)
+            weights(mod, attention)
+            out["all-reduce"] += T * d * ai * (replay + 1)
             if cfg.qk_norm:
                 out["all-reduce"] += 2 * cfg.head_dim * 4
+        elif isinstance(mod, CrossAttention) and f"{prefix}.wq" in cut:
+            weights(mod, attention)          # K / V at T_enc, q at b S
+            out["all-reduce"] += T * d * ai * (replay + 1)
+            enc_grad = T_enc * d * ai        # once, whatever the depth
         elif isinstance(mod, RGLRUBlock) and f"{prefix}.w_in" in cut:
-            replay = 2 if cfg.remat else 1
             out["all-gather"] += T * d * ai * replay
             out["reduce-scatter"] += T * d * ai // tp
             out["all-reduce"] += T * d * ai * (replay + 1) + d * 4
+        elif isinstance(mod, RWKVBlock):
+            if f"{prefix}.wr" in cut:
+                dh = cfg.rwkv_head_dim
+                chans = TP.head_channels(d // dh, dh, tp)
+                weights(mod, tuple((n, 1 if n != "wo" else 0, chans)
+                                   for n in ("wr", "wk", "wv", "wg", "wo")))
+                whole = mod.wb.numel() * mod.wb.element_size()
+                out["all-gather"] += (whole + T * _LORA * ai) * replay
+                out["reduce-scatter"] += (whole + T * _LORA * ai) // tp
+                # wo's sum (replayed), ln_x's f32 sum of squares both ways
+                # (replayed), x's gradient, the eight vectors' f32 ones.
+                out["all-reduce"] += T * d * ai * (replay + 1) \
+                    + T * 4 * (replay + 1) + 8 * d * 4
+            if f"{prefix}.ck" in cut:
+                # cv's reduce-scatter (replayed: the gate saves it) and its
+                # all-gather backward, the product's all-gather, x's
+                # gradient and mu_ck / mu_cr's.
+                out["reduce-scatter"] += T * d * ai // tp * replay
+                out["all-gather"] += 2 * T * d * ai
+                out["all-reduce"] += T * d * ai + 2 * d * 4
         elif isinstance(mod, L.DenseMLP) and f"{prefix}.w1" in cut:
             out["all-reduce"] += 2 * T * d * ai
         elif isinstance(mod, L.MoE) and f"{prefix}.w1" in cut:
@@ -284,7 +337,8 @@ def _tp_plan(cfg: ArchConfig, model, cspec, b: int, S: int, groups: int,
                     if cfg.family == "vlm" else 0)
         out["all-reduce"] += b * text * d * ai
     if "unembed" in cut:
-        out["all-reduce"] += T * d * ai + 3 * T * 4
+        out["all-reduce"] += b * S * (d * ai + 3 * 4)
+    out["all-reduce"] += enc_grad           # the encoder output's
     return out
 
 

@@ -5,12 +5,12 @@ It does what the JAX launcher does: the config (the smoke config with
 --smoke), a (--data, --model) mesh built always (make_debug_mesh; a world
 of one rank without torchrun, NCCL on the card, gloo on the CPU), random
 weights at tp = --model (drawn from --seed; JAX's PRNGKey(0)) sharded by
-state_pspecs and computed tensor-parallel over --model > 1 for the dense,
-moe, vlm and hybrid families (distributed/tensor_parallel.py), a fixed
-synthetic batch (specs.train_inputs from a generator seeded 7, JAX's
-PRNGKey(7)) that the model must drive the loss
-down on, the train step of train/steps.py on the mesh (cfg.microbatches,
-cfg.remat, AdamW at --lr, JAX's groups = --data), a CheckpointManager
+state_pspecs and computed tensor-parallel over --model > 1 for every
+family (distributed/tensor_parallel.py), a fixed synthetic batch
+(specs.train_inputs from a generator seeded 7, JAX's PRNGKey(7)) that
+the model must drive the loss down on, the train step of
+train/steps.py on the mesh (cfg.microbatches, cfg.remat, AdamW at --lr,
+JAX's groups = --data), a CheckpointManager
 under --ckpt-dir saving every --ckpt-every steps and restoring the newest
 checkpoint first, the same printed lines and the assertion that the loss
 fell. A line before them gives the bytes of parameters a rank holds while

@@ -37,8 +37,9 @@ calls (activation layout hints that change no value) are left out: the
 port's `distributed.sharding.maybe_shard` returns its input.
 
 Tensor-parallel compute: inside distributed/tensor_parallel.py's context,
-the full-sequence forward of `Attention`, `DenseMLP` and `MoE`, and the
-models' `embed_lookup` and `logits`, compute with the model-axis shard
+the full-sequence forward of `Attention`, `DenseMLP` and `MoE` (and
+`kv_group`, which whisper's cross-attention shares), and the models'
+`embed_lookup` and `logits`, compute with the model-axis shard
 of their weights where the sharded train step gave them one (a weight
 narrower than the config's width); the module docstring there says how
 each splits. Serving, and every call outside that context, runs on
@@ -142,8 +143,20 @@ class RMSNorm(nn.Module):
     def reset_parameters(self) -> None:
         self.weight.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, self.weight, self.eps)
+    def forward(self, x: torch.Tensor, axis=None,
+                span: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """rms_norm; with a model `axis`, x holds this rank's channels
+        [a, b) = span of the norm's width: the f32 sum of squares summed
+        over the axis (both ways), the weight cut to the span (its
+        gradient summed over the axis)."""
+        if axis is None:
+            return rms_norm(x, self.weight, self.eps)
+        TP, (a, b) = tp_ops(), span
+        xf = x.float()
+        var = TP.sum_over_model((xf * xf).sum(-1, keepdim=True),
+                                axis) / self.weight.shape[0]
+        w = TP.copy_to_model(self.weight, axis)[a:b]
+        return x * (torch.rsqrt(var + self.eps) * w).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +214,24 @@ def _mask(S: int, window: int, causal: bool, device) -> torch.Tensor:
     if causal:
         return causal_mask(S, window, device)
     return torch.ones((1, 1, S, S), dtype=torch.bool, device=device)
+
+
+def kv_group(k: torch.Tensor, v: torch.Tensor, heads: Tuple[int, int],
+             kvs: Tuple[int, int], g: int):
+    """(k, v, group) for sdpa over a rank's query heads [h0, h1) whose KV
+    heads [k0, k1) are k and v's: the group size where the heads fall in
+    whole GQA groups (or all read one KV head), else k and v repeated to
+    one KV head a query head."""
+    (h0, h1), (k0, k1) = heads, kvs
+    if h0 == h1:                        # no head: zeros reach the sum
+        return k, v, 1
+    if k1 - k0 == 1:                    # every head reads one KV head
+        return k, v, h1 - h0
+    if h0 % g == 0 and h1 % g == 0:     # whole GQA groups
+        return k, v, g
+    idx = torch.tensor([h // g - k0 for h in range(h0, h1)],
+                       device=k.device)
+    return k[:, :, idx], v[:, :, idx], 1
 
 
 class Attention(nn.Module):
@@ -279,16 +310,7 @@ class Attention(nn.Module):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         mask = _mask(S, window, causal, x.device)
-        if h0 == h1:                        # no head: zeros reach the sum
-            group = 1
-        elif k1 - k0 == 1:                  # every head reads one KV head
-            group = h1 - h0
-        elif h0 % g == 0 and h1 % g == 0:   # whole GQA groups
-            group = g
-        else:                               # a KV head for each query head
-            idx = torch.tensor([h // g - k0 for h in range(h0, h1)],
-                               device=x.device)
-            k, v, group = k[:, :, idx], v[:, :, idx], 1
+        k, v, group = kv_group(k, v, (h0, h1), (k0, k1), g)
         out = sdpa(q, k, v, mask, group, cfg.attn_scores_f32)
         return TP.reduce_from_model(out @ wo, axis)
 

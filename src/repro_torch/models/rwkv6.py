@@ -38,6 +38,13 @@ that autograd records runs each block under activation checkpointing
 record, so remat does not touch it. The model lives on the card unless the caller passes
 device="cpu"; its weights are drawn from an explicit torch.Generator,
 and a model on "meta" is left undrawn.
+
+`forward` computes tensor-parallel inside distributed/tensor_parallel.py's
+context (the sharded train step's), where the step gave the blocks their
+model-axis shards: the vocab-parallel embedding and logits, each block's
+time mix by whole heads and its channel mix by d_ff columns
+(`RWKVBlock.forward`; the module docstring there says how each splits);
+`step`, `prefill` and `decode` always run on whole weights.
 """
 from __future__ import annotations
 
@@ -114,6 +121,11 @@ def wkv_chunked(r, k, v, logw, u, state0, chunk: int = _CHUNK):
 class RWKVBlock(nn.Module):
     """rwkv6.py:32 `init_rwkv_block`'s parameters under JAX's keys, the
     projections in the (in, out) layout."""
+
+    # The weights each tensor-parallel unit cuts (tensor_parallel's
+    # compute_specs): the time mix and the channel mix.
+    TIME_MIX = ("wr", "wk", "wv", "wg", "wo", "wa", "wb")
+    CHANNEL_MIX = ("ck", "cv", "cr")
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device=None):
         super().__init__()
@@ -203,7 +215,86 @@ class RWKVBlock(nn.Module):
         return x + c, (state, tm_last, cm_last)
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
-        return self.step(x)[0]
+        """The block from a zero state; under tensor-parallel compute each
+        unit whose weights the step cut computes on its shard."""
+        axis = L.tp_ops().active()
+        tm = axis is not None and self.wr.shape[1] != self.cfg.d_model
+        cm = axis is not None and self.ck.shape[1] != self.cfg.d_ff
+        if not (tm or cm):
+            return self.step(x)[0]
+        xin = self.ln1(x)
+        dh = self.cfg.rwkv_head_dim
+        x = x + (self._time_mix_tp(xin, axis) if tm else self.time_mix(
+            xin, xin.new_zeros((x.shape[0], x.shape[2] // dh, dh, dh),
+                               dtype=torch.float32))[0])
+        xin = self.ln2(x)
+        return x + (self._channel_mix_tp(xin, axis) if cm
+                    else self.channel_mix(xin)[0])
+
+    def _time_mix_tp(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """time_mix's output on this rank's heads, [ceil(r H / tp),
+        ceil((r + 1) H / tp)): wr / wk / wv / wg column-parallel and wo
+        row-parallel on their channels (gathered where they are not its
+        chunk), summed over the axis after wo. The decay LoRA: tanh(xw @
+        wa) on the rank's wa columns all-gathered, (B, S, 64), times wb's
+        columns for its channels (wb gathered whole: 64 x d). mu_*, w0
+        and u are replicated and cut to the channels, their gradient
+        summed over the axis; ln_x normalizes over the whole width
+        (RMSNorm.forward with the axis). A rank with no head runs the same
+        operations on empty heads."""
+        cfg, TP = self.cfg, L.tp_ops()
+        B, S, d = x.shape
+        dh = cfg.rwkv_head_dim
+        chans = TP.head_channels(d // dh, dh, axis.size)
+        a, b = chans(axis.index)
+        n = (b - a) // dh
+        wr, wk, wv, wg = (TP.take(getattr(self, name), 1, chans, axis)
+                          for name in ("wr", "wk", "wv", "wg"))
+        wo = TP.take(self.wo, 0, chans, axis)
+        wb = TP.gather_from_model(self.wb, 0, axis)[:, a:b]
+
+        def shared(t):             # replicated: its gradient summed
+            return TP.copy_to_model(t, axis)
+
+        x = shared(x)
+        xs = shift(x)
+        r = mix(x, xs, shared(self.mu_r)) @ wr
+        k = mix(x, xs, shared(self.mu_k)) @ wk
+        v = mix(x, xs, shared(self.mu_v)) @ wv
+        g = mix(x, xs, shared(self.mu_g)) @ wg
+        xw = mix(x, xs, shared(self.mu_w))
+        lora = TP.gather_from_model(torch.tanh(xw @ self.wa), -1, axis)
+        loglog_w = shared(self.w0)[a:b] + lora.float() @ wb.float()
+        logw = -torch.exp(loglog_w)
+        logw = torch.clamp(logw, min=-60.0 / max(cfg.rwkv_chunk, 1))
+
+        def to_h(t):
+            return t.float().reshape(B, S, n, dh)
+
+        out, _ = wkv_chunked(
+            to_h(r), to_h(k), to_h(v), to_h(logw),
+            shared(self.u)[a:b].reshape(n, dh),
+            x.new_zeros((B, n, dh, dh), dtype=torch.float32), cfg.rwkv_chunk)
+        out = self.ln_x(out.reshape(B, S, b - a), axis, (a, b))
+        out = (out * F.silu(g.float())).to(x.dtype)
+        return TP.reduce_from_model(out @ wo, axis)
+
+    def _channel_mix_tp(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """channel_mix's output: ck column-parallel over d_ff, cv
+        row-parallel, its partial sums reduce-scattered to the rank's
+        chunk of d and there gated by the sigmoid of cr's columns
+        (column-parallel over d); the product all-gathered into the
+        residual stream (its gradient is this rank's chunk of the whole
+        one every rank holds)."""
+        TP = L.tp_ops()
+        x = TP.copy_to_model(x, axis)
+        xs = shift(x)
+        k = mix(x, xs, TP.copy_to_model(self.mu_ck, axis)) @ self.ck
+        r = mix(x, xs, TP.copy_to_model(self.mu_cr, axis)) @ self.cr
+        kk = F.relu(k)
+        part = TP.scatter_from_model((kk * kk) @ self.cv, -1, axis)
+        return TP.gather_to_stream(
+            torch.sigmoid(r.float()).to(x.dtype) * part, -1, axis)
 
 
 class RWKV(nn.Module):
@@ -216,6 +307,7 @@ class RWKV(nn.Module):
         self.cfg = cfg
         dtype = L.dtype_of(cfg.param_dtype)
         V, d = cfg.vocab_padded(tp), cfg.d_model
+        self.vocab = V
         self.embed = L.empty_param((V, d), dtype, device)
         self.layers = nn.ModuleList(RWKVBlock(cfg, dtype, device)
                                     for _ in range(cfg.n_layers))
@@ -238,11 +330,13 @@ class RWKV(nn.Module):
         return self.embed.device
 
     def forward(self, tokens: torch.Tensor, groups: int = 1) -> torch.Tensor:
-        """rwkv6.py:200 `forward_rwkv`: logits (B, S, vocab_padded) f32."""
-        x = self.embed[tokens]
+        """rwkv6.py:200 `forward_rwkv`: logits (B, S, vocab_padded) f32;
+        under tensor-parallel compute with the vocabulary sharded, this
+        rank's chunk of them (distributed/tensor_parallel.py)."""
+        x = L.embed_lookup(self.embed, tokens, self.vocab)
         for blk in self.layers:
             x = L.remat(self.cfg, blk, x)
-        return (self.ln_f(x) @ self.unembed).float()
+        return L.logits(self.ln_f(x), self.unembed, self.vocab)
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16) -> Cache:

@@ -47,6 +47,15 @@ included, as in JAX's scan body) under activation checkpointing
 The model lives on the card unless the caller passes device="cpu"; its
 weights are drawn from an explicit torch.Generator, and a model on
 "meta" is left undrawn.
+
+`forward` computes tensor-parallel inside distributed/tensor_parallel.py's
+context (the sharded train step's), where the step gave the blocks their
+model-axis shards: the vocab-parallel embedding and logits, every
+self-attention (encoder and decoder) and cross-attention by heads, every
+MLP by columns. The encoder output passes `copy_to_model` once before the
+decoder loop: each layer's K/V projection gives it a partial gradient,
+and one all-reduce sums them all. `prefill` and `decode` run on whole
+weights.
 """
 from __future__ import annotations
 
@@ -101,23 +110,59 @@ class CrossAttention(nn.Module):
         for w in (self.wq, self.wk, self.wv, self.wo):
             L.dense_init_(w, generator)
 
+    def tp_axis(self):
+        """The model axis where this module computes tensor-parallel (the
+        step gave it its shards), else None."""
+        axis = L.tp_ops().active()
+        if axis is not None and \
+                self.wq.shape[1] != self.cfg.n_heads * self.cfg.head_dim:
+            return axis
+        return None
+
     def kv(self, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """whisper.py:49 `_cross_kv`: enc (B, T, d) -> k, v (B, T, Hkv,
-        hd)."""
+        hd); tensor-parallel, the KV heads this rank's query heads read
+        (enc's gradient is then a partial sum: Whisper.forward sums it)."""
+        cfg = self.cfg
         B, T, _ = enc.shape
-        shape = (B, T, self.cfg.n_kv_heads, self.cfg.head_dim)
-        return (enc @ self.wk).reshape(shape), (enc @ self.wv).reshape(shape)
+        wk, wv, nkv = self.wk, self.wv, cfg.n_kv_heads
+        axis = self.tp_axis()
+        if axis is not None:
+            TP = L.tp_ops()
+            spans = TP.attention_spans(cfg, axis.size)
+            wk, wv = (TP.take(w, 1, spans[n], axis)
+                      for n, w in (("wk", wk), ("wv", wv)))
+            k0, k1 = TP.kv_span(cfg.n_heads, cfg.q_per_kv, axis.size,
+                                axis.index)
+            nkv = k1 - k0
+        shape = (B, T, nkv, cfg.head_dim)
+        return (enc @ wk).reshape(shape), (enc @ wv).reshape(shape)
 
     def forward(self, x: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
         """whisper.py:56 `apply_cross_attention`: x (B, S, d) attends to
-        every one of the T positions of k, v (B, T, Hkv, hd)."""
+        every one of the T positions of k, v (B, T, Hkv, hd);
+        tensor-parallel, this rank's query heads (wq gathered where they
+        are not its chunk) over the KV heads of `kv`, wo row-parallel and
+        summed over the axis."""
         cfg = self.cfg
         B, S, _ = x.shape
-        q = (x @ self.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
         mask = torch.ones((1, 1, S, k.shape[1]), dtype=torch.bool,
                           device=x.device)
-        return L.sdpa(q, k, v, mask, cfg.q_per_kv) @ self.wo
+        axis = self.tp_axis()
+        if axis is None:
+            q = (x @ self.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
+            return L.sdpa(q, k, v, mask, cfg.q_per_kv) @ self.wo
+        TP = L.tp_ops()
+        spans = TP.attention_spans(cfg, axis.size)
+        wq = TP.take(self.wq, 1, spans["wq"], axis)
+        wo = TP.take(self.wo, 0, spans["wo"], axis)
+        heads = TP.head_span(cfg.n_heads, axis.size, axis.index)
+        kvs = TP.kv_span(cfg.n_heads, cfg.q_per_kv, axis.size, axis.index)
+        q = (TP.copy_to_model(x, axis) @ wq).reshape(
+            B, S, heads[1] - heads[0], cfg.head_dim)
+        k, v, group = L.kv_group(k, v, heads, kvs, cfg.q_per_kv)
+        return TP.reduce_from_model(L.sdpa(q, k, v, mask, group) @ wo, axis)
 
 
 class DecBlock(nn.Module):
@@ -172,6 +217,7 @@ class Whisper(nn.Module):
         self.cfg = cfg
         dtype = L.dtype_of(cfg.param_dtype)
         V, d = cfg.vocab_padded(tp), cfg.d_model
+        self.vocab = V
         self.enc_layers = nn.ModuleList(L.Block(cfg, dtype, device)
                                         for _ in range(cfg.n_encoder_layers))
         self.enc_ln = L.RMSNorm(d, device)
@@ -209,19 +255,23 @@ class Whisper(nn.Module):
         return self.enc_ln(x)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens]
+        x = L.embed_lookup(self.embed, tokens, self.vocab)
         return x + sinusoid(tokens.shape[1], self.cfg.d_model,
                             x.device).to(x.dtype)
 
     def forward(self, tokens: torch.Tensor, frames: torch.Tensor,
                 groups: int = 1) -> torch.Tensor:
         """whisper.py:104 `forward_whisper`, teacher-forced: logits (B, S,
-        vocab_padded) in f32."""
+        vocab_padded) in f32; under tensor-parallel compute with the
+        vocabulary sharded, this rank's chunk of them."""
         enc = self.encode(frames)
+        axis = self.dec_layers[0].xattn.tp_axis()
+        if axis is not None:
+            enc = L.tp_ops().copy_to_model(enc, axis)
         x = self._embed(tokens)
         for blk in self.dec_layers:
             x = L.remat(self.cfg, _dec_body, blk, x, enc, groups)
-        return (self.ln_f(x) @ self.unembed).float()
+        return L.logits(self.ln_f(x), self.unembed, self.vocab)
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16) -> Cache:

@@ -20,14 +20,15 @@ batch):
     per step, not per microbatch; a mesh dim of size 1 gathers without a
     copy) to the layout it is computed in, and puts the shards back before
     the update;
-  - over the model axis the dense, moe, vlm and hybrid families compute
-    tensor-parallel (distributed/tensor_parallel.py: heads, MLP and expert
-    ffn columns, the RG-LRU blocks' channels, the vocabulary of the
+  - over the model axis every family computes tensor-parallel
+    (distributed/tensor_parallel.py: heads, MLP and expert ffn columns,
+    the RG-LRU blocks' channels, the RWKV blocks' heads and channel-mix
+    columns, whisper's cross-attention heads, the vocabulary of the
     embedding, the logits and the loss), each such weight kept as its
-    model-axis chunk under JAX's TP-only spec; the ssm and encdec
-    families, and any module whose weights JAX's divisibility guard
-    leaves whole, gather over the model axis too and compute replicated
-    there;
+    model-axis chunk under JAX's TP-only spec; a module whose weights
+    JAX's divisibility guard leaves whole gathers over the model axis
+    too and computes replicated there. Whisper's frames are cut by data
+    rank with the other batch keys;
   - rows: JAX runs microbatch m's rows [m B/M, (m+1) B/M) at groups = the
     data axes' size dp, as dp contiguous routing groups; here data rank r
     runs group r itself, rows [m B/M + r B/(M dp), + B/(M dp)), at

@@ -5,24 +5,31 @@
   divide by the model axis, and for fewer heads than ranks (a rank with
   no query head reads no KV head).
 - compute_specs on all ten full configs at the production meshes (no
-  world): the dense, moe, vlm and hybrid families compute each
-  projection, expert weight, RG-LRU weight and embedding in JAX's TP-only
-  layout, their norms, routers and lam replicated; the ssm and encdec
-  families replicated; which attention weights a rank gathers (phi4-mini's
-  24 heads over 16 ranks).
+  world): every family computes each projection, expert weight, RG-LRU
+  and RWKV weight, cross-attention weight and embedding in JAX's TP-only
+  layout, their norms, routers, lam, mu_*, w0 and u replicated; which
+  attention weights a rank gathers (phi4-mini's 24 heads over 16 ranks).
 - On gloo worlds of 2 and 4 ranks (this file run as a worker, one process
   a rank, each world spawned once for the module):
   - the vocab-parallel loss and lookup: the loss and the gradient of
     each rank's logits chunk against train/steps.py's cross_entropy on
     the whole logits; the lookup bit for bit against indexing the whole
     table, and the table's gradient;
-  - recurrentgemma's smoke `RGLRUBlock` computed tensor-parallel on its
-    TP-only shards against the whole block on the same weights: the
-    output, the input's gradient and every parameter's gradient gathered
-    whole (lam and conv_w included), within BLOCK_TOL;
-  - at 4 ranks, its `Attention` (2 heads over 4 ranks: ranks 1 and 3 hold
-    no head) the same way, once as it is and once under remat (the
-    backward replays the forward's collectives on every rank).
+  - blocks computed tensor-parallel on their TP-only shards against the
+    whole block on the same weights: the output, the input's gradient
+    and every parameter's gradient gathered whole, within BLOCK_TOL:
+    recurrentgemma's smoke `RGLRUBlock` (lam and conv_w included);
+    rwkv6's smoke `RWKVBlock` (ln_x's scale, the mu_* vectors, w0 and u
+    included), and at 4 ranks with heads of 32 (2 heads: ranks 1 and 3
+    hold none), plain and under remat; whisper's smoke `CrossAttention`
+    with the encoder output's gradient (its K/V from `kv`, the output
+    through `copy_to_model` as `Whisper.forward` passes it), and at 4
+    ranks with 6 heads of 16 (1.5 heads a chunk: wq, wk, wv and wo
+    gathered);
+  - at 4 ranks, recurrentgemma's `Attention` (2 heads over 4 ranks: ranks
+    1 and 3 hold no head) the same way, once as it is and once under
+    remat (the backward replays the forward's collectives on every
+    rank).
 """
 import dataclasses
 import datetime
@@ -46,7 +53,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 MESHES = {"16x16": (("data", "model"), (16, 16)),
           "2x16x16": (("pod", "data", "model"), (2, 16, 16))}
 B, S, V, D = 3, 5, 64, 8
-TP_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+TP_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
 # The blocks' f32 tolerance: the row-parallel sums over the model axis
 # change the order of sums (measured: at most 6.2e-7 of the tensor's
 # largest magnitude, on every rank and tensor).
@@ -119,61 +126,93 @@ def _inputs():
     return logits, labels, table, tokens
 
 
-def _blocks():
-    """recurrentgemma's smoke model cut to one (R, R, A) superblock, drawn
-    from a seed; its first RGLRUBlock and the Attention of its A layer,
-    their prefixes in it, their input and the weights the output is
-    summed with."""
-    from repro_torch.models.rglru import RG
-    cfg = dataclasses.replace(get_config("recurrentgemma-2b", smoke=True),
-                              n_layers=3)
+# Block cases: {case: (arch, config cut, module path, the worlds and
+# remat settings it runs at)}.
+BLOCKS = {
+    "rglru": ("recurrentgemma-2b", {"n_layers": 3}, "layers.0",
+              ((2, False), (4, False))),
+    "attn": ("recurrentgemma-2b", {"n_layers": 3}, "layers.2.attn",
+             ((4, False), (4, True))),
+    "rwkv": ("rwkv6-1.6b", {"n_layers": 1}, "layers.0",
+             ((2, False), (4, False))),
+    "rwkv-h2": ("rwkv6-1.6b", {"n_layers": 1, "rwkv_head_dim": 32},
+                "layers.0", ((4, False), (4, True))),
+    "xattn": ("whisper-large-v3", {"n_layers": 1, "n_encoder_layers": 1},
+              "dec_layers.0.xattn", ((2, False), (4, False))),
+    "xattn-h6": ("whisper-large-v3", {"n_layers": 1, "n_encoder_layers": 1,
+                                      "n_heads": 6, "n_kv_heads": 6,
+                                      "head_dim": 16},
+                 "dec_layers.0.xattn", ((4, False),)),
+}
+
+
+def _blocks(case):
+    """The smoke model of `case` cut as BLOCKS says, drawn from a seed;
+    the module under test, its prefix in the model, its input, the
+    weights its output is summed with, and (cross-attention) the encoder
+    output."""
+    arch, cut, prefix, _ = BLOCKS[case]
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **cut)
     g = torch.Generator().manual_seed(11)
-    model = RG(cfg, 1, device="cpu", generator=g)
-    mods = {"rglru": ("layers.0", model.layers[0]),
-            "attn": ("layers.2.attn", model.layers[2].attn)}
+    model = get_api(cfg).init(cfg, 1, device="cpu", generator=g)
+    mod = model.get_submodule(prefix)
     x = torch.randn((BLOCK_B, BLOCK_S, cfg.d_model), generator=g)
     w = torch.randn((BLOCK_B, BLOCK_S, cfg.d_model), generator=g)
-    return cfg, model, mods, x, w
+    enc = torch.randn((BLOCK_B, cfg.n_audio_frames, cfg.d_model),
+                      generator=g)
+    return cfg, model, prefix, mod, x, w, enc
 
 
-def _run_block(cfg, name, mod, x, w, remat=False):
-    """(output, the input's gradient, {parameter: gradient}) of
-    sum(mod(x) * w), under remat's checkpoint when asked."""
+def _run_block(cfg, case, mod, x, w, enc, remat=False):
+    """(output, the input's gradient, the encoder output's gradient or
+    None, {parameter: gradient}) of sum(mod(x) * w), under remat's
+    checkpoint when asked; the cross-attention over `kv(enc)`, enc passed
+    through copy_to_model where the module computes tensor-parallel (as
+    Whisper.forward passes it)."""
     from repro_torch.models import layers as L
     x = x.clone().requires_grad_()
+    enc = enc.clone().requires_grad_()
     for p in mod.parameters():
         p.grad = None
-    args = {"window": cfg.window} if name == "attn" else {}
     rcfg = dataclasses.replace(cfg, remat=remat)
-    y = L.remat(rcfg, mod, x, **args)
+    if case.startswith("xattn"):
+        axis = mod.tp_axis()
+        e = TP.copy_to_model(enc, axis) if axis is not None else enc
+        y = L.remat(rcfg, lambda x, e: mod(x, *mod.kv(e)), x, e)
+    else:
+        args = {"window": cfg.window} if case == "attn" else {}
+        y = L.remat(rcfg, mod, x, **args)
     (y * w).sum().backward()
-    return y.detach(), x.grad, {n: p.grad for n, p in
-                                mod.named_parameters()}
+    return y.detach(), x.grad, enc.grad, {n: p.grad for n, p in
+                                          mod.named_parameters()}
+
+
+def _key(case, remat):
+    return f"{case}{'_remat' if remat else ''}"
 
 
 def _block_worker(world, mesh, axis, out):
     from repro_torch.distributed.sharding import gather, local_shard
-    cfg, model, mods, x, w = _blocks()
-    spec_of = TP.compute_specs(model, mesh)
-    cases = [("rglru", False)] + ([("attn", False), ("attn", True)]
-                                  if world == 4 else [])
-    for name, remat in cases:
-        prefix, mod = mods[name]
-        spec = {n: spec_of[f"{prefix}.{n}"]
-                for n, _ in mod.named_parameters()}
-        whole = {n: p.data for n, p in mod.named_parameters()}
-        with torch.no_grad():
+    for case, (_, _, _, runs) in BLOCKS.items():
+        for remat in (r for n, r in runs if n == world):
+            cfg, model, prefix, mod, x, w, enc = _blocks(case)
+            spec_of = TP.compute_specs(model, mesh)
+            spec = {n: spec_of[f"{prefix}.{n}"]
+                    for n, _ in mod.named_parameters()}
+            with torch.no_grad():
+                for pname, p in mod.named_parameters():
+                    p.data = local_shard(p.data.clone(), spec[pname], mesh)
+            with TP.tensor_parallel(axis):
+                y, dx, denc, grads = _run_block(cfg, case, mod, x, w, enc,
+                                                remat)
+            key = _key(case, remat)
+            out[f"{key}/y"], out[f"{key}/dx"] = y, dx
+            if denc is not None:
+                out[f"{key}/denc"] = denc
             for pname, p in mod.named_parameters():
-                p.data = local_shard(whole[pname].clone(), spec[pname], mesh)
-        with TP.tensor_parallel(axis):
-            y, dx, grads = _run_block(cfg, name, mod, x, w, remat)
-        key = f"{name}{'_remat' if remat else ''}"
-        out[f"{key}/y"], out[f"{key}/dx"] = y, dx
-        for pname, p in mod.named_parameters():
-            out[f"{key}/shape/{pname}"] = np.asarray(p.shape)
-            out[f"{key}/d/{pname}"] = gather(grads[pname], spec[pname],
-                                             mesh)
-            p.data, p.grad = whole[pname], None
+                out[f"{key}/shape/{pname}"] = np.asarray(p.shape)
+                out[f"{key}/d/{pname}"] = gather(grads[pname], spec[pname],
+                                                 mesh)
 
 
 def _worker(rank: int, world: int, work: str) -> None:
@@ -252,14 +291,15 @@ def _close(got, want, what):
         err_msg=what)
 
 
-def _hold_block(worlds, world, name, remat):
-    """Every rank's output and input gradient, and the parameters'
-    gradients gathered whole, against the whole module's; each weight a
-    rank held was its chunk under JAX's TP-only spec."""
-    cfg, model, mods, x, w = _blocks()
-    prefix, mod = mods[name]
-    y, dx, grads = _run_block(cfg, name, mod, x, w, remat)
-    key = f"{name}{'_remat' if remat else ''}"
+def _hold_block(worlds, world, case, remat):
+    """Every rank's output, input gradient and (cross-attention) encoder
+    output gradient, and the parameters' gradients gathered whole,
+    against the whole module's; each weight a rank held was its chunk
+    under JAX's TP-only spec."""
+    cfg, model, prefix, mod, x, w, enc = _blocks(case)
+    y, dx, denc, grads = _run_block(cfg, case, mod, x, w, enc, remat)
+    key = _key(case, remat)
+    assert (f"{key}/denc" in worlds[world][0]) == case.startswith("xattn")
     mesh = MeshShape(("data", "model"), (1, world))
     spec = param_pspecs(model, mesh, use_fsdp=False)
     cut = 0
@@ -267,6 +307,9 @@ def _hold_block(worlds, world, name, remat):
         out = worlds[world][r]
         _close(out[f"{key}/y"], y, f"rank {r} output")
         _close(out[f"{key}/dx"], dx, f"rank {r} input gradient")
+        if denc is not None:
+            _close(out[f"{key}/denc"], denc,
+                   f"rank {r} encoder output gradient")
         for pname, p in mod.named_parameters():
             want = tuple(local_shape(p.shape, spec[f"{prefix}.{pname}"],
                                      mesh))
@@ -292,6 +335,37 @@ def test_attention_with_ranks_that_hold_no_head(worlds, remat):
     assert [TP.kv_span(2, 2, 4, r) for r in range(4)] == [
         (0, 1), (0, 0), (0, 1), (1, 1)]
     _hold_block(worlds, 4, "attn", remat)
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_rwkv_block_tensor_parallel(worlds, world):
+    """rwkv6's smoke block, 4 heads of 16: 2 or 1 a rank, each rank's
+    heads its chunk of wr / wk / wv / wg / wo (no gather); ln_x's sum of
+    squares summed over the axis, the decay LoRA's gather, the channel
+    mix's reduce-scatter and gather."""
+    _hold_block(worlds, world, "rwkv", False)
+
+
+@pytest.mark.parametrize("remat", (False, True), ids=("plain", "remat"))
+def test_rwkv_block_with_ranks_that_hold_no_head(worlds, remat):
+    """Heads of 32, 2 over 4 ranks: ranks 1 and 3 hold none, their heads'
+    columns are not their chunks (wr ... wo gathered), and their ln_x
+    sum of squares is 0; every rank makes every collective, in remat's
+    replay too."""
+    assert [TP.head_span(2, 4, r) for r in range(4)] == [
+        (0, 1), (1, 1), (1, 2), (2, 2)]
+    _hold_block(worlds, 4, "rwkv-h2", remat)
+
+
+@pytest.mark.parametrize("world,case", ((2, "xattn"), (4, "xattn"),
+                                        (4, "xattn-h6")),
+                         ids=("2", "4", "4-h6"))
+def test_cross_attention_tensor_parallel(worlds, world, case):
+    """whisper's cross-attention: K / V of the rank's heads from the
+    encoder output, whose gradient each rank sums over the axis; with 6
+    heads over 4 ranks (1.5 a chunk) the rank's heads are not its chunks
+    of the weights."""
+    _hold_block(worlds, world, case, False)
 
 
 if __name__ == "__main__":

@@ -11,13 +11,14 @@ the gloo worlds (data, model) = (2, 1), (1, 2), (2, 2), (4, 1), (1, 4)
 (`tests/torch_train_mesh_worker.py`, one process per rank, a FileStore in
 the test's tmp dir, run one world after another while JAX computes its
 references): the first six cases on the first four worlds, phi4-h6 on the
-worlds with a model axis, and phi4, phi4-m2, mixtral, phi4-h6 and
-recurrentgemma on (1, 4). Over a model axis the dense, moe and hybrid
-cases compute tensor-parallel (distributed/tensor_parallel.py); at (1, 4)
+worlds with a model axis, and phi4, phi4-m2, mixtral, phi4-h6, rwkv6,
+recurrentgemma and whisper on (1, 4). Over a model axis every case
+computes tensor-parallel (distributed/tensor_parallel.py); at (1, 4)
 phi4-h6's wq chunk is 1.5 heads and a KV head spans two ranks' chunks of
-wk, as phi4-mini's at 16, and recurrentgemma's 2 heads leave ranks 1 and
-3 with no head, as recurrentgemma-2b's 10 heads leave six of 16 ranks.
-The ssm and encdec cases compute replicated over the model axis.
+wk, as phi4-mini's at 16, recurrentgemma's 2 heads leave ranks 1 and 3
+with no head, as recurrentgemma-2b's 10 heads leave six of 16 ranks, and
+rwkv6's 4 heads and whisper's 4 are one a rank (whisper's encoder, its
+cross K/V and its decoder's self-attention each by heads).
 After every step the loss, the grad norm, and every parameter and both
 moments gathered whole are held to JAX's jitted make_train_step at
 groups = dp, the data axis's size, by tests/test_torch_train.py's f32
@@ -27,8 +28,7 @@ reaches only the MoE layers, so JAX runs once per case at groups 1 and
 again at 2 and 4 for mixtral, whose capacity routing sees the data ranks
 as JAX's routing groups. Over a model axis, each parameter's shape when
 its module runs (the worker's forward pre-hooks) is its local shape under
-JAX's TP-only spec for the dense, moe and hybrid cases, and whole for the
-others.
+JAX's TP-only spec.
 
 Also: at (2, 2) phi4 with zero1 and a TP-only grad_spec, and phi4 with
 JAX's TP-only pregather_spec, against JAX (the latter's step with the
@@ -87,13 +87,13 @@ CASES = {"phi4": ("phi4-mini-3.8b", {}),
          "phi4-h6": ("phi4-mini-3.8b", {"n_heads": 6, "n_kv_heads": 2,
                                         "head_dim": 16})}
 MOE = {"mixtral"}
-TP_FAMILIES = {"dense", "moe", "vlm", "hybrid"}
+TP_FAMILIES = {"dense", "moe", "vlm", "hybrid", "ssm", "encdec"}
 WORLDS = ((2, 1), (1, 2), (2, 2), (4, 1), (1, 4))
 # (world, case) pairs that run (module docstring).
 PAIRS = tuple((w, c) for w in WORLDS[:4] for c in tuple(CASES)[:6]) + (
     ((1, 2), "phi4-h6"), ((2, 2), "phi4-h6"),
     *(((1, 4), c) for c in ("phi4", "phi4-m2", "mixtral", "phi4-h6",
-                            "recurrentgemma")))
+                            "rwkv6", "recurrentgemma", "whisper")))
 TP_PAIRS = tuple((w, c) for w, c in PAIRS if w[1] > 1)
 WORLD_DEADLINE = 240.0        # seconds for all four worlds, start to join
 LAUNCH = ["--device", "cpu", "--smoke", "--arch", "phi4-mini-3.8b",
@@ -277,8 +277,8 @@ def test_mesh_step_matches_jax(runs, world, case):
 def test_weights_have_their_compute_shape(runs, world, case):
     """Over a model axis no rank holds a whole tensor-parallel weight:
     each parameter, when its module runs, has its local shape under JAX's
-    TP-only spec (dense, moe and hybrid), or its whole shape (replicated
-    compute: ssm, encdec)."""
+    TP-only spec (every family in TP_FAMILIES; a family outside it would
+    compute replicated, on whole weights)."""
     pcfg = _configs(case)[1]
     model = get_api(pcfg).init(pcfg, 1, device="meta")
     mesh = MeshShape(("data", "model"), world)

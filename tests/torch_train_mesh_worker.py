@@ -6,9 +6,9 @@ WORKDIR holds `store` (the FileStore), `cases.json` (each case's arch,
 config cut and the worlds it runs on) and `inputs.npz` (each case's
 weights by the port's parameter names and its batch). On the (DATA,
 MODEL) mesh the rank trains each of its cases STEPS steps with the
-sharded step (tensor-parallel over MODEL > 1 for the dense, moe, vlm and
-hybrid families) and, at world (2, 1) and (1, 2), runs the launcher
-(`launch.train.run`) as the test asks. Rank 0 writes the metrics and the
+sharded step (tensor-parallel over MODEL > 1 for every family) and, at
+world (2, 1) and (1, 2), runs the launcher (`launch.train.run`) as the
+test asks. Rank 0 writes the metrics and the
 whole state gathered after every step to `out.npz`, and, over a model
 axis, the shape each parameter has when its module runs in the first
 step (a forward pre-hook). No JAX runs here and no check asserts here:
