@@ -166,7 +166,13 @@ Phases, each fatal on failure:
      groups a decode step's tokens apart: the JAX package's semantics),
      8 decode steps timed; mixtral's sliding ring at full width at one
      Attention layer (prefill 4,100 > window 4,096 at batch 1, then 3
-     decode steps against the windowed forward, f32 and bf16);
+     decode steps against the windowed forward, f32 and bf16); (d) (b)'s
+     model through make_prefill_step / make_decode_step(mesh=) on a NCCL
+     world of one rank that the part makes and tears down
+     (tensor_parallel.shard_for_serving, serve_cache): the prefill's
+     logits, LM_MESH_STEPS greedy steps' tokens and logits and the f32
+     cache equal to the meshless steps' on the same model and prompt,
+     bit for bit;
   14. hybrid (after 13, before 7): the hybrid family (models/rglru.py:
      RG-LRU blocks and local attention; no kernel of the port's lies on
      it): (a) python -m repro_torch.launch.serve --no-smoke --arch
@@ -267,8 +273,14 @@ Phases, each fatal on failure:
      (the tensor-parallel ssm: 32 heads of 64, 2 a rank) at 4 layers;
      (e) the same for whisper-large-v3 (the tensor-parallel encdec: 20
      heads over 16 ranks, the encoder over 1,500 frames a row) at 4
-     encoder and 4 decoder layers; the card's total_memory printed; the
-     phase within 120 s;
+     encoder and 4 decoder layers; (f) phi4-mini-3.8b x prefill_32k, (g)
+     phi4-mini-3.8b x decode_32k and (h) mixtral-8x7b x long_500k at
+     full width and 4 layers, served tensor-parallel through the mesh's
+     steps (the rank's heads and KV heads, its MLP, expert and vocab
+     chunks, held): collective bytes by kind equal to dryrun.serve_plan
+     (no weight's), the peak a rank at most the card's total_memory, the
+     held bytes printed; the card's total_memory printed; the phase
+     within 120 s;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -419,7 +431,10 @@ OUTPUT_KW = ("labels", "d2")
 # in process, held to its own invariants and timed warm, and at depth 2 in
 # f32; (c) the other six decoder-only archs at their published widths,
 # depth cut to 2, one at a time, and mixtral's sliding ring at full width
-# at the layer (a prefill of 4,100 > window 4,096, then 3 decode steps).
+# at the layer (a prefill of 4,100 > window 4,096, then 3 decode steps);
+# (d) (b)'s model through the mesh's serving steps on a NCCL world of one,
+# prefill and LM_MESH_STEPS greedy steps bit for bit with the meshless
+# steps.
 LM_ARCH = "phi4-mini-3.8b"
 LM_B, LM_S, LM_GEN, LM_MAX_SEQ = 8, 512, 32, 1024
 LM_SERVE = ["--no-smoke", "--arch", LM_ARCH, "--batch", str(LM_B),
@@ -430,6 +445,7 @@ LM_OTHERS = ("qwen3-14b", "command-r-plus-104b", "nemotron-4-340b",
 LM_CUT_DEPTH = 2
 LM_OTHERS_B, LM_OTHERS_S, LM_OTHERS_GEN = 4, 256, 8
 RING_S, RING_STEPS = 4100, 3
+LM_MESH_STEPS = 4
 LM_F32_TOL = 1e-4        # abs on logits: the CPU tests' bound against JAX
 LM_RING_TOL = 1e-4       # relative to the largest |output|, f32
 # bf16 keeps 8 significant bits, so one rounding moves a value v by up to
@@ -602,14 +618,20 @@ CHECK_CHUNK = 1 << 26                    # elements a checksum pass reads
 # tensor-parallel hybrid, at DRY_HY_LAYERS layers (one (R, R, A)
 # superblock and the (R, R) remainder); (d) rwkv6-1.6b, tensor-parallel
 # ssm, at DRY_SSM_LAYERS layers; (e) whisper-large-v3, tensor-parallel
-# encdec, at DRY_ED_LAYERS encoder and decoder layers. No device memory,
-# no kernel; the whole phase within DRY_SECONDS.
+# encdec, at DRY_ED_LAYERS encoder and decoder layers; (f)-(h) the
+# serving cells DRY_SERVE_CELLS at DRY_SERVE_LAYERS layers, tensor-parallel
+# through the mesh's serving steps, held to dryrun.serve_plan. No device
+# memory, no kernel; the whole phase within DRY_SECONDS.
 DRY_PEAK_TOL = 0.05
 DRY_FLOPS_TOL = 0.03
 DRY_SECONDS = 120
 DRY_HY_LAYERS = 5
 DRY_SSM_LAYERS = 4
 DRY_ED_LAYERS = 4
+DRY_SERVE_LAYERS = 4
+DRY_SERVE_CELLS = (("19f", "phi4-mini-3.8b", "prefill_32k"),
+                   ("19g", "phi4-mini-3.8b", "decode_32k"),
+                   ("19h", "mixtral-8x7b", "long_500k"))
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -4100,13 +4122,79 @@ def lm_phase(torch, number: int, parts) -> dict:
     return info
 
 
+def lm_mesh_world_one(torch, smi) -> dict:
+    """13d: 13b's model (LM_ARCH at full width and depth, bf16, seed
+    SEED) served by the meshless steps, then cut for a NCCL world of one
+    rank (made here and torn down) and served by the mesh's steps
+    (make_prefill_step / make_decode_step(mesh=), serve_cache) on the
+    same prompt: the prefill's logits, LM_MESH_STEPS greedy steps' tokens
+    and logits, and the f32 cache, bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import get_api
+    from repro_torch.train import make_decode_step, make_prefill_step
+    cfg = get_lm_config(LM_ARCH)
+    api = get_api(cfg)
+    model = lm_model(torch, cfg)
+    tokens = lm_tokens(torch, cfg, LM_B, LM_S, SEED + 1)
+
+    def serve(mesh, cache):
+        prefill = make_prefill_step(cfg, api, mesh=mesh)
+        decode = make_decode_step(cfg, api, mesh=mesh)
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, {"tokens": tokens}, cache)
+        out = [logits]
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        for _ in range(LM_MESH_STEPS):
+            tok, logits, cache = decode(model, tok, cache)
+            out += [tok, logits]
+        sync(torch)
+        return out, cache, time.perf_counter() - t0
+
+    plain, plain_cache, plain_s = serve(None, api.init_cache(
+        cfg, LM_B, LM_MAX_SEQ, torch.float32, DEVICE))
+    made = not dist.is_initialized()
+    mesh = make_debug_mesh(device=DEVICE)
+    try:
+        TP.shard_for_serving(model, mesh)
+        meshed, mesh_cache, mesh_s = serve(mesh, TP.serve_cache(
+            model, LM_B, LM_MAX_SEQ, torch.float32))
+    finally:
+        if made:
+            dist.destroy_process_group()
+    differ = [i for i, (a, b) in enumerate(zip(plain, meshed))
+              if not torch.equal(a, b)] + [
+        key for key in ("k", "v")
+        if not torch.equal(plain_cache[key], mesh_cache[key])]
+    info = {"steps": LM_MESH_STEPS, "tensors_held": len(plain) + 2,
+            "bitwise": not differ, "meshless_s": plain_s,
+            "mesh_s": mesh_s,
+            "tokens": [t.tolist() for t in plain[1::2]]}
+    del model, plain, meshed, plain_cache, mesh_cache
+    free(torch)
+    log(f"[lm] 13d {LM_ARCH} (full width and depth, bf16) through the "
+        f"mesh's serving steps on a NCCL world of one [{smi}]: prefill "
+        f"{LM_S} x {LM_B} and {LM_MESH_STEPS} greedy steps, "
+        f"{info['tensors_held']} tensors (logits, tokens, the f32 cache) "
+        f"against the meshless steps: "
+        f"{'bit for bit' if not differ else f'differ at {differ}'} "
+        f"(meshless {plain_s:.3f} s, mesh {mesh_s:.3f} s, first use of "
+        f"each)")
+    if differ:
+        raise AssertionError(f"13d: the mesh of one against the meshless "
+                             f"serving steps differs at {differ}")
+    return info
+
+
 def phase_lm(torch, smi) -> dict:
     """Phase 13: the decoder-only LM serving path on the card (the
     projections are torch.matmul, attention plain einsums)."""
     return lm_phase(torch, 13, lambda: {
         "launcher": lm_launcher(torch, smi),
         "in_process": lm_in_process(torch, smi),
-        "others": lm_others(torch, smi), "card": smi})
+        "others": lm_others(torch, smi),
+        "mesh_world_one": lm_mesh_world_one(torch, smi), "card": smi})
 
 
 def phase_hybrid(torch, smi) -> dict:
@@ -5020,12 +5108,56 @@ def dryrun_mesh_cell(torch, tag: str, arch: str, **cut) -> dict:
                                                  "card_total_memory": card}
 
 
+def dryrun_serve_cell(torch, tag: str, arch: str, shape: str) -> dict:
+    """19f-19h: `arch` x `shape` (a serving cell) at full width and
+    DRY_SERVE_LAYERS layers on the 16 x 16 dry-run mesh to status ok,
+    served tensor-parallel through the mesh's steps on rank 0's held
+    shards and cache: its collective bytes by kind equal to
+    dryrun.serve_plan (the activations' all-reduces and the logits'
+    all-gathers, no weight's), its rank-0 peak at most the card's
+    total_memory; the held bytes (dryrun.held_bytes) beside JAX's
+    rules."""
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.launch import dryrun, specs
+    cut = {"n_layers": DRY_SERVE_LAYERS}
+    rec = dryrun.run_cell(arch, shape, False, str(BUILD / "dryrun"), cut)
+    if rec["status"] != "ok":
+        raise AssertionError(f"{tag}: {rec}")
+    sh = specs.SHAPES[shape]
+    cfg = get_lm_config(arch, **cut)
+    mesh = MeshShape(("data", "model"), (16, 16))
+    plan = dryrun.serve_plan(cfg, sh["kind"], mesh, sh["batch"], sh["seq"])
+    held = dryrun.held_bytes(cfg, sh["kind"], sh["batch"], sh["seq"], mesh)
+    got = {k: v for k, v in rec["collectives"]["bytes"].items() if v}
+    card = torch.cuda.get_device_properties(0).total_memory
+    peak = rec["memory"]["peak_mb"] * 2 ** 20
+    log(f"[dryrun] {tag} {arch} x {shape} {cut} on 16 x 16 (rank 0 of 256 "
+        f"fake ranks, served tensor-parallel over the model axis; groups "
+        f"{rec['groups']}): status ok, peak {rec['memory']['peak_mb']} MiB "
+        f"a rank = {peak:.0f} bytes against the card's total_memory "
+        f"{card}; held: parameters {held['params']} + cache "
+        f"{held['cache']} bytes (JAX's rules {rec['rules_mb']['total']} "
+        f"MiB); flops {rec['hlo_flops']:.4e}, collective bytes {got} "
+        f"against the plan {plan}; built in {rec['lower_s']} s, run in "
+        f"{rec['compile_s']} s")
+    if got != {k: float(v) for k, v in plan.items() if v}:
+        raise AssertionError(f"{tag}: collective bytes {got} against the "
+                             f"plan {plan}")
+    if peak > card:
+        raise AssertionError(f"{tag}: rank 0's peak {peak:.0f} bytes is "
+                             f"over the card's {card}")
+    return {k: rec[k] for k in ("memory", "rules_mb", "hlo_flops",
+                                "hlo_traffic_bytes", "collectives",
+                                "groups", "lower_s", "compile_s")} | {
+        "plan": plan, "held": held, "cut": cut, "card_total_memory": card}
+
+
 def phase_dryrun(torch, smi, phase17) -> dict:
     """Phase 19: the dry run (launch/dryrun.py over op_analysis.py and a
     fake process group), which allocates none of the card's memory and
     launches no kernel: 19a against phase 17's measured step, 19b-19e
-    the production mesh's cells, dense, hybrid, ssm and encdec. Held to
-    DRY_SECONDS."""
+    the production mesh's train cells, dense, hybrid, ssm and encdec,
+    19f-19h its LM serving cells. Held to DRY_SECONDS."""
     from repro_torch.kernels import OPS, reset_launches
     free(torch)
     t0 = time.perf_counter()
@@ -5041,6 +5173,8 @@ def phase_dryrun(torch, smi, phase17) -> dict:
             "encdec_cell": dryrun_mesh_cell(
                 torch, "19e", ED_ARCH, n_layers=DRY_ED_LAYERS,
                 n_encoder_layers=DRY_ED_LAYERS),
+            "serve_cells": {tag: dryrun_serve_cell(torch, tag, arch, shape)
+                            for tag, arch, shape in DRY_SERVE_CELLS},
             "kernel_launches": {n: op.launches for n, op in OPS.items()},
             "card_total_memory": torch.cuda.get_device_properties(
                 0).total_memory,

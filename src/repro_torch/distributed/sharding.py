@@ -38,7 +38,11 @@ TP-only spec for every family's projections, embeddings, experts,
 RG-LRU and RWKV weights, which compute tensor-parallel over "model";
 replicated for the rest),
 and reduces each gradient over the data axes into the moments' chunk.
-Serving computes replicated.
+Serving on a mesh (the decoder-only LMs) holds the cut of
+tensor_parallel.shard_for_serving, not these rules: the rank's heads and
+TP-only chunks, whole over the data axes, and a KV cache of the rank's
+KV heads rather than cache_pspecs' T over "model"; the dry run still
+reports these rules' bytes (rules_mb).
 
 `activation_sharding` and `maybe_shard` keep JAX's signatures as layout
 hints that return their input unchanged: eager PyTorch has no sharding

@@ -70,19 +70,42 @@ all-gather forward whose backward is this rank's chunk of the gradient
 (the gathered tensor joins the replicated residual stream, whose
 gradient every rank holds whole). Outside the context every module runs
 as it did.
+
+Serving (the decoder-only LMs: dense, moe, vlm; `SERVE_FAMILIES`) splits
+the same units but holds its cut: `shard_for_serving` cuts a whole model
+once to what model-axis rank r computes, and the serving step
+(train/steps.py make_prefill_step / make_decode_step with mesh=) then
+makes no weight collective. Each attention's wq / wk / wv columns and
+wo's rows are held at the rank's `attention_spans` (its query heads and
+the KV heads they read: phi4-mini's 24 heads over 16 ranks leave rank 0
+two heads and one KV head), not at the even chunk that `take` gathers
+from each step in training. The MLP, expert and vocabulary weights are
+held at JAX's TP-only chunk, the rest whole (replicated over the data
+axes too: no data-axis gather a step). A unit that JAX's divisibility
+guard leaves whole is held whole and computes replicated. The KV cache
+holds the rank's KV heads (`serve_cache_shape`), not JAX's T over the
+model axis, so attention stays local; where there are fewer KV heads
+than ranks, ranks that read the same KV head each hold it. The
+collectives of one serving step: the vocab-parallel lookup's
+all-reduce, the all-reduce after each attention's wo and each MLP's w2
+(the MoE's at its (G, E, C, d) expert outputs), and the all-gather of
+the logits' vocab chunks over the model axis (the step then all-gathers
+the rows over the data axes where it split them). A rank with no query
+head makes each of them.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.sharding import (P, _reduce_scatter,
                                               local_shape, param_pspecs)
-from repro_torch.launch.mesh import MeshAxis, mesh_axis_sizes, tp_axis
+from repro_torch.launch.mesh import (MeshAxis, dp_axes, mesh_axis,
+                                     mesh_axis_sizes, tp_axis)
 
 # The model axis while tensor-parallel compute is on. A process global, not
 # a thread-local: remat's recompute and the backward run on the autograd
@@ -357,3 +380,125 @@ def compute_bytes(model, mesh, shapes=None) -> int:
     return sum(math.prod(local_shape(
         shapes[name] if shapes is not None else p.shape, spec[name], mesh))
         * p.element_size() for name, p in model.named_parameters())
+
+
+# The families whose serving computes tensor-parallel (models/lm.py).
+SERVE_FAMILIES = ("dense", "moe", "vlm")
+
+
+class ServeLayout(NamedTuple):
+    """How shard_for_serving cut a model: the mesh, the model-axis index
+    the cut was taken at and its serve_cuts."""
+    mesh: object
+    index: int
+    cuts: Dict[str, Tuple[int, int, int]]
+
+
+def _model_size(mesh) -> int:
+    return mesh_axis_sizes(mesh).get(tp_axis(mesh), 1)
+
+
+def check_serving(cfg) -> None:
+    """Refuse a family outside SERVE_FAMILIES on any mesh (its serving has
+    no tensor-parallel path, and computing it replicated would hide
+    that)."""
+    if cfg.family not in SERVE_FAMILIES:
+        raise ValueError(
+            f"tensor-parallel serving covers the decoder-only LMs "
+            f"({', '.join(SERVE_FAMILIES)}); {cfg.name} is {cfg.family}, "
+            f"which serves only without a mesh")
+
+
+def serve_cuts(model, mesh, index: int) -> Dict[str, Tuple[int, int, int]]:
+    """{parameter name: (dim, a, b)}: the range [a, b) along `dim` that
+    model-axis rank `index` holds for serving (module docstring); a
+    parameter not named is held whole. A decoder-only LM (check_serving
+    refuses the others where they enter). Works on a sharding.MeshShape
+    (no world)."""
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+    tp = _model_size(mesh)
+    if tp == 1:
+        return {}
+    axis = tp_axis(mesh)
+    spec = compute_specs(model, mesh)
+    out = {}
+    for name, p in model.named_parameters():
+        dims = [d for d in range(len(spec[name]))
+                if axis in spec[name].names(d)]
+        if dims:
+            n = p.shape[dims[0]] // tp
+            out[name] = (dims[0], index * n, (index + 1) * n)
+    spans = attention_spans(cfg, tp)
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, L.Attention) and f"{prefix}.wq" in out:
+            for n in ("wq", "wk", "wv", "wo"):
+                out[f"{prefix}.{n}"] = (1 if n != "wo" else 0,
+                                        *spans[n](index))
+    return out
+
+
+@torch.no_grad()
+def shard_for_serving(model, mesh):
+    """Cut a whole decoder-only LM, in place, to what this rank computes
+    when it serves on `mesh` (serve_cuts at its model-axis coordinate;
+    each cut a copy, so the whole weight goes). Each cut attention keeps
+    its heads as `serve_heads`; the model keeps the layout as
+    `serve_layout`, which the mesh's serving steps check. Returns the
+    model. A model of another family is refused (check_serving)."""
+    from repro_torch.models import layers as L
+    if getattr(model, "serve_layout", None) is not None or \
+            getattr(model, "shard_layout", None) is not None:
+        raise ValueError("the model is already cut (shard_for_serving or "
+                         "shard_train_state)")
+    check_serving(model.cfg)
+    tp = _model_size(mesh)
+    index = mesh_axis(mesh, tp_axis(mesh)).index if tp > 1 else 0
+    cuts = serve_cuts(model, mesh, index)
+    for name, p in model.named_parameters():
+        if name in cuts:
+            dim, a, b = cuts[name]
+            p.data = p.data.narrow(dim, a, b - a).clone(
+                memory_format=torch.contiguous_format)
+    cfg = model.cfg
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, L.Attention) and f"{prefix}.wq" in cuts:
+            mod.serve_heads = (
+                head_span(cfg.n_heads, tp, index),
+                kv_span(cfg.n_heads, cfg.q_per_kv, tp, index))
+    model.serve_layout = ServeLayout(mesh, index, cuts)
+    return model
+
+
+def serve_rows(batch: int, mesh) -> int:
+    """The rows a data rank serves of a global batch: batch / dp where it
+    divides by the data axes' size dp, else all of them."""
+    sizes = mesh_axis_sizes(mesh)
+    dp = math.prod(sizes[a] for a in dp_axes(mesh))
+    return batch // dp if batch % dp == 0 else batch
+
+
+def serve_cache_shape(cuts, shape, mesh) -> Tuple[int, ...]:
+    """The cache leaf a rank holds under its serve_cuts `cuts`, from
+    init_cache_lm's whole (L, B, T, Hkv, hd): its rows (serve_rows) and
+    the KV heads its attention's wk columns hold (all of them where the
+    attention is held whole; none for a rank with no query head)."""
+    L_, B, T, H, hd = shape
+    wk = [c for name, c in cuts.items() if name.endswith(".wk")]
+    if wk:
+        H = (wk[0][2] - wk[0][1]) // hd
+    return (L_, serve_rows(B, mesh), T, H, hd)
+
+
+def serve_cache(model, batch: int, max_seq: int,
+                dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """Zeros of the cache this rank holds, on the model's device, for a
+    model cut by shard_for_serving and a global batch of `batch` rows:
+    k and v at serve_cache_shape."""
+    from repro_torch.models.registry import get_api
+    cfg, lay = model.cfg, model.serve_layout
+    whole = get_api(cfg).init_cache(cfg, batch, max_seq, dtype, "meta")
+    shape = serve_cache_shape(lay.cuts, tuple(whole["k"].shape), lay.mesh)
+    return {"k": torch.zeros(shape, dtype=dtype, device=model.device),
+            "v": torch.zeros(shape, dtype=dtype, device=model.device),
+            "pos": 0}

@@ -28,10 +28,19 @@ until B / M divides by dp).
     distributed/tensor_parallel.py), rank 0 taking the most heads;
     `train_plan` gives the collective bytes it must move;
   - prefill_32k: make_prefill_step; decode_32k and long_500k:
-    make_decode_step. The port has no sharded serving compute (ROADMAP
-    Queue A item 2), so each rank holds the whole parameters and, when
-    groups == dp, its own B / dp rows of the batch and cache (JAX's group
-    r, run at one group), else the whole batch and cache.
+    make_decode_step. The decoder-only LMs (dense, moe, vlm) serve
+    tensor-parallel through the mesh's steps (mesh=): the model built on
+    "meta", then fake, cut to rank 0's serving shards by
+    tensor_parallel.shard_for_serving (its heads and the KV heads they
+    read, its MLP, expert and vocab chunks; the rest whole), rank 0's
+    cache of its rows and KV heads (tensor_parallel.serve_cache), the
+    global batch or tokens, of which the step takes rank 0's rows when
+    groups == dp; `serve_plan` gives the collective bytes it must move.
+    The hybrid and the ssm (long_500k; JAX's grid gives them no other
+    serving cell) have no tensor-parallel serving yet: each rank holds
+    the whole parameters and, when groups == dp, its own B / dp rows of
+    the batch and cache (JAX's group r, run at one group), else the whole
+    batch and cache, and moves nothing.
 
 The record has JAX's keys (dryrun.py:155-175) with JAX's meanings, but:
   - lower_s: the seconds of building the fake state and inputs, and
@@ -44,8 +53,9 @@ and one key more, rules_mb: rank 0's bytes of the parameters, the
 optimizer state and the cache under the sharding rules (the sum of
 local_shape x itemsize over state_pspecs, or over param_pspecs and
 cache_pspecs for a serving cell; the cache's "pos" is a host int in the
-port). For a serving cell, memory.peak_mb less rules_mb is what
-tensor-parallel serving would take off each rank.
+port). rules_mb stays JAX's fsdp x tp layout; `held_bytes` gives what
+rank 0 of the port holds (its serving shards, whole over the data axes,
+and its cache of its KV heads).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch ARCH \\
         --shape {train_4k,prefill_32k,decode_32k,long_500k} [--multipod] \\
@@ -342,6 +352,101 @@ def _tp_plan(cfg: ArchConfig, model, cspec, b: int, S: int, groups: int,
     return out
 
 
+def serve_plan(cfg: ArchConfig, kind: str, mesh, B: int,
+               S: int) -> Dict[str, float]:
+    """The collective bytes by kind that one serving step ("prefill" of B
+    prompts of S tokens, or "decode" of B tokens) moves on rank 0 of
+    `mesh` (measure's serving cells), each sized by its result as
+    op_analysis sizes it. The rank runs b = B / dp rows at groups / dp
+    where B divides by the data axes' size dp, else all B at groups
+    (plan_cell), each row S_q positions (S, less the vlm's patch prefix,
+    which serving does not take; 1 to decode), T = b S_q tokens; d wide
+    in the parameter dtype:
+      - per tensor-parallel attention, the all-reduce after wo, (b, S_q,
+        d); per tensor-parallel MLP, the all-reduce after w2, (b, S_q, d),
+        and per MoE of the (G, E, C, d) expert outputs, G = min(groups,
+        T), C = max(1, int(top_k (T / G) 1.25 / E));
+      - the vocab-parallel lookup's all-reduce, (b, S_q, d);
+      - the last position's f32 logits all-gathered over the model axis,
+        (b, V), where the vocabulary is cut, then over each data axis of
+        size > 1, innermost first, where the rows were split, (B, V) at
+        the last;
+    and no weight's collective. A family outside
+    tensor_parallel.SERVE_FAMILIES serves replicated and moves
+    nothing."""
+    from repro_torch.models import layers as L
+    out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0}
+    if cfg.family not in TP.SERVE_FAMILIES:
+        return out
+    dp_n, tp = _sizes(mesh)
+    groups, _ = plan_cell(cfg, B, mesh)
+    split = dp_n > 1 and B % dp_n == 0
+    b, groups = (B // dp_n, groups // dp_n) if split else (B, groups)
+    model = get_api(cfg).init(cfg, tp, device="meta")
+    cuts = TP.serve_cuts(model, mesh, 0)
+    if kind == "prefill":
+        S_q = S - (min(cfg.n_patch_tokens, S // 2)
+                   if cfg.family == "vlm" else 0)
+    else:
+        S_q = 1
+    T, d = b * S_q, cfg.d_model
+    ai = L.dtype_of(cfg.param_dtype).itemsize
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, L.Attention) and f"{prefix}.wq" in cuts:
+            out["all-reduce"] += T * d * ai
+        elif isinstance(mod, L.DenseMLP) and f"{prefix}.w1" in cuts:
+            out["all-reduce"] += T * d * ai
+        elif isinstance(mod, L.MoE) and f"{prefix}.w1" in cuts:
+            G = min(groups, T)
+            C = max(1, int(cfg.top_k * (T // G) * 1.25 / cfg.n_experts))
+            out["all-reduce"] += G * cfg.n_experts * C * d * ai
+    if "embed" in cuts:
+        out["all-reduce"] += T * d * ai
+    V = model.vocab
+    if "unembed" in cuts:
+        out["all-gather"] += b * V * 4
+    if split:
+        sizes, rows = mesh_axis_sizes(mesh), b
+        for a in reversed(dp_axes(mesh)):
+            if sizes[a] > 1:
+                rows *= sizes[a]
+                out["all-gather"] += rows * V * 4
+    return out
+
+
+def held_bytes(cfg: ArchConfig, kind: str, B: int, S: int,
+               mesh) -> Dict[str, int]:
+    """What rank 0 of the port holds in a serving cell (no world needed:
+    `mesh` may be a sharding.MeshShape): {"params", "cache"}. A
+    decoder-only LM its serving shards (tensor_parallel.serve_cuts) and
+    its cache of its rows and KV heads (serve_cache_shape); another
+    family its whole parameters and the cache of its rows, as measure
+    runs them."""
+    api = get_api(cfg)
+    _, tp = _sizes(mesh)
+    model = api.init(cfg, tp, device="meta")
+    if cfg.family not in TP.SERVE_FAMILIES:
+        cache = specs.cache_specs(cfg, api, TP.serve_rows(B, mesh), S,
+                                  abstract=True)
+        return {"params": sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+                "cache": sum(t.numel() * t.element_size()
+                             for t in cache.values()
+                             if isinstance(t, torch.Tensor))}
+    cuts = TP.serve_cuts(model, mesh, 0)
+    params = 0
+    for name, p in model.named_parameters():
+        n = p.numel()
+        if name in cuts:
+            dim, a, b = cuts[name]
+            n = n // p.shape[dim] * (b - a)
+        params += n * p.element_size()
+    whole = specs.cache_specs(cfg, api, B, S, abstract=True)["k"]
+    shape = TP.serve_cache_shape(cuts, tuple(whole.shape), mesh)
+    return {"params": params,
+            "cache": 2 * math.prod(shape) * whole.element_size()}
+
+
 def measure(cfg: ArchConfig, kind: str, B: int, S: int, mesh) -> dict:
     """Build rank 0's fake state and inputs for one cell on `mesh` (a
     make_dryrun_mesh world), run its step under op_analysis and return
@@ -368,6 +473,18 @@ def measure(cfg: ArchConfig, kind: str, B: int, S: int, mesh) -> dict:
                                    pregather_spec=pregather,
                                    grad_spec=grad_spec, mesh=mesh)
             args = (state, batch)
+        elif cfg.family in TP.SERVE_FAMILIES:
+            micro = 1
+            TP.shard_for_serving(model, mesh)
+            cache = TP.serve_cache(model, B, S)
+            if kind == "prefill":
+                inputs = _fake(specs.prefill_inputs(cfg, S, B,
+                                                    abstract=True))
+                step = make_prefill_step(cfg, api, groups, mesh=mesh)
+            else:
+                inputs = _fake(specs.decode_tokens(cfg, B, abstract=True))
+                step = make_decode_step(cfg, api, groups, mesh=mesh)
+            args = (model, inputs, cache)
         else:
             micro = 1
             rows, run_groups = (B // dp, 1) if groups == dp > 1 else (

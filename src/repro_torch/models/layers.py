@@ -42,8 +42,13 @@ the full-sequence forward of `Attention`, `DenseMLP` and `MoE` (and
 `embed_lookup` and `logits`, compute with the model-axis shard
 of their weights where the sharded train step gave them one (a weight
 narrower than the config's width); the module docstring there says how
-each splits. Serving, and every call outside that context, runs on
-whole weights as above.
+each splits. Serving computes tensor-parallel in that context on a model
+that tensor_parallel.shard_for_serving cut: `Attention.prefill` and
+`decode` on the rank's query heads (`serve_heads`, held, not gathered),
+the KV heads they read in the rank's cache, wo row-parallel and summed
+over the model axis; `DenseMLP`, `MoE` and `embed_lookup` as in training;
+`serve_logits` all-gathers the vocab chunks. Every call outside that
+context runs on whole weights as above.
 """
 from __future__ import annotations
 
@@ -85,6 +90,19 @@ def logits(x: torch.Tensor, unembed: torch.Tensor, vocab: int
     if axis is not None and unembed.shape[1] != vocab:
         x = tp_ops().copy_to_model(x, axis)
     return (x @ unembed).float()
+
+
+def serve_logits(x: torch.Tensor, unembed: torch.Tensor, vocab: int
+                 ) -> torch.Tensor:
+    """logits(x) over the whole padded vocabulary: where the unembedding
+    holds a vocab chunk (tensor-parallel serving), the ranks' chunks
+    all-gathered over the model axis, so that every rank holds the same
+    logits and takes the same greedy token."""
+    out = logits(x, unembed, vocab)
+    axis = tp_ops().active()
+    if axis is not None and unembed.shape[1] != vocab:
+        out = axis.all_gather_cat(out, -1)
+    return out
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -247,6 +265,9 @@ class Attention(nn.Module):
         if cfg.qk_norm:
             self.q_norm = RMSNorm(hd, device)
             self.k_norm = RMSNorm(hd, device)
+        # ((h0, h1), (k0, k1)): the query heads and the KV heads this rank
+        # holds, set by tensor_parallel.shard_for_serving; None when whole.
+        self.serve_heads = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
@@ -259,9 +280,10 @@ class Attention(nn.Module):
         cfg = self.cfg
         B, S = x.shape[:2]
         hd = cfg.head_dim
-        q = (x @ self.wq).reshape(B, S, cfg.n_heads, hd)
-        k = (x @ self.wk).reshape(B, S, cfg.n_kv_heads, hd)
-        v = (x @ self.wv).reshape(B, S, cfg.n_kv_heads, hd)
+        # The heads the weights hold: all, or a rank's serving heads.
+        q = (x @ self.wq).reshape(B, S, self.wq.shape[1] // hd, hd)
+        k = (x @ self.wk).reshape(B, S, self.wk.shape[1] // hd, hd)
+        v = (x @ self.wv).reshape(B, S, self.wv.shape[1] // hd, hd)
         if cfg.qk_norm:
             q = self.q_norm(q)
             k = self.k_norm(k)
@@ -314,17 +336,31 @@ class Attention(nn.Module):
         out = sdpa(q, k, v, mask, group, cfg.attn_scores_f32)
         return TP.reduce_from_model(out @ wo, axis)
 
+    def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        """sdpa and wo for prefill and decode. On a rank's serving heads
+        (shard_for_serving) inside tensor-parallel compute: kv_group's
+        grouping of the rank's heads and KV heads, wo's rows of those
+        heads and the sum over the model axis (zeros from a rank with no
+        head, which makes the same collective)."""
+        if self.serve_heads is None:
+            return sdpa(q, k, v, mask, self.cfg.q_per_kv) @ self.wo
+        heads, kvs = self.serve_heads
+        k, v, group = kv_group(k, v, heads, kvs, self.cfg.q_per_kv)
+        return tp_ops().reduce_from_model(
+            sdpa(q, k, v, mask, group) @ self.wo, tp_ops().active())
+
     def prefill(self, x: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, window: int = 0) -> torch.Tensor:
         """The causal prompt pass of lm.py:91-109: returns the attention
         output and writes this layer's cache (B, T, Hkv, hd) in place with
         the last T positions, position p at slot p % T (the ring layout
-        decode continues), zeros past S."""
+        decode continues), zeros past S. On a rank's serving heads the
+        cache holds the rank's KV heads (B, T, k1 - k0, hd)."""
         B, S = x.shape[:2]
         T = k_cache.shape[1]
         q, k, v = self.qkv(x, torch.arange(S, device=x.device)[None, :])
-        out = sdpa(q, k, v, causal_mask(S, window, x.device),
-                   self.cfg.q_per_kv) @ self.wo
+        out = self._attend(q, k, v, causal_mask(S, window, x.device))
         if window and S > T:
             k_cache.copy_(torch.roll(k[:, -T:], S % T, dims=1))
             v_cache.copy_(torch.roll(v[:, -T:], S % T, dims=1))
@@ -347,7 +383,8 @@ class Attention(nn.Module):
         Full attention: T = max_seq, write at slot pos, attend to slots
         <= pos. Sliding window: T is a ring, write at pos % T, attend to
         the slots written so far (every slot once pos >= T). Decode attends
-        over all T slots, masked, with the cache cast to v's dtype.
+        over all T slots, masked, with the cache cast to v's dtype. On a
+        rank's serving heads the cache holds the rank's KV heads.
         """
         B = x.shape[0]
         T = k_cache.shape[1]
@@ -362,9 +399,8 @@ class Attention(nn.Module):
         # JAX also ands in (slot - idx) % T < T, which always holds.
         mask = ((idx <= slot) | (pos >= T)) if window else idx <= pos
         mask = mask[None, None, None, :].expand(B, 1, 1, T)
-        out = sdpa(q, k_cache.to(v.dtype), v_cache.to(v.dtype), mask,
-                   self.cfg.q_per_kv)
-        return out @ self.wo
+        return self._attend(q, k_cache.to(v.dtype), v_cache.to(v.dtype),
+                            mask)
 
 
 # ---------------------------------------------------------------------------

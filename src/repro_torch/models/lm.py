@@ -18,8 +18,13 @@ given); a model built on the "meta" device is left undrawn for
 `to_empty` (as repro_torch.models.convert does).
 
 `forward` computes tensor-parallel inside distributed/tensor_parallel.py's
-context (the sharded train step's); `prefill` and `decode` always run on
-whole weights.
+context (the sharded train step's); so do `prefill` and `decode` (the
+mesh's serving steps) on a model that tensor_parallel.shard_for_serving
+cut: the vocab-parallel lookup, the rank's heads and its cache of their
+KV heads, the MLP and expert columns, and the rank's vocab chunk of the
+f32 logits, all-gathered over the model axis so that every rank returns
+the whole padded vocabulary's. Outside that context they run on whole
+weights.
 """
 from __future__ import annotations
 
@@ -94,27 +99,27 @@ class LM(nn.Module):
         """Run the prompt, fill the KV cache, return the last position's
         logits (B, vocab_padded) in f32 (lm.py:77 `prefill_lm`)."""
         S = tokens.shape[1]
-        x = self.embed[tokens]
+        x = L.embed_lookup(self.embed, tokens, self.vocab)
         win = window_of(self.cfg)
         for i, blk in enumerate(self.layers):
             x = blk.prefill(x, cache["k"][i], cache["v"][i], groups, win)
         x = self.ln_f(x)
         cache["pos"] = S
-        return (x[:, -1] @ self.unembed).float(), cache
+        return L.serve_logits(x[:, -1], self.unembed, self.vocab), cache
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: Cache,
                groups: int = 1) -> Tuple[torch.Tensor, Cache]:
         """One decode step (lm.py:121 `decode_lm`). tokens: (B,) int.
         Returns (logits (B, vocab_padded) f32, cache)."""
-        x = self.embed[tokens][:, None, :]                # (B,1,d)
+        x = L.embed_lookup(self.embed, tokens, self.vocab)[:, None, :]
         pos = cache["pos"]
         win = window_of(self.cfg)
         for i, blk in enumerate(self.layers):
             x = blk.decode(x, cache["k"][i], cache["v"][i], pos, groups, win)
         x = self.ln_f(x)
         cache["pos"] = pos + 1
-        return (x[:, 0] @ self.unembed).float(), cache
+        return L.serve_logits(x[:, 0], self.unembed, self.vocab), cache
 
 
 def init_cache_lm(cfg: ArchConfig, batch: int, max_seq: int,

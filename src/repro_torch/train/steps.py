@@ -69,6 +69,13 @@ Differences from JAX's step, by design:
 No host sync runs inside the step: the metrics are tensors on the step's
 device. `cfg` is kept for the JAX signature of the serving builders; the
 model carries it.
+
+make_prefill_step / make_decode_step take mesh= too: JAX's serving steps
+under its dry run's shardings, on a model cut once by
+distributed/tensor_parallel.py's shard_for_serving (its heads, KV heads,
+MLP and expert columns and vocab chunk, held; no weight collective) and
+the rank's cache of its rows and KV heads; each data rank serves its
+rows of the global batch, and the logits come back whole.
 """
 from __future__ import annotations
 
@@ -262,6 +269,17 @@ def make_train_step(cfg: ArchConfig, api: ModelAPI, groups: int = 1,
     return train_step
 
 
+def _data_rank(mesh) -> int:
+    """This rank's index over the data axes (pod-major)."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    rank = 0
+    for a in dp_axes(mesh):
+        i = names.index(a)
+        rank = rank * mesh.shape[i] + coord[i]
+    return rank
+
+
 def _make_mesh_step(cfg, api, groups, grad_transform, opt_cfg,
                     pregather_spec, grad_spec, mesh) -> Callable:
     M = cfg.microbatches
@@ -272,11 +290,7 @@ def _make_mesh_step(cfg, api, groups, grad_transform, opt_cfg,
     if groups % n_dp:
         raise ValueError(f"groups {groups} must divide by the data axes' "
                          f"size {n_dp}: each data rank runs whole groups")
-    coord = mesh.get_coordinate()
-    rank = 0                               # this rank's data index
-    for a in dp:
-        i = names.index(a)
-        rank = rank * mesh.shape[i] + coord[i]
+    rank = _data_rank(mesh)
     world = math.prod(mesh.shape)
     dp_groups = [mesh_axis(mesh, a) for a in dp
                  if mesh.shape[names.index(a)] > 1]
@@ -413,19 +427,108 @@ def _make_mesh_step(cfg, api, groups, grad_transform, opt_cfg,
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig, api: ModelAPI,
-                      groups: int = 1) -> Callable:
+class _MeshServing(NamedTuple):
+    """What a serving step needs of its mesh: this rank's data index,
+    each data axis of size > 1 as a MeshAxis (innermost first) and the
+    model axis."""
+    mesh: object
+    rank: int
+    data_axes: Tuple
+    model_axis: object
+
+    def rows(self, model, B: int, groups: int) -> Tuple[slice, int, bool]:
+        """(this rank's rows of a global batch of B, tensor_parallel's
+        serve_rows, the groups it runs them at, whether the rows were
+        split over the data axes)."""
+        lay = getattr(model, "serve_layout", None)
+        if lay is None or lay.mesh is not self.mesh:
+            raise ValueError("the model is not cut for this step's mesh "
+                             "(tensor_parallel.shard_for_serving)")
+        b = TP.serve_rows(B, self.mesh)
+        if b == B:
+            return slice(None), groups, False
+        if groups % (B // b):
+            raise ValueError(f"groups {groups} must divide by the data "
+                             f"axes' size {B // b}: each data rank runs "
+                             f"whole routing groups")
+        return (slice(self.rank * b, (self.rank + 1) * b),
+                groups // (B // b), True)
+
+    def gather(self, logits: torch.Tensor, split: bool) -> torch.Tensor:
+        """The logits of every row: the data ranks' rows all-gathered,
+        innermost axis first, where they were split."""
+        for axis in self.data_axes if split else ():
+            logits = axis.all_gather_cat(logits, 0)
+        return logits
+
+
+def _mesh_serving(cfg: ArchConfig, mesh) -> _MeshServing:
+    TP.check_serving(cfg)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    tp = tp_axis(mesh)
+    return _MeshServing(
+        mesh, _data_rank(mesh),
+        tuple(mesh_axis(mesh, a) for a in reversed(dp_axes(mesh))
+              if sizes[a] > 1),
+        mesh_axis(mesh, tp) if tp is not None else None)
+
+
+def _meshless(model) -> None:
+    if getattr(model, "serve_layout", None) is not None:
+        raise ValueError("a model cut by shard_for_serving needs the "
+                         "step's mesh")
+
+
+def make_prefill_step(cfg: ArchConfig, api: ModelAPI, groups: int = 1, *,
+                      mesh=None) -> Callable:
+    """prefill_step(model, batch, cache) -> (last-position logits (B,
+    vocab_padded) f32, cache).
+
+    mesh: JAX's prefill under its serving shardings (launch/dryrun.py's
+    cells), on a model cut by tensor_parallel.shard_for_serving for this
+    mesh and the rank's cache (tensor_parallel.serve_cache). Every rank
+    takes the global batch; where B divides by the data axes' size dp,
+    data rank r runs rows [r B / dp, (r + 1) B / dp) as JAX's routing
+    group r (groups must divide by dp), else every rank runs all rows at
+    `groups`. The step computes tensor-parallel over the model axis
+    (dense, moe, vlm; another family is refused on any mesh) and
+    returns the logits of every row over the whole padded vocabulary (the
+    rows all-gathered over the data axes where they were split: JAX's
+    replicated out_shardings) and the rank's cache."""
+    if mesh is not None:
+        serving = _mesh_serving(cfg, mesh)
+
+        def mesh_prefill_step(model, batch, cache):
+            B = next(iter(batch.values())).shape[0]
+            rows, g, split = serving.rows(model, B, groups)
+            with TP.tensor_parallel(serving.model_axis):
+                logits, cache = api.prefill(
+                    model, {k: x[rows] for k, x in batch.items()}, cache, g)
+            return serving.gather(logits, split), cache
+        return mesh_prefill_step
+
     def prefill_step(model, batch, cache):
+        _meshless(model)
         return api.prefill(model, batch, cache, groups)
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, api: ModelAPI,
-                     groups: int = 1) -> Callable:
+def make_decode_step(cfg: ArchConfig, api: ModelAPI, groups: int = 1, *,
+                     mesh=None) -> Callable:
     """decode_step(model, tokens, cache) -> (greedy next tokens as int32,
-    logits, cache)."""
+    logits, cache). mesh: as make_prefill_step's, on the global tokens
+    (B,); the greedy tokens and logits of every row."""
+    serving = _mesh_serving(cfg, mesh) if mesh is not None else None
+
     def decode_step(model, tokens, cache):
-        logits, cache = api.decode(model, tokens, cache, groups)
+        if serving is None:
+            _meshless(model)
+            logits, cache = api.decode(model, tokens, cache, groups)
+        else:
+            rows, g, split = serving.rows(model, tokens.shape[0], groups)
+            with TP.tensor_parallel(serving.model_axis):
+                logits, cache = api.decode(model, tokens[rows], cache, g)
+            logits = serving.gather(logits, split)
         next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_tokens, logits, cache
     return decode_step

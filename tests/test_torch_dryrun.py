@@ -13,6 +13,11 @@ world of launch/mesh.py, against the JAX package on the CPU.
   and (1, 4) meshes, tensor-parallel for every family: the argument
   bytes are rules_mb plus the global batch the step takes, and the
   collective bytes by kind are train_plan's.
+- the serving cells (phi4-mini-3.8b x prefill_32k and decode_32k,
+  mixtral-8x7b x long_500k) at published width and 2 layers on fake
+  (2, 2) and (1, 4) meshes, tensor-parallel through the mesh's steps:
+  the collective bytes by kind are serve_plan's, no weight's among them,
+  and the argument bytes are held_bytes plus the global inputs.
 - run_cell: phi4 x long_500k writes JAX's skip file byte for byte (JAX's
   dryrun.py run in a subprocess: importing it in process would set its
   512-device XLA_FLAGS for every later subprocess); an ok cell's JSON has
@@ -217,6 +222,48 @@ def test_tensor_parallel_cell_follows_the_plan(arch, cut, shape):
     assert plan["all-reduce"] > tokens * cfg.d_model * 4
     if shape[0] == 1:       # no data axis: the attention's gathers alone
         assert plan["all-gather"] and plan["reduce-scatter"]
+
+
+@pytest.mark.parametrize("shape", ((2, 2), (1, 4)), ids=("2x2", "1x4"))
+@pytest.mark.parametrize("arch,cell", (
+    ("phi4-mini-3.8b", "prefill_32k"), ("phi4-mini-3.8b", "decode_32k"),
+    ("mixtral-8x7b", "long_500k")))
+def test_serving_cell_follows_the_plan(arch, cell, shape):
+    """A serving cell at published width, 2 layers, on a fake (2, 2) or
+    (1, 4) dry-run mesh, tensor-parallel over the model axis through the
+    mesh's steps: the collective bytes by kind are serve_plan's (the
+    all-reduces after wo, after w2 or of the MoE's expert outputs, the
+    lookup's; the logits' all-gathers over the model axis and, where the
+    rows split, the data axis), none of them a weight's (no
+    reduce-scatter, and the all-gathers are the f32 logits alone); the
+    argument bytes are the held parameters and cache (held_bytes) plus
+    the global inputs."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    sh = specs.SHAPES[cell]
+    B, S = sh["batch"], sh["seq"]
+    mesh = make_dryrun_mesh(shape=shape)
+    try:
+        rec = dryrun.measure(cfg, sh["kind"], B, S, mesh)
+        plan = dryrun.serve_plan(cfg, sh["kind"], mesh, B, S)
+    finally:
+        destroy_dryrun_mesh(mesh)
+    res = rec["analysis"]
+    assert {k: v for k, v in res["collective_bytes"].items() if v} == {
+        k: float(v) for k, v in plan.items() if v}
+    V = cfg.vocab_padded(shape[1])
+    split = B % shape[0] == 0 and shape[0] > 1
+    b = B // shape[0] if split else B
+    assert plan["reduce-scatter"] == 0
+    assert plan["all-gather"] == b * V * 4 + (B * V * 4 if split else 0)
+    assert res["collective_counts"]["all-gather"] == 1 + split
+    assert res["collective_counts"]["all-reduce"] == 2 * cfg.n_layers + 1
+    inputs = (specs.prefill_inputs(cfg, S, B, abstract=True)
+              if sh["kind"] == "prefill" else
+              {"t": specs.decode_tokens(cfg, B, abstract=True)})
+    held = dryrun.held_bytes(cfg, sh["kind"], B, S,
+                             MeshShape(("data", "model"), shape))
+    assert res["memory"]["argument"] == sum(held.values()) + sum(
+        t.numel() * t.element_size() for t in inputs.values())
 
 
 def test_skip_cell_writes_jax_skip_file(tmp_path):

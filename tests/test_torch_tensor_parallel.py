@@ -4,6 +4,9 @@
   and the KV heads a rank reads, for head counts that do and do not
   divide by the model axis, and for fewer heads than ranks (a rank with
   no query head reads no KV head).
+- The serving cut (serve_cuts, serve_cache_shape) without a world:
+  phi4-mini's and mixtral's spans at tp 16 (one KV head a rank), a rank
+  with no head, JAX's divisibility guard.
 - compute_specs on all ten full configs at the production meshes (no
   world): every family computes each projection, expert weight, RG-LRU
   and RWKV weight, cross-attention weight and embedding in JAX's TP-only
@@ -114,6 +117,90 @@ def test_attention_gathers_at_16(arch, gathered):
     got = {n for n, w in widths.items()
            if TP.needs_gather(w * cfg.head_dim // 16, spans[n], 16)}
     assert got == gathered
+
+
+SERVE_16 = MeshShape(("data", "model"), (16, 16))
+
+
+@pytest.mark.parametrize("arch", ("phi4-mini-3.8b", "mixtral-8x7b"))
+def test_serving_cut_at_16(arch):
+    """serve_cuts at tp 16 for every model-axis rank: each attention's
+    wq / wo at the rank's heads (phi4-mini's 24 heads: 2 or 1 a rank;
+    mixtral's 32: 2), wk / wv at the one KV head they read, every head
+    on one rank; the MLP, expert and vocab weights at the even chunk of
+    JAX's TP-only spec; norms and the router whole. Each rank's cache
+    holds its one KV head and its rows of the batch."""
+    cfg = get_config(arch)
+    model = get_api(cfg).init(cfg, 16, device="meta")
+    tp_only = param_pspecs(model, SERVE_16, use_fsdp=False)
+    hd, heads = cfg.head_dim, []
+    for r in range(16):
+        cuts = TP.serve_cuts(model, SERVE_16, r)
+        h0, h1 = TP.head_span(cfg.n_heads, 16, r)
+        k0, k1 = TP.kv_span(cfg.n_heads, cfg.q_per_kv, 16, r)
+        assert k1 - k0 == 1 and h1 - h0 in (1, 2)
+        heads += range(h0, h1)
+        for name, p in model.named_parameters():
+            last = name.split(".")[-1]
+            if ".attn." in name and last in ("wq", "wo"):
+                assert cuts[name] == (int(last == "wq"), h0 * hd, h1 * hd)
+            elif ".attn." in name and last in ("wk", "wv"):
+                assert cuts[name] == (1, k0 * hd, k1 * hd)
+            elif any(tp_only[name]):
+                dim = next(d for d, e in enumerate(tp_only[name]) if e)
+                n = p.shape[dim] // 16
+                assert cuts[name] == (dim, r * n, (r + 1) * n), name
+            else:
+                assert name not in cuts, name
+        assert TP.serve_cache_shape(cuts, (cfg.n_layers, 128, 32768,
+                                           cfg.n_kv_heads, hd),
+                                    SERVE_16) == (cfg.n_layers, 8,
+                                                  32768, 1, hd)
+    assert heads == list(range(cfg.n_heads))
+    assert {"embed", "unembed", "layers.0.mlp.w1", "layers.0.mlp.w2"} <= \
+        set(cuts)
+    assert "layers.0.mlp.router" not in cuts
+
+
+def test_serving_cut_with_ranks_that_hold_no_head():
+    """10 heads over 2 KV heads at tp 16 (recurrentgemma-2b's head count
+    in a dense LM): six ranks hold no query head, their wq / wk / wv
+    columns and wo rows empty and their cache without a KV head; a batch
+    of 1 is not split over the data axis."""
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b"), n_layers=1,
+                              n_heads=10, n_kv_heads=2)
+    model = get_api(cfg).init(cfg, 16, device="meta")
+    empty = 0
+    for r in range(16):
+        cuts = TP.serve_cuts(model, SERVE_16, r)
+        h0, h1 = TP.head_span(10, 16, r)
+        shape = TP.serve_cache_shape(cuts, (1, 1, 64, 2, 128), SERVE_16)
+        if h0 == h1:
+            empty += 1
+            for n in ("wq", "wk", "wv", "wo"):
+                _, a, b = cuts[f"layers.0.attn.{n}"]
+                assert a == b, n
+            assert shape == (1, 1, 64, 0, 128)
+        else:
+            assert shape == (1, 1, 64, 1, 128)
+    assert empty == 6
+
+
+def test_serving_cut_keeps_jax_divisibility_guard():
+    """An attention whose KV width does not divide by the model axis
+    (JAX leaves wk / wv replicated) is held whole, its cache keeps every
+    KV head; the MLP and vocab are still cut. A model axis of 1 cuts
+    nothing."""
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b"), n_layers=1,
+                              n_kv_heads=1, head_dim=8, n_heads=8)
+    model = get_api(cfg).init(cfg, 16, device="meta")
+    cuts = TP.serve_cuts(model, SERVE_16, 3)
+    assert not any(".attn." in n for n in cuts)
+    assert {"embed", "unembed", "layers.0.mlp.w1"} <= set(cuts)
+    assert TP.serve_cache_shape(cuts, (1, 32, 64, 1, 8), SERVE_16) == (
+        1, 2, 64, 1, 8)
+    assert TP.serve_cuts(model, MeshShape(("data", "model"), (4, 1)),
+                         0) == {}
 
 
 def _inputs():

@@ -1,14 +1,16 @@
 """Run the port's dry run over a list of cells, one process a cell (as
 benchmarks/dryrun_all.py runs JAX's), and print a table per cell: rank 0's
-peak and rules bytes, flops, collective bytes by kind, seconds, and
-whether the peak fits one card.
+peak and rules bytes, the bytes the port holds in a serving cell
+(launch/dryrun.py held_bytes: parameters + cache), flops, collective
+bytes by kind, seconds, and whether the peak fits one card.
 
     PYTHONPATH=src python tools/dryrun_sweep.py [--jobs 2] \\
         [--out artifacts/dryrun_torch] [--card-bytes N] [CELL ...]
 
 A CELL is ARCH:SHAPE[:mp]; the default list is all ten configs at
-train_4k on 16 x 16, the three long_500k archs and phi4-mini-3.8b at
-prefill_32k and decode_32k. A cell whose JSON exists under --out is read,
+train_4k on 16 x 16, the three long_500k archs and the seven decoder-only
+LMs at prefill_32k and decode_32k (JAX's grid, benchmarks/dryrun_all.py;
+the hybrid, ssm and encdec configs skip those two shapes there). A cell whose JSON exists under --out is read,
 not run again. --card-bytes: one card's memory
 (torch.cuda.get_device_properties(0).total_memory, which chip_smoke's
 phase 19 prints); without it the fit column says "not known". Needs no
@@ -30,8 +32,9 @@ ARCHS = ["rwkv6-1.6b", "recurrentgemma-2b", "whisper-large-v3",
          "phi4-mini-3.8b", "qwen3-14b", "pixtral-12b", "mixtral-8x7b",
          "dbrx-132b", "command-r-plus-104b", "nemotron-4-340b"]
 LONG = ["recurrentgemma-2b", "rwkv6-1.6b", "mixtral-8x7b"]
+LMS = ARCHS[3:]                 # dense, vlm, moe: the serving cells
 CELLS = ([f"{a}:train_4k" for a in ARCHS] + [f"{a}:long_500k" for a in LONG]
-         + ["phi4-mini-3.8b:prefill_32k", "phi4-mini-3.8b:decode_32k"])
+         + [f"{a}:{s}" for a in LMS for s in ("prefill_32k", "decode_32k")])
 GB = 1e9
 
 
@@ -55,10 +58,27 @@ def run(cell: str, out: pathlib.Path, timeout: int) -> dict:
     return json.loads(path.read_text())
 
 
+def held(res: dict) -> str:
+    """A serving cell's held bytes of rank 0, GB: parameters + cache."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.launch import dryrun, specs
+    sh = specs.SHAPES[res["shape"]]
+    if sh["kind"] == "train":
+        return "-"
+    mesh = (MeshShape(("pod", "data", "model"), (2, 16, 16))
+            if res["mesh"] == "2x16x16"
+            else MeshShape(("data", "model"), (16, 16)))
+    got = dryrun.held_bytes(get_config(res["arch"]), sh["kind"],
+                            sh["batch"], sh["seq"], mesh)
+    return f"{got['params'] / GB:.3f} + {got['cache'] / GB:.3f}"
+
+
 def row(res: dict, card_bytes) -> str:
     if res["status"] != "ok":
         return (f"| {res['arch']} | {res['shape']} | {res['mesh']} | "
-                f"{res['status']}: {res['reason']} |||||||")
+                f"{res['status']}: {res['reason']} ||||||||")
     mem, rules = res["memory"], res["rules_mb"]
     peak = mem["peak_mb"] * 2 ** 20
     coll = res["collectives"]["bytes"]
@@ -67,7 +87,7 @@ def row(res: dict, card_bytes) -> str:
             else "yes" if peak <= card_bytes else "no")
     return (f"| {res['arch']} | {res['shape']} | {res['mesh']} | "
             f"{peak / GB:.2f} | {rules['total'] * 2 ** 20 / GB:.3f} | "
-            f"{res['hlo_flops']:.4e} | {kinds or 'none'} | "
+            f"{held(res)} | {res['hlo_flops']:.4e} | {kinds or 'none'} | "
             f"{res['lower_s']} + {res['compile_s']} | {fits} |")
 
 
@@ -86,8 +106,9 @@ def main(argv=None) -> int:
                    for c in args.cells]
         results = [f.result() for f in futures]
     print("| arch | shape | mesh | peak GB / rank | rules GB / rank | "
-          "flops / rank | collective GB by kind | build + run s | fits |")
-    print("|---|---|---|---|---|---|---|---|---|")
+          "held GB / rank (params + cache) | flops / rank | collective GB "
+          "by kind | build + run s | fits |")
+    print("|---|---|---|---|---|---|---|---|---|---|")
     for res in results:
         print(row(res, args.card_bytes))
     return 0
