@@ -172,7 +172,9 @@ Phases, each fatal on failure:
      (tensor_parallel.shard_for_serving, serve_cache): the prefill's
      logits, LM_MESH_STEPS greedy steps' tokens and logits and the f32
      cache equal to the meshless steps' on the same model and prompt,
-     bit for bit;
+     bit for bit (14d, 15d and 16d do the same for the hybrid, the ssm
+     and the encdec: every leaf of their f32 caches, whisper's frames
+     beside the prompt);
   14. hybrid (after 13, before 7): the hybrid family (models/rglru.py:
      RG-LRU blocks and local attention; no kernel of the port's lies on
      it): (a) python -m repro_torch.launch.serve --no-smoke --arch
@@ -274,13 +276,16 @@ Phases, each fatal on failure:
      (e) the same for whisper-large-v3 (the tensor-parallel encdec: 20
      heads over 16 ranks, the encoder over 1,500 frames a row) at 4
      encoder and 4 decoder layers; (f) phi4-mini-3.8b x prefill_32k, (g)
-     phi4-mini-3.8b x decode_32k and (h) mixtral-8x7b x long_500k at
-     full width and 4 layers, served tensor-parallel through the mesh's
-     steps (the rank's heads and KV heads, its MLP, expert and vocab
-     chunks, held): collective bytes by kind equal to dryrun.serve_plan
-     (no weight's), the peak a rank at most the card's total_memory, the
-     held bytes printed; the card's total_memory printed; the phase
-     within 120 s;
+     phi4-mini-3.8b x decode_32k, (h) mixtral-8x7b x long_500k, (i)
+     recurrentgemma-2b x prefill_32k (R R A R: the window's ring past
+     2,048), (j) rwkv6-1.6b x decode_32k and (k) whisper-large-v3 x
+     prefill_32k (4 encoder layers too) at full width and 4 layers,
+     served tensor-parallel through the mesh's steps (the rank's heads
+     and KV heads, its lru channels and time-mix heads, its MLP, expert,
+     channel-mix and vocab chunks, held): collective bytes by kind equal
+     to dryrun.serve_plan (no weight's), the peak a rank at most the
+     card's total_memory, the held bytes printed; the card's
+     total_memory printed; the phase within 120 s;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -618,10 +623,11 @@ CHECK_CHUNK = 1 << 26                    # elements a checksum pass reads
 # tensor-parallel hybrid, at DRY_HY_LAYERS layers (one (R, R, A)
 # superblock and the (R, R) remainder); (d) rwkv6-1.6b, tensor-parallel
 # ssm, at DRY_SSM_LAYERS layers; (e) whisper-large-v3, tensor-parallel
-# encdec, at DRY_ED_LAYERS encoder and decoder layers; (f)-(h) the
-# serving cells DRY_SERVE_CELLS at DRY_SERVE_LAYERS layers, tensor-parallel
-# through the mesh's serving steps, held to dryrun.serve_plan. No device
-# memory, no kernel; the whole phase within DRY_SECONDS.
+# encdec, at DRY_ED_LAYERS encoder and decoder layers; (f)-(k) the
+# serving cells DRY_SERVE_CELLS at DRY_SERVE_LAYERS layers (whisper's
+# encoder too), tensor-parallel through the mesh's serving steps, held to
+# dryrun.serve_plan. No device memory, no kernel; the whole phase within
+# DRY_SECONDS.
 DRY_PEAK_TOL = 0.05
 DRY_FLOPS_TOL = 0.03
 DRY_SECONDS = 120
@@ -631,7 +637,10 @@ DRY_ED_LAYERS = 4
 DRY_SERVE_LAYERS = 4
 DRY_SERVE_CELLS = (("19f", "phi4-mini-3.8b", "prefill_32k"),
                    ("19g", "phi4-mini-3.8b", "decode_32k"),
-                   ("19h", "mixtral-8x7b", "long_500k"))
+                   ("19h", "mixtral-8x7b", "long_500k"),
+                   ("19i", HY_ARCH, "prefill_32k"),
+                   ("19j", SSM_ARCH, "decode_32k"),
+                   ("19k", ED_ARCH, "prefill_32k"))
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -4122,28 +4131,32 @@ def lm_phase(torch, number: int, parts) -> dict:
     return info
 
 
-def lm_mesh_world_one(torch, smi) -> dict:
-    """13d: 13b's model (LM_ARCH at full width and depth, bf16, seed
-    SEED) served by the meshless steps, then cut for a NCCL world of one
-    rank (made here and torn down) and served by the mesh's steps
-    (make_prefill_step / make_decode_step(mesh=), serve_cache) on the
-    same prompt: the prefill's logits, LM_MESH_STEPS greedy steps' tokens
-    and logits, and the f32 cache, bit for bit."""
+def lm_mesh_world_one(torch, smi, arch=LM_ARCH, tag="13d") -> dict:
+    """13d / 14d / 15d / 16d: `arch` at full width and depth (bf16, seed
+    SEED; 13b's, 14b's, 15b's, 16b's model) served by the meshless steps,
+    then cut for a NCCL world of one rank (made here and torn down) and
+    served by the mesh's steps (make_prefill_step / make_decode_step(
+    mesh=), serve_cache) on the same prompt (and whisper's frames): the
+    prefill's logits, LM_MESH_STEPS greedy steps' tokens and logits, and
+    every leaf of the f32 cache, bit for bit."""
     import torch.distributed as dist
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import get_api
     from repro_torch.train import make_decode_step, make_prefill_step
-    cfg = get_lm_config(LM_ARCH)
+    cfg = get_lm_config(arch)
     api = get_api(cfg)
     model = lm_model(torch, cfg)
-    tokens = lm_tokens(torch, cfg, LM_B, LM_S, SEED + 1)
+    batch = {"tokens": lm_tokens(torch, cfg, LM_B, LM_S, SEED + 1)}
+    frames = lm_frames(torch, cfg, LM_B)
+    if frames is not None:
+        batch["frames"] = frames
 
     def serve(mesh, cache):
         prefill = make_prefill_step(cfg, api, mesh=mesh)
         decode = make_decode_step(cfg, api, mesh=mesh)
         t0 = time.perf_counter()
-        logits, cache = prefill(model, {"tokens": tokens}, cache)
+        logits, cache = prefill(model, batch, cache)
         out = [logits]
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         for _ in range(LM_MESH_STEPS):
@@ -4163,26 +4176,28 @@ def lm_mesh_world_one(torch, smi) -> dict:
     finally:
         if made:
             dist.destroy_process_group()
+    leaves = [key for key, t in plain_cache.items() if torch.is_tensor(t)]
     differ = [i for i, (a, b) in enumerate(zip(plain, meshed))
               if not torch.equal(a, b)] + [
-        key for key in ("k", "v")
+        key for key in leaves
         if not torch.equal(plain_cache[key], mesh_cache[key])]
-    info = {"steps": LM_MESH_STEPS, "tensors_held": len(plain) + 2,
+    info = {"steps": LM_MESH_STEPS, "cache_leaves": leaves,
+            "tensors_held": len(plain) + len(leaves),
             "bitwise": not differ, "meshless_s": plain_s,
             "mesh_s": mesh_s,
             "tokens": [t.tolist() for t in plain[1::2]]}
-    del model, plain, meshed, plain_cache, mesh_cache
+    del model, plain, meshed, plain_cache, mesh_cache, batch
     free(torch)
-    log(f"[lm] 13d {LM_ARCH} (full width and depth, bf16) through the "
+    log(f"[lm] {tag} {arch} (full width and depth, bf16) through the "
         f"mesh's serving steps on a NCCL world of one [{smi}]: prefill "
         f"{LM_S} x {LM_B} and {LM_MESH_STEPS} greedy steps, "
-        f"{info['tensors_held']} tensors (logits, tokens, the f32 cache) "
-        f"against the meshless steps: "
+        f"{info['tensors_held']} tensors (logits, tokens, the f32 cache's "
+        f"{', '.join(leaves)}) against the meshless steps: "
         f"{'bit for bit' if not differ else f'differ at {differ}'} "
         f"(meshless {plain_s:.3f} s, mesh {mesh_s:.3f} s, first use of "
         f"each)")
     if differ:
-        raise AssertionError(f"13d: the mesh of one against the meshless "
+        raise AssertionError(f"{tag}: the mesh of one against the meshless "
                              f"serving steps differs at {differ}")
     return info
 
@@ -4204,7 +4219,9 @@ def phase_hybrid(torch, smi) -> dict:
     return lm_phase(torch, 14, lambda: {
         "launcher": lm_launcher(torch, smi, HY_ARCH, HY_SERVE, "14a"),
         "in_process": lm_in_process(torch, smi, HY_ARCH, HY_CUT_DEPTH,
-                                    "14b", ring=True), "card": smi})
+                                    "14b", ring=True),
+        "mesh_world_one": lm_mesh_world_one(torch, smi, HY_ARCH, "14d"),
+        "card": smi})
 
 
 def phase_ssm(torch, smi) -> dict:
@@ -4215,7 +4232,9 @@ def phase_ssm(torch, smi) -> dict:
         "launcher": lm_launcher(torch, smi, SSM_ARCH, SSM_SERVE, "15a"),
         "in_process": lm_in_process(torch, smi, SSM_ARCH, SSM_CUT_DEPTH,
                                     "15b", checks=ssm_checks,
-                                    after=SSM_STEPS), "card": smi})
+                                    after=SSM_STEPS),
+        "mesh_world_one": lm_mesh_world_one(torch, smi, SSM_ARCH, "15d"),
+        "card": smi})
 
 
 def phase_encdec(torch, smi) -> dict:
@@ -4226,7 +4245,9 @@ def phase_encdec(torch, smi) -> dict:
         "launcher": lm_launcher(torch, smi, ED_ARCH, ED_SERVE, "16a"),
         "in_process": lm_in_process(torch, smi, ED_ARCH, ED_CUT_DEPTH,
                                     "16b", checks=encdec_checks,
-                                    after=ED_STEPS), "card": smi})
+                                    after=ED_STEPS),
+        "mesh_world_one": lm_mesh_world_one(torch, smi, ED_ARCH, "16d"),
+        "card": smi})
 
 
 # -- phase 17: the single-process training loop ------------------------------
@@ -5109,17 +5130,19 @@ def dryrun_mesh_cell(torch, tag: str, arch: str, **cut) -> dict:
 
 
 def dryrun_serve_cell(torch, tag: str, arch: str, shape: str) -> dict:
-    """19f-19h: `arch` x `shape` (a serving cell) at full width and
-    DRY_SERVE_LAYERS layers on the 16 x 16 dry-run mesh to status ok,
-    served tensor-parallel through the mesh's steps on rank 0's held
-    shards and cache: its collective bytes by kind equal to
-    dryrun.serve_plan (the activations' all-reduces and the logits'
-    all-gathers, no weight's), its rank-0 peak at most the card's
-    total_memory; the held bytes (dryrun.held_bytes) beside JAX's
+    """19f-19k: `arch` x `shape` (a serving cell) at full width and
+    DRY_SERVE_LAYERS layers (an encoder-decoder's encoder too) on the 16
+    x 16 dry-run mesh to status ok, served tensor-parallel through the
+    mesh's steps on rank 0's held shards and cache: its collective bytes
+    by kind equal to dryrun.serve_plan (the activations' collectives and
+    the logits' all-gathers, no weight's), its rank-0 peak at most the
+    card's total_memory; the held bytes (dryrun.held_bytes) beside JAX's
     rules."""
     from repro_torch.distributed.sharding import MeshShape
     from repro_torch.launch import dryrun, specs
     cut = {"n_layers": DRY_SERVE_LAYERS}
+    if get_lm_config(arch).family == "encdec":
+        cut["n_encoder_layers"] = DRY_SERVE_LAYERS
     rec = dryrun.run_cell(arch, shape, False, str(BUILD / "dryrun"), cut)
     if rec["status"] != "ok":
         raise AssertionError(f"{tag}: {rec}")
@@ -5157,7 +5180,8 @@ def phase_dryrun(torch, smi, phase17) -> dict:
     fake process group), which allocates none of the card's memory and
     launches no kernel: 19a against phase 17's measured step, 19b-19e
     the production mesh's train cells, dense, hybrid, ssm and encdec,
-    19f-19h its LM serving cells. Held to DRY_SECONDS."""
+    19f-19k its serving cells: the LMs', the hybrid's, the ssm's and the
+    encdec's. Held to DRY_SECONDS."""
     from repro_torch.kernels import OPS, reset_launches
     free(torch)
     t0 = time.perf_counter()

@@ -9,8 +9,8 @@ training, checkpoints and fault tolerance.
                   between layouts
   tensor_parallel.py  the train step's compute over the model axis (heads,
                   MLP and expert columns, the vocab-parallel lookup and
-                  loss): what GSPMD derives on JAX's side; the decoder-only
-                  LMs' serving cut (shard_for_serving, serve_cache)
+                  loss): what GSPMD derives on JAX's side; every family's
+                  serving cut (shard_for_serving, serve_cache)
   checkpoint.py   checkpoints in the JAX layout, restored onto a mesh
   fault.py        heartbeats, stragglers, elastic re-mesh, restart
   compression.py  sketched gradients with error feedback; the artifact

@@ -71,27 +71,39 @@ all-gather forward whose backward is this rank's chunk of the gradient
 gradient every rank holds whole). Outside the context every module runs
 as it did.
 
-Serving (the decoder-only LMs: dense, moe, vlm; `SERVE_FAMILIES`) splits
-the same units but holds its cut: `shard_for_serving` cuts a whole model
-once to what model-axis rank r computes, and the serving step
-(train/steps.py make_prefill_step / make_decode_step with mesh=) then
-makes no weight collective. Each attention's wq / wk / wv columns and
-wo's rows are held at the rank's `attention_spans` (its query heads and
-the KV heads they read: phi4-mini's 24 heads over 16 ranks leave rank 0
-two heads and one KV head), not at the even chunk that `take` gathers
-from each step in training. The MLP, expert and vocabulary weights are
-held at JAX's TP-only chunk, the rest whole (replicated over the data
-axes too: no data-axis gather a step). A unit that JAX's divisibility
-guard leaves whole is held whole and computes replicated. The KV cache
-holds the rank's KV heads (`serve_cache_shape`), not JAX's T over the
-model axis, so attention stays local; where there are fewer KV heads
-than ranks, ranks that read the same KV head each hold it. The
-collectives of one serving step: the vocab-parallel lookup's
-all-reduce, the all-reduce after each attention's wo and each MLP's w2
-(the MoE's at its (G, E, C, d) expert outputs), and the all-gather of
-the logits' vocab chunks over the model axis (the step then all-gathers
-the rows over the data axes where it split them). A rank with no query
-head makes each of them.
+Serving (every family) splits the same units but holds its cut:
+`shard_for_serving` cuts a whole model once to what model-axis rank r
+computes, and the serving step (train/steps.py make_prefill_step /
+make_decode_step with mesh=) then makes no weight collective. Each
+attention's and cross-attention's wq / wk / wv columns and wo's rows are
+held at the rank's `attention_spans` (its query heads and the KV heads
+they read: phi4-mini's 24 heads over 16 ranks leave rank 0 two heads and
+one KV head), not at the even chunk that `take` gathers from each step in
+training. An RWKV time mix holds its heads' channels the same way (wr /
+wk / wv / wg columns, wo rows, wb's columns, w0 and u), and computes the
+decay LoRA's tanh(xw @ wa) on the whole wa, with no gather. An RG-LRU
+block holds its chunk of the lru channels (w_in, w_gate, conv_w, w_a,
+w_x columns, w_out rows) and lam narrowed to them. The MLP, expert,
+channel-mix and vocabulary weights are held at JAX's TP-only chunk, the
+rest whole (replicated over the data axes too: no data-axis gather a
+step). A unit that JAX's divisibility guard leaves whole is held whole
+and computes replicated. The cache (`serve_cache_shape`) holds the
+rank's rows and: the KV heads its self-attention reads (not JAX's T over
+the model axis, so attention stays local; where there are fewer KV heads
+than ranks, ranks that read the same KV head each hold it), whisper's
+cross K/V at its cross-attention's KV heads, the ssm's f32 state s at
+its heads and the hybrid's f32 h and conv state at its lru channels; the
+ssm's shift inputs tm and cm lie on the replicated stream and are held
+whole (JAX's cache_pspecs cut their width). The collectives of one
+serving step: the vocab-parallel lookup's all-reduce; the all-reduce
+after each attention's (whisper's encoder's too) and cross-attention's
+wo, each MLP's w2 (the MoE's at its (G, E, C, d) expert outputs), each
+RG-LRU block's w_out and each time mix's wo; each RG-LRU block's
+all-gather of u for w_a / w_x; each time mix's f32 sum of squares for
+ln_x; each channel mix's reduce-scatter after cv and all-gather into the
+stream; and the all-gather of the logits' vocab chunks over the model
+axis (the step then all-gathers the rows over the data axes where it
+split them). A rank with no query head makes each of them.
 """
 from __future__ import annotations
 
@@ -382,10 +394,6 @@ def compute_bytes(model, mesh, shapes=None) -> int:
         * p.element_size() for name, p in model.named_parameters())
 
 
-# The families whose serving computes tensor-parallel (models/lm.py).
-SERVE_FAMILIES = ("dense", "moe", "vlm")
-
-
 class ServeLayout(NamedTuple):
     """How shard_for_serving cut a model: the mesh, the model-axis index
     the cut was taken at and its serve_cuts."""
@@ -398,24 +406,15 @@ def _model_size(mesh) -> int:
     return mesh_axis_sizes(mesh).get(tp_axis(mesh), 1)
 
 
-def check_serving(cfg) -> None:
-    """Refuse a family outside SERVE_FAMILIES on any mesh (its serving has
-    no tensor-parallel path, and computing it replicated would hide
-    that)."""
-    if cfg.family not in SERVE_FAMILIES:
-        raise ValueError(
-            f"tensor-parallel serving covers the decoder-only LMs "
-            f"({', '.join(SERVE_FAMILIES)}); {cfg.name} is {cfg.family}, "
-            f"which serves only without a mesh")
-
-
 def serve_cuts(model, mesh, index: int) -> Dict[str, Tuple[int, int, int]]:
     """{parameter name: (dim, a, b)}: the range [a, b) along `dim` that
     model-axis rank `index` holds for serving (module docstring); a
-    parameter not named is held whole. A decoder-only LM (check_serving
-    refuses the others where they enter). Works on a sharding.MeshShape
-    (no world)."""
+    parameter not named is held whole. Every family's units, as
+    compute_specs names them. Works on a sharding.MeshShape (no world)."""
     from repro_torch.models import layers as L
+    from repro_torch.models.rglru import RGLRUBlock
+    from repro_torch.models.rwkv6 import RWKVBlock
+    from repro_torch.models.whisper import CrossAttention
     cfg = model.cfg
     tp = _model_size(mesh)
     if tp == 1:
@@ -431,27 +430,42 @@ def serve_cuts(model, mesh, index: int) -> Dict[str, Tuple[int, int, int]]:
             out[name] = (dims[0], index * n, (index + 1) * n)
     spans = attention_spans(cfg, tp)
     for prefix, mod in model.named_modules():
-        if isinstance(mod, L.Attention) and f"{prefix}.wq" in out:
+        if isinstance(mod, (L.Attention, CrossAttention)) and \
+                f"{prefix}.wq" in out:
             for n in ("wq", "wk", "wv", "wo"):
                 out[f"{prefix}.{n}"] = (1 if n != "wo" else 0,
                                         *spans[n](index))
+        elif isinstance(mod, RGLRUBlock) and f"{prefix}.w_in" in out:
+            out[f"{prefix}.lam"] = (0, *out[f"{prefix}.w_in"][1:])
+        elif isinstance(mod, RWKVBlock) and f"{prefix}.wr" in out:
+            dh = cfg.rwkv_head_dim
+            a, b = head_channels(cfg.d_model // dh, dh, tp)(index)
+            for n in ("wr", "wk", "wv", "wg", "wb", "wo", "w0", "u"):
+                rows = n in ("wo", "w0", "u")
+                out[f"{prefix}.{n}"] = (0 if rows else 1, a, b)
+            del out[f"{prefix}.wa"]         # the LoRA's tanh, whole
     return out
 
 
 @torch.no_grad()
 def shard_for_serving(model, mesh):
-    """Cut a whole decoder-only LM, in place, to what this rank computes
-    when it serves on `mesh` (serve_cuts at its model-axis coordinate;
-    each cut a copy, so the whole weight goes). Each cut attention keeps
-    its heads as `serve_heads`; the model keeps the layout as
-    `serve_layout`, which the mesh's serving steps check. Returns the
-    model. A model of another family is refused (check_serving)."""
+    """Cut a whole model of any family, in place, to what this rank
+    computes when it serves on `mesh` (serve_cuts at its model-axis
+    coordinate; each cut a copy, so the whole weight goes). Each cut
+    module keeps the range it holds: an attention or cross-attention its
+    heads as `serve_heads`, an RG-LRU block its lru channels as
+    `serve_channels`, an RWKV block its time mix's head channels as
+    `serve_heads` and its channel mix's chunk of d as `serve_chunk`. The
+    model keeps the layout as `serve_layout`, which the mesh's serving
+    steps check. Returns the model."""
     from repro_torch.models import layers as L
+    from repro_torch.models.rglru import RGLRUBlock
+    from repro_torch.models.rwkv6 import RWKVBlock
+    from repro_torch.models.whisper import CrossAttention
     if getattr(model, "serve_layout", None) is not None or \
             getattr(model, "shard_layout", None) is not None:
         raise ValueError("the model is already cut (shard_for_serving or "
                          "shard_train_state)")
-    check_serving(model.cfg)
     tp = _model_size(mesh)
     index = mesh_axis(mesh, tp_axis(mesh)).index if tp > 1 else 0
     cuts = serve_cuts(model, mesh, index)
@@ -462,10 +476,17 @@ def shard_for_serving(model, mesh):
                 memory_format=torch.contiguous_format)
     cfg = model.cfg
     for prefix, mod in model.named_modules():
-        if isinstance(mod, L.Attention) and f"{prefix}.wq" in cuts:
+        def span(n):
+            return cuts[f"{prefix}.{n}"][1:] if f"{prefix}.{n}" in cuts \
+                else None
+        if isinstance(mod, (L.Attention, CrossAttention)) and span("wq"):
             mod.serve_heads = (
                 head_span(cfg.n_heads, tp, index),
                 kv_span(cfg.n_heads, cfg.q_per_kv, tp, index))
+        elif isinstance(mod, RGLRUBlock):
+            mod.serve_channels = span("w_in")
+        elif isinstance(mod, RWKVBlock):
+            mod.serve_heads, mod.serve_chunk = span("wr"), span("cr")
     model.serve_layout = ServeLayout(mesh, index, cuts)
     return model
 
@@ -478,27 +499,47 @@ def serve_rows(batch: int, mesh) -> int:
     return batch // dp if batch % dp == 0 else batch
 
 
-def serve_cache_shape(cuts, shape, mesh) -> Tuple[int, ...]:
-    """The cache leaf a rank holds under its serve_cuts `cuts`, from
-    init_cache_lm's whole (L, B, T, Hkv, hd): its rows (serve_rows) and
-    the KV heads its attention's wk columns hold (all of them where the
-    attention is held whole; none for a rank with no query head)."""
-    L_, B, T, H, hd = shape
-    wk = [c for name, c in cuts.items() if name.endswith(".wk")]
-    if wk:
-        H = (wk[0][2] - wk[0][1]) // hd
-    return (L_, serve_rows(B, mesh), T, H, hd)
+# Per cache leaf: the weight whose serving cut it follows (by the end of
+# its name), the dim of the leaf that cut narrows, and whether that dim
+# counts heads of shape[-1] channels (else channels). A leaf not named
+# (the ssm's tm and cm, on the replicated stream) is held whole.
+_CACHE_CUTS = {"k": (".attn.wk", 3, True), "v": (".attn.wk", 3, True),
+               "xk": (".xattn.wk", 3, True), "xv": (".xattn.wk", 3, True),
+               "s": (".wr", 2, True), "h": (".w_in", 2, False),
+               "conv": (".w_in", 3, False)}
+
+
+def serve_cache_shape(cuts, shape, mesh, key: str = "k") -> Tuple[int, ...]:
+    """The cache leaf `key` a rank holds under its serve_cuts `cuts`, from
+    the family's whole leaf (dim 1 the batch): its rows (serve_rows) and
+    the part of the dim its unit's cut holds (_CACHE_CUTS: k / v the KV
+    heads of its self-attention's wk columns, whisper's xk / xv those of
+    its cross-attention's, the ssm's s the heads of its time mix, the
+    hybrid's h and conv state its lru channels); whole where the unit is
+    held whole, and none of a rank with no query head."""
+    out = list(shape)
+    out[1] = serve_rows(shape[1], mesh)
+    if key in _CACHE_CUTS:
+        suffix, dim, heads = _CACHE_CUTS[key]
+        held = [c for name, c in cuts.items() if name.endswith(suffix)]
+        if held:
+            n = held[0][2] - held[0][1]
+            out[dim] = n // shape[-1] if heads else n
+    return tuple(out)
 
 
 def serve_cache(model, batch: int, max_seq: int,
                 dtype: torch.dtype = torch.bfloat16) -> Dict:
     """Zeros of the cache this rank holds, on the model's device, for a
     model cut by shard_for_serving and a global batch of `batch` rows:
-    k and v at serve_cache_shape."""
+    every leaf of the family's cache (each in the dtype its init_cache
+    gives it: the hybrid's h and the ssm's s f32) at serve_cache_shape."""
     from repro_torch.models.registry import get_api
     cfg, lay = model.cfg, model.serve_layout
     whole = get_api(cfg).init_cache(cfg, batch, max_seq, dtype, "meta")
-    shape = serve_cache_shape(lay.cuts, tuple(whole["k"].shape), lay.mesh)
-    return {"k": torch.zeros(shape, dtype=dtype, device=model.device),
-            "v": torch.zeros(shape, dtype=dtype, device=model.device),
-            "pos": 0}
+    out = {key: torch.zeros(serve_cache_shape(lay.cuts, tuple(t.shape),
+                                              lay.mesh, key),
+                            dtype=t.dtype, device=model.device)
+           for key, t in whole.items() if isinstance(t, torch.Tensor)}
+    out["pos"] = 0
+    return out

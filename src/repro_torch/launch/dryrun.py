@@ -28,19 +28,18 @@ until B / M divides by dp).
     distributed/tensor_parallel.py), rank 0 taking the most heads;
     `train_plan` gives the collective bytes it must move;
   - prefill_32k: make_prefill_step; decode_32k and long_500k:
-    make_decode_step. The decoder-only LMs (dense, moe, vlm) serve
-    tensor-parallel through the mesh's steps (mesh=): the model built on
-    "meta", then fake, cut to rank 0's serving shards by
-    tensor_parallel.shard_for_serving (its heads and the KV heads they
-    read, its MLP, expert and vocab chunks; the rest whole), rank 0's
-    cache of its rows and KV heads (tensor_parallel.serve_cache), the
-    global batch or tokens, of which the step takes rank 0's rows when
-    groups == dp; `serve_plan` gives the collective bytes it must move.
-    The hybrid and the ssm (long_500k; JAX's grid gives them no other
-    serving cell) have no tensor-parallel serving yet: each rank holds
-    the whole parameters and, when groups == dp, its own B / dp rows of
-    the batch and cache (JAX's group r, run at one group), else the whole
-    batch and cache, and moves nothing.
+    make_decode_step. Every family serves tensor-parallel through the
+    mesh's steps (mesh=): the model built on "meta", then fake, cut to
+    rank 0's serving shards by tensor_parallel.shard_for_serving (its
+    attention and cross-attention heads and the KV heads they read, its
+    RG-LRU lru channels, its RWKV time-mix heads, its MLP, expert,
+    channel-mix and vocab chunks; the rest whole), rank 0's cache of its
+    rows and of those heads and channels (tensor_parallel.serve_cache),
+    the global batch (whisper's with its frames) or tokens, of which the
+    step takes rank 0's rows when groups == dp; `serve_plan` gives the
+    collective bytes it must move. JAX's grid gives every arch
+    prefill_32k and decode_32k (specs.cell_supported skips only
+    long_500k, for all but LONG_OK).
 
 The record has JAX's keys (dryrun.py:155-175) with JAX's meanings, but:
   - lower_s: the seconds of building the fake state and inputs, and
@@ -55,7 +54,7 @@ local_shape x itemsize over state_pspecs, or over param_pspecs and
 cache_pspecs for a serving cell; the cache's "pos" is a host int in the
 port). rules_mb stays JAX's fsdp x tp layout; `held_bytes` gives what
 rank 0 of the port holds (its serving shards, whole over the data axes,
-and its cache of its KV heads).
+and its cache of its rows, heads and channels).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch ARCH \\
         --shape {train_4k,prefill_32k,decode_32k,long_500k} [--multipod] \\
@@ -361,23 +360,31 @@ def serve_plan(cfg: ArchConfig, kind: str, mesh, B: int,
     where B divides by the data axes' size dp, else all B at groups
     (plan_cell), each row S_q positions (S, less the vlm's patch prefix,
     which serving does not take; 1 to decode), T = b S_q tokens; d wide
-    in the parameter dtype:
-      - per tensor-parallel attention, the all-reduce after wo, (b, S_q,
-        d); per tensor-parallel MLP, the all-reduce after w2, (b, S_q, d),
-        and per MoE of the (G, E, C, d) expert outputs, G = min(groups,
-        T), C = max(1, int(top_k (T / G) 1.25 / E));
+    in the parameter dtype. Per unit that serve_cuts cuts:
+      - each attention and cross-attention, the all-reduce after wo, (b,
+        S_q, d); whisper's encoder attention runs at prefill only, on its
+        b n_audio_frames frames;
+      - each dense MLP, the all-reduce after w2 (the encoder's at its
+        frames); each MoE, of the (G, E, C, d) expert outputs, G =
+        min(groups, T), C = max(1, int(top_k (T / G) 1.25 / E));
+      - each RG-LRU block, the all-gather of u, (b, S_q, d) (in the
+        parameter dtype: measure's bf16 conv state promotes to it), and
+        the all-reduce after w_out;
+      - each RWKV time mix, the all-reduce after wo and ln_x's f32 sum of
+        squares, (b, S_q, 1); each channel mix, the reduce-scatter after
+        cv, (b, S_q, d / tp), and the all-gather into the stream, (b,
+        S_q, d);
       - the vocab-parallel lookup's all-reduce, (b, S_q, d);
       - the last position's f32 logits all-gathered over the model axis,
         (b, V), where the vocabulary is cut, then over each data axis of
         size > 1, innermost first, where the rows were split, (B, V) at
         the last;
-    and no weight's collective. A family outside
-    tensor_parallel.SERVE_FAMILIES serves replicated and moves
-    nothing."""
+    and no weight's collective."""
     from repro_torch.models import layers as L
+    from repro_torch.models.rglru import RGLRUBlock
+    from repro_torch.models.rwkv6 import RWKVBlock
+    from repro_torch.models.whisper import CrossAttention
     out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0}
-    if cfg.family not in TP.SERVE_FAMILIES:
-        return out
     dp_n, tp = _sizes(mesh)
     groups, _ = plan_cell(cfg, B, mesh)
     split = dp_n > 1 and B % dp_n == 0
@@ -390,16 +397,28 @@ def serve_plan(cfg: ArchConfig, kind: str, mesh, B: int,
     else:
         S_q = 1
     T, d = b * S_q, cfg.d_model
+    T_enc = b * cfg.n_audio_frames if kind == "prefill" else 0
     ai = L.dtype_of(cfg.param_dtype).itemsize
     for prefix, mod in model.named_modules():
-        if isinstance(mod, L.Attention) and f"{prefix}.wq" in cuts:
-            out["all-reduce"] += T * d * ai
+        n = T_enc if prefix.startswith("enc_layers.") else T
+        if isinstance(mod, (L.Attention, CrossAttention)) and \
+                f"{prefix}.wq" in cuts:
+            out["all-reduce"] += n * d * ai
         elif isinstance(mod, L.DenseMLP) and f"{prefix}.w1" in cuts:
-            out["all-reduce"] += T * d * ai
+            out["all-reduce"] += n * d * ai
         elif isinstance(mod, L.MoE) and f"{prefix}.w1" in cuts:
             G = min(groups, T)
             C = max(1, int(cfg.top_k * (T // G) * 1.25 / cfg.n_experts))
             out["all-reduce"] += G * cfg.n_experts * C * d * ai
+        elif isinstance(mod, RGLRUBlock) and f"{prefix}.w_in" in cuts:
+            out["all-gather"] += T * d * ai
+            out["all-reduce"] += T * d * ai
+        elif isinstance(mod, RWKVBlock):
+            if f"{prefix}.wr" in cuts:
+                out["all-reduce"] += T * d * ai + T * 4
+            if f"{prefix}.ck" in cuts:
+                out["reduce-scatter"] += T * (d // tp) * ai
+                out["all-gather"] += T * d * ai
     if "embed" in cuts:
         out["all-reduce"] += T * d * ai
     V = model.vocab
@@ -417,22 +436,13 @@ def serve_plan(cfg: ArchConfig, kind: str, mesh, B: int,
 def held_bytes(cfg: ArchConfig, kind: str, B: int, S: int,
                mesh) -> Dict[str, int]:
     """What rank 0 of the port holds in a serving cell (no world needed:
-    `mesh` may be a sharding.MeshShape): {"params", "cache"}. A
-    decoder-only LM its serving shards (tensor_parallel.serve_cuts) and
-    its cache of its rows and KV heads (serve_cache_shape); another
-    family its whole parameters and the cache of its rows, as measure
-    runs them."""
+    `mesh` may be a sharding.MeshShape): {"params", "cache"}: its serving
+    shards (tensor_parallel.serve_cuts) and every leaf of its bf16 cache
+    (the hybrid's h and the ssm's s f32) at serve_cache_shape, as
+    measure runs them."""
     api = get_api(cfg)
     _, tp = _sizes(mesh)
     model = api.init(cfg, tp, device="meta")
-    if cfg.family not in TP.SERVE_FAMILIES:
-        cache = specs.cache_specs(cfg, api, TP.serve_rows(B, mesh), S,
-                                  abstract=True)
-        return {"params": sum(p.numel() * p.element_size()
-                              for p in model.parameters()),
-                "cache": sum(t.numel() * t.element_size()
-                             for t in cache.values()
-                             if isinstance(t, torch.Tensor))}
     cuts = TP.serve_cuts(model, mesh, 0)
     params = 0
     for name, p in model.named_parameters():
@@ -441,10 +451,11 @@ def held_bytes(cfg: ArchConfig, kind: str, B: int, S: int,
             dim, a, b = cuts[name]
             n = n // p.shape[dim] * (b - a)
         params += n * p.element_size()
-    whole = specs.cache_specs(cfg, api, B, S, abstract=True)["k"]
-    shape = TP.serve_cache_shape(cuts, tuple(whole.shape), mesh)
-    return {"params": params,
-            "cache": 2 * math.prod(shape) * whole.element_size()}
+    whole = specs.cache_specs(cfg, api, B, S, abstract=True)
+    cache = sum(math.prod(TP.serve_cache_shape(cuts, tuple(t.shape), mesh,
+                                               key)) * t.element_size()
+                for key, t in whole.items() if isinstance(t, torch.Tensor))
+    return {"params": params, "cache": cache}
 
 
 def measure(cfg: ArchConfig, kind: str, B: int, S: int, mesh) -> dict:
@@ -454,7 +465,7 @@ def measure(cfg: ArchConfig, kind: str, B: int, S: int, mesh) -> dict:
     analysis in bytes."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     api = get_api(cfg)
-    dp, tp = _sizes(mesh)
+    _, tp = _sizes(mesh)
     groups, micro = plan_cell(cfg, B, mesh)
     t0 = time.perf_counter()
     with FakeTensorMode():
@@ -473,7 +484,7 @@ def measure(cfg: ArchConfig, kind: str, B: int, S: int, mesh) -> dict:
                                    pregather_spec=pregather,
                                    grad_spec=grad_spec, mesh=mesh)
             args = (state, batch)
-        elif cfg.family in TP.SERVE_FAMILIES:
+        else:
             micro = 1
             TP.shard_for_serving(model, mesh)
             cache = TP.serve_cache(model, B, S)
@@ -484,21 +495,6 @@ def measure(cfg: ArchConfig, kind: str, B: int, S: int, mesh) -> dict:
             else:
                 inputs = _fake(specs.decode_tokens(cfg, B, abstract=True))
                 step = make_decode_step(cfg, api, groups, mesh=mesh)
-            args = (model, inputs, cache)
-        else:
-            micro = 1
-            rows, run_groups = (B // dp, 1) if groups == dp > 1 else (
-                B, groups)
-            cache = _fake(specs.cache_specs(cfg, api, rows, S,
-                                            abstract=True))
-            if kind == "prefill":
-                inputs = _fake(specs.prefill_inputs(cfg, S, rows,
-                                                    abstract=True))
-                step = make_prefill_step(cfg, api, groups=run_groups)
-            else:
-                inputs = _fake(specs.decode_tokens(cfg, rows,
-                                                   abstract=True))
-                step = make_decode_step(cfg, api, groups=run_groups)
             args = (model, inputs, cache)
         t_build = time.perf_counter() - t0
         t0 = time.perf_counter()

@@ -43,11 +43,12 @@ the full-sequence forward of `Attention`, `DenseMLP` and `MoE` (and
 of their weights where the sharded train step gave them one (a weight
 narrower than the config's width); the module docstring there says how
 each splits. Serving computes tensor-parallel in that context on a model
-that tensor_parallel.shard_for_serving cut: `Attention.prefill` and
-`decode` on the rank's query heads (`serve_heads`, held, not gathered),
-the KV heads they read in the rank's cache, wo row-parallel and summed
-over the model axis; `DenseMLP`, `MoE` and `embed_lookup` as in training;
-`serve_logits` all-gathers the vocab chunks. Every call outside that
+that tensor_parallel.shard_for_serving cut: `Attention.forward` (whisper's
+encoder), `prefill` and `decode` on the rank's query heads
+(`serve_heads`, held, not gathered), the KV heads they read in the
+rank's cache, wo row-parallel and summed over the model axis;
+`DenseMLP`, `MoE` and `embed_lookup` as in training; `serve_logits`
+all-gathers the vocab chunks. Every call outside that
 context runs on whole weights as above.
 """
 from __future__ import annotations
@@ -298,13 +299,12 @@ class Attention(nn.Module):
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :]
         axis = tp_ops().active()
-        if axis is not None and \
+        if self.serve_heads is None and axis is not None and \
                 self.wq.shape[1] != self.cfg.n_heads * self.cfg.head_dim:
             return self._forward_tp(x, positions, window, causal, axis)
         q, k, v = self.qkv(x, positions)
         mask = _mask(S, window, causal, x.device)
-        out = sdpa(q, k, v, mask, self.cfg.q_per_kv, self.cfg.attn_scores_f32)
-        return out @ self.wo
+        return self._attend(q, k, v, mask, self.cfg.attn_scores_f32)
 
     def _forward_tp(self, x, positions, window, causal, axis) -> torch.Tensor:
         """forward on this rank's query heads (tensor_parallel's split) and
@@ -337,18 +337,20 @@ class Attention(nn.Module):
         return TP.reduce_from_model(out @ wo, axis)
 
     def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
-        """sdpa and wo for prefill and decode. On a rank's serving heads
-        (shard_for_serving) inside tensor-parallel compute: kv_group's
-        grouping of the rank's heads and KV heads, wo's rows of those
-        heads and the sum over the model axis (zeros from a rank with no
-        head, which makes the same collective)."""
+                mask: torch.Tensor, scores_f32: bool = True) -> torch.Tensor:
+        """sdpa and wo for forward, prefill and decode. On a rank's
+        serving heads (shard_for_serving) inside tensor-parallel compute:
+        kv_group's grouping of the rank's heads and KV heads, wo's rows of
+        those heads and the sum over the model axis (zeros from a rank
+        with no head, which makes the same collective)."""
         if self.serve_heads is None:
-            return sdpa(q, k, v, mask, self.cfg.q_per_kv) @ self.wo
+            return sdpa(q, k, v, mask, self.cfg.q_per_kv, scores_f32) \
+                @ self.wo
         heads, kvs = self.serve_heads
         k, v, group = kv_group(k, v, heads, kvs, self.cfg.q_per_kv)
         return tp_ops().reduce_from_model(
-            sdpa(q, k, v, mask, group) @ self.wo, tp_ops().active())
+            sdpa(q, k, v, mask, group, scores_f32) @ self.wo,
+            tp_ops().active())
 
     def prefill(self, x: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, window: int = 0) -> torch.Tensor:

@@ -37,8 +37,13 @@ an explicit torch.Generator, and a model on "meta" is left undrawn.
 context (the sharded train step's), where the step gave the blocks their
 model-axis shards: the vocab-parallel embedding and logits, the
 attention by heads, the MLP by columns, and each RG-LRU block by its
-lru channels (`RGLRUBlock._forward_tp`); `step`, `prefill` and `decode`
-always run on whole weights.
+lru channels (`RGLRUBlock._step_tp`). So do `prefill` and `decode` (the
+mesh's serving steps) on a model that tensor_parallel.shard_for_serving
+cut: the attention on the rank's heads and its ring cache of their KV
+head, each RG-LRU block on its held lru channels with h and the conv
+state of those channels (`serve_channels`), and the logits of the whole
+padded vocabulary on every rank. Outside that context they run on whole
+weights.
 """
 from __future__ import annotations
 
@@ -120,6 +125,9 @@ class RGLRUBlock(nn.Module):
         self.w_out = L.empty_param((d, d), dtype, device)
         self.ln2 = L.RMSNorm(d, device)
         self.mlp = L.DenseMLP(cfg, dtype, device)
+        # [a, b): the lru channels this rank holds, set by
+        # tensor_parallel.shard_for_serving; None when whole.
+        self.serve_channels = None
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -151,38 +159,48 @@ class RGLRUBlock(nn.Module):
         """rglru.py:100 `apply_rglru_block`."""
         axis = L.tp_ops().active()
         if axis is not None and self.w_in.shape[1] != self.lam.shape[0]:
-            return self._forward_tp(x, groups, axis)    # lam is never cut
+            return self._step_tp(x, groups, axis)[0]    # lam is not cut
         return self.step(x, groups=groups)[0]
 
-    def _forward_tp(self, x: torch.Tensor, groups: int, axis) -> torch.Tensor:
-        """forward on this rank's chunk of the lru channels, JAX's TP-only
+    def _step_tp(self, x: torch.Tensor, groups: int, axis,
+                 h0: Optional[torch.Tensor] = None,
+                 conv0: Optional[torch.Tensor] = None):
+        """step on this rank's chunk of the lru channels, JAX's TP-only
         layout: u = xin @ w_in and the conv on the rank's channels; u
         all-gathered for w_a / w_x, whose columns give the rank's gates;
-        lam cut to its channels (its gradient summed over the axis); the
-        scan on those channels; the gate by columns; w_out row-parallel,
-        summed over the axis."""
+        the scan on those channels; the gate by columns; w_out
+        row-parallel, summed over the axis. In training lam is whole and
+        cut to the channels here (its gradient summed over the axis); in
+        serving (`serve_channels`) it is held cut, and h0 / conv0 and the
+        state returned are the rank's channels."""
         TP = L.tp_ops()
         n = self.w_in.shape[1]
         xin = TP.copy_to_model(self.ln(x), axis)
-        u, _ = causal_conv4(xin @ self.w_in, self.conv_w)
+        u, conv_state = causal_conv4(xin @ self.w_in, self.conv_w, conv0)
         whole = TP.gather_from_model(u, -1, axis)
         r = torch.sigmoid(_mm(whole, self.w_a).float())
         i = torch.sigmoid(_mm(whole, self.w_x).float())
-        lam = TP.copy_to_model(self.lam, axis).narrow(0, axis.index * n, n)
+        lam = self.lam if self.serve_channels is not None else \
+            TP.copy_to_model(self.lam, axis).narrow(0, axis.index * n, n)
         log_a = -_C * F.softplus(lam) * r
         beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
                                       min=1e-9))
-        h = rglru_scan(log_a, beta * (i * u.float())).to(x.dtype)
+        h = rglru_scan(log_a, beta * (i * u.float()), h0)
         gate = F.gelu((xin @ self.w_gate).float(),
                       approximate="tanh").to(x.dtype)
-        x = x + TP.reduce_from_model((h * gate) @ self.w_out, axis)
-        return x + self.mlp(self.ln2(x), groups)
+        x = x + TP.reduce_from_model((h.to(x.dtype) * gate) @ self.w_out,
+                                     axis)
+        return x + self.mlp(self.ln2(x), groups), h[:, -1], conv_state
 
     def step(self, x: torch.Tensor, h0: Optional[torch.Tensor] = None,
              conv0: Optional[torch.Tensor] = None, groups: int = 1):
         """The block with its state in and out: (x, h_last f32, conv
         state). Prefill (no state) and rglru.py:110 `decode_rglru_block`
-        (x: (B, 1, d); h0: (B, d) f32; conv0: (B, 3, d))."""
+        (x: (B, 1, d); h0: (B, d) f32; conv0: (B, 3, d)); on a rank's
+        serving channels (shard_for_serving) inside tensor-parallel
+        compute, `_step_tp` with the state of those channels."""
+        if self.serve_channels is not None:
+            return self._step_tp(x, groups, L.tp_ops().active(), h0, conv0)
         xin = self.ln(x)
         h, h_last, conv_state = self.core(xin, h0, conv0)
         gate = F.gelu((xin @ self.w_gate).float(),
@@ -260,7 +278,7 @@ class RG(nn.Module):
         h_last and conv state and each A layer's ring KV (the last T
         positions at slot p % T) into `cache`; return the last position's
         logits (B, vocab_padded) f32."""
-        x = self.embed[tokens]
+        x = L.embed_lookup(self.embed, tokens, self.vocab)
         ri = ai = 0
         for kind, blk in zip(self.kinds, self.layers):
             if kind == "R":
@@ -273,14 +291,15 @@ class RG(nn.Module):
                                 self.cfg.window)
                 ai += 1
         cache["pos"] = tokens.shape[1]
-        return (self.ln_f(x)[:, -1] @ self.unembed).float(), cache
+        return L.serve_logits(self.ln_f(x)[:, -1], self.unembed,
+                              self.vocab), cache
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: Cache,
                groups: int = 1) -> Tuple[torch.Tensor, Cache]:
         """rglru.py:263 `decode_rg`: one step, tokens (B,) int; returns
         (logits (B, vocab_padded) f32, cache)."""
-        x = self.embed[tokens][:, None, :]
+        x = L.embed_lookup(self.embed, tokens, self.vocab)[:, None, :]
         pos = cache["pos"]
         ri = ai = 0
         for kind, blk in zip(self.kinds, self.layers):
@@ -295,7 +314,8 @@ class RG(nn.Module):
                                groups, self.cfg.window)
                 ai += 1
         cache["pos"] = pos + 1
-        return (self.ln_f(x)[:, 0] @ self.unembed).float(), cache
+        return L.serve_logits(self.ln_f(x)[:, 0], self.unembed,
+                              self.vocab), cache
 
 
 def init_cache_rg(cfg: ArchConfig, batch: int, max_seq: int,

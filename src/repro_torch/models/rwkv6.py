@@ -43,8 +43,13 @@ and a model on "meta" is left undrawn.
 context (the sharded train step's), where the step gave the blocks their
 model-axis shards: the vocab-parallel embedding and logits, each block's
 time mix by whole heads and its channel mix by d_ff columns
-(`RWKVBlock.forward`; the module docstring there says how each splits);
-`step`, `prefill` and `decode` always run on whole weights.
+(`RWKVBlock.forward`; the module docstring there says how each splits).
+So do `prefill` and `decode` (the mesh's serving steps) on a model that
+tensor_parallel.shard_for_serving cut: each time mix on its held heads
+with their f32 state s, each channel mix on its held chunks, tm and cm
+whole (the normed inputs lie on the replicated stream), and the logits
+of the whole padded vocabulary on every rank. Outside that context they
+run on whole weights.
 """
 from __future__ import annotations
 
@@ -145,6 +150,11 @@ class RWKVBlock(nn.Module):
         self.mu_cr = L.empty_param((d,), f32, device)
         self.ck = L.empty_param((d, f), dtype, device)
         self.cv = L.empty_param((f, d), dtype, device)
+        # Set by tensor_parallel.shard_for_serving (None when whole): the
+        # channels [a, b) of the time mix's heads this rank holds, and
+        # its chunk [c0, c1) of d in the channel mix (cr's columns).
+        self.serve_heads = None
+        self.serve_chunk = None
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -163,7 +173,7 @@ class RWKVBlock(nn.Module):
     def time_mix(self, x: torch.Tensor, state0: torch.Tensor,
                  x_prev: Optional[torch.Tensor] = None):
         """rwkv6.py:131 `_time_mix`. x: (B, S, d) normed. Returns (out,
-        new state, x[:, -1])."""
+        new state)."""
         cfg = self.cfg
         B, S, d = x.shape
         H = d // cfg.rwkv_head_dim
@@ -187,32 +197,43 @@ class RWKVBlock(nn.Module):
             self.u.reshape(H, cfg.rwkv_head_dim), state0, cfg.rwkv_chunk)
         out = self.ln_x(out.reshape(B, S, d))
         out = (out * F.silu(g.float())).to(x.dtype)
-        return out @ self.wo, state, x[:, -1]
+        return out @ self.wo, state
 
     def channel_mix(self, x: torch.Tensor,
                     x_prev: Optional[torch.Tensor] = None):
-        """rwkv6.py:163 `_channel_mix`: (out, x[:, -1])."""
+        """rwkv6.py:163 `_channel_mix`."""
         xs = shift(x, x_prev)
         k = mix(x, xs, self.mu_ck) @ self.ck
         r = mix(x, xs, self.mu_cr) @ self.cr
         kk = F.relu(k)
-        return (torch.sigmoid(r.float()).to(x.dtype) * ((kk * kk) @ self.cv),
-                x[:, -1])
+        return torch.sigmoid(r.float()).to(x.dtype) * ((kk * kk) @ self.cv)
 
     def step(self, x: torch.Tensor, state0: Optional[torch.Tensor] = None,
              tm_prev: Optional[torch.Tensor] = None,
              cm_prev: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, State]:
         """rwkv6.py:172 `apply_rwkv_block`: (x, (state, tm, cm)); no
-        state0 is a zero state, no tm / cm a zero shift."""
-        B, _, d = x.shape
-        dh = self.cfg.rwkv_head_dim
-        if state0 is None:
-            state0 = x.new_zeros((B, d // dh, dh, dh), dtype=torch.float32)
-        a, state, tm_last = self.time_mix(self.ln1(x), state0, tm_prev)
+        state0 is a zero state, no tm / cm a zero shift. On a model that
+        tensor_parallel.shard_for_serving cut, inside tensor-parallel
+        compute, each cut unit runs on what it holds (`serve_heads`: the
+        time mix's heads, whose state it carries; `serve_chunk`: the
+        channel mix); tm and cm are the whole normed inputs."""
+        axis = L.tp_ops().active()
+        xin = self.ln1(x)
+        if self.serve_heads is not None:
+            a, state = self._time_mix_tp(xin, axis, state0, tm_prev)
+        else:
+            if state0 is None:
+                dh = self.cfg.rwkv_head_dim
+                state0 = x.new_zeros((x.shape[0], x.shape[2] // dh, dh, dh),
+                                     dtype=torch.float32)
+            a, state = self.time_mix(xin, state0, tm_prev)
         x = x + a
-        c, cm_last = self.channel_mix(self.ln2(x), cm_prev)
-        return x + c, (state, tm_last, cm_last)
+        cin = self.ln2(x)
+        c = (self._channel_mix_tp(cin, axis, cm_prev)
+             if self.serve_chunk is not None
+             else self.channel_mix(cin, cm_prev))
+        return x + c, (state, xin[:, -1], cin[:, -1])
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
         """The block from a zero state; under tensor-parallel compute each
@@ -224,71 +245,91 @@ class RWKVBlock(nn.Module):
             return self.step(x)[0]
         xin = self.ln1(x)
         dh = self.cfg.rwkv_head_dim
-        x = x + (self._time_mix_tp(xin, axis) if tm else self.time_mix(
+        x = x + (self._time_mix_tp(xin, axis)[0] if tm else self.time_mix(
             xin, xin.new_zeros((x.shape[0], x.shape[2] // dh, dh, dh),
                                dtype=torch.float32))[0])
         xin = self.ln2(x)
         return x + (self._channel_mix_tp(xin, axis) if cm
-                    else self.channel_mix(xin)[0])
+                    else self.channel_mix(xin))
 
-    def _time_mix_tp(self, x: torch.Tensor, axis) -> torch.Tensor:
-        """time_mix's output on this rank's heads, [ceil(r H / tp),
-        ceil((r + 1) H / tp)): wr / wk / wv / wg column-parallel and wo
-        row-parallel on their channels (gathered where they are not its
-        chunk), summed over the axis after wo. The decay LoRA: tanh(xw @
-        wa) on the rank's wa columns all-gathered, (B, S, 64), times wb's
-        columns for its channels (wb gathered whole: 64 x d). mu_*, w0
-        and u are replicated and cut to the channels, their gradient
-        summed over the axis; ln_x normalizes over the whole width
-        (RMSNorm.forward with the axis). A rank with no head runs the same
-        operations on empty heads."""
+    def _time_mix_tp(self, x: torch.Tensor, axis,
+                     state0: Optional[torch.Tensor] = None,
+                     x_prev: Optional[torch.Tensor] = None):
+        """time_mix's output and state on this rank's heads, [ceil(r H /
+        tp), ceil((r + 1) H / tp)): wr / wk / wv / wg column-parallel and
+        wo row-parallel on their channels, summed over the axis after wo;
+        w0 and u cut to the channels; ln_x normalizes over the whole width
+        (RMSNorm.forward with the axis); the state (B, heads, dh, dh) of
+        those heads (zeros for None). In training the weights are the
+        step's shards, gathered where the heads are not their chunk
+        (`take`); the decay LoRA's tanh(xw @ wa) on the rank's wa columns
+        all-gathered, (B, S, 64), times wb's columns for its channels (wb
+        gathered whole: 64 x d); mu_*, w0 and u replicated, their
+        gradient summed over the axis. In serving (`serve_heads`) every
+        weight is held at the rank's channels and wa whole: no weight or
+        LoRA collective. A rank with no head runs the same operations on
+        empty heads."""
         cfg, TP = self.cfg, L.tp_ops()
         B, S, d = x.shape
         dh = cfg.rwkv_head_dim
-        chans = TP.head_channels(d // dh, dh, axis.size)
-        a, b = chans(axis.index)
+        held = self.serve_heads is not None
+        if held:
+            a, b = self.serve_heads
+            wr, wk, wv, wg, wo, wb = (self.wr, self.wk, self.wv, self.wg,
+                                      self.wo, self.wb)
+            w0, u = self.w0, self.u
+        else:
+            chans = TP.head_channels(d // dh, dh, axis.size)
+            a, b = chans(axis.index)
+            wr, wk, wv, wg = (TP.take(getattr(self, name), 1, chans, axis)
+                              for name in ("wr", "wk", "wv", "wg"))
+            wo = TP.take(self.wo, 0, chans, axis)
+            wb = TP.gather_from_model(self.wb, 0, axis)[:, a:b]
+            w0 = TP.copy_to_model(self.w0, axis)[a:b]
+            u = TP.copy_to_model(self.u, axis)[a:b]
         n = (b - a) // dh
-        wr, wk, wv, wg = (TP.take(getattr(self, name), 1, chans, axis)
-                          for name in ("wr", "wk", "wv", "wg"))
-        wo = TP.take(self.wo, 0, chans, axis)
-        wb = TP.gather_from_model(self.wb, 0, axis)[:, a:b]
 
         def shared(t):             # replicated: its gradient summed
             return TP.copy_to_model(t, axis)
 
         x = shared(x)
-        xs = shift(x)
+        xs = shift(x, x_prev)
         r = mix(x, xs, shared(self.mu_r)) @ wr
         k = mix(x, xs, shared(self.mu_k)) @ wk
         v = mix(x, xs, shared(self.mu_v)) @ wv
         g = mix(x, xs, shared(self.mu_g)) @ wg
         xw = mix(x, xs, shared(self.mu_w))
-        lora = TP.gather_from_model(torch.tanh(xw @ self.wa), -1, axis)
-        loglog_w = shared(self.w0)[a:b] + lora.float() @ wb.float()
+        lora = torch.tanh(xw @ self.wa)
+        if not held:
+            lora = TP.gather_from_model(lora, -1, axis)
+        loglog_w = w0 + lora.float() @ wb.float()
         logw = -torch.exp(loglog_w)
         logw = torch.clamp(logw, min=-60.0 / max(cfg.rwkv_chunk, 1))
 
         def to_h(t):
             return t.float().reshape(B, S, n, dh)
 
-        out, _ = wkv_chunked(
-            to_h(r), to_h(k), to_h(v), to_h(logw),
-            shared(self.u)[a:b].reshape(n, dh),
-            x.new_zeros((B, n, dh, dh), dtype=torch.float32), cfg.rwkv_chunk)
+        if state0 is None:
+            state0 = x.new_zeros((B, n, dh, dh), dtype=torch.float32)
+        out, state = wkv_chunked(to_h(r), to_h(k), to_h(v), to_h(logw),
+                                 u.reshape(n, dh), state0, cfg.rwkv_chunk)
         out = self.ln_x(out.reshape(B, S, b - a), axis, (a, b))
         out = (out * F.silu(g.float())).to(x.dtype)
-        return TP.reduce_from_model(out @ wo, axis)
+        return TP.reduce_from_model(out @ wo, axis), state
 
-    def _channel_mix_tp(self, x: torch.Tensor, axis) -> torch.Tensor:
+    def _channel_mix_tp(self, x: torch.Tensor, axis,
+                        x_prev: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
         """channel_mix's output: ck column-parallel over d_ff, cv
         row-parallel, its partial sums reduce-scattered to the rank's
         chunk of d and there gated by the sigmoid of cr's columns
         (column-parallel over d); the product all-gathered into the
         residual stream (its gradient is this rank's chunk of the whole
-        one every rank holds)."""
+        one every rank holds). Training's shards and serving's held
+        chunks (`serve_chunk`) are the same."""
         TP = L.tp_ops()
         x = TP.copy_to_model(x, axis)
-        xs = shift(x)
+        xs = shift(x, x_prev)
         k = mix(x, xs, TP.copy_to_model(self.mu_ck, axis)) @ self.ck
         r = mix(x, xs, TP.copy_to_model(self.mu_cr, axis)) @ self.cr
         kk = F.relu(k)
@@ -349,12 +390,13 @@ class RWKV(nn.Module):
         write each layer's state, tm and cm (cast to the cache's dtype)
         into `cache`; return the last position's logits (B, vocab_padded)
         f32."""
-        x = self.embed[tokens]
+        x = L.embed_lookup(self.embed, tokens, self.vocab)
         for i, blk in enumerate(self.layers):
             x, state = blk.step(x)
             self._write(cache, i, state)
         cache["pos"] = tokens.shape[1]
-        return (self.ln_f(x)[:, -1] @ self.unembed).float(), cache
+        return L.serve_logits(self.ln_f(x)[:, -1], self.unembed,
+                              self.vocab), cache
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: Cache,
@@ -362,13 +404,14 @@ class RWKV(nn.Module):
         """rwkv6.py:246 `decode_rwkv`: one step, tokens (B,) int; tm and
         cm enter in x's dtype. Returns (logits (B, vocab_padded) f32,
         cache)."""
-        x = self.embed[tokens][:, None, :]
+        x = L.embed_lookup(self.embed, tokens, self.vocab)[:, None, :]
         for i, blk in enumerate(self.layers):
             x, state = blk.step(x, cache["s"][i], cache["tm"][i].to(x.dtype),
                                 cache["cm"][i].to(x.dtype))
             self._write(cache, i, state)
         cache["pos"] += 1
-        return (self.ln_f(x)[:, 0] @ self.unembed).float(), cache
+        return L.serve_logits(self.ln_f(x)[:, 0], self.unembed,
+                              self.vocab), cache
 
     @staticmethod
     def _write(cache: Cache, i: int, state: State) -> None:

@@ -54,8 +54,15 @@ model-axis shards: the vocab-parallel embedding and logits, every
 self-attention (encoder and decoder) and cross-attention by heads, every
 MLP by columns. The encoder output passes `copy_to_model` once before the
 decoder loop: each layer's K/V projection gives it a partial gradient,
-and one all-reduce sums them all. `prefill` and `decode` run on whole
-weights.
+and one all-reduce sums them all. So do `prefill` and `decode` (the
+mesh's serving steps) on a model that tensor_parallel.shard_for_serving
+cut: the encoder's attention on the rank's held heads (`layers.Attention.
+forward` with `serve_heads`) and its MLP by columns, each decoder
+self-attention on its heads and its cache of their KV heads, each
+cross-attention on its held wq / wo heads over the xk / xv of its held
+wk / wv KV heads (written once at prefill into the caller's dict), and
+the logits of the whole padded vocabulary on every rank. Outside that
+context they run on whole weights.
 """
 from __future__ import annotations
 
@@ -105,24 +112,29 @@ class CrossAttention(nn.Module):
         self.wk = L.empty_param((d, nkv * hd), dtype, device)
         self.wv = L.empty_param((d, nkv * hd), dtype, device)
         self.wo = L.empty_param((nq * hd, d), dtype, device)
+        # ((h0, h1), (k0, k1)): the query heads and the KV heads this rank
+        # holds, set by tensor_parallel.shard_for_serving; None when whole.
+        self.serve_heads = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
             L.dense_init_(w, generator)
 
     def tp_axis(self):
-        """The model axis where this module computes tensor-parallel (the
-        step gave it its shards), else None."""
+        """The model axis where this module computes tensor-parallel on the
+        train step's shards, else None (whole, or held for serving)."""
         axis = L.tp_ops().active()
-        if axis is not None and \
+        if axis is not None and self.serve_heads is None and \
                 self.wq.shape[1] != self.cfg.n_heads * self.cfg.head_dim:
             return axis
         return None
 
     def kv(self, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """whisper.py:49 `_cross_kv`: enc (B, T, d) -> k, v (B, T, Hkv,
-        hd); tensor-parallel, the KV heads this rank's query heads read
-        (enc's gradient is then a partial sum: Whisper.forward sums it)."""
+        hd); tensor-parallel, the KV heads this rank's query heads read:
+        in training from the step's shards (enc's gradient is then a
+        partial sum: Whisper.forward sums it), in serving from the held
+        wk / wv columns (`serve_heads`)."""
         cfg = self.cfg
         B, T, _ = enc.shape
         wk, wv, nkv = self.wk, self.wv, cfg.n_kv_heads
@@ -135,6 +147,9 @@ class CrossAttention(nn.Module):
             k0, k1 = TP.kv_span(cfg.n_heads, cfg.q_per_kv, axis.size,
                                 axis.index)
             nkv = k1 - k0
+        elif self.serve_heads is not None:
+            k0, k1 = self.serve_heads[1]
+            nkv = k1 - k0
         shape = (B, T, nkv, cfg.head_dim)
         return (enc @ wk).reshape(shape), (enc @ wv).reshape(shape)
 
@@ -142,23 +157,29 @@ class CrossAttention(nn.Module):
                 v: torch.Tensor) -> torch.Tensor:
         """whisper.py:56 `apply_cross_attention`: x (B, S, d) attends to
         every one of the T positions of k, v (B, T, Hkv, hd);
-        tensor-parallel, this rank's query heads (wq gathered where they
-        are not its chunk) over the KV heads of `kv`, wo row-parallel and
-        summed over the axis."""
+        tensor-parallel, this rank's query heads (in training wq gathered
+        where they are not its chunk; in serving held, `serve_heads`) over
+        the KV heads of `kv`, wo row-parallel and summed over the axis."""
         cfg = self.cfg
         B, S, _ = x.shape
         mask = torch.ones((1, 1, S, k.shape[1]), dtype=torch.bool,
                           device=x.device)
         axis = self.tp_axis()
-        if axis is None:
+        if self.serve_heads is not None:
+            TP = L.tp_ops()
+            axis, wq, wo = TP.active(), self.wq, self.wo
+            heads, kvs = self.serve_heads
+        elif axis is None:
             q = (x @ self.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
             return L.sdpa(q, k, v, mask, cfg.q_per_kv) @ self.wo
-        TP = L.tp_ops()
-        spans = TP.attention_spans(cfg, axis.size)
-        wq = TP.take(self.wq, 1, spans["wq"], axis)
-        wo = TP.take(self.wo, 0, spans["wo"], axis)
-        heads = TP.head_span(cfg.n_heads, axis.size, axis.index)
-        kvs = TP.kv_span(cfg.n_heads, cfg.q_per_kv, axis.size, axis.index)
+        else:
+            TP = L.tp_ops()
+            spans = TP.attention_spans(cfg, axis.size)
+            wq = TP.take(self.wq, 1, spans["wq"], axis)
+            wo = TP.take(self.wo, 0, spans["wo"], axis)
+            heads = TP.head_span(cfg.n_heads, axis.size, axis.index)
+            kvs = TP.kv_span(cfg.n_heads, cfg.q_per_kv, axis.size,
+                             axis.index)
         q = (TP.copy_to_model(x, axis) @ wq).reshape(
             B, S, heads[1] - heads[0], cfg.head_dim)
         k, v, group = L.kv_group(k, v, heads, kvs, cfg.q_per_kv)
@@ -294,14 +315,15 @@ class Whisper(nn.Module):
             cache["xv"][i].copy_(xv)
             x = blk.cross_and_mlp(x, xk, xv, groups)
         cache["pos"] = tokens.shape[1]
-        return (self.ln_f(x)[:, -1] @ self.unembed).float(), cache
+        return L.serve_logits(self.ln_f(x)[:, -1], self.unembed,
+                              self.vocab), cache
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: Cache,
                groups: int = 1) -> Tuple[torch.Tensor, Cache]:
         """whisper.py:173 `decode_whisper`: one step, tokens (B,) int.
         Returns (logits (B, vocab_padded) f32, cache)."""
-        x = self.embed[tokens][:, None, :]
+        x = L.embed_lookup(self.embed, tokens, self.vocab)[:, None, :]
         pos = cache["pos"]
         x = x + sinusoid_at(pos, self.cfg.d_model, x.device).to(x.dtype)
         for i, blk in enumerate(self.dec_layers):
@@ -310,7 +332,8 @@ class Whisper(nn.Module):
             x = blk.cross_and_mlp(x, cache["xk"][i].to(x.dtype),
                                   cache["xv"][i].to(x.dtype), groups)
         cache["pos"] = pos + 1
-        return (self.ln_f(x)[:, 0] @ self.unembed).float(), cache
+        return L.serve_logits(self.ln_f(x)[:, 0], self.unembed,
+                              self.vocab), cache
 
 
 def init_cache_whisper(cfg: ArchConfig, batch: int, max_seq: int,

@@ -462,8 +462,7 @@ class _MeshServing(NamedTuple):
         return logits
 
 
-def _mesh_serving(cfg: ArchConfig, mesh) -> _MeshServing:
-    TP.check_serving(cfg)
+def _mesh_serving(mesh) -> _MeshServing:
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     tp = tp_axis(mesh)
     return _MeshServing(
@@ -485,18 +484,19 @@ def make_prefill_step(cfg: ArchConfig, api: ModelAPI, groups: int = 1, *,
     vocab_padded) f32, cache).
 
     mesh: JAX's prefill under its serving shardings (launch/dryrun.py's
-    cells), on a model cut by tensor_parallel.shard_for_serving for this
-    mesh and the rank's cache (tensor_parallel.serve_cache). Every rank
-    takes the global batch; where B divides by the data axes' size dp,
-    data rank r runs rows [r B / dp, (r + 1) B / dp) as JAX's routing
-    group r (groups must divide by dp), else every rank runs all rows at
-    `groups`. The step computes tensor-parallel over the model axis
-    (dense, moe, vlm; another family is refused on any mesh) and
-    returns the logits of every row over the whole padded vocabulary (the
-    rows all-gathered over the data axes where they were split: JAX's
+    cells), on a model of any family cut by
+    tensor_parallel.shard_for_serving for this mesh and the rank's cache
+    (tensor_parallel.serve_cache). Every rank takes the global batch
+    (whisper's carries its "frames" beside the tokens); where B divides
+    by the data axes' size dp, data rank r runs rows [r B / dp, (r + 1) B
+    / dp) of every entry of the batch as JAX's routing group r (groups
+    must divide by dp), else every rank runs all rows at `groups`. The
+    step computes tensor-parallel over the model axis and returns the
+    logits of every row over the whole padded vocabulary (the rows
+    all-gathered over the data axes where they were split: JAX's
     replicated out_shardings) and the rank's cache."""
     if mesh is not None:
-        serving = _mesh_serving(cfg, mesh)
+        serving = _mesh_serving(mesh)
 
         def mesh_prefill_step(model, batch, cache):
             B = next(iter(batch.values())).shape[0]
@@ -518,7 +518,7 @@ def make_decode_step(cfg: ArchConfig, api: ModelAPI, groups: int = 1, *,
     """decode_step(model, tokens, cache) -> (greedy next tokens as int32,
     logits, cache). mesh: as make_prefill_step's, on the global tokens
     (B,); the greedy tokens and logits of every row."""
-    serving = _mesh_serving(cfg, mesh) if mesh is not None else None
+    serving = _mesh_serving(mesh) if mesh is not None else None
 
     def decode_step(model, tokens, cache):
         if serving is None:

@@ -14,10 +14,12 @@ world of launch/mesh.py, against the JAX package on the CPU.
   bytes are rules_mb plus the global batch the step takes, and the
   collective bytes by kind are train_plan's.
 - the serving cells (phi4-mini-3.8b x prefill_32k and decode_32k,
-  mixtral-8x7b x long_500k) at published width and 2 layers on fake
-  (2, 2) and (1, 4) meshes, tensor-parallel through the mesh's steps:
-  the collective bytes by kind are serve_plan's, no weight's among them,
-  and the argument bytes are held_bytes plus the global inputs.
+  mixtral-8x7b x long_500k; recurrentgemma-2b x prefill_32k at 3
+  layers, rwkv6-1.6b x decode_32k at 2, whisper-large-v3 x prefill_32k
+  at 2 + 2) at published width on fake (2, 2) and (1, 4) meshes,
+  tensor-parallel through the mesh's steps: the collective bytes by kind
+  are serve_plan's, no weight's among them, and the argument bytes are
+  held_bytes plus the global inputs.
 - run_cell: phi4 x long_500k writes JAX's skip file byte for byte (JAX's
   dryrun.py run in a subprocess: importing it in process would set its
   512-device XLA_FLAGS for every later subprocess); an ok cell's JSON has
@@ -257,6 +259,58 @@ def test_serving_cell_follows_the_plan(arch, cell, shape):
     assert plan["all-gather"] == b * V * 4 + (B * V * 4 if split else 0)
     assert res["collective_counts"]["all-gather"] == 1 + split
     assert res["collective_counts"]["all-reduce"] == 2 * cfg.n_layers + 1
+    inputs = (specs.prefill_inputs(cfg, S, B, abstract=True)
+              if sh["kind"] == "prefill" else
+              {"t": specs.decode_tokens(cfg, B, abstract=True)})
+    held = dryrun.held_bytes(cfg, sh["kind"], B, S,
+                             MeshShape(("data", "model"), shape))
+    assert res["memory"]["argument"] == sum(held.values()) + sum(
+        t.numel() * t.element_size() for t in inputs.values())
+
+
+@pytest.mark.parametrize("shape", ((2, 2), (1, 4)), ids=("2x2", "1x4"))
+@pytest.mark.parametrize("arch,cell,depth", (
+    ("recurrentgemma-2b", "prefill_32k", {"n_layers": 3}),
+    ("rwkv6-1.6b", "decode_32k", {"n_layers": 2}),
+    ("whisper-large-v3", "prefill_32k", {"n_layers": 2,
+                                         "n_encoder_layers": 2})),
+    ids=("hybrid", "ssm", "encdec"))
+def test_family_serving_cell_follows_the_plan(arch, cell, depth, shape):
+    """One serving cell of the hybrid (R R A: its prompt of 32,768 runs
+    the ring branch of the window's cache), the ssm and the encdec at
+    published width on a fake (2, 2) or (1, 4) dry-run mesh,
+    tensor-parallel through the mesh's steps: the collective bytes by
+    kind are serve_plan's (besides the attention's, MLP's and lookup's
+    all-reduces, the RG-LRU blocks' all-gather of u and their all-reduce
+    after w_out, the time mix's all-reduce after wo and ln_x's sum, the
+    channel mix's reduce-scatter and all-gather into the stream, whisper's
+    encoder and cross-attention all-reduces), none of them a weight's;
+    the argument bytes are the held parameters and every cache leaf
+    (held_bytes) plus the global inputs."""
+    cfg = dataclasses.replace(get_config(arch), **depth)
+    sh = specs.SHAPES[cell]
+    B, S = sh["batch"], sh["seq"]
+    mesh = make_dryrun_mesh(shape=shape)
+    try:
+        rec = dryrun.measure(cfg, sh["kind"], B, S, mesh)
+        plan = dryrun.serve_plan(cfg, sh["kind"], mesh, B, S)
+    finally:
+        destroy_dryrun_mesh(mesh)
+    res = rec["analysis"]
+    assert {k: v for k, v in res["collective_bytes"].items() if v} == {
+        k: float(v) for k, v in plan.items() if v}
+    split = B % shape[0] == 0 and shape[0] > 1
+    counts = res["collective_counts"]
+    if cfg.family == "hybrid":      # u's gathers (R R), then the logits'
+        assert counts["all-gather"] == 2 + 1 + split
+        assert counts["all-reduce"] == 2 * 3 + 1     # 2 a layer, lookup
+    elif cfg.family == "ssm":       # each channel mix's, then the logits'
+        assert counts["all-gather"] == cfg.n_layers + 1 + split
+        assert counts["reduce-scatter"] == cfg.n_layers
+        assert counts["all-reduce"] == 2 * cfg.n_layers + 1  # wo, ln_x
+    else:           # encoder 2 + 2, decoder 3 a layer, the lookup
+        assert counts["all-gather"] == 1 + split
+        assert counts["all-reduce"] == 4 + 3 * cfg.n_layers + 1
     inputs = (specs.prefill_inputs(cfg, S, B, abstract=True)
               if sh["kind"] == "prefill" else
               {"t": specs.decode_tokens(cfg, B, abstract=True)})

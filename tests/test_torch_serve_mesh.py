@@ -28,10 +28,10 @@ greedy tokens equal to JAX's at every step, its cache within CACHE_TOL of
 JAX's cache at the rank's rows and KV heads, after prefill and after the
 last step; every weight and the cache at their serving shapes.
 
-Also: a hybrid, ssm or encdec model is refused on any mesh, of model
-axis 1 or 2 (the cut and both steps); on a gloo world of one rank made
-in this process, the mesh's steps equal the meshless ones bit for bit
-for the seven decoder-only LM configs.
+Also: on a gloo world of one rank made in this process, the mesh's
+steps equal the meshless ones bit for bit for all ten configs (the
+hybrid, ssm and encdec too; their gloo worlds are in
+tests/test_torch_serve_mesh_families.py).
 """
 import dataclasses
 import json
@@ -54,12 +54,11 @@ from repro.models.registry import get_api as jax_api
 from repro.train import steps as jsteps
 from repro_torch.configs import get_config
 from repro_torch.distributed import tensor_parallel as TP
-from repro_torch.distributed.sharding import MeshShape
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import get_api
 from repro_torch.train import make_decode_step, make_prefill_step
 from test_torch_lm import CACHE_TOL, LOGIT_TOL
-from torch_lm_common import ARCHS, jax_and_port
+from torch_lm_common import SERVED, cache_keys, jax_and_port
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 STEPS = 4
@@ -80,7 +79,6 @@ WORLDS = ((1, 2), (2, 2), (1, 4))
 PAIRS = tuple((w, c) for w in WORLDS for c in tuple(CASES)[:5]) + (
     ((2, 2), "phi4-b1"), ((2, 2), "mixtral-b1"), ((1, 4), "phi4-h2"))
 WORLD_DEADLINE = 120.0        # seconds for the three worlds, start to join
-REFUSED = ("recurrentgemma-2b", "rwkv6-1.6b", "whisper-large-v3")
 
 
 def _configs(case):
@@ -92,6 +90,12 @@ def _configs(case):
 def _prompt(cfg, B, S, seed=0):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _frames(cfg, B, seed=1):
+    """Whisper's audio frames (B, n_audio_frames, d), drawn with numpy."""
+    return np.random.default_rng(seed).standard_normal(
+        (B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
 
 
 def _groups(data, B):
@@ -309,25 +313,8 @@ def test_weights_and_cache_at_serving_shapes(runs, world, case):
         kv_cut = 2 if k1 - k0 < cfg.n_kv_heads else 0   # wk and wv
         mlp = 3 if cfg.activation in ("swiglu", "geglu") else 2
         assert cut == 2 + cfg.n_layers * (2 + kv_cut + mlp), r
-        assert tuple(out[f"{case}/shape/cache"]) == (
+        assert tuple(out[f"{case}/shape/cache/k"]) == (
             cfg.n_layers, len(range(B)[rows]), T, k1 - k0, cfg.head_dim), r
-
-
-@pytest.mark.parametrize("tp", (1, 2))
-@pytest.mark.parametrize("what", ("cut", "prefill", "decode"))
-@pytest.mark.parametrize("arch", REFUSED)
-def test_other_families_refused_on_a_model_axis(arch, what, tp):
-    """No tensor-parallel serving path for the hybrid, ssm or encdec:
-    refused on any mesh, not run replicated."""
-    cfg = get_config(arch, smoke=True)
-    api = get_api(cfg)
-    mesh = MeshShape(("data", "model"), (1, tp))
-    with pytest.raises(ValueError, match="tensor-parallel serving covers"):
-        if what == "cut":
-            TP.shard_for_serving(api.init(cfg, 1, device="meta"), mesh)
-        else:
-            (make_prefill_step if what == "prefill" else make_decode_step)(
-                cfg, api, mesh=mesh)
 
 
 @pytest.fixture(scope="module")
@@ -341,15 +328,18 @@ def world1():
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_world_of_one_is_the_meshless_step(world1, arch):
     """(1, 1): the mesh's prefill and greedy decode are the meshless
-    steps' operations, bit for bit: logits, tokens and the k and v
-    caches."""
+    steps' operations, bit for bit: logits, tokens and every cache leaf
+    (k and v; the hybrid's h and conv, the ssm's s, tm and cm, whisper's
+    xk and xv)."""
     jcfg, pcfg = jax_config(arch, True), get_config(arch, True)
     model = jax_and_port(jcfg, pcfg)[1]
     api = get_api(pcfg)
     batch = {"tokens": torch.from_numpy(_prompt(pcfg, 2, 12))}
+    if pcfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(_frames(pcfg, 2))
     runs = []
     for mesh in (None, world1):
         if mesh is None:
@@ -369,7 +359,7 @@ def test_world_of_one_is_the_meshless_step(world1, arch):
     (a, ca), (b, cb) = runs
     for i, (x, y) in enumerate(zip(a, b)):
         assert torch.equal(x, y), i
-    for key in ("k", "v"):
+    for key in cache_keys(pcfg):
         assert torch.equal(ca[key], cb[key]), key
     assert ca["pos"] == cb["pos"] == 12 + STEPS
     with pytest.raises(ValueError, match="needs the step's mesh"):

@@ -1,17 +1,19 @@
-"""One rank of a gloo world for tests/test_torch_serve_mesh.py.
+"""One rank of a gloo world for tests/test_torch_serve_mesh.py and
+tests/test_torch_serve_mesh_families.py.
 
     python tests/torch_serve_mesh_worker.py RANK DATA MODEL WORKDIR
 
 WORKDIR holds `store` (the FileStore), `cases.json` (each case's arch,
 config cut, batch, prompt, cache length and the worlds it runs on) and
-`inputs.npz` (each case's weights by the port's parameter names and its
-prompt). On the (DATA, MODEL) mesh the rank cuts each of its cases'
-models for serving (tensor_parallel.shard_for_serving), prefills its f32
-cache from the global prompt through make_prefill_step(mesh=) at groups
-= DATA where the batch splits over it (else 1), then takes STEPS greedy
-steps through make_decode_step(mesh=). It writes to `out_RANK.npz` each
-parameter's shape after the cut, the cache's shape, the logits, the
-greedy tokens and its cache after prefill and after the last step. No
+`inputs.npz` (each case's weights by the port's parameter names, its
+prompt and, for whisper, its audio frames). On the (DATA, MODEL) mesh
+the rank cuts each of its cases' models for serving
+(tensor_parallel.shard_for_serving), prefills its f32 cache from the
+global batch through make_prefill_step(mesh=) at groups = DATA where the
+batch splits over it (else 1), then takes STEPS greedy steps through
+make_decode_step(mesh=). It writes to `out_RANK.npz` each parameter's
+shape after the cut, each cache leaf's shape, the logits, the greedy
+tokens and every cache leaf after prefill and after the last step. No
 JAX runs here and no check asserts here: the test compares.
 """
 import dataclasses
@@ -48,13 +50,17 @@ def serve_case(mesh, data, inp, case, res):
     B = case["batch"]
     groups = data if B % data == 0 else 1
     cache = TP.serve_cache(model, B, case["max_seq"], torch.float32)
-    res[f"{name}/shape/cache"] = np.asarray(cache["k"].shape)
+    leaves = [key for key, t in cache.items() if torch.is_tensor(t)]
+    for key in leaves:
+        res[f"{name}/shape/cache/{key}"] = np.asarray(cache[key].shape)
     prefill = make_prefill_step(cfg, api, groups, mesh=mesh)
     decode = make_decode_step(cfg, api, groups, mesh=mesh)
-    tokens = torch.from_numpy(inp[f"{name}/tokens"])
-    logits, cache = prefill(model, {"tokens": tokens}, cache)
+    batch = {"tokens": torch.from_numpy(inp[f"{name}/tokens"])}
+    if f"{name}/frames" in inp:
+        batch["frames"] = torch.from_numpy(inp[f"{name}/frames"])
+    logits, cache = prefill(model, batch, cache)
     res[f"{name}/prefill/logits"] = logits.numpy().copy()
-    for key in ("k", "v"):
+    for key in leaves:
         res[f"{name}/prefill/{key}"] = cache[key].numpy().copy()
     res[f"{name}/prefill/pos"] = np.asarray(cache["pos"])
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -63,7 +69,7 @@ def serve_case(mesh, data, inp, case, res):
         tok, logits, cache = decode(model, tok, cache)
         res[f"{name}/{i}/tokens"] = tok.numpy().copy()
         res[f"{name}/{i}/logits"] = logits.numpy().copy()
-    for key in ("k", "v"):
+    for key in leaves:
         res[f"{name}/decode/{key}"] = cache[key].numpy().copy()
     res[f"{name}/decode/pos"] = np.asarray(cache["pos"])
 

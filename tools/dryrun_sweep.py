@@ -7,11 +7,10 @@ bytes by kind, seconds, and whether the peak fits one card.
     PYTHONPATH=src python tools/dryrun_sweep.py [--jobs 2] \\
         [--out artifacts/dryrun_torch] [--card-bytes N] [CELL ...]
 
-A CELL is ARCH:SHAPE[:mp]; the default list is all ten configs at
-train_4k on 16 x 16, the three long_500k archs and the seven decoder-only
-LMs at prefill_32k and decode_32k (JAX's grid, benchmarks/dryrun_all.py;
-the hybrid, ssm and encdec configs skip those two shapes there). A cell whose JSON exists under --out is read,
-not run again. --card-bytes: one card's memory
+A CELL is ARCH:SHAPE[:mp]; the default list is JAX's grid on 16 x 16
+(benchmarks/dryrun_all.py, which specs.cell_supported trims): all ten
+configs at train_4k, prefill_32k and decode_32k, and the three long_500k
+archs. A cell whose JSON exists under --out is read, not run again. --card-bytes: one card's memory
 (torch.cuda.get_device_properties(0).total_memory, which chip_smoke's
 phase 19 prints); without it the fit column says "not known". Needs no
 card: the dry run runs on fake tensors.
@@ -32,9 +31,8 @@ ARCHS = ["rwkv6-1.6b", "recurrentgemma-2b", "whisper-large-v3",
          "phi4-mini-3.8b", "qwen3-14b", "pixtral-12b", "mixtral-8x7b",
          "dbrx-132b", "command-r-plus-104b", "nemotron-4-340b"]
 LONG = ["recurrentgemma-2b", "rwkv6-1.6b", "mixtral-8x7b"]
-LMS = ARCHS[3:]                 # dense, vlm, moe: the serving cells
 CELLS = ([f"{a}:train_4k" for a in ARCHS] + [f"{a}:long_500k" for a in LONG]
-         + [f"{a}:{s}" for a in LMS for s in ("prefill_32k", "decode_32k")])
+         + [f"{a}:{s}" for a in ARCHS for s in ("prefill_32k", "decode_32k")])
 GB = 1e9
 
 
