@@ -612,6 +612,10 @@ SKETCH_RUN = ["--no-smoke", "--arch", SKETCH_ARCH, "--batch", str(TRAIN_B),
 SKETCH_PEAK_GB = 75.0
 SKETCH_SMOKE_R = 4096
 FWHT_TOL = 2e-4                          # fwht's registry tolerance
+# 18d: the switch of sequence parallelism around the sharded step on a
+# NCCL world of one, these smoke configs at B x S.
+SEQ_WORLD_ARCHS = (TRAIN_ARCH, ED_ARCH)
+SEQ_WORLD_B, SEQ_WORLD_S = 4, 64
 CHECK_CHUNK = 1 << 26                    # elements a checksum pass reads
 
 # Phase 19 (dryrun): (a) the dry run of phase 17's step in a dry-run world
@@ -626,8 +630,8 @@ CHECK_CHUNK = 1 << 26                    # elements a checksum pass reads
 # encdec, at DRY_ED_LAYERS encoder and decoder layers; (f)-(k) the
 # serving cells DRY_SERVE_CELLS at DRY_SERVE_LAYERS layers (whisper's
 # encoder too), tensor-parallel through the mesh's serving steps, held to
-# dryrun.serve_plan. No device memory, no kernel; the whole phase within
-# DRY_SECONDS.
+# dryrun.serve_plan; (l) and (m) below. No device memory, no kernel; the
+# whole phase within DRY_SECONDS.
 DRY_PEAK_TOL = 0.05
 DRY_FLOPS_TOL = 0.03
 DRY_SECONDS = 120
@@ -641,6 +645,11 @@ DRY_SERVE_CELLS = (("19f", "phi4-mini-3.8b", "prefill_32k"),
                    ("19i", HY_ARCH, "prefill_32k"),
                    ("19j", SSM_ARCH, "decode_32k"),
                    ("19k", ED_ARCH, "prefill_32k"))
+# (l) phi4-mini-3.8b x train_4k and (m) recurrentgemma-2b x prefill_32k
+# with seq_shard_acts on (sequence parallelism over the model axis: the
+# dry run enters activation_sharding(seq_axis="model", seq_div=16)), at
+# DRY_SEQ_LAYERS layers, held to their plans as (b) and (f)-(k) are.
+DRY_SEQ_LAYERS = 4
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -4992,6 +5001,84 @@ def sketch_smoke_configs(torch, smi) -> dict:
     return out
 
 
+def seq_world_one(torch, smi) -> dict:
+    """18d: the switch of sequence parallelism (sharding.
+    activation_sharding(seq_axis="model", seq_div=1), as the dry run
+    enters it at a model axis of 1) around the sharded step on a NCCL
+    world of one rank (made here and torn down): the smoke configs of
+    SEQ_WORLD_ARCHS step MESH_STEPS times inside it bit for bit as the
+    same mesh step outside it (losses, grad norms, every parameter and
+    moment): a model axis of 1 never cuts the stream."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import activation_sharding
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import dp_axes, make_debug_mesh
+    from repro_torch.models import get_api
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step, shard_train_state)
+    made = not dist.is_initialized()
+    mesh = make_debug_mesh(device=DEVICE)
+    info, differ = {}, []
+    t0 = time.perf_counter()
+    try:
+        for arch in SEQ_WORLD_ARCHS:
+            cfg = get_config(arch, smoke=True)
+            api = get_api(cfg)
+            batch = specs.train_inputs(
+                cfg, SEQ_WORLD_S, SEQ_WORLD_B,
+                torch.Generator(DEVICE).manual_seed(7))
+            runs = []
+            for seq in (None, "model"):
+                state = shard_train_state(init_train_state(
+                    cfg, api, tp=1, device=DEVICE,
+                    generator=torch.Generator(DEVICE).manual_seed(SEED)),
+                    mesh)
+                step = make_train_step(cfg, api, opt_cfg=AdamWConfig(
+                    lr=TRAIN_LR), mesh=mesh)
+                metrics = []
+                for _ in range(MESH_STEPS):
+                    with activation_sharding(dp_axes(mesh), seq_axis=seq,
+                                             seq_div=1):
+                        _, m = step(state, batch)
+                    metrics += [m["loss"].clone(), m["grad_norm"].clone()]
+                runs.append((metrics, state))
+            (ma, sa), (mb, sb) = runs
+            pa = dict(sa.params.named_parameters())
+            differ += [f"{arch} metric {i}" for i, (a, b) in
+                       enumerate(zip(ma, mb)) if not torch.equal(a, b)]
+            for name, p in sb.params.named_parameters():
+                for what, a, b in (("param", pa[name], p),
+                                   ("m", sa.opt["m"][name],
+                                    sb.opt["m"][name]),
+                                   ("v", sa.opt["v"][name],
+                                    sb.opt["v"][name])):
+                    if not torch.equal(a, b):
+                        differ.append(f"{arch} {what} {name}")
+            info[arch] = {"losses": [float(x) for x in mb[0::2]],
+                          "tensors_held": 2 * MESH_STEPS + 3 * len(pa)}
+            del runs, sa, sb, pa, batch
+    finally:
+        if made:
+            dist.destroy_process_group()
+    free(torch)
+    info["seconds"] = time.perf_counter() - t0
+    info["bitwise"] = not differ
+    held = ", ".join(f"{a}: {info[a]['tensors_held']} tensors"
+                     for a in SEQ_WORLD_ARCHS)
+    log(f"[train-mesh] 18d the sharded step inside activation_sharding("
+        f"seq_axis='model', seq_div=1) on a NCCL world of one [{smi}], "
+        f"smoke {', '.join(SEQ_WORLD_ARCHS)} at B {SEQ_WORLD_B} x S "
+        f"{SEQ_WORLD_S}, {MESH_STEPS} steps each, against the same step "
+        f"outside it: "
+        f"{'bit for bit' if not differ else f'differ at {differ[:8]}'} "
+        f"({held}; {info['seconds']:.1f} s)")
+    if differ:
+        raise AssertionError(f"18d: inside the switch the step differs at "
+                             f"{differ[:8]}")
+    return info
+
+
 def phase_train_mesh(torch, smi, phase17) -> tuple:
     """Phase 18: the mesh half of training (distributed/sharding.py,
     shard_train_state and the sharded step, the sketched gradients,
@@ -5005,6 +5092,7 @@ def phase_train_mesh(torch, smi, phase17) -> tuple:
     t0 = time.perf_counter()
     peak17 = float(phase17["launcher"]["peak_memory"].split()[0])
     info = {"mesh": mesh_world_one(torch, smi, peak17)}
+    info["seq_world_one"] = seq_world_one(torch, smi)
     info["sketch"] = sketch_launcher(torch, smi)
     launches = dict(info["sketch"]["launches"])
     info["identities"] = sketch_identities(torch, smi)
@@ -5090,7 +5178,7 @@ def dryrun_one_rank(torch, smi, peak17) -> dict:
 
 
 def dryrun_mesh_cell(torch, tag: str, arch: str, **cut) -> dict:
-    """19b-19e: `arch` x train_4k (with `cut` applied to its config) on
+    """19b-19e, 19l: `arch` x train_4k (with `cut` applied to its config) on
     the 16 x 16 dry-run mesh to status ok, tensor-parallel over the model
     axis: its collective bytes by kind equal to the step's plan
     (dryrun.train_plan), its rank-0 peak at most the card's
@@ -5129,8 +5217,10 @@ def dryrun_mesh_cell(torch, tag: str, arch: str, **cut) -> dict:
                                                  "card_total_memory": card}
 
 
-def dryrun_serve_cell(torch, tag: str, arch: str, shape: str) -> dict:
-    """19f-19k: `arch` x `shape` (a serving cell) at full width and
+def dryrun_serve_cell(torch, tag: str, arch: str, shape: str,
+                      **over) -> dict:
+    """19f-19k, 19m: `arch` x `shape` (a serving cell; `over` more config
+    overrides) at full width and
     DRY_SERVE_LAYERS layers (an encoder-decoder's encoder too) on the 16
     x 16 dry-run mesh to status ok, served tensor-parallel through the
     mesh's steps on rank 0's held shards and cache: its collective bytes
@@ -5140,7 +5230,7 @@ def dryrun_serve_cell(torch, tag: str, arch: str, shape: str) -> dict:
     rules."""
     from repro_torch.distributed.sharding import MeshShape
     from repro_torch.launch import dryrun, specs
-    cut = {"n_layers": DRY_SERVE_LAYERS}
+    cut = {"n_layers": DRY_SERVE_LAYERS, **over}
     if get_lm_config(arch).family == "encdec":
         cut["n_encoder_layers"] = DRY_SERVE_LAYERS
     rec = dryrun.run_cell(arch, shape, False, str(BUILD / "dryrun"), cut)
@@ -5181,7 +5271,8 @@ def phase_dryrun(torch, smi, phase17) -> dict:
     launches no kernel: 19a against phase 17's measured step, 19b-19e
     the production mesh's train cells, dense, hybrid, ssm and encdec,
     19f-19k its serving cells: the LMs', the hybrid's, the ssm's and the
-    encdec's. Held to DRY_SECONDS."""
+    encdec's; 19l and 19m a train and a prefill cell with sequence
+    parallelism on. Held to DRY_SECONDS."""
     from repro_torch.kernels import OPS, reset_launches
     free(torch)
     t0 = time.perf_counter()
@@ -5199,6 +5290,12 @@ def phase_dryrun(torch, smi, phase17) -> dict:
                 n_encoder_layers=DRY_ED_LAYERS),
             "serve_cells": {tag: dryrun_serve_cell(torch, tag, arch, shape)
                             for tag, arch, shape in DRY_SERVE_CELLS},
+            "seq_train_cell": dryrun_mesh_cell(
+                torch, "19l", TRAIN_ARCH, n_layers=DRY_SEQ_LAYERS,
+                seq_shard_acts=True),
+            "seq_prefill_cell": dryrun_serve_cell(
+                torch, "19m", HY_ARCH, "prefill_32k",
+                n_layers=DRY_SEQ_LAYERS, seq_shard_acts=True),
             "kernel_launches": {n: op.launches for n, op in OPS.items()},
             "card_total_memory": torch.cuda.get_device_properties(
                 0).total_memory,

@@ -44,12 +44,18 @@ TP-only chunks, whole over the data axes, and a KV cache of the rank's
 KV heads rather than cache_pspecs' T over "model"; the dry run still
 reports these rules' bytes (rules_mb).
 
-`activation_sharding` and `maybe_shard` keep JAX's signatures as layout
-hints that return their input unchanged: eager PyTorch has no sharding
-propagation to steer, and JAX's constraint changes no value. The port's
-models do not call them; its tensor-parallel modules place their
-collectives themselves. Sequence parallelism (JAX's seq_axis) is not
-ported.
+`activation_sharding(dp, seq_axis, seq_div, tp)` keeps JAX's signature
+and is the switch of sequence parallelism (JAX's seq_shard_acts): its
+one reader, `seq_div_for(axis)`, gives seq_div inside it where seq_axis
+names `axis`, and distributed/tensor_parallel.py's `stream` holds the
+whole guard (JAX's maybe_shard: the stream's length divides by seq_div)
+and cuts the residual stream to each model rank's length / tp positions
+while tensor-parallel compute is on over a model axis > 1. The state is a
+process global, as tensor_parallel's axis is: a thread-local would be
+lost on the autograd threads that run remat's recompute and the
+backward. `maybe_shard` returns its input: JAX's constraint changes no
+value, and eager PyTorch has no propagation for it to steer; the port's
+modules place their collectives themselves.
 """
 from __future__ import annotations
 
@@ -120,13 +126,34 @@ class MeshShape(NamedTuple):
 _KINDS = ("btd", "bd", "moe_gtd", "moe_gecd", "moe_gecf")
 
 
+# activation_sharding's state: (seq_axis, seq_div) inside it, else None.
+# A process global (module docstring).
+_SEQ_SHARD: Optional[Tuple[Optional[str], int]] = None
+
+
 @contextlib.contextmanager
 def activation_sharding(dp: Tuple[str, ...], seq_axis: Optional[str] = None,
                         seq_div: int = 1, tp: Optional[str] = "model"):
-    """JAX's context that turns on `maybe_shard`'s activation constraints
-    (dp axes, sequence parallelism over seq_axis, the model axis); here
-    they are hints that change nothing, so it only marks the region."""
-    yield
+    """JAX's context that turns on activation sharding: here the switch
+    of sequence parallelism over `seq_axis` for streams whose length
+    divides by `seq_div` (module docstring). `dp` and `tp` are JAX's
+    layout hints; the port's tensor-parallel modules place their own
+    collectives over them."""
+    global _SEQ_SHARD
+    prev = _SEQ_SHARD
+    _SEQ_SHARD = (seq_axis, max(int(seq_div), 1))
+    try:
+        yield
+    finally:
+        _SEQ_SHARD = prev
+
+
+def seq_div_for(axis: str) -> Optional[int]:
+    """seq_div inside activation_sharding with seq_axis `axis`, else
+    None."""
+    if _SEQ_SHARD is None or _SEQ_SHARD[0] != axis:
+        return None
+    return _SEQ_SHARD[1]
 
 
 def maybe_shard(x: torch.Tensor, kind: str = "btd") -> torch.Tensor:

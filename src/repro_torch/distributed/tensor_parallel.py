@@ -71,6 +71,28 @@ all-gather forward whose backward is this rank's chunk of the gradient
 gradient every rank holds whole). Outside the context every module runs
 as it did.
 
+Sequence parallelism (JAX's seq_shard_acts): inside sharding.
+activation_sharding with seq_axis "model", a model's forward or prefill
+cuts its residual stream of S positions to each rank's S / tp (`stream`:
+the model axis active and S dividing by seq_div and tp; decode's S = 1
+never does). Every module enters through
+`block_in` and leaves through `block_out`, the one place that chooses
+between the two pairs of collectives: with the stream whole,
+copy_to_model in and reduce_from_model out (a replicated module: none);
+with it cut, the input all-gathered over S (gather_from_model, a
+reduce-scatter backward; gather_to_stream for a replicated module) and
+the partial sums reduce-scattered over S (scatter_from_model, an
+all-gather backward; a replicated module's output cut to the rank's rows,
+cut_to_stream). So each norm that feeds a block runs on the rank's rows,
+its weight's gradient summed over the axis (layers.RMSNorm with stream);
+the vocab-parallel lookup reduce-scatters; the logits gather S first;
+the MoE routes every position and reduce-scatters after the combine (its
+router's gradient summed); the RWKV channel mix turns its gated chunk of
+d into the stream's rows by one all-to-all (`channels_to_rows`); and
+prefill's last position is gathered from the ranks' last rows (`last`).
+Where the stream is not cut, every site runs the collectives above and
+gives the same bits.
+
 Serving (every family) splits the same units but holds its cut:
 `shard_for_serving` cuts a whole model once to what model-axis rank r
 computes, and the serving step (train/steps.py make_prefill_step /
@@ -115,7 +137,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.sharding import (P, _reduce_scatter,
-                                              local_shape, param_pspecs)
+                                              local_shape, param_pspecs,
+                                              seq_div_for)
 from repro_torch.launch.mesh import (MeshAxis, dp_axes, mesh_axis,
                                      mesh_axis_sizes, tp_axis)
 
@@ -123,6 +146,12 @@ from repro_torch.launch.mesh import (MeshAxis, dp_axes, mesh_axis,
 # a thread-local: remat's recompute and the backward run on the autograd
 # engine's threads.
 _AXIS: Optional[MeshAxis] = None
+
+
+# The model axis the residual stream is cut over (sequence parallelism)
+# inside a model's `stream` region, else None. A process global too;
+# layers.remat re-enters it around its recompute.
+_STREAM: Optional[MeshAxis] = None
 
 
 def active() -> Optional[MeshAxis]:
@@ -141,6 +170,37 @@ def tensor_parallel(axis: Optional[MeshAxis]):
         yield
     finally:
         _AXIS = prev
+
+
+def stream_axis() -> Optional[MeshAxis]:
+    """The axis the residual stream is cut over in this region, else
+    None."""
+    return _STREAM
+
+
+@contextlib.contextmanager
+def stream_as(axis: Optional[MeshAxis]):
+    """A region whose residual stream is cut over `axis` (None: whole)."""
+    global _STREAM
+    prev = _STREAM
+    _STREAM = axis
+    try:
+        yield axis
+    finally:
+        _STREAM = prev
+
+
+def stream(length: int):
+    """The region of a model's residual stream of `length` positions: cut
+    over the active model axis to each rank's length / tp positions where
+    sharding.activation_sharding's seq_axis names that axis and length
+    divides by its seq_div and by tp (JAX's maybe_shard guard); else
+    whole (off the axis, a world of one, S % tp != 0, a decode step's
+    S = 1)."""
+    axis, div = _AXIS, seq_div_for("model")
+    cut = (axis is not None and div is not None and length % div == 0
+           and length % axis.size == 0)
+    return stream_as(axis if cut else None)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -215,6 +275,57 @@ class _GatherToStream(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n), None, None
 
 
+class _CutToStream(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        n = x.shape[dim] // axis.size
+        return x.narrow(dim, axis.index * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_gather_cat(g, ctx.dim), None, None
+
+
+def _all_to_all(front: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """front (tp, ...): front[j] to rank j; returns what rank i sent here
+    at [i]."""
+    out = torch.empty_like(front)
+    dist.all_to_all_single(out, front, group=axis.group)
+    return out
+
+
+def _rows_of(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """(b, S, c) of this rank's channels -> (b, S / tp, tp c): this rank's
+    rows of every rank's channels, in rank order."""
+    b, S, c = x.shape
+    tp = axis.size
+    front = x.reshape(b, tp, S // tp, c).permute(1, 2, 0, 3).contiguous()
+    return _all_to_all(front, axis).permute(2, 1, 0, 3).reshape(
+        b, S // tp, tp * c)
+
+
+def _channels_of(g: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """_rows_of's inverse: (b, s, tp c) -> (b, tp s, c)."""
+    b, s, C = g.shape
+    tp = axis.size
+    front = g.reshape(b, s, tp, C // tp).permute(2, 1, 0, 3).contiguous()
+    return _all_to_all(front, axis).permute(2, 0, 1, 3).reshape(
+        b, tp * s, C // tp)
+
+
+class _ChannelsToRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _rows_of(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _channels_of(g, ctx.axis), None
+
+
 def copy_to_model(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """x forward; its gradient summed over the model axis backward."""
     return _CopyToModel.apply(x, axis)
@@ -252,6 +363,70 @@ def gather_to_stream(x: torch.Tensor, dim: int,
     consumer; backward, this rank's chunk of the gradient, which every
     rank holds whole."""
     return _GatherToStream.apply(x, dim, axis)
+
+
+def cut_to_stream(x: torch.Tensor, dim: int,
+                  axis: MeshAxis) -> torch.Tensor:
+    """This rank's chunk along dim of x, which every rank holds whole;
+    backward, the ranks' gradient chunks concatenated (every rank's
+    whole gradient)."""
+    return _CutToStream.apply(x, dim, axis)
+
+
+def channels_to_rows(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """(b, S, d / tp) on this rank's chunk of d -> (b, S / tp, d) on its
+    chunk of S: one all-to-all each way."""
+    return _ChannelsToRows.apply(x, axis)
+
+
+def block_in(x: torch.Tensor, sharded: bool = True) -> torch.Tensor:
+    """The input a module computes on, from the residual stream x (b, S,
+    d), for a module that computes tensor-parallel (`sharded`) or
+    replicated over the model axis. Off the axis, x. On it, with the
+    stream whole: copy_to_model for a sharded module (each rank's
+    gradient a partial sum), x for a replicated one. With the stream cut
+    (`stream`): x all-gathered over S, by gather_from_model for a sharded
+    module (a reduce-scatter backward) and gather_to_stream for a
+    replicated one (backward, this rank's rows of the whole gradient)."""
+    axis = _AXIS
+    if axis is None:
+        return x
+    if _STREAM is not None:
+        return (gather_from_model if sharded else gather_to_stream)(
+            x, 1, _STREAM)
+    return copy_to_model(x, axis) if sharded else x
+
+
+def block_out(y: torch.Tensor, sharded: bool = True) -> torch.Tensor:
+    """block_in's pair, a module's output (b, S, d) back to the stream.
+    Off the axis, y. With the stream whole: reduce_from_model of a sharded
+    module's partial sums, y of a replicated one. With it cut: the partial
+    sums reduce-scattered over S (scatter_from_model), or a replicated
+    output cut to this rank's rows (cut_to_stream: an all-gather
+    backward)."""
+    axis = _AXIS
+    if axis is None:
+        return y
+    if _STREAM is not None:
+        return (scatter_from_model if sharded else cut_to_stream)(
+            y, 1, _STREAM)
+    return reduce_from_model(y, axis) if sharded else y
+
+
+def cut(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """A tensor every rank holds whole, at the stream's positions along
+    dim: this rank's chunk where the stream is cut (cut_to_stream), else
+    x."""
+    return x if _STREAM is None else cut_to_stream(x, dim, _STREAM)
+
+
+def last(x: torch.Tensor) -> torch.Tensor:
+    """The stream's last position, (b, d), on every rank: x[:, -1], or
+    where the stream is cut (the last position is the last rank's) the
+    ranks' last rows all-gathered, (b, tp, d), and the last taken."""
+    if _STREAM is None:
+        return x[:, -1]
+    return _STREAM.all_gather_cat(x[:, -1:], 1)[:, -1]
 
 
 Span = Tuple[int, int]
@@ -317,12 +492,15 @@ def embedding(table: torch.Tensor, tokens: torch.Tensor,
               axis: MeshAxis) -> torch.Tensor:
     """The vocab-parallel lookup: this rank's rows of the table (its
     vocabulary chunk) looked up where the token falls in them, zeros
-    elsewhere, summed over the model axis. One rank adds a non-zero, so
-    the rows keep their bits."""
+    elsewhere, summed over the model axis (reduce-scattered over S to
+    this rank's rows where the stream is cut). One rank adds a
+    non-zero, so the rows keep their bits."""
     n = table.shape[0]
     local = tokens.long() - axis.index * n
     inside = (local >= 0) & (local < n)
     x = table[local.clamp(0, n - 1)].masked_fill(~inside[..., None], 0)
+    if _STREAM is not None:
+        return scatter_from_model(x, 1, _STREAM)
     return reduce_from_model(x, axis)
 
 

@@ -40,6 +40,12 @@ until B / M divides by dp).
     collective bytes it must move. JAX's grid gives every arch
     prefill_32k and decode_32k (specs.cell_supported skips only
     long_500k, for all but LONG_OK).
+Every cell's step runs inside sharding.activation_sharding(dp axes,
+seq_axis="model" if cfg.seq_shard_acts else None, seq_div=tp), as JAX's
+run_cell enters it: with the flag on (--overrides '{"seq_shard_acts":
+true}'), each stream whose length divides by tp is cut over the model
+axis between blocks (sequence parallelism, distributed/
+tensor_parallel.py's `stream`), and the plans count its collectives.
 
 The record has JAX's keys (dryrun.py:155-175) with JAX's meanings, but:
   - lower_s: the seconds of building the fake state and inputs, and
@@ -226,14 +232,33 @@ def train_plan(cfg: ArchConfig, micro: int, mesh, B: int,
         reduce-scatter (the gate saves its output), and the MoE's
         all-reduce, whose output the gates' product saves; not the dense
         MLP's, which ends the block, nor the channel mix's final
-        all-gather (as measured on the dry run)."""
+        all-gather (as measured on the dry run).
+    With cfg.seq_shard_acts and S dividing by tp (whisper's encoder on its
+    own guard, n_audio_frames), the stream is cut over the model axis
+    (sequence parallelism): each module's entry all-gathers its input,
+    (b, S, d), forward (and in remat's replay) and reduce-scatters its
+    gradient backward, in place of the gradient's all-reduce; its exit
+    reduce-scatters the partial sums forward (replayed where the
+    all-reduce was) and all-gathers the gradient backward, in place of
+    the all-reduce; a module that computes replicated all-gathers its
+    input forward and its output's gradient backward. The MoE gathers
+    every position, reduce-scatters after the combine (not replayed: it
+    ends the block) and all-reduces its f32 router's gradient; the RWKV
+    channel mix moves its product by an all-to-all, (b, S / tp, d), each
+    way; each stream norm's f32 (d,) gradient is all-reduced; the lookup
+    reduce-scatters forward and all-gathers backward (the vlm's lookup
+    stays whole and its concatenation's cut all-gathers backward); the
+    logits all-gather S forward and reduce-scatter backward; whisper's
+    encoder output all-gathers over the frames where they were cut and
+    reduce-scatters its gradient."""
     dp_n, tp = _sizes(mesh)
     model = get_api(cfg).init(cfg, tp, device="meta")
     spec = shd.state_pspecs(TrainState(model, {}), mesh, zero1=cfg.zero1)
     cspec = TP.compute_specs(model, mesh)
     names = tuple(mesh.mesh_dim_names)
     dp = dp_axes(mesh)
-    out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0}
+    out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0,
+           "all-to-all": 0.0}
 
     def gathers(shape, pspec, itemsize, to=None):
         n = math.prod(shd.local_shape(shape, pspec, mesh)) * itemsize
@@ -272,6 +297,36 @@ def train_plan(cfg: ArchConfig, micro: int, mesh, B: int,
     return out
 
 
+def _block(out: Dict[str, float], X: int, tp: int, sharded: bool,
+           seq: bool, enter: int = 1, leave: int = 1,
+           backward: bool = True) -> None:
+    """Adds to `out` the collectives of tensor_parallel's block_in and
+    block_out around one module on a stream of X bytes, each sized by its
+    result: `enter` and `leave` the forward runs of each (remat's replay
+    counted; 0, a side not run), with `backward` their gradients'
+    collectives too. A sharded module: with the stream whole, the
+    gradient's all-reduce in and the all-reduce out; with it cut, an
+    all-gather in and a reduce-scatter of (b, S / tp, d) out, and the
+    reverse backward. A replicated module: nothing with the stream whole;
+    with it cut, the all-gather in and, backward, the output's gradient
+    all-gathered."""
+    if enter:
+        if seq:
+            out["all-gather"] += X * enter
+            if sharded and backward:
+                out["reduce-scatter"] += X // tp
+        elif sharded and backward:
+            out["all-reduce"] += X
+    if leave:
+        if seq:
+            if sharded:
+                out["reduce-scatter"] += X // tp * leave
+            if backward:
+                out["all-gather"] += X
+        elif sharded:
+            out["all-reduce"] += X * leave
+
+
 def _tp_plan(cfg: ArchConfig, model, cspec, b: int, S: int, groups: int,
              tp: int) -> Dict[str, float]:
     """One microbatch's tensor-parallel collectives (train_plan)."""
@@ -279,12 +334,15 @@ def _tp_plan(cfg: ArchConfig, model, cspec, b: int, S: int, groups: int,
     from repro_torch.models.rglru import RGLRUBlock
     from repro_torch.models.rwkv6 import RWKVBlock, _LORA
     from repro_torch.models.whisper import CrossAttention
-    out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0}
+    out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0,
+           "all-to-all": 0.0}
     cut = {name for name, s in cspec.items() if any(s)}
     ai = L.dtype_of(cfg.param_dtype).itemsize       # the residual stream's
     d, replay = cfg.d_model, 2 if cfg.remat else 1
-    T_enc = b * cfg.n_audio_frames                  # whisper's encoder
-    enc_grad = 0
+    F = cfg.n_audio_frames
+    T_enc = b * F                                   # whisper's encoder
+    sp = cfg.seq_shard_acts and S % tp == 0         # the streams cut
+    sp_enc = cfg.seq_shard_acts and F % tp == 0
     spans = TP.attention_spans(cfg, tp)
 
     def weights(mod, names):
@@ -300,22 +358,31 @@ def _tp_plan(cfg: ArchConfig, model, cspec, b: int, S: int, groups: int,
     attention = tuple((n, 1 if n != "wo" else 0, spans[n])
                       for n in ("wq", "wk", "wv", "wo"))
     for prefix, mod in model.named_modules():
-        T = T_enc if prefix.startswith("enc_layers.") else b * S
-        if isinstance(mod, L.Attention) and f"{prefix}.wq" in cut:
-            weights(mod, attention)
-            out["all-reduce"] += T * d * ai * (replay + 1)
-            if cfg.qk_norm:
-                out["all-reduce"] += 2 * cfg.head_dim * 4
-        elif isinstance(mod, CrossAttention) and f"{prefix}.wq" in cut:
-            weights(mod, attention)          # K / V at T_enc, q at b S
-            out["all-reduce"] += T * d * ai * (replay + 1)
-            enc_grad = T_enc * d * ai        # once, whatever the depth
-        elif isinstance(mod, RGLRUBlock) and f"{prefix}.w_in" in cut:
-            out["all-gather"] += T * d * ai * replay
-            out["reduce-scatter"] += T * d * ai // tp
-            out["all-reduce"] += T * d * ai * (replay + 1) + d * 4
+        enc = prefix.startswith("enc_layers.") or prefix == "enc_ln"
+        T, seq = (T_enc, sp_enc) if enc else (b * S, sp)
+        X = T * d * ai
+        if isinstance(mod, L.RMSNorm) and mod.stream and seq:
+            out["all-reduce"] += d * 4      # its weight's gradient
+        elif isinstance(mod, (L.Attention, CrossAttention)):
+            sharded = f"{prefix}.wq" in cut
+            # K / V at T_enc, q at b S; remat replays block_out where a
+            # later tensor of the block saves its output.
+            _block(out, X, tp, sharded, seq, replay, replay)
+            if sharded:
+                weights(mod, attention)
+                if cfg.qk_norm and isinstance(mod, L.Attention):
+                    out["all-reduce"] += 2 * cfg.head_dim * 4
+        elif isinstance(mod, RGLRUBlock):
+            sharded = f"{prefix}.w_in" in cut
+            _block(out, X, tp, sharded, seq, replay, replay)
+            if sharded:
+                out["all-gather"] += X * replay     # u, on every position
+                out["reduce-scatter"] += X // tp
+                out["all-reduce"] += d * 4          # lam's gradient
         elif isinstance(mod, RWKVBlock):
-            if f"{prefix}.wr" in cut:
+            sharded = f"{prefix}.wr" in cut
+            _block(out, X, tp, sharded, seq, replay, replay)  # time mix
+            if sharded:
                 dh = cfg.rwkv_head_dim
                 chans = TP.head_channels(d // dh, dh, tp)
                 weights(mod, tuple((n, 1 if n != "wo" else 0, chans)
@@ -323,31 +390,54 @@ def _tp_plan(cfg: ArchConfig, model, cspec, b: int, S: int, groups: int,
                 whole = mod.wb.numel() * mod.wb.element_size()
                 out["all-gather"] += (whole + T * _LORA * ai) * replay
                 out["reduce-scatter"] += (whole + T * _LORA * ai) // tp
-                # wo's sum (replayed), ln_x's f32 sum of squares both ways
-                # (replayed), x's gradient, the eight vectors' f32 ones.
-                out["all-reduce"] += T * d * ai * (replay + 1) \
-                    + T * 4 * (replay + 1) + 8 * d * 4
+                # ln_x's f32 sum of squares both ways (replayed), the eight
+                # vectors' f32 gradients.
+                out["all-reduce"] += T * 4 * (replay + 1) + 8 * d * 4
             if f"{prefix}.ck" in cut:
-                # cv's reduce-scatter (replayed: the gate saves it) and its
-                # all-gather backward, the product's all-gather, x's
-                # gradient and mu_ck / mu_cr's.
-                out["reduce-scatter"] += T * d * ai // tp * replay
-                out["all-gather"] += 2 * T * d * ai
-                out["all-reduce"] += T * d * ai + 2 * d * 4
-        elif isinstance(mod, L.DenseMLP) and f"{prefix}.w1" in cut:
-            out["all-reduce"] += 2 * T * d * ai
-        elif isinstance(mod, L.MoE) and f"{prefix}.w1" in cut:
-            G = min(groups, T)
-            C = max(1, int(cfg.top_k * (T // G) * 1.25 / cfg.n_experts))
-            out["all-reduce"] += G * cfg.n_experts * C * d * ai * (
-                2 if cfg.remat else 1) + G * (T // G) * d * ai
-    if "embed" in cut:
-        text = S - (min(cfg.n_patch_tokens, S // 2)
-                    if cfg.family == "vlm" else 0)
-        out["all-reduce"] += b * text * d * ai
-    if "unembed" in cut:
-        out["all-reduce"] += b * S * (d * ai + 3 * 4)
-    out["all-reduce"] += enc_grad           # the encoder output's
+                # x's entry; cv's reduce-scatter (replayed: the gate saves
+                # it) and its all-gather backward; the product into the
+                # stream: an all-gather over d (its backward a narrow), or
+                # with the stream cut an all-to-all each way; mu_ck /
+                # mu_cr's gradients.
+                _block(out, X, tp, True, seq, replay, 0)
+                out["reduce-scatter"] += X // tp * replay
+                out["all-gather"] += X
+                if seq:
+                    out["all-to-all"] += 2 * X // tp
+                else:
+                    out["all-gather"] += X
+                out["all-reduce"] += 2 * d * 4
+            else:
+                _block(out, X, tp, False, seq, replay, 1)
+        elif isinstance(mod, L.DenseMLP):
+            _block(out, X, tp, f"{prefix}.w1" in cut, seq, replay, 1)
+        elif isinstance(mod, L.MoE):
+            sharded = f"{prefix}.w1" in cut
+            if seq:                 # reduce-scattered after the combine
+                _block(out, X, tp, sharded, seq, replay, 1)
+                if sharded:
+                    out["all-reduce"] += d * cfg.n_experts * 4  # router
+            elif sharded:           # the (G, E, C, d) expert outputs
+                G = min(groups, T)
+                C = max(1, int(cfg.top_k * (T // G) * 1.25 / cfg.n_experts))
+                out["all-reduce"] += G * cfg.n_experts * C * d * ai * replay \
+                    + X
+    X = b * S * d * ai
+    text = S - (min(cfg.n_patch_tokens, S // 2)
+                if cfg.family == "vlm" else 0)
+    if cfg.family == "vlm" or not sp:   # the lookup, whole
+        if "embed" in cut:
+            out["all-reduce"] += b * text * d * ai
+        if sp:                          # the concatenation cut
+            out["all-gather"] += X
+    else:
+        _block(out, X, tp, "embed" in cut, sp, enter=0)
+    _block(out, X, tp, "unembed" in cut, sp, leave=0)
+    if "unembed" in cut:                # the loss's max, sum of exp, gold
+        out["all-reduce"] += b * S * 3 * 4
+    if cfg.family == "encdec":          # the encoder output, once
+        _block(out, T_enc * d * ai, tp,
+               any(n.endswith(".xattn.wq") for n in cut), sp_enc, leave=0)
     return out
 
 
@@ -379,12 +469,21 @@ def serve_plan(cfg: ArchConfig, kind: str, mesh, B: int,
         (b, V), where the vocabulary is cut, then over each data axis of
         size > 1, innermost first, where the rows were split, (B, V) at
         the last;
-    and no weight's collective."""
+    and no weight's collective. With cfg.seq_shard_acts and S_q dividing
+    by tp (whisper's encoder on its n_audio_frames), each unit's
+    all-reduce becomes an all-gather of its input, (b, S_q, d), and a
+    reduce-scatter of its output, (b, S_q / tp, d) (a replicated unit:
+    the all-gather alone; the MoE's at the tokens, not its expert
+    outputs); the channel mix's all-gather into the stream an all-to-all,
+    (b, S_q / tp, d); the lookup's a reduce-scatter; the last position
+    all-gathered from the ranks' last rows, (b, tp, d); and whisper's
+    encoder output all-gathered over its frames where they were cut."""
     from repro_torch.models import layers as L
     from repro_torch.models.rglru import RGLRUBlock
     from repro_torch.models.rwkv6 import RWKVBlock
     from repro_torch.models.whisper import CrossAttention
-    out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0}
+    out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0,
+           "all-to-all": 0.0}
     dp_n, tp = _sizes(mesh)
     groups, _ = plan_cell(cfg, B, mesh)
     split = dp_n > 1 and B % dp_n == 0
@@ -399,28 +498,51 @@ def serve_plan(cfg: ArchConfig, kind: str, mesh, B: int,
     T, d = b * S_q, cfg.d_model
     T_enc = b * cfg.n_audio_frames if kind == "prefill" else 0
     ai = L.dtype_of(cfg.param_dtype).itemsize
+    sp = tp > 1 and cfg.seq_shard_acts and S_q % tp == 0
+    sp_enc = tp > 1 and cfg.seq_shard_acts and cfg.n_audio_frames % tp == 0
+
+    def unit(X, sharded, seq):
+        _block(out, X, tp, sharded, seq, backward=False)
+
     for prefix, mod in model.named_modules():
-        n = T_enc if prefix.startswith("enc_layers.") else T
-        if isinstance(mod, (L.Attention, CrossAttention)) and \
-                f"{prefix}.wq" in cuts:
-            out["all-reduce"] += n * d * ai
-        elif isinstance(mod, L.DenseMLP) and f"{prefix}.w1" in cuts:
-            out["all-reduce"] += n * d * ai
-        elif isinstance(mod, L.MoE) and f"{prefix}.w1" in cuts:
-            G = min(groups, T)
-            C = max(1, int(cfg.top_k * (T // G) * 1.25 / cfg.n_experts))
-            out["all-reduce"] += G * cfg.n_experts * C * d * ai
-        elif isinstance(mod, RGLRUBlock) and f"{prefix}.w_in" in cuts:
-            out["all-gather"] += T * d * ai
-            out["all-reduce"] += T * d * ai
+        n, seq = ((T_enc, sp_enc) if prefix.startswith("enc_layers.")
+                  else (T, sp))
+        X = n * d * ai
+        if isinstance(mod, (L.Attention, CrossAttention)):
+            unit(X, f"{prefix}.wq" in cuts, seq)
+        elif isinstance(mod, L.DenseMLP):
+            unit(X, f"{prefix}.w1" in cuts, seq)
+        elif isinstance(mod, L.MoE):
+            if f"{prefix}.w1" in cuts and not seq:
+                G = min(groups, T)
+                C = max(1, int(cfg.top_k * (T // G) * 1.25 / cfg.n_experts))
+                out["all-reduce"] += G * cfg.n_experts * C * d * ai
+            else:
+                unit(X, f"{prefix}.w1" in cuts, seq)
+        elif isinstance(mod, RGLRUBlock):
+            unit(X, f"{prefix}.w_in" in cuts, seq)
+            if f"{prefix}.w_in" in cuts:
+                out["all-gather"] += X
         elif isinstance(mod, RWKVBlock):
+            unit(X, f"{prefix}.wr" in cuts, seq)
             if f"{prefix}.wr" in cuts:
-                out["all-reduce"] += T * d * ai + T * 4
+                out["all-reduce"] += T * 4
             if f"{prefix}.ck" in cuts:
                 out["reduce-scatter"] += T * (d // tp) * ai
-                out["all-gather"] += T * d * ai
-    if "embed" in cuts:
-        out["all-reduce"] += T * d * ai
+                if seq:
+                    out["all-gather"] += X
+                    out["all-to-all"] += X // tp
+                else:
+                    out["all-gather"] += X
+            else:
+                unit(X, False, seq)
+    _block(out, T * d * ai, tp, "embed" in cuts, sp, enter=0,
+           backward=False)
+    if sp:
+        out["all-gather"] += b * tp * d * ai        # the last position
+    if cfg.family == "encdec":                      # the encoder output
+        _block(out, T_enc * d * ai, tp, True, sp_enc, leave=0,
+               backward=False)
     V = model.vocab
     if "unembed" in cuts:
         out["all-gather"] += b * V * 4
@@ -498,7 +620,10 @@ def measure(cfg: ArchConfig, kind: str, B: int, S: int, mesh) -> dict:
             args = (model, inputs, cache)
         t_build = time.perf_counter() - t0
         t0 = time.perf_counter()
-        res = analyze(step, *args)
+        with shd.activation_sharding(
+                dp_axes(mesh), seq_div=tp,
+                seq_axis="model" if cfg.seq_shard_acts else None):
+            res = analyze(step, *args)
         t_run = time.perf_counter() - t0
         del res["result"], args
     mem = res["memory"]

@@ -34,7 +34,12 @@ of rows at a time so that no f32 copy of a whole weight exists.
 The KV cache is written in place (JAX returns a new cache): one layer's
 (B, T, Hkv, hd) view of the model's stacked cache. JAX's `maybe_shard`
 calls (activation layout hints that change no value) are left out: the
-port's `distributed.sharding.maybe_shard` returns its input.
+port's `distributed.sharding.maybe_shard` returns its input. Where JAX's
+seq_shard_acts makes them cut the sequence (sharding.activation_sharding
+with seq_axis "model"), the models enter tensor_parallel's `stream`
+region, and the modules here reach the stream only through its
+`block_in` / `block_out` (and the stream norms, `RMSNorm(stream=True)`),
+which gather S at a module's entry and reduce-scatter it at its exit.
 
 Tensor-parallel compute: inside distributed/tensor_parallel.py's context,
 the full-sequence forward of `Attention`, `DenseMLP` and `MoE` (and
@@ -53,6 +58,7 @@ context runs on whole weights as above.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -75,21 +81,24 @@ def tp_ops():
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  vocab: int) -> torch.Tensor:
     """table[tokens]; the vocab-parallel lookup (tensor_parallel's
-    `embedding`) where the sharded step gave the table a vocab chunk."""
+    `embedding`) where the sharded step gave the table a vocab chunk.
+    Where the stream is cut (tensor_parallel's `stream`), this rank's
+    rows of it."""
     axis = tp_ops().active()
     if axis is not None and table.shape[0] != vocab:
         return tp_ops().embedding(table, tokens, axis)
-    return table[tokens]
+    return tp_ops().cut(table[tokens])
 
 
 def logits(x: torch.Tensor, unembed: torch.Tensor, vocab: int
            ) -> torch.Tensor:
     """(x @ unembed) in f32; this rank's vocab chunk of them where the
     sharded step gave the unembedding one (x's gradient summed over the
-    model axis)."""
+    model axis). Where the stream is cut, x (b, S / tp, d) is gathered
+    over S first (tensor_parallel's block_in), so the logits cover every
+    position."""
     axis = tp_ops().active()
-    if axis is not None and unembed.shape[1] != vocab:
-        x = tp_ops().copy_to_model(x, axis)
+    x = tp_ops().block_in(x, axis is not None and unembed.shape[1] != vocab)
     return (x @ unembed).float()
 
 
@@ -136,8 +145,13 @@ def remat(cfg: ArchConfig, fn, *args, **kwargs):
     set and autograd is recording: only the inputs are kept and the
     backward recomputes the rest, as JAX's jax.checkpoint of a scan body
     does. The recompute runs the same operations, so no number changes;
-    serving (no_grad) runs fn as it is."""
+    serving (no_grad) runs fn as it is. Inside a cut stream region
+    (tensor_parallel's `stream`) the recompute re-enters it."""
     if cfg.remat and torch.is_grad_enabled():
+        axis = tp_ops().stream_axis()
+        if axis is not None:
+            kwargs["context_fn"] = lambda: (contextlib.nullcontext(),
+                                            tp_ops().stream_as(axis))
         return checkpoint(fn, *args, use_reentrant=False, **kwargs)
     return fn(*args, **kwargs)
 
@@ -151,11 +165,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
 
 
 class RMSNorm(nn.Module):
-    """rms_norm with an f32 weight of ones (layers.py:22 `_norm_init`)."""
+    """rms_norm with an f32 weight of ones (layers.py:22 `_norm_init`).
+    `stream`: the norm reads the residual stream, so where the stream is
+    cut (tensor_parallel's `stream`) it runs on this rank's positions and
+    its weight's gradient is summed over the model axis."""
 
-    def __init__(self, d: int, device=None, eps: float = 1e-6):
+    def __init__(self, d: int, device=None, eps: float = 1e-6,
+                 stream: bool = False):
         super().__init__()
         self.eps = eps
+        self.stream = stream
         self.weight = empty_param((d,), torch.float32, device)
 
     @torch.no_grad()
@@ -169,7 +188,10 @@ class RMSNorm(nn.Module):
         over the axis (both ways), the weight cut to the span (its
         gradient summed over the axis)."""
         if axis is None:
-            return rms_norm(x, self.weight, self.eps)
+            seq = tp_ops().stream_axis() if self.stream else None
+            w = self.weight if seq is None else \
+                tp_ops().copy_to_model(self.weight, seq)
+            return rms_norm(x, w, self.eps)
         TP, (a, b) = tp_ops(), span
         xf = x.float()
         var = TP.sum_over_model((xf * xf).sum(-1, keepdim=True),
@@ -294,17 +316,22 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, window: int = 0, causal: bool = True,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """layers.py:120 `apply_attention`."""
-        S = x.shape[1]
-        if positions is None:
-            positions = torch.arange(S, device=x.device)[None, :]
+        """layers.py:120 `apply_attention`. Entered and left through
+        tensor_parallel's block_in / block_out: where the stream is cut,
+        x holds this rank's positions and the attention runs on all S."""
         axis = tp_ops().active()
         if self.serve_heads is None and axis is not None and \
                 self.wq.shape[1] != self.cfg.n_heads * self.cfg.head_dim:
             return self._forward_tp(x, positions, window, causal, axis)
+        held = self.serve_heads is not None
+        x = tp_ops().block_in(x, held)
+        S = x.shape[1]
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
         q, k, v = self.qkv(x, positions)
         mask = _mask(S, window, causal, x.device)
-        return self._attend(q, k, v, mask, self.cfg.attn_scores_f32)
+        return tp_ops().block_out(
+            self._attend(q, k, v, mask, self.cfg.attn_scores_f32), held)
 
     def _forward_tp(self, x, positions, window, causal, axis) -> torch.Tensor:
         """forward on this rank's query heads (tensor_parallel's split) and
@@ -312,7 +339,6 @@ class Attention(nn.Module):
         rank with no head runs the same operations on empty heads: it
         makes every collective the others make and adds zeros."""
         cfg, TP = self.cfg, tp_ops()
-        B, S = x.shape[:2]
         hd, g = cfg.head_dim, cfg.q_per_kv
         spans = TP.attention_spans(cfg, axis.size)
         wq, wk, wv, wo = (TP.take(getattr(self, n), 1 if n != "wo" else 0,
@@ -320,7 +346,10 @@ class Attention(nn.Module):
                           for n in ("wq", "wk", "wv", "wo"))
         h0, h1 = TP.head_span(cfg.n_heads, axis.size, axis.index)
         k0, k1 = TP.kv_span(cfg.n_heads, g, axis.size, axis.index)
-        x = TP.copy_to_model(x, axis)
+        x = TP.block_in(x)
+        B, S = x.shape[:2]
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
         q = (x @ wq).reshape(B, S, h1 - h0, hd)
         k = (x @ wk).reshape(B, S, k1 - k0, hd)
         v = (x @ wv).reshape(B, S, k1 - k0, hd)
@@ -334,23 +363,21 @@ class Attention(nn.Module):
         mask = _mask(S, window, causal, x.device)
         k, v, group = kv_group(k, v, (h0, h1), (k0, k1), g)
         out = sdpa(q, k, v, mask, group, cfg.attn_scores_f32)
-        return TP.reduce_from_model(out @ wo, axis)
+        return TP.block_out(out @ wo)
 
     def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask: torch.Tensor, scores_f32: bool = True) -> torch.Tensor:
-        """sdpa and wo for forward, prefill and decode. On a rank's
-        serving heads (shard_for_serving) inside tensor-parallel compute:
-        kv_group's grouping of the rank's heads and KV heads, wo's rows of
-        those heads and the sum over the model axis (zeros from a rank
-        with no head, which makes the same collective)."""
+        """sdpa and wo for forward, prefill and decode, before the sum over
+        the model axis (the callers' block_out). On a rank's serving heads
+        (shard_for_serving): kv_group's grouping of the rank's heads and KV
+        heads and wo's rows of those heads (zeros from a rank with no
+        head, which makes the same collectives)."""
         if self.serve_heads is None:
             return sdpa(q, k, v, mask, self.cfg.q_per_kv, scores_f32) \
                 @ self.wo
         heads, kvs = self.serve_heads
         k, v, group = kv_group(k, v, heads, kvs, self.cfg.q_per_kv)
-        return tp_ops().reduce_from_model(
-            sdpa(q, k, v, mask, group, scores_f32) @ self.wo,
-            tp_ops().active())
+        return sdpa(q, k, v, mask, group, scores_f32) @ self.wo
 
     def prefill(self, x: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, window: int = 0) -> torch.Tensor:
@@ -358,7 +385,11 @@ class Attention(nn.Module):
         output and writes this layer's cache (B, T, Hkv, hd) in place with
         the last T positions, position p at slot p % T (the ring layout
         decode continues), zeros past S. On a rank's serving heads the
-        cache holds the rank's KV heads (B, T, k1 - k0, hd)."""
+        cache holds the rank's KV heads (B, T, k1 - k0, hd). Where the
+        stream is cut, x and the output hold this rank's positions and
+        the cache every position (block_in / block_out)."""
+        held = self.serve_heads is not None
+        x = tp_ops().block_in(x, held)
         B, S = x.shape[:2]
         T = k_cache.shape[1]
         q, k, v = self.qkv(x, torch.arange(S, device=x.device)[None, :])
@@ -374,7 +405,7 @@ class Attention(nn.Module):
             v_cache[:, :S] = v
             k_cache[:, S:] = 0
             v_cache[:, S:] = 0
-        return out
+        return tp_ops().block_out(out, held)
 
     def decode(self, x: torch.Tensor, k_cache: torch.Tensor,
                v_cache: torch.Tensor, pos: int,
@@ -401,8 +432,9 @@ class Attention(nn.Module):
         # JAX also ands in (slot - idx) % T < T, which always holds.
         mask = ((idx <= slot) | (pos >= T)) if window else idx <= pos
         mask = mask[None, None, None, :].expand(B, 1, 1, T)
-        return self._attend(q, k_cache.to(v.dtype), v_cache.to(v.dtype),
-                            mask)
+        return tp_ops().block_out(
+            self._attend(q, k_cache.to(v.dtype), v_cache.to(v.dtype), mask),
+            self.serve_heads is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -444,11 +476,10 @@ class DenseMLP(nn.Module):
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
         axis = tp_ops().active()
         tp = axis is not None and self.w1.shape[1] != self.cfg.d_ff
-        if tp:                              # w1 / w3 by columns, w2 by rows
-            x = tp_ops().copy_to_model(x, axis)
+        x = tp_ops().block_in(x, tp)        # w1 / w3 by columns, w2 by rows
         b = x @ self.w3 if gated(self.cfg) else None
         y = act(self.cfg, x @ self.w1, b) @ self.w2
-        return tp_ops().reduce_from_model(y, axis) if tp else y
+        return tp_ops().block_out(y, tp)
 
 
 class MoE(nn.Module):
@@ -480,15 +511,18 @@ class MoE(nn.Module):
             dense_init_(self.w3, generator, scale_dim=d)
         dense_init_(self.router, generator)
 
-    def route(self, xg: torch.Tensor,
-              capacity_factor: float = 1.25) -> Tuple[torch.Tensor,
-                                                      torch.Tensor]:
+    def route(self, xg: torch.Tensor, capacity_factor: float = 1.25,
+              router: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """xg: (G, Tg, d) -> (sel_vals, sel_idx), each (G, E, C): per
-        expert its C tokens of highest gate and their gates."""
+        expert its C tokens of highest gate and their gates. `router`:
+        the router weight as the caller computes with it (self.router by
+        default)."""
         G, Tg, _ = xg.shape
         E, topk = self.cfg.n_experts, self.cfg.top_k
+        router = self.router if router is None else router
         # Router matmul in the activation dtype, then upcast (as JAX).
-        logits = (xg @ self.router.to(xg.dtype)).float()
+        logits = (xg @ router.to(xg.dtype)).float()
         probs = torch.softmax(logits, dim=-1)
         top_vals, top_idx = torch.topk(probs, topk, dim=-1)     # (G,Tg,topk)
         top_vals = top_vals / top_vals.sum(-1, keepdim=True)
@@ -499,33 +533,44 @@ class MoE(nn.Module):
 
     def forward(self, x: torch.Tensor, groups: int = 1,
                 capacity_factor: float = 1.25) -> torch.Tensor:
+        # Tensor-parallel: the expert ffn dim over the model axis (JAX's
+        # moe_gecf pin), the routing replicated. With the stream whole,
+        # the partial sums are reduced before the gates weigh them (the
+        # router's gradient sees whole expert outputs). With it cut, the
+        # routing groups see every position (block_in gathers S), the
+        # gated partial sums are combined into tokens and reduce-scattered
+        # over S after the combine (block_out; the combine is linear), and
+        # the router's gradient, a partial sum then, is summed.
+        axis, seq = tp_ops().active(), tp_ops().stream_axis()
+        tp = axis is not None and self.w1.shape[2] != self.cfg.d_ff
+        router = self.router
+        if seq is not None:
+            x = tp_ops().block_in(x, tp)
+            if tp:
+                router = tp_ops().copy_to_model(router, axis)
         B, S, d = x.shape
         T = B * S
         G = min(groups, T)
         Tg = T // G
         xg = x.reshape(G, Tg, d)
-        sel_vals, sel_idx = self.route(xg, capacity_factor)
+        sel_vals, sel_idx = self.route(xg, capacity_factor, router)
         E, C = sel_idx.shape[1:]
-        # Tensor-parallel: the expert ffn dim over the model axis (JAX's
-        # moe_gecf pin), the routing replicated, the partial sums reduced
-        # before the gates weigh them (the router's gradient sees whole
-        # expert outputs).
-        axis = tp_ops().active()
-        tp = axis is not None and self.w1.shape[2] != self.cfg.d_ff
-        xs = tp_ops().copy_to_model(xg, axis) if tp else xg
+        whole = tp and seq is None
+        xs = tp_ops().copy_to_model(xg, axis) if whole else xg
         xe = xs[torch.arange(G, device=x.device)[:, None, None], sel_idx]
         a = torch.einsum("gecd,edf->gecf", xe, self.w1)
         b = (torch.einsum("gecd,edf->gecf", xe, self.w3)
              if gated(self.cfg) else None)
         y = torch.einsum("gecf,efd->gecd", act(self.cfg, a, b), self.w2)
-        if tp:
+        if whole:
             y = tp_ops().reduce_from_model(y, axis)
         y = y * sel_vals[..., None].to(y.dtype)
         # Scatter-add back to token order, in y's dtype (as JAX's .at[].add).
         out = torch.zeros((G, Tg, d), dtype=y.dtype, device=x.device)
         out.scatter_add_(1, sel_idx.reshape(G, E * C, 1).expand(G, E * C, d),
                          y.reshape(G, E * C, d))
-        return out.reshape(B, S, d)
+        out = out.reshape(B, S, d)
+        return out if seq is None else tp_ops().block_out(out, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -535,9 +580,9 @@ class MoE(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device=None):
         super().__init__()
-        self.ln1 = RMSNorm(cfg.d_model, device)
+        self.ln1 = RMSNorm(cfg.d_model, device, stream=True)
         self.attn = Attention(cfg, dtype, device)
-        self.ln2 = RMSNorm(cfg.d_model, device)
+        self.ln2 = RMSNorm(cfg.d_model, device, stream=True)
         self.mlp = (MoE if cfg.n_experts else DenseMLP)(cfg, dtype, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:

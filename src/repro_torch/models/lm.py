@@ -24,7 +24,11 @@ cut: the vocab-parallel lookup, the rank's heads and its cache of their
 KV heads, the MLP and expert columns, and the rank's vocab chunk of the
 f32 logits, all-gathered over the model axis so that every rank returns
 the whole padded vocabulary's. Outside that context they run on whole
-weights.
+weights. Inside sharding.activation_sharding with seq_axis "model",
+`forward` and `prefill` cut the residual stream between blocks to each
+rank's S / tp positions where S divides (sequence parallelism,
+tensor_parallel's `stream`); prefill's last position, on the last
+rank's chunk, is gathered for the logits (`tensor_parallel.last`).
 """
 from __future__ import annotations
 
@@ -56,7 +60,7 @@ class LM(nn.Module):
         self.embed = L.empty_param((V, d), dtype, device)
         self.layers = nn.ModuleList(L.Block(cfg, dtype, device)
                                     for _ in range(cfg.n_layers))
-        self.ln_f = L.RMSNorm(d, device)
+        self.ln_f = L.RMSNorm(d, device, stream=True)
         self.unembed = L.empty_param((d, V), dtype, device)
         if device.type != "meta":
             self.reset_parameters(
@@ -80,10 +84,22 @@ class LM(nn.Module):
         """tokens: (B, S_text) int; prefix_embeds: (B, S_img, d) (the
         pixtral stub). Returns logits (B, S, vocab_padded) in f32; under
         tensor-parallel compute with the vocabulary sharded, this rank's
-        chunk of them (distributed/tensor_parallel.py)."""
+        chunk of them (distributed/tensor_parallel.py). Under sequence
+        parallelism (tensor_parallel's `stream`) the blocks run on this
+        rank's positions of the whole sequence, the vlm's prefix included
+        (JAX guards on the concatenated length)."""
+        TP = L.tp_ops()
+        if prefix_embeds is None:
+            with TP.stream(tokens.shape[1]):
+                return self._run(L.embed_lookup(self.embed, tokens,
+                                                self.vocab), groups)
         x = L.embed_lookup(self.embed, tokens, self.vocab)  # (B, S_text, d)
-        if prefix_embeds is not None:
-            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        with TP.stream(x.shape[1]):
+            return self._run(TP.cut(x), groups)
+
+    def _run(self, x: torch.Tensor, groups: int) -> torch.Tensor:
+        """The blocks, the final norm and the logits on the stream x."""
         win = window_of(self.cfg)
         for blk in self.layers:
             x = L.remat(self.cfg, blk, x, groups=groups, window=win)
@@ -99,13 +115,14 @@ class LM(nn.Module):
         """Run the prompt, fill the KV cache, return the last position's
         logits (B, vocab_padded) in f32 (lm.py:77 `prefill_lm`)."""
         S = tokens.shape[1]
-        x = L.embed_lookup(self.embed, tokens, self.vocab)
         win = window_of(self.cfg)
-        for i, blk in enumerate(self.layers):
-            x = blk.prefill(x, cache["k"][i], cache["v"][i], groups, win)
-        x = self.ln_f(x)
+        with L.tp_ops().stream(S):
+            x = L.embed_lookup(self.embed, tokens, self.vocab)
+            for i, blk in enumerate(self.layers):
+                x = blk.prefill(x, cache["k"][i], cache["v"][i], groups, win)
+            x = L.tp_ops().last(self.ln_f(x))
         cache["pos"] = S
-        return L.serve_logits(x[:, -1], self.unembed, self.vocab), cache
+        return L.serve_logits(x, self.unembed, self.vocab), cache
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: Cache,

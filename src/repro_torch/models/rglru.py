@@ -43,7 +43,12 @@ cut: the attention on the rank's heads and its ring cache of their KV
 head, each RG-LRU block on its held lru channels with h and the conv
 state of those channels (`serve_channels`), and the logits of the whole
 padded vocabulary on every rank. Outside that context they run on whole
-weights.
+weights. Under sequence parallelism (sharding.activation_sharding with
+seq_axis "model"; tensor_parallel's `stream`) `forward` and `prefill`
+hold each rank's S / tp positions of the residual stream between blocks;
+each RG-LRU block gathers S at its entry (block_in), so the conv and the
+scan still see every position, and reduce-scatters its w_out sum over S
+(block_out).
 """
 from __future__ import annotations
 
@@ -115,7 +120,7 @@ class RGLRUBlock(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device=None):
         super().__init__()
         d = cfg.d_model
-        self.ln = L.RMSNorm(d, device)
+        self.ln = L.RMSNorm(d, device, stream=True)
         self.w_in = L.empty_param((d, d), dtype, device)      # x branch
         self.w_gate = L.empty_param((d, d), dtype, device)    # gelu gate
         self.conv_w = L.empty_param((4, d), dtype, device)
@@ -123,7 +128,7 @@ class RGLRUBlock(nn.Module):
         self.w_x = L.empty_param((d, d), dtype, device)       # input gate
         self.lam = L.empty_param((d,), torch.float32, device)
         self.w_out = L.empty_param((d, d), dtype, device)
-        self.ln2 = L.RMSNorm(d, device)
+        self.ln2 = L.RMSNorm(d, device, stream=True)
         self.mlp = L.DenseMLP(cfg, dtype, device)
         # [a, b): the lru channels this rank holds, set by
         # tensor_parallel.shard_for_serving; None when whole.
@@ -175,7 +180,7 @@ class RGLRUBlock(nn.Module):
         state returned are the rank's channels."""
         TP = L.tp_ops()
         n = self.w_in.shape[1]
-        xin = TP.copy_to_model(self.ln(x), axis)
+        xin = TP.block_in(self.ln(x))
         u, conv_state = causal_conv4(xin @ self.w_in, self.conv_w, conv0)
         whole = TP.gather_from_model(u, -1, axis)
         r = torch.sigmoid(_mm(whole, self.w_a).float())
@@ -188,8 +193,7 @@ class RGLRUBlock(nn.Module):
         h = rglru_scan(log_a, beta * (i * u.float()), h0)
         gate = F.gelu((xin @ self.w_gate).float(),
                       approximate="tanh").to(x.dtype)
-        x = x + TP.reduce_from_model((h.to(x.dtype) * gate) @ self.w_out,
-                                     axis)
+        x = x + TP.block_out((h.to(x.dtype) * gate) @ self.w_out)
         return x + self.mlp(self.ln2(x), groups), h[:, -1], conv_state
 
     def step(self, x: torch.Tensor, h0: Optional[torch.Tensor] = None,
@@ -199,13 +203,14 @@ class RGLRUBlock(nn.Module):
         (x: (B, 1, d); h0: (B, d) f32; conv0: (B, 3, d)); on a rank's
         serving channels (shard_for_serving) inside tensor-parallel
         compute, `_step_tp` with the state of those channels."""
+        TP = L.tp_ops()
         if self.serve_channels is not None:
-            return self._step_tp(x, groups, L.tp_ops().active(), h0, conv0)
-        xin = self.ln(x)
+            return self._step_tp(x, groups, TP.active(), h0, conv0)
+        xin = TP.block_in(self.ln(x), False)
         h, h_last, conv_state = self.core(xin, h0, conv0)
         gate = F.gelu((xin @ self.w_gate).float(),
                       approximate="tanh").to(x.dtype)
-        x = x + (h * gate) @ self.w_out
+        x = x + TP.block_out((h * gate) @ self.w_out, False)
         return x + self.mlp(self.ln2(x), groups), h_last, conv_state
 
 
@@ -239,7 +244,7 @@ class RG(nn.Module):
         self.layers = nn.ModuleList(
             RGLRUBlock(cfg, dtype, device) if c == "R"
             else L.Block(cfg, dtype, device) for c in self.kinds)
-        self.ln_f = L.RMSNorm(d, device)
+        self.ln_f = L.RMSNorm(d, device, stream=True)
         self.unembed = L.empty_param((d, V), dtype, device)
         if device.type != "meta":
             self.reset_parameters(
@@ -260,12 +265,13 @@ class RG(nn.Module):
         """rglru.py:159 `forward_rg`: logits (B, S, vocab_padded) f32;
         under tensor-parallel compute with the vocabulary sharded, this
         rank's chunk of them (distributed/tensor_parallel.py)."""
-        x = L.embed_lookup(self.embed, tokens, self.vocab)
-        for kind, blk in zip(self.kinds, self.layers):
-            x = (L.remat(self.cfg, blk, x, groups) if kind == "R"
-                 else L.remat(self.cfg, blk, x, groups,
-                              window=self.cfg.window))
-        return L.logits(self.ln_f(x), self.unembed, self.vocab)
+        with L.tp_ops().stream(tokens.shape[1]):
+            x = L.embed_lookup(self.embed, tokens, self.vocab)
+            for kind, blk in zip(self.kinds, self.layers):
+                x = (L.remat(self.cfg, blk, x, groups) if kind == "R"
+                     else L.remat(self.cfg, blk, x, groups,
+                                  window=self.cfg.window))
+            return L.logits(self.ln_f(x), self.unembed, self.vocab)
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16) -> Cache:
@@ -278,21 +284,23 @@ class RG(nn.Module):
         h_last and conv state and each A layer's ring KV (the last T
         positions at slot p % T) into `cache`; return the last position's
         logits (B, vocab_padded) f32."""
-        x = L.embed_lookup(self.embed, tokens, self.vocab)
+        TP = L.tp_ops()
         ri = ai = 0
-        for kind, blk in zip(self.kinds, self.layers):
-            if kind == "R":
-                x, h_last, conv = blk.step(x, groups=groups)
-                cache["h"][ri].copy_(h_last)
-                cache["conv"][ri].copy_(conv)
-                ri += 1
-            else:
-                x = blk.prefill(x, cache["k"][ai], cache["v"][ai], groups,
-                                self.cfg.window)
-                ai += 1
+        with TP.stream(tokens.shape[1]):
+            x = L.embed_lookup(self.embed, tokens, self.vocab)
+            for kind, blk in zip(self.kinds, self.layers):
+                if kind == "R":
+                    x, h_last, conv = blk.step(x, groups=groups)
+                    cache["h"][ri].copy_(h_last)
+                    cache["conv"][ri].copy_(conv)
+                    ri += 1
+                else:
+                    x = blk.prefill(x, cache["k"][ai], cache["v"][ai],
+                                    groups, self.cfg.window)
+                    ai += 1
+            x = TP.last(self.ln_f(x))
         cache["pos"] = tokens.shape[1]
-        return L.serve_logits(self.ln_f(x)[:, -1], self.unembed,
-                              self.vocab), cache
+        return L.serve_logits(x, self.unembed, self.vocab), cache
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: Cache,

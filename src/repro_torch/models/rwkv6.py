@@ -49,7 +49,15 @@ tensor_parallel.shard_for_serving cut: each time mix on its held heads
 with their f32 state s, each channel mix on its held chunks, tm and cm
 whole (the normed inputs lie on the replicated stream), and the logits
 of the whole padded vocabulary on every rank. Outside that context they
-run on whole weights.
+run on whole weights. Under sequence parallelism (sharding.
+activation_sharding with seq_axis "model"; tensor_parallel's `stream`)
+`forward` and `prefill` hold each rank's S / tp positions of the
+residual stream between units: the time mix gathers S before its token
+shift and reduce-scatters its wo sum over S; the channel mix gathers S,
+and its gated chunk of d goes back to the stream by one all-to-all
+(tensor_parallel.channels_to_rows), (b, S, d / tp) to (b, S / tp, d),
+1 / tp of the bytes of gathering it over d and keeping the rank's rows.
+tm and cm are the gathered inputs' last positions.
 """
 from __future__ import annotations
 
@@ -137,7 +145,7 @@ class RWKVBlock(nn.Module):
         self.cfg = cfg
         d, f = cfg.d_model, cfg.d_ff
         f32 = torch.float32
-        self.ln1 = L.RMSNorm(d, device)
+        self.ln1 = L.RMSNorm(d, device, stream=True)
         for name in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "w0", "u"):
             setattr(self, name, L.empty_param((d,), f32, device))
         for name in ("wr", "wk", "wv", "wg", "wo", "cr"):
@@ -145,7 +153,7 @@ class RWKVBlock(nn.Module):
         self.wa = L.empty_param((d, _LORA), dtype, device)
         self.wb = L.empty_param((_LORA, d), dtype, device)
         self.ln_x = L.RMSNorm(d, device)
-        self.ln2 = L.RMSNorm(d, device)
+        self.ln2 = L.RMSNorm(d, device, stream=True)
         self.mu_ck = L.empty_param((d,), f32, device)
         self.mu_cr = L.empty_param((d,), f32, device)
         self.ck = L.empty_param((d, f), dtype, device)
@@ -213,51 +221,65 @@ class RWKVBlock(nn.Module):
              cm_prev: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, State]:
         """rwkv6.py:172 `apply_rwkv_block`: (x, (state, tm, cm)); no
-        state0 is a zero state, no tm / cm a zero shift. On a model that
-        tensor_parallel.shard_for_serving cut, inside tensor-parallel
-        compute, each cut unit runs on what it holds (`serve_heads`: the
-        time mix's heads, whose state it carries; `serve_chunk`: the
-        channel mix); tm and cm are the whole normed inputs."""
+        state0 is a zero state, no tm / cm a zero shift. Under
+        tensor-parallel compute each unit whose weights the train step
+        cut, or that tensor_parallel.shard_for_serving cut (`serve_heads`:
+        the time mix's heads, whose state it carries; `serve_chunk`: the
+        channel mix), runs on its shard; tm and cm are the last position
+        of the whole normed inputs (gathered where the stream is cut)."""
         axis = L.tp_ops().active()
-        xin = self.ln1(x)
-        if self.serve_heads is not None:
-            a, state = self._time_mix_tp(xin, axis, state0, tm_prev)
+        x, state, tm = self._time(x, axis, state0, tm_prev)
+        x, cm = self._channel(x, axis, cm_prev)
+        return x, (state, tm, cm)
+
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        """The block from a zero state (`step`)."""
+        return self.step(x)[0]
+
+    def _time(self, x: torch.Tensor, axis,
+              state0: Optional[torch.Tensor] = None,
+              x_prev: Optional[torch.Tensor] = None):
+        """x plus the time mix of its normed input, the unit entered and
+        left through tensor_parallel's block_in / block_out (so on every
+        position where the stream is cut): (that sum, the state, a copy
+        of the normed input's last position; a view would keep the whole
+        input alive)."""
+        TP = L.tp_ops()
+        tp = self.serve_heads is not None or (
+            axis is not None and self.wr.shape[1] != self.cfg.d_model)
+        xin = TP.block_in(self.ln1(x), tp)
+        if tp:
+            a, state = self._time_mix_tp(xin, axis, state0, x_prev)
         else:
             if state0 is None:
                 dh = self.cfg.rwkv_head_dim
-                state0 = x.new_zeros((x.shape[0], x.shape[2] // dh, dh, dh),
-                                     dtype=torch.float32)
-            a, state = self.time_mix(xin, state0, tm_prev)
-        x = x + a
-        cin = self.ln2(x)
-        c = (self._channel_mix_tp(cin, axis, cm_prev)
-             if self.serve_chunk is not None
-             else self.channel_mix(cin, cm_prev))
-        return x + c, (state, xin[:, -1], cin[:, -1])
+                state0 = xin.new_zeros(
+                    (xin.shape[0], xin.shape[2] // dh, dh, dh),
+                    dtype=torch.float32)
+            a, state = self.time_mix(xin, state0, x_prev)
+        return x + TP.block_out(a, tp), state, xin[:, -1].clone()
 
-    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
-        """The block from a zero state; under tensor-parallel compute each
-        unit whose weights the step cut computes on its shard."""
-        axis = L.tp_ops().active()
-        tm = axis is not None and self.wr.shape[1] != self.cfg.d_model
-        cm = axis is not None and self.ck.shape[1] != self.cfg.d_ff
-        if not (tm or cm):
-            return self.step(x)[0]
-        xin = self.ln1(x)
-        dh = self.cfg.rwkv_head_dim
-        x = x + (self._time_mix_tp(xin, axis)[0] if tm else self.time_mix(
-            xin, xin.new_zeros((x.shape[0], x.shape[2] // dh, dh, dh),
-                               dtype=torch.float32))[0])
-        xin = self.ln2(x)
-        return x + (self._channel_mix_tp(xin, axis) if cm
-                    else self.channel_mix(xin))
+    def _channel(self, x: torch.Tensor, axis,
+                 x_prev: Optional[torch.Tensor] = None):
+        """x plus the channel mix of its normed input, as `_time`: (that
+        sum, a copy of the normed input's last position)."""
+        TP = L.tp_ops()
+        if self.serve_chunk is not None or (
+                axis is not None and self.ck.shape[1] != self.cfg.d_ff):
+            c, last = self._channel_mix_tp(self.ln2(x), axis, x_prev)
+        else:
+            cin = TP.block_in(self.ln2(x), False)
+            c = TP.block_out(self.channel_mix(cin, x_prev), False)
+            last = cin[:, -1].clone()
+        return x + c, last
 
     def _time_mix_tp(self, x: torch.Tensor, axis,
                      state0: Optional[torch.Tensor] = None,
                      x_prev: Optional[torch.Tensor] = None):
         """time_mix's output and state on this rank's heads, [ceil(r H /
-        tp), ceil((r + 1) H / tp)): wr / wk / wv / wg column-parallel and
-        wo row-parallel on their channels, summed over the axis after wo;
+        tp), ceil((r + 1) H / tp)), from x as block_in gives it: wr / wk /
+        wv / wg column-parallel and wo row-parallel on their channels, the
+        partial sums after wo returned for the caller's block_out;
         w0 and u cut to the channels; ln_x normalizes over the whole width
         (RMSNorm.forward with the axis); the state (B, heads, dh, dh) of
         those heads (zeros for None). In training the weights are the
@@ -292,7 +314,6 @@ class RWKVBlock(nn.Module):
         def shared(t):             # replicated: its gradient summed
             return TP.copy_to_model(t, axis)
 
-        x = shared(x)
         xs = shift(x, x_prev)
         r = mix(x, xs, shared(self.mu_r)) @ wr
         k = mix(x, xs, shared(self.mu_k)) @ wk
@@ -315,27 +336,32 @@ class RWKVBlock(nn.Module):
                                  u.reshape(n, dh), state0, cfg.rwkv_chunk)
         out = self.ln_x(out.reshape(B, S, b - a), axis, (a, b))
         out = (out * F.silu(g.float())).to(x.dtype)
-        return TP.reduce_from_model(out @ wo, axis), state
+        return out @ wo, state
 
     def _channel_mix_tp(self, x: torch.Tensor, axis,
-                        x_prev: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
-        """channel_mix's output: ck column-parallel over d_ff, cv
-        row-parallel, its partial sums reduce-scattered to the rank's
-        chunk of d and there gated by the sigmoid of cr's columns
-        (column-parallel over d); the product all-gathered into the
-        residual stream (its gradient is this rank's chunk of the whole
-        one every rank holds). Training's shards and serving's held
-        chunks (`serve_chunk`) are the same."""
+                        x_prev: Optional[torch.Tensor] = None):
+        """channel_mix's output and its input's last position: ck
+        column-parallel over d_ff, cv row-parallel, its partial sums
+        reduce-scattered to the rank's chunk of d and there gated by the
+        sigmoid of cr's columns (column-parallel over d). With the stream
+        whole, the product is all-gathered over d into it (its gradient
+        this rank's chunk of the whole one every rank holds); with it cut
+        (x gathered over S by block_in), one all-to-all turns the rank's
+        chunk of d at every position into every channel at its positions,
+        (b, S / tp, d). Training's shards and serving's held chunks
+        (`serve_chunk`) are the same."""
         TP = L.tp_ops()
-        x = TP.copy_to_model(x, axis)
+        x = TP.block_in(x)
         xs = shift(x, x_prev)
         k = mix(x, xs, TP.copy_to_model(self.mu_ck, axis)) @ self.ck
         r = mix(x, xs, TP.copy_to_model(self.mu_cr, axis)) @ self.cr
         kk = F.relu(k)
         part = TP.scatter_from_model((kk * kk) @ self.cv, -1, axis)
-        return TP.gather_to_stream(
-            torch.sigmoid(r.float()).to(x.dtype) * part, -1, axis)
+        out = torch.sigmoid(r.float()).to(x.dtype) * part
+        last = x[:, -1].clone()
+        if TP.stream_axis() is not None:
+            return TP.channels_to_rows(out, axis), last
+        return TP.gather_to_stream(out, -1, axis), last
 
 
 class RWKV(nn.Module):
@@ -352,7 +378,7 @@ class RWKV(nn.Module):
         self.embed = L.empty_param((V, d), dtype, device)
         self.layers = nn.ModuleList(RWKVBlock(cfg, dtype, device)
                                     for _ in range(cfg.n_layers))
-        self.ln_f = L.RMSNorm(d, device)
+        self.ln_f = L.RMSNorm(d, device, stream=True)
         self.unembed = L.empty_param((d, V), dtype, device)
         if device.type != "meta":
             self.reset_parameters(
@@ -374,10 +400,11 @@ class RWKV(nn.Module):
         """rwkv6.py:200 `forward_rwkv`: logits (B, S, vocab_padded) f32;
         under tensor-parallel compute with the vocabulary sharded, this
         rank's chunk of them (distributed/tensor_parallel.py)."""
-        x = L.embed_lookup(self.embed, tokens, self.vocab)
-        for blk in self.layers:
-            x = L.remat(self.cfg, blk, x)
-        return L.logits(self.ln_f(x), self.unembed, self.vocab)
+        with L.tp_ops().stream(tokens.shape[1]):
+            x = L.embed_lookup(self.embed, tokens, self.vocab)
+            for blk in self.layers:
+                x = L.remat(self.cfg, blk, x)
+            return L.logits(self.ln_f(x), self.unembed, self.vocab)
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16) -> Cache:
@@ -390,13 +417,15 @@ class RWKV(nn.Module):
         write each layer's state, tm and cm (cast to the cache's dtype)
         into `cache`; return the last position's logits (B, vocab_padded)
         f32."""
-        x = L.embed_lookup(self.embed, tokens, self.vocab)
-        for i, blk in enumerate(self.layers):
-            x, state = blk.step(x)
-            self._write(cache, i, state)
+        TP = L.tp_ops()
+        with TP.stream(tokens.shape[1]):
+            x = L.embed_lookup(self.embed, tokens, self.vocab)
+            for i, blk in enumerate(self.layers):
+                x, state = blk.step(x)
+                self._write(cache, i, state)
+            x = TP.last(self.ln_f(x))
         cache["pos"] = tokens.shape[1]
-        return L.serve_logits(self.ln_f(x)[:, -1], self.unembed,
-                              self.vocab), cache
+        return L.serve_logits(x, self.unembed, self.vocab), cache
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: Cache,

@@ -54,7 +54,15 @@ model-axis shards: the vocab-parallel embedding and logits, every
 self-attention (encoder and decoder) and cross-attention by heads, every
 MLP by columns. The encoder output passes `copy_to_model` once before the
 decoder loop: each layer's K/V projection gives it a partial gradient,
-and one all-reduce sums them all. So do `prefill` and `decode` (the
+and one all-reduce sums them all. Under sequence parallelism
+(sharding.activation_sharding with seq_axis "model"; tensor_parallel's
+`stream`) the encoder's stream holds each rank's F / tp frames where F
+divides and the decoder's each rank's S / tp positions where S divides,
+each on its own guard (whisper's 1,500 frames at tp 16 stay whole); the
+encoder output is all-gathered over the frames where they were cut
+(`gather_from_model`, whose reduce-scatter backward sums the layers'
+partial gradients), the cross-attention gathers its queries over S and
+reduce-scatters its wo sum. So do `prefill` and `decode` (the
 mesh's serving steps) on a model that tensor_parallel.shard_for_serving
 cut: the encoder's attention on the rank's held heads (`layers.Attention.
 forward` with `serve_heads`) and its MLP by columns, each decoder
@@ -160,30 +168,30 @@ class CrossAttention(nn.Module):
         tensor-parallel, this rank's query heads (in training wq gathered
         where they are not its chunk; in serving held, `serve_heads`) over
         the KV heads of `kv`, wo row-parallel and summed over the axis."""
-        cfg = self.cfg
+        cfg, TP = self.cfg, L.tp_ops()
+        axis = self.tp_axis()
+        held = self.serve_heads is not None
+        x = TP.block_in(x, held or axis is not None)
         B, S, _ = x.shape
         mask = torch.ones((1, 1, S, k.shape[1]), dtype=torch.bool,
                           device=x.device)
-        axis = self.tp_axis()
-        if self.serve_heads is not None:
-            TP = L.tp_ops()
+        if held:
             axis, wq, wo = TP.active(), self.wq, self.wo
             heads, kvs = self.serve_heads
         elif axis is None:
             q = (x @ self.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
-            return L.sdpa(q, k, v, mask, cfg.q_per_kv) @ self.wo
+            return TP.block_out(L.sdpa(q, k, v, mask, cfg.q_per_kv)
+                                @ self.wo, False)
         else:
-            TP = L.tp_ops()
             spans = TP.attention_spans(cfg, axis.size)
             wq = TP.take(self.wq, 1, spans["wq"], axis)
             wo = TP.take(self.wo, 0, spans["wo"], axis)
             heads = TP.head_span(cfg.n_heads, axis.size, axis.index)
             kvs = TP.kv_span(cfg.n_heads, cfg.q_per_kv, axis.size,
                              axis.index)
-        q = (TP.copy_to_model(x, axis) @ wq).reshape(
-            B, S, heads[1] - heads[0], cfg.head_dim)
+        q = (x @ wq).reshape(B, S, heads[1] - heads[0], cfg.head_dim)
         k, v, group = L.kv_group(k, v, heads, kvs, cfg.q_per_kv)
-        return TP.reduce_from_model(L.sdpa(q, k, v, mask, group) @ wo, axis)
+        return TP.block_out(L.sdpa(q, k, v, mask, group) @ wo)
 
 
 class DecBlock(nn.Module):
@@ -193,11 +201,11 @@ class DecBlock(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device=None):
         super().__init__()
         d = cfg.d_model
-        self.ln1 = L.RMSNorm(d, device)
+        self.ln1 = L.RMSNorm(d, device, stream=True)
         self.attn = L.Attention(cfg, dtype, device)
-        self.ln_x = L.RMSNorm(d, device)
+        self.ln_x = L.RMSNorm(d, device, stream=True)
         self.xattn = CrossAttention(cfg, dtype, device)
-        self.ln2 = L.RMSNorm(d, device)
+        self.ln2 = L.RMSNorm(d, device, stream=True)
         self.mlp = L.DenseMLP(cfg, dtype, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -241,10 +249,10 @@ class Whisper(nn.Module):
         self.vocab = V
         self.enc_layers = nn.ModuleList(L.Block(cfg, dtype, device)
                                         for _ in range(cfg.n_encoder_layers))
-        self.enc_ln = L.RMSNorm(d, device)
+        self.enc_ln = L.RMSNorm(d, device, stream=True)
         self.dec_layers = nn.ModuleList(DecBlock(cfg, dtype, device)
                                         for _ in range(cfg.n_layers))
-        self.ln_f = L.RMSNorm(d, device)
+        self.ln_f = L.RMSNorm(d, device, stream=True)
         self.embed = L.empty_param((V, d), dtype, device)
         self.unembed = L.empty_param((d, V), dtype, device)
         if device.type != "meta":
@@ -268,17 +276,28 @@ class Whisper(nn.Module):
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """whisper.py:90 `encode`: frames (B, F, d) -> the encoder output
-        (B, F, d) in the frames' dtype."""
-        x = frames + sinusoid(frames.shape[1], self.cfg.d_model,
-                              frames.device).to(frames.dtype)
-        for blk in self.enc_layers:
-            x = L.remat(self.cfg, blk, x, causal=False)
-        return self.enc_ln(x)
+        (B, F, d) in the frames' dtype. Under sequence parallelism the
+        encoder's stream holds each rank's F / tp frames where F divides
+        (the frames carry no gradient), and its output is gathered over
+        the frames for the cross K/V. Under tensor-parallel compute the
+        output enters the cross-attentions through block_in once: each
+        layer's K/V projection gives it a partial gradient, and one
+        collective sums them all."""
+        cross = self.dec_layers[0].xattn.tp_axis() is not None
+        TP = L.tp_ops()
+        with TP.stream(frames.shape[1]):
+            x = TP.cut(frames + sinusoid(frames.shape[1], self.cfg.d_model,
+                                         frames.device).to(frames.dtype))
+            for blk in self.enc_layers:
+                x = L.remat(self.cfg, blk, x, causal=False)
+            return TP.block_in(self.enc_ln(x), cross)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embedding plus the sinusoid, at the stream's
+        positions."""
         x = L.embed_lookup(self.embed, tokens, self.vocab)
-        return x + sinusoid(tokens.shape[1], self.cfg.d_model,
-                            x.device).to(x.dtype)
+        return x + L.tp_ops().cut(sinusoid(tokens.shape[1], self.cfg.d_model,
+                                           x.device), 0).to(x.dtype)
 
     def forward(self, tokens: torch.Tensor, frames: torch.Tensor,
                 groups: int = 1) -> torch.Tensor:
@@ -286,13 +305,11 @@ class Whisper(nn.Module):
         vocab_padded) in f32; under tensor-parallel compute with the
         vocabulary sharded, this rank's chunk of them."""
         enc = self.encode(frames)
-        axis = self.dec_layers[0].xattn.tp_axis()
-        if axis is not None:
-            enc = L.tp_ops().copy_to_model(enc, axis)
-        x = self._embed(tokens)
-        for blk in self.dec_layers:
-            x = L.remat(self.cfg, _dec_body, blk, x, enc, groups)
-        return L.logits(self.ln_f(x), self.unembed, self.vocab)
+        with L.tp_ops().stream(tokens.shape[1]):
+            x = self._embed(tokens)
+            for blk in self.dec_layers:
+                x = L.remat(self.cfg, _dec_body, blk, x, enc, groups)
+            return L.logits(self.ln_f(x), self.unembed, self.vocab)
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16) -> Cache:
@@ -306,17 +323,19 @@ class Whisper(nn.Module):
         write every layer's k, v, xk and xv into `cache`; return the last
         position's logits (B, vocab_padded) f32."""
         enc = self.encode(frames)
-        x = self._embed(tokens)
-        for i, blk in enumerate(self.dec_layers):
-            x = x + blk.attn.prefill(blk.ln1(x), cache["k"][i],
-                                     cache["v"][i])
-            xk, xv = blk.xattn.kv(enc)
-            cache["xk"][i].copy_(xk)
-            cache["xv"][i].copy_(xv)
-            x = blk.cross_and_mlp(x, xk, xv, groups)
+        TP = L.tp_ops()
+        with TP.stream(tokens.shape[1]):
+            x = self._embed(tokens)
+            for i, blk in enumerate(self.dec_layers):
+                x = x + blk.attn.prefill(blk.ln1(x), cache["k"][i],
+                                         cache["v"][i])
+                xk, xv = blk.xattn.kv(enc)
+                cache["xk"][i].copy_(xk)
+                cache["xv"][i].copy_(xv)
+                x = blk.cross_and_mlp(x, xk, xv, groups)
+            x = TP.last(self.ln_f(x))
         cache["pos"] = tokens.shape[1]
-        return L.serve_logits(self.ln_f(x)[:, -1], self.unembed,
-                              self.vocab), cache
+        return L.serve_logits(x, self.unembed, self.vocab), cache
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: Cache,

@@ -46,9 +46,16 @@ batch):
     and returns the global gradient, which JAX's hook sees;
   - AdamW runs on the local shards; the grad norm counts each element
     once (a chunk replicated over an axis counts on its coordinate 0).
-A world whose model axis has size 1 runs the same operations as before
-tensor-parallel compute, and a world of one rank the same as the meshless
-step, bit for bit. Over a model axis > 1 the row-parallel sums and the
+Inside sharding.activation_sharding with seq_axis "model" (JAX's
+seq_shard_acts; the dry run enters it, the launcher does not) the
+models cut the residual stream over the model axis between blocks where
+S divides (distributed/tensor_parallel.py's `stream`): the step itself
+is unchanged, and every parameter's gradient is still whole or the
+rank's chunk when the hooks read it (a stream norm's and the MoE
+router's are summed over the axis where they are computed). A world
+whose model axis has size 1 runs the same operations as before
+tensor-parallel compute, the switch on or off, and a world of one rank
+the same as the meshless step, bit for bit. Over a model axis > 1 the row-parallel sums and the
 split logsumexp change the order of sums, so the numbers match JAX's to
 f32 rounding, not bit for bit.
 

@@ -422,3 +422,81 @@ def test_plan_cell_follows_jax():
     assert dryrun.plan_cell(cfg, 1, mesh) == (1, 1)
     assert dryrun.plan_cell(dataclasses.replace(cfg, microbatches=3), 256,
                             mesh) == (16, 2)
+
+
+SEQ_FAMILIES = ("phi4-mini-3.8b", "mixtral-8x7b", "pixtral-12b",
+                "recurrentgemma-2b", "rwkv6-1.6b", "whisper-large-v3")
+
+
+@pytest.mark.parametrize("seq", (True, False), ids=("seq", "whole"))
+@pytest.mark.parametrize("arch", SEQ_FAMILIES)
+def test_sequence_parallel_train_cell_follows_the_plan(arch, seq):
+    """train_4k's batch of 256 at sequence 64 on the 16 x 16 dry-run mesh
+    at the smoke config of each family, with seq_shard_acts on (the dry
+    run enters activation_sharding(seq_axis="model", seq_div=16) as
+    JAX's run_cell does) and off: the collective bytes by kind are
+    train_plan's. On, the stream between blocks is cut over S: the
+    row-parallel all-reduces become reduce-scatters and all-gathers
+    (rwkv6's channel mix an all-to-all each way), and only the small
+    all-reduces (norm weights, the loss) stay."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              seq_shard_acts=seq)
+    B, S = specs.SHAPES["train_4k"]["batch"], 64
+    mesh = make_dryrun_mesh()
+    try:
+        rec = dryrun.measure(cfg, "train", B, S, mesh)
+        plan = dryrun.train_plan(cfg, rec["microbatches"], mesh, B, S)
+    finally:
+        destroy_dryrun_mesh(mesh)
+    got = rec["analysis"]["collective_bytes"]
+    assert {k: v for k, v in got.items() if v} == {
+        k: float(v) for k, v in plan.items() if v}
+    whole = dryrun.train_plan(dataclasses.replace(cfg, seq_shard_acts=False),
+                              rec["microbatches"], mesh, B, S)
+    tokens = B // 16 // rec["microbatches"] * S
+    if seq:
+        assert plan["all-reduce"] < whole["all-reduce"]
+        assert plan["reduce-scatter"] > whole["reduce-scatter"]
+        assert bool(plan["all-to-all"]) == (cfg.family == "ssm")
+    else:
+        assert plan == whole and not plan["all-to-all"]
+        assert plan["all-reduce"] > tokens * cfg.d_model * 4
+
+
+@pytest.mark.parametrize("seq", (True, False), ids=("seq", "whole"))
+@pytest.mark.parametrize("arch", SEQ_FAMILIES)
+def test_sequence_parallel_prefill_cell_follows_the_plan(arch, seq):
+    """prefill_32k at published width, 2 layers (whisper 2 + 2), on the
+    16 x 16 dry-run mesh with seq_shard_acts on and off: the collective
+    bytes by kind are serve_plan's. On, each block gathers S at its entry
+    and reduce-scatters at its exit, the lookup reduce-scatters and the
+    last position is gathered for the logits; whisper's 1,500 frames do
+    not divide by 16, so its encoder keeps its all-reduces, and rwkv6's
+    ln_x keeps its f32 sums of squares."""
+    depth = {"n_layers": 2}
+    if arch == "whisper-large-v3":
+        depth["n_encoder_layers"] = 2
+    cfg = dataclasses.replace(get_config(arch), seq_shard_acts=seq, **depth)
+    sh = specs.SHAPES["prefill_32k"]
+    B, S = sh["batch"], sh["seq"]
+    mesh = make_dryrun_mesh()
+    try:
+        rec = dryrun.measure(cfg, "prefill", B, S, mesh)
+        plan = dryrun.serve_plan(cfg, "prefill", mesh, B, S)
+    finally:
+        destroy_dryrun_mesh(mesh)
+    got = rec["analysis"]["collective_bytes"]
+    assert {k: v for k, v in got.items() if v} == {
+        k: float(v) for k, v in plan.items() if v}
+    whole = dryrun.serve_plan(dataclasses.replace(cfg, seq_shard_acts=False),
+                              "prefill", mesh, B, S)
+    if seq:
+        assert plan["reduce-scatter"] > whole["reduce-scatter"]
+        assert plan["all-reduce"] < whole["all-reduce"]
+        b, ai = B // 16, 2                   # the rank's rows, bf16
+        encoder = 2 * 2 * b * 1500 * cfg.d_model * ai  # 2 layers, 2 sums
+        ln_x = 2 * b * S * 4                 # rwkv6's f32 sums of squares
+        assert plan["all-reduce"] == {"encdec": encoder,
+                                      "ssm": ln_x}.get(cfg.family, 0)
+    else:
+        assert plan == whole and not plan["all-to-all"]

@@ -11,7 +11,9 @@ the rank cuts each of its cases' models for serving
 (tensor_parallel.shard_for_serving), prefills its f32 cache from the
 global batch through make_prefill_step(mesh=) at groups = DATA where the
 batch splits over it (else 1), then takes STEPS greedy steps through
-make_decode_step(mesh=). It writes to `out_RANK.npz` each parameter's
+make_decode_step(mesh=); a case with "seq" true runs both inside
+sharding.activation_sharding(seq_axis="model", seq_div=MODEL), JAX's
+seq_shard_acts switch. It writes to `out_RANK.npz` each parameter's
 shape after the cut, each cache leaf's shape, the logits, the greedy
 tokens and every cache leaf after prefill and after the last step. No
 JAX runs here and no check asserts here: the test compares.
@@ -28,7 +30,8 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.distributed import tensor_parallel as TP
-from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.distributed.sharding import activation_sharding
+from repro_torch.launch.mesh import dp_axes, make_debug_mesh
 from repro_torch.models import get_api
 from repro_torch.train import make_decode_step, make_prefill_step
 
@@ -36,6 +39,13 @@ STEPS = 4
 
 
 def serve_case(mesh, data, inp, case, res):
+    tp = mesh.shape[list(mesh.mesh_dim_names).index("model")]
+    with activation_sharding(dp_axes(mesh), seq_div=tp,
+                             seq_axis="model" if case.get("seq") else None):
+        _serve_case(mesh, data, inp, case, res)
+
+
+def _serve_case(mesh, data, inp, case, res):
     cfg = dataclasses.replace(get_config(case["arch"], smoke=True),
                               **case["cut"])
     api = get_api(cfg)

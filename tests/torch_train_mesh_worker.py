@@ -1,6 +1,6 @@
 """One rank of a gloo world for tests/test_torch_train_mesh.py.
 
-    python tests/torch_train_mesh_worker.py RANK DATA MODEL WORKDIR
+    python tests/torch_train_mesh_worker.py RANK DATA MODEL WORKDIR [cases]
 
 WORKDIR holds `store` (the FileStore), `cases.json` (each case's arch,
 config cut and the worlds it runs on) and `inputs.npz` (each case's
@@ -11,8 +11,11 @@ world (2, 1) and (1, 2), runs the launcher (`launch.train.run`) as the
 test asks. Rank 0 writes the metrics and the
 whole state gathered after every step to `out.npz`, and, over a model
 axis, the shape each parameter has when its module runs in the first
-step (a forward pre-hook). No JAX runs here and no check asserts here:
-the test compares.
+step (a forward pre-hook). A case with "seq" true steps inside
+sharding.activation_sharding(seq_axis="model", seq_div=MODEL), JAX's
+seq_shard_acts switch. With the optional last argument `cases` the rank
+runs the cases alone (no launcher, checkpoint or zero1 runs). No JAX
+runs here and no check asserts here: the test compares.
 """
 import dataclasses
 import datetime
@@ -26,9 +29,10 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.distributed.checkpoint import CheckpointManager
-from repro_torch.distributed.sharding import param_pspecs
+from repro_torch.distributed.sharding import (activation_sharding,
+                                              param_pspecs)
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.mesh import dp_axes, make_debug_mesh
 from repro_torch.models import get_api
 from repro_torch.train import (AdamWConfig, TrainState, adamw_init,
                                init_train_state, make_train_step,
@@ -94,8 +98,10 @@ def train_case(mesh, data, tp, inp, case, res, zero1=False,
            f"{name}-pregather" if pregather else name)
     hooks = (record_shapes(model, res, key)
              if tp > 1 and not (zero1 or pregather) else [])
+    seq = "model" if case.get("seq") else None
     for i in range(1, STEPS + 1):
-        _, m = step(state, batch)
+        with activation_sharding(dp_axes(mesh), seq_axis=seq, seq_div=tp):
+            _, m = step(state, batch)
         for h in hooks:
             h.remove()
         hooks = []
@@ -162,7 +168,9 @@ def main():
         if [data, tp] in case["worlds"]:
             train_case(mesh, data, tp, inp, case, res)
     ckpt = os.path.join(workdir, "ckpt")
-    if (data, tp) == (2, 1):
+    if sys.argv[5:] == ["cases"]:
+        pass
+    elif (data, tp) == (2, 1):
         refused(mesh, cases[0], inp, res)
         launch(data, tp, SKETCH, res, "sketch")
         launch(data, tp, ["--steps", "2", "--ckpt-dir", ckpt,

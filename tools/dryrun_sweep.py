@@ -5,20 +5,27 @@ peak and rules bytes, the bytes the port holds in a serving cell
 bytes by kind, seconds, and whether the peak fits one card.
 
     PYTHONPATH=src python tools/dryrun_sweep.py [--jobs 2] \\
-        [--out artifacts/dryrun_torch] [--card-bytes N] [CELL ...]
+        [--out artifacts/dryrun_torch] [--card-bytes N] \\
+        [--overrides JSON] [CELL ...]
 
 A CELL is ARCH:SHAPE[:mp]; the default list is JAX's grid on 16 x 16
 (benchmarks/dryrun_all.py, which specs.cell_supported trims): all ten
 configs at train_4k, prefill_32k and decode_32k, and the three long_500k
-archs. A cell whose JSON exists under --out is read, not run again. --card-bytes: one card's memory
-(torch.cuda.get_device_properties(0).total_memory, which chip_smoke's
-phase 19 prints); without it the fit column says "not known". Needs no
-card: the dry run runs on fake tensors.
+archs. A cell whose JSON exists under --out is read, not run again.
+--overrides: ArchConfig overrides for every cell, as the dry run takes
+them (e.g. '{"seq_shard_acts": true}'); their cells are kept under
+--out/ov_HASH, HASH a digest of the overrides, so a cached cell is read
+only by a sweep with the same overrides.
+--card-bytes: one card's memory (torch.cuda.get_device_properties(0).
+total_memory, which chip_smoke's phase 19 prints); without it the fit
+column says "not known". Needs no card: the dry run runs on fake
+tensors.
 """
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import hashlib
 import json
 import os
 import pathlib
@@ -36,14 +43,16 @@ CELLS = ([f"{a}:train_4k" for a in ARCHS] + [f"{a}:long_500k" for a in LONG]
 GB = 1e9
 
 
-def run(cell: str, out: pathlib.Path, timeout: int) -> dict:
+def run(cell: str, out: pathlib.Path, timeout: int,
+        overrides: str = "") -> dict:
     arch, shape, *mp = cell.split(":")
     multi = mp == ["mp"]
     path = out / f"{arch}__{shape}__{'mp' if multi else 'sp'}.json"
     if not path.exists():
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                arch, "--shape", shape, "--out", str(out)] + (
-                   ["--multipod"] if multi else [])
+                   ["--multipod"] if multi else []) + (
+                   ["--overrides", overrides] if overrides else [])
         env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
         t0 = time.time()
         proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
@@ -97,10 +106,15 @@ def main(argv=None) -> int:
     ap.add_argument("--jobs", type=int, default=2)
     ap.add_argument("--timeout", type=int, default=3600)
     ap.add_argument("--card-bytes", type=int, default=None)
+    ap.add_argument("--overrides", default="",
+                    help="JSON dict of ArchConfig overrides for every cell")
     args = ap.parse_args(argv)
     out = pathlib.Path(args.out)
+    if args.overrides:
+        canon = json.dumps(json.loads(args.overrides), sort_keys=True)
+        out = out / f"ov_{hashlib.sha1(canon.encode()).hexdigest()[:10]}"
     with concurrent.futures.ThreadPoolExecutor(args.jobs) as pool:
-        futures = [pool.submit(run, c, out, args.timeout)
+        futures = [pool.submit(run, c, out, args.timeout, args.overrides)
                    for c in args.cells]
         results = [f.result() for f in futures]
     print("| arch | shape | mesh | peak GB / rank | rules GB / rank | "
