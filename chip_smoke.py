@@ -248,7 +248,11 @@ Phases, each fatal on failure:
      full width and depth, 17a's batch, 3 steps, in a NCCL world of one),
      then the meshless step in process from the same seed: loss, grad
      norm and every parameter's and moment's checksum bit for bit, the
-     peak within 5 % of 17a's; (b) launch.train.run in process on
+     peak within 5 % of 17a's; the launcher's step gathers each parameter
+     at its use (its default), each block through the gather as it runs
+     and again in remat's replay (counted), and no gather runs a
+     collective: the box has one card, so no data-axis collective runs on
+     it; (b) launch.train.run in process on
      rwkv6-1.6b at full width and depth (n_pad = 2^31) with
      --sketch-grads 2^28, 8 steps: the loss falls, the ratio is n / r',
      the transform's ms a step, the peak <= 75 GB, fwht launched twice a
@@ -284,7 +288,14 @@ Phases, each fatal on failure:
      and KV heads, its lru channels and time-mix heads, its MLP, expert,
      channel-mix and vocab chunks, held): collective bytes by kind equal
      to dryrun.serve_plan (no weight's), the peak a rank at most the
-     card's total_memory, the held bytes printed; the card's
+     card's total_memory, the held bytes printed; (l) phi4-mini-3.8b x
+     train_4k and (m) recurrentgemma-2b x prefill_32k at 4 layers with
+     seq_shard_acts on, held to their plans; (n) mixtral-8x7b x train_4k
+     at full width and 4 layers (remat, as published), each parameter
+     gathered over the data axes at its use (the default) and, with
+     pregather, once a step: both held to their plans, and the peak at
+     use below the pregather peak by at least all blocks but two in
+     their computed layout (dryrun.block_bytes); the card's
      total_memory printed; the phase within 120 s;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
@@ -650,6 +661,20 @@ DRY_SERVE_CELLS = (("19f", "phi4-mini-3.8b", "prefill_32k"),
 # dry run enters activation_sharding(seq_axis="model", seq_div=16)), at
 # DRY_SEQ_LAYERS layers, held to their plans as (b) and (f)-(k) are.
 DRY_SEQ_LAYERS = 4
+# (n) DRY_USE_ARCH x train_4k at DRY_USE_LAYERS layers gathering each
+# parameter at its use and, with pregather, once a step: both held to
+# their plans, the peak at use lower by the blocks but two.
+DRY_USE_ARCH = "mixtral-8x7b"
+DRY_USE_LAYERS = 4
+USE_CUTS = {"at use": {"n_layers": DRY_USE_LAYERS},
+            "pregather": {"n_layers": DRY_USE_LAYERS, "pregather": True}}
+# The phase's cells run at once: DRY_HERE in this process, whose imports
+# are warm, the others in DRY_JOBS spawned processes, the longest first
+# (a spawned process's first cell spent 14-17 s in cold imports on the card
+# machine). Each is one core's work on fake tensors; one after another
+# they took 101-141 s of host time on the card machine (8 cores).
+DRY_JOBS = 5
+DRY_HERE = ("19b",)
 
 SOURCES = {
     "gram_stripe": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -4681,13 +4706,32 @@ def state_checksums(torch, state) -> dict:
 def train_mesh_worker(argv) -> int:
     """`chip_smoke.py --train-mesh-worker OUT -- LAUNCHER ARGS`, one rank
     under torchrun: launch.train.run on the args, then the losses, grad
-    norms, peak and the state's checksums to OUT (JSON)."""
+    norms, peak and the state's checksums to OUT (JSON), and the gather at
+    use counted: the units run through sharding.call_gathered and the
+    gathers of a parameter that ran a collective."""
     import torch
     sys.path.insert(0, str(SRC))
+    from repro_torch.distributed import sharding
     from repro_torch.launch import train as launch_train
+    from repro_torch.train import steps
     out_path, args = argv[0], argv[argv.index("--") + 1:]
+    uses = {"units": 0, "collectives": 0}
+    call, gather = sharding.call_gathered, sharding.gather
+
+    def counted_call(*a, **k):
+        uses["units"] += 1
+        return call(*a, **k)
+
+    def counted_gather(t, *a, **k):
+        out = gather(t, *a, **k)
+        uses["collectives"] += out is not t
+        return out
+
+    sharding.call_gathered = steps.call_gathered = counted_call
+    sharding.gather = counted_gather
     out = launch_train.run(launch_train.build_parser().parse_args(args))
     pathlib.Path(out_path).write_text(json.dumps({
+        "uses": uses,
         "losses": out["losses"], "grad_norms": out["grad_norms"],
         "peak_bytes": out.get("peak_bytes", 0), "warm_ms": out["warm_ms"],
         "tokens_per_s": out["tokens_per_s"],
@@ -4700,7 +4744,11 @@ def mesh_world_one(torch, smi, peak17) -> dict:
     world of one, the sharded state and step) as a process, then the
     meshless step in process from the same seed and batch: loss, grad
     norm and every parameter's and moment's checksum bit for bit; the
-    peak beside phase 17's."""
+    peak beside phase 17's. The launcher's step gathers at each use: each
+    block through sharding.call_gathered as it runs and again in remat's
+    replay, the parameters outside the blocks once a microbatch; on a
+    world of one no gather runs a collective (none over the data axes
+    runs on the card)."""
     import os
     from repro_torch.launch import specs
     from repro_torch.models import get_api
@@ -4750,6 +4798,11 @@ def mesh_world_one(torch, smi, peak17) -> dict:
                              f"step: losses {mesh['losses']} / {losses}, "
                              f"grad norms {mesh['grad_norms']} / {gnorms}, "
                              f"checksums differ at {differ[:8]}")
+    M, depth = cfg.microbatches, cfg.n_layers
+    units = MESH_STEPS * M * ((2 if cfg.remat else 1) * depth + 1)
+    if mesh["uses"] != {"units": units, "collectives": 0}:
+        raise AssertionError(f"18a: the gather at use ran {mesh['uses']}, "
+                             f"not {units} units and no collective")
     mesh_peak = mesh["peak_bytes"] / 1e9
     if abs(mesh_peak - peak17) > MESH_PEAK_TOL * peak17:
         raise AssertionError(f"18a: peak {mesh_peak:.3f} GB against phase "
@@ -4757,6 +4810,7 @@ def mesh_world_one(torch, smi, peak17) -> dict:
     info = {"cmd": "torchrun --standalone --nproc_per_node 1 -m "
                    "repro_torch.launch.train " + " ".join(MESH_RUN),
             "process_s": seconds, "losses": losses, "grad_norms": gnorms,
+            "gathered_at_use": mesh["uses"],
             "tensors_held": sum(len(v) for v in sums.values()),
             "bitwise": True, "mesh_peak_gb": mesh_peak,
             "meshless_peak_gb": peak, "phase17_peak_gb": peak17,
@@ -4766,7 +4820,11 @@ def mesh_world_one(torch, smi, peak17) -> dict:
         f"s; {MESH_STEPS} steps of {TRAIN_ARCH} (full width and depth) at "
         f"world 1 equal the meshless step bit for bit: losses {losses}, "
         f"grad norms {gnorms}, {info['tensors_held']} parameters and "
-        f"moments by checksum; peak {mesh_peak:.3f} GB (meshless "
+        f"moments by checksum; each parameter gathered at its use "
+        f"({units} units through the gather: {MESH_STEPS} steps x M {M} x "
+        f"({depth} blocks{' twice, remat' if cfg.remat else ''} + the "
+        f"rest), none running a collective: one card, so no data-axis "
+        f"collective); peak {mesh_peak:.3f} GB (meshless "
         f"{peak:.3f}, phase 17 {peak17:.3f}); warm step "
         f"{mesh['warm_ms']:.1f} ms, {mesh['tokens_per_s']:.1f} tokens/s")
     return info
@@ -5129,19 +5187,79 @@ def dryrun_flops(torch, cfg, B, S) -> dict:
             "remat": remat, "expected": b["train_flops"] + masked + remat}
 
 
-def dryrun_one_rank(torch, smi, peak17) -> dict:
+def dry_child(tag: str, job: tuple) -> dict:
+    """One cell of phase 19, run in a child process of dry_records (or in
+    this one): `job` is (cfg, B, S) for 19a, dryrun.measure of a train
+    step in a dry-run world of one rank, else (arch, shape, cut) for
+    dryrun.run_cell on 16 x 16 (its JSON under BUILD/dryrun/<tag>). Returns
+    the record beside the process's kernel launches and whether it
+    initialised CUDA, which the phase holds at none."""
+    import torch
+    from repro_torch.kernels import OPS
+    from repro_torch.launch import dryrun
+    if tag == "19a":
+        from repro_torch.launch.mesh import destroy_dryrun_mesh, \
+            make_dryrun_mesh
+        cfg, B, S = job
+        mesh = make_dryrun_mesh(shape=(1, 1))
+        try:
+            rec = dryrun.measure(cfg, "train", B, S, mesh)
+        finally:
+            destroy_dryrun_mesh(mesh)
+    else:
+        arch, shape, cut = job
+        rec = dryrun.run_cell(arch, shape, False,
+                              str(BUILD / "dryrun" / tag.replace(" ", "_")),
+                              cut or None)
+    return {"rec": rec, "cuda_initialized": torch.cuda.is_initialized(),
+            "launches": {n: op.launches for n, op in OPS.items()}}
+
+
+def dry_records(jobs: dict) -> dict:
+    """Each tag's dry_child result: the DRY_HERE jobs run in this process
+    while the others run in DRY_JOBS spawned processes (no CUDA state is
+    forked), started in the order given; the pool's processes end with
+    it."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(DRY_JOBS, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        futures = {tag: pool.submit(dry_child, tag, job)
+                   for tag, job in jobs.items() if tag not in DRY_HERE}
+        here = {tag: dry_child(tag, jobs[tag]) for tag in DRY_HERE}
+        return here | {tag: f.result() for tag, f in futures.items()}
+
+
+def dry_record(recs, tag: str, job: tuple) -> dict:
+    """`tag`'s record from phase 19's parallel run `recs`, or, where a cell
+    is run alone (recs None), from dry_child in this process."""
+    return (recs[tag] if recs is not None else dry_child(tag, job))["rec"]
+
+
+def one_rank_job() -> tuple:
+    return get_lm_config(TRAIN_ARCH), TRAIN_B, TRAIN_S
+
+
+def mesh_job(arch: str, **cut) -> tuple:
+    return arch, "train_4k", cut
+
+
+def serve_job(arch: str, shape: str, **over) -> tuple:
+    """A serving cell at DRY_SERVE_LAYERS layers, an encoder-decoder's
+    encoder too, with `over` more config overrides."""
+    cut = {"n_layers": DRY_SERVE_LAYERS, **over}
+    if get_lm_config(arch).family == "encdec":
+        cut["n_encoder_layers"] = DRY_SERVE_LAYERS
+    return arch, shape, cut
+
+
+def dryrun_one_rank(torch, smi, peak17, recs=None) -> dict:
     """19a: the dry run of phase 17's step (phi4-mini-3.8b at full width
     and depth, B TRAIN_B x S TRAIN_S, M 2, remat) in a dry-run world of one
     rank: its peak against 17a's measured max_memory_allocated, its flops
     against dryrun_flops."""
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import destroy_dryrun_mesh, make_dryrun_mesh
     cfg = get_lm_config(TRAIN_ARCH)
-    mesh = make_dryrun_mesh(shape=(1, 1))
-    try:
-        rec = dryrun.measure(cfg, "train", TRAIN_B, TRAIN_S, mesh)
-    finally:
-        destroy_dryrun_mesh(mesh)
+    rec = dry_record(recs, "19a", one_rank_job())
     res = rec["analysis"]
     want = dryrun_flops(torch, cfg, TRAIN_B, TRAIN_S)
     info = {"peak_bytes": res["memory"]["peak"],
@@ -5177,7 +5295,8 @@ def dryrun_one_rank(torch, smi, peak17) -> dict:
     return info
 
 
-def dryrun_mesh_cell(torch, tag: str, arch: str, **cut) -> dict:
+def dryrun_mesh_cell(torch, tag: str, arch: str, recs=None,
+                     **cut) -> dict:
     """19b-19e, 19l: `arch` x train_4k (with `cut` applied to its config) on
     the 16 x 16 dry-run mesh to status ok, tensor-parallel over the model
     axis: its collective bytes by kind equal to the step's plan
@@ -5185,8 +5304,7 @@ def dryrun_mesh_cell(torch, tag: str, arch: str, **cut) -> dict:
     total_memory."""
     from repro_torch.distributed.sharding import MeshShape
     from repro_torch.launch import dryrun, specs
-    rec = dryrun.run_cell(arch, "train_4k", False, str(BUILD / "dryrun"),
-                          cut or None)
+    rec = dry_record(recs, tag, mesh_job(arch, **cut))
     if rec["status"] != "ok":
         raise AssertionError(f"{tag}: {rec}")
     shape = specs.SHAPES["train_4k"]
@@ -5198,7 +5316,8 @@ def dryrun_mesh_cell(torch, tag: str, arch: str, **cut) -> dict:
     peak = rec["memory"]["peak_mb"] * 2 ** 20
     log(f"[dryrun] {tag} {arch} x train_4k{f' {cut}' if cut else ''} on 16 "
         f"x 16 (rank 0 of 256 fake ranks, tensor-parallel over the model "
-        f"axis; M {rec['microbatches']}, groups {rec['groups']}): status "
+        f"axis, parameters gathered {rec['param_gather']}; M "
+        f"{rec['microbatches']}, groups {rec['groups']}): status "
         f"ok, peak {rec['memory']['peak_mb']} MiB a rank = {peak:.0f} bytes "
         f"against the card's total_memory {card} (rules "
         f"{rec['rules_mb']['total']} MiB), flops {rec['hlo_flops']:.4e}, "
@@ -5212,12 +5331,49 @@ def dryrun_mesh_cell(torch, tag: str, arch: str, **cut) -> dict:
                              f"over the card's {card}")
     return {k: rec[k] for k in ("memory", "rules_mb", "hlo_flops",
                                 "hlo_traffic_bytes", "collectives",
-                                "microbatches", "groups", "lower_s",
-                                "compile_s")} | {"plan": plan, "cut": cut,
-                                                 "card_total_memory": card}
+                                "microbatches", "groups", "param_gather",
+                                "lower_s", "compile_s")} | {
+        "plan": plan, "cut": cut, "card_total_memory": card}
 
 
-def dryrun_serve_cell(torch, tag: str, arch: str, shape: str,
+def dryrun_gather_at_use(torch, recs=None) -> dict:
+    """19n: DRY_USE_ARCH x train_4k at full width and DRY_USE_LAYERS
+    layers (remat, as published) on the 16 x 16 dry-run mesh, gathering
+    each parameter at its use (the default) and with pregather (JAX's
+    TP-only pregather_spec: once a step), each held to its plan by
+    dryrun_mesh_cell; rank 0's peak at use below the pregather peak by at
+    least the bytes of all blocks but the two largest in their computed
+    layout (dryrun.block_bytes): pregather holds every block's gathered
+    copy at once, the gather at use about two blocks'."""
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.launch import dryrun
+    cells = {mode: dryrun_mesh_cell(torch, f"19n {mode}", DRY_USE_ARCH,
+                                    recs, **cut)
+             for mode, cut in USE_CUTS.items()}
+    gathers = {mode: cell["param_gather"] for mode, cell in cells.items()}
+    blocks = sorted(dryrun.block_bytes(
+        get_lm_config(DRY_USE_ARCH, n_layers=DRY_USE_LAYERS),
+        MeshShape(("data", "model"), (16, 16))).values())
+    bound = sum(blocks[:-2])
+    peaks = {mode: cell["memory"]["peak_mb"] * 2 ** 20
+             for mode, cell in cells.items()}
+    fall = peaks["pregather"] - peaks["at use"]
+    log(f"[dryrun] 19n {DRY_USE_ARCH} x train_4k at {DRY_USE_LAYERS} layers:"
+        f" rank 0's peak {peaks['at use'] / 1e9:.3f} GB gathering at each "
+        f"use, {peaks['pregather'] / 1e9:.3f} GB gathering once a step: "
+        f"{fall / 1e9:.3f} GB lower, against the bound {bound / 1e9:.3f} "
+        f"GB (all blocks but two, each {blocks[-1] / 1e9:.3f} GB a rank "
+        f"in its computed layout)")
+    if gathers != {"at use": "at each use", "pregather": "once a step"}:
+        raise AssertionError(f"19n: the cells gathered {gathers}")
+    if fall < bound:
+        raise AssertionError(f"19n: the peak fell {fall:.0f} bytes, less "
+                             f"than the blocks' {bound}")
+    return {"cells": cells, "block_bytes": blocks, "bound_bytes": bound,
+            "peak_fall_bytes": fall}
+
+
+def dryrun_serve_cell(torch, tag: str, arch: str, shape: str, recs=None,
                       **over) -> dict:
     """19f-19k, 19m: `arch` x `shape` (a serving cell; `over` more config
     overrides) at full width and
@@ -5230,10 +5386,8 @@ def dryrun_serve_cell(torch, tag: str, arch: str, shape: str,
     rules."""
     from repro_torch.distributed.sharding import MeshShape
     from repro_torch.launch import dryrun, specs
-    cut = {"n_layers": DRY_SERVE_LAYERS, **over}
-    if get_lm_config(arch).family == "encdec":
-        cut["n_encoder_layers"] = DRY_SERVE_LAYERS
-    rec = dryrun.run_cell(arch, shape, False, str(BUILD / "dryrun"), cut)
+    _, _, cut = job = serve_job(arch, shape, **over)
+    rec = dry_record(recs, tag, job)
     if rec["status"] != "ok":
         raise AssertionError(f"{tag}: {rec}")
     sh = specs.SHAPES[shape]
@@ -5272,41 +5426,73 @@ def phase_dryrun(torch, smi, phase17) -> dict:
     the production mesh's train cells, dense, hybrid, ssm and encdec,
     19f-19k its serving cells: the LMs', the hybrid's, the ssm's and the
     encdec's; 19l and 19m a train and a prefill cell with sequence
-    parallelism on. Held to DRY_SECONDS."""
+    parallelism on; 19n a train cell gathering at each use and once a
+    step. The cells run at once, DRY_HERE here and the others in DRY_JOBS
+    child processes (dry_records), each of which reports its kernel
+    launches and whether it initialised CUDA; the checks run here. Held
+    to DRY_SECONDS."""
     from repro_torch.kernels import OPS, reset_launches
     free(torch)
     t0 = time.perf_counter()
     allocated = torch.cuda.memory_allocated()
     reset_launches()
     peak17 = float(phase17["launcher"]["peak_memory"].split()[0]) * 1e9
-    info = {"one_rank": dryrun_one_rank(torch, smi, peak17),
-            "mesh_cell": dryrun_mesh_cell(torch, "19b", TRAIN_ARCH),
-            "hybrid_cell": dryrun_mesh_cell(torch, "19c", HY_ARCH,
+    seq = {"n_layers": DRY_SEQ_LAYERS, "seq_shard_acts": True}
+    jobs = {"19b": mesh_job(TRAIN_ARCH), "19a": one_rank_job(),
+            "19c": mesh_job(HY_ARCH, n_layers=DRY_HY_LAYERS),
+            "19d": mesh_job(SSM_ARCH, n_layers=DRY_SSM_LAYERS),
+            "19n at use": mesh_job(DRY_USE_ARCH, **USE_CUTS["at use"]),
+            "19e": mesh_job(ED_ARCH, n_layers=DRY_ED_LAYERS,
+                            n_encoder_layers=DRY_ED_LAYERS),
+            "19n pregather": mesh_job(DRY_USE_ARCH,
+                                      **USE_CUTS["pregather"]),
+            "19l": mesh_job(TRAIN_ARCH, **seq),
+            "19m": serve_job(HY_ARCH, "prefill_32k", **seq)} | {
+        tag: serve_job(arch, shape) for tag, arch, shape in DRY_SERVE_CELLS}
+    recs = dry_records(jobs)
+    cells_s = time.perf_counter() - t0
+    info = {"one_rank": dryrun_one_rank(torch, smi, peak17, recs),
+            "mesh_cell": dryrun_mesh_cell(torch, "19b", TRAIN_ARCH, recs),
+            "hybrid_cell": dryrun_mesh_cell(torch, "19c", HY_ARCH, recs,
                                             n_layers=DRY_HY_LAYERS),
-            "ssm_cell": dryrun_mesh_cell(torch, "19d", SSM_ARCH,
+            "ssm_cell": dryrun_mesh_cell(torch, "19d", SSM_ARCH, recs,
                                          n_layers=DRY_SSM_LAYERS),
             "encdec_cell": dryrun_mesh_cell(
-                torch, "19e", ED_ARCH, n_layers=DRY_ED_LAYERS,
+                torch, "19e", ED_ARCH, recs, n_layers=DRY_ED_LAYERS,
                 n_encoder_layers=DRY_ED_LAYERS),
-            "serve_cells": {tag: dryrun_serve_cell(torch, tag, arch, shape)
+            "serve_cells": {tag: dryrun_serve_cell(torch, tag, arch, shape,
+                                                   recs)
                             for tag, arch, shape in DRY_SERVE_CELLS},
-            "seq_train_cell": dryrun_mesh_cell(
-                torch, "19l", TRAIN_ARCH, n_layers=DRY_SEQ_LAYERS,
-                seq_shard_acts=True),
+            "seq_train_cell": dryrun_mesh_cell(torch, "19l", TRAIN_ARCH,
+                                               recs, **seq),
             "seq_prefill_cell": dryrun_serve_cell(
-                torch, "19m", HY_ARCH, "prefill_32k",
-                n_layers=DRY_SEQ_LAYERS, seq_shard_acts=True),
+                torch, "19m", HY_ARCH, "prefill_32k", recs, **seq),
+            "gather_at_use": dryrun_gather_at_use(torch, recs),
+            "jobs": DRY_JOBS, "here": list(DRY_HERE), "cells_s": cells_s,
+            "cell_cpu_s": sum(r["rec"]["lower_s"] + r["rec"]["compile_s"]
+                              for r in recs.values()),
             "kernel_launches": {n: op.launches for n, op in OPS.items()},
+            "child_launches": {tag: r["launches"] for tag, r in recs.items()
+                               if tag not in DRY_HERE
+                               and any(r["launches"].values())},
+            "child_cuda": [tag for tag, r in recs.items()
+                           if tag not in DRY_HERE and r["cuda_initialized"]],
             "card_total_memory": torch.cuda.get_device_properties(
                 0).total_memory,
             "allocated_change": torch.cuda.memory_allocated() - allocated,
             "phase_s": time.perf_counter() - t0, "card": smi}
     log(f"[dryrun] phase 19 took {info['phase_s']:.1f} s (held to "
-        f"{DRY_SECONDS} s); the card's total_memory "
+        f"{DRY_SECONDS} s), its {len(jobs)} cells {cells_s:.1f} s, "
+        f"{', '.join(DRY_HERE)} here and the others in {DRY_JOBS} "
+        f"processes ({info['cell_cpu_s']:.1f} s of cell time in all); the "
+        f"card's total_memory "
         f"{info['card_total_memory']} bytes; device memory allocated by "
         f"the phase {info['allocated_change']} bytes; the port's kernels "
-        f"launched {info['kernel_launches']}")
-    if info["allocated_change"] or any(info["kernel_launches"].values()):
+        f"launched {info['kernel_launches']} here and "
+        f"{info['child_launches'] or 'none'} in the cells' processes, "
+        f"CUDA initialised in {info['child_cuda'] or 'none'} of them")
+    if (info["allocated_change"] or any(info["kernel_launches"].values())
+            or info["child_launches"] or info["child_cuda"]):
         raise AssertionError("phase 19 allocated device memory or launched "
                              "a kernel")
     if info["phase_s"] > DRY_SECONDS:

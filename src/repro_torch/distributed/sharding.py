@@ -38,6 +38,20 @@ TP-only spec for every family's projections, embeddings, experts,
 RG-LRU and RWKV weights, which compute tensor-parallel over "model";
 replicated for the rest),
 and reduces each gradient over the data axes into the moments' chunk.
+By default it gathers each parameter at its use (JAX's step without a
+pregather_spec, where GSPMD gathers each weight where the layer body
+uses it): inside `gather_at_use`, `call_gathered` runs a unit on its
+parameters all-gathered from their stored shards. A block (the unit
+models/layers.py's `remat` passes it) gathers through `_GatherAtUse`, an
+autograd Function whose backward hands the gathered layout's gradient to
+the step's fold and none to the shard; its copies go when autograd no
+longer holds them. The parameters outside the blocks are gathered once
+a microbatch: the token embedding so too (its lookup keeps no copy and
+its gradient comes last), the others, used after the blocks, as leaves
+of their own (`_gathered_leaf`), held to the end of the microbatch's
+backward, each folding its gradient as soon as autograd has it. The
+shards stay in place. `compute_shape` gives a stored parameter's shape
+in its computed layout, for code that reads a shape outside its unit.
 Serving on a mesh (the decoder-only LMs) holds the cut of
 tensor_parallel.shard_for_serving, not these rules: the rank's heads and
 TP-only chunks, whole over the data axes, and a KV cache of the rank's
@@ -53,15 +67,16 @@ and cuts the residual stream to each model rank's length / tp positions
 while tensor-parallel compute is on over a model axis > 1. The state is a
 process global, as tensor_parallel's axis is: a thread-local would be
 lost on the autograd threads that run remat's recompute and the
-backward. `maybe_shard` returns its input: JAX's constraint changes no
-value, and eager PyTorch has no propagation for it to steer; the port's
-modules place their collectives themselves.
+backward, and so is `gather_at_use`'s. `maybe_shard` returns its input:
+JAX's constraint changes no value, and eager PyTorch has no propagation
+for it to steer; the port's modules place their collectives themselves.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import (Callable, Collection, Dict, Mapping, NamedTuple,
+                    Optional, Tuple)
 
 import torch
 import torch.distributed as dist
@@ -404,3 +419,122 @@ def owns(spec: P, mesh) -> bool:
     coord = mesh.get_coordinate()
     return all(coord[i] == 0 for i in range(len(mesh.shape))
                if i not in sharded)
+
+
+class AtUse(NamedTuple):
+    """What the gather at each use reads (train/steps.py's sharded step):
+    the mesh, each parameter's stored spec, the spec it is computed in,
+    the whole shapes, {id(parameter): name} of the stored shards, and
+    fold(name, grad), which takes each use's gradient in the computed
+    layout."""
+    mesh: object
+    stored: Mapping[str, P]
+    compute: Mapping[str, P]
+    shapes: Mapping[str, torch.Size]
+    names: Mapping[int, str]
+    fold: Callable[[str, torch.Tensor], None]
+
+
+# gather_at_use's state, else None. A process global (module docstring).
+_AT_USE: Optional[AtUse] = None
+
+
+@contextlib.contextmanager
+def gather_at_use(state: AtUse):
+    """The region in which `call_gathered` gathers each parameter of
+    state.names from its shard at its use."""
+    global _AT_USE
+    prev = _AT_USE
+    _AT_USE = state
+    try:
+        yield
+    finally:
+        _AT_USE = prev
+
+
+def at_use() -> Optional[AtUse]:
+    """gather_at_use's state inside it, else None."""
+    return _AT_USE
+
+
+class _GatherAtUse(torch.autograd.Function):
+    """A stored shard all-gathered to its computed layout (no collective
+    and no copy where no mesh dim of size > 1 separates the two); the
+    backward hands the gradient to the state's fold and returns none to
+    the shard."""
+
+    @staticmethod
+    def forward(ctx, shard, name, state):
+        ctx.name, ctx.fold = name, state.fold
+        return gather(shard, state.stored[name], state.mesh,
+                      to=state.compute[name])
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.fold(ctx.name, grad)
+        return None, None, None
+
+
+class _Apply(nn.Module):
+    """fn as the forward of a module that holds `unit`, so that
+    torch.func.functional_call swaps the unit's tensors under their own
+    names whether fn is the unit or takes it as an argument."""
+
+    def __init__(self, unit: nn.Module, fn: Callable):
+        super().__init__()
+        self.unit = unit
+        self.__dict__["fn"] = fn            # not a submodule
+
+    def forward(self, *args, **kwargs):
+        return self.fn(*args, **kwargs)
+
+
+def _gathered_leaf(shard: torch.Tensor, name: str,
+                   state: AtUse) -> torch.Tensor:
+    """The shard gathered to its computed layout as a leaf of its own
+    (the same storage where nothing is gathered), whose gradient the
+    state's fold takes as soon as autograd has it: autograd runs a leaf's
+    accumulation first, and its graph holds the copy to the end of the
+    backward."""
+    with torch.no_grad():
+        leaf = gather(shard, state.stored[name], state.mesh,
+                      to=state.compute[name]).detach().requires_grad_()
+
+    def fold(t):
+        state.fold(name, t.grad)
+        t.grad = None
+    leaf.register_post_accumulate_grad_hook(fold)
+    return leaf
+
+
+def call_gathered(unit: nn.Module, fn: Callable, args: tuple = (),
+                  kwargs: Optional[dict] = None,
+                  skip: Collection[str] = (), hold: Collection[str] = ()):
+    """fn(*args, **kwargs) with every parameter of `unit` that
+    gather_at_use holds as a shard (but those whose name in `unit` is in
+    `skip`) replaced by its gathered copy, under its own name
+    (torch.func.functional_call): the shards stay in p.data. Each copy
+    lives as long as fn or autograd holds it, and autograd hands its
+    gradient to the fold when it reaches the gather's node, which it runs
+    after every node made later: right after a block's backward. Those
+    named in `hold` are leaves instead (`_gathered_leaf`): for a weight
+    gathered before the blocks and used after them (the unembedding),
+    whose gradient would otherwise wait for every block's backward."""
+    state = _AT_USE
+    tensors = {f"unit.{n}": (_gathered_leaf if n in hold
+                             else _GatherAtUse.apply)(
+                                 p, state.names[id(p)], state)
+               for n, p in unit.named_parameters()
+               if n not in skip and id(p) in state.names}
+    return torch.func.functional_call(_Apply(unit, fn), tensors, args,
+                                      kwargs or {})
+
+
+def compute_shape(t: torch.Tensor) -> torch.Size:
+    """The shape `t` is computed at: inside gather_at_use, a stored
+    shard's shape in its computed layout; else t's own."""
+    state = _AT_USE
+    name = state.names.get(id(t)) if state is not None else None
+    if name is None:
+        return t.shape
+    return local_shape(state.shapes[name], state.compute[name], state.mesh)

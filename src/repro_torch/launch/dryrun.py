@@ -25,8 +25,13 @@ until B / M divides by dp).
     of specs.train_inputs(abstract=True), of which the step takes rank
     0's rows of each microbatch. The step computes tensor-parallel over
     the model axis as it does on a real mesh (every family;
-    distributed/tensor_parallel.py), rank 0 taking the most heads;
-    `train_plan` gives the collective bytes it must move;
+    distributed/tensor_parallel.py), rank 0 taking the most heads. It
+    gathers each parameter over the data axes at its use, JAX's default
+    (each block's parameters when the block runs, and again in remat's
+    replay; the others once a microbatch), or, with cfg.pregather or
+    cfg.zero1, once a step; the record's "param_gather" says which
+    ("at each use" or "once a step"). `train_plan` gives the collective
+    bytes it must move;
   - prefill_32k: make_prefill_step; decode_32k and long_500k:
     make_decode_step. Every family serves tensor-parallel through the
     mesh's steps (mesh=): the model built on "meta", then fake, cut to
@@ -54,7 +59,8 @@ The record has JAX's keys (dryrun.py:155-175) with JAX's meanings, but:
   - cost: the same flops and bytes as hlo_flops / hlo_traffic_bytes (XLA's
     cost_analysis counts a loop body once; eager runs every trip, so there
     is no such count to tell apart);
-and one key more, rules_mb: rank 0's bytes of the parameters, the
+and keys more: a train cell's param_gather (above), and rules_mb: rank
+0's bytes of the parameters, the
 optimizer state and the cache under the sharding rules (the sum of
 local_shape x itemsize over state_pspecs, or over param_pspecs and
 cache_pspecs for a serving cell; the cache's "pos" is a host int in the
@@ -90,6 +96,7 @@ from repro_torch.launch.mesh import (DRYRUN_DEVICE, destroy_dryrun_mesh,
                                      dp_axes, make_dryrun_mesh,
                                      mesh_axis_sizes)
 from repro_torch.launch.op_analysis import analyze
+from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.registry import get_api
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
@@ -183,10 +190,14 @@ def train_plan(cfg: ArchConfig, micro: int, mesh, B: int,
     """The collective bytes by kind that make_train_step's sharded step
     runs on rank 0 (train/steps.py) for a global batch of B rows of S
     positions, each sized by its result as op_analysis sizes it:
-      - each parameter gathered once a step over the mesh dims that shard
-        its stored layout and not the layout it is computed in
-        (tensor_parallel.compute_specs): an all-gather a dim, innermost
-        first;
+      - each parameter gathered over the mesh dims that shard its stored
+        layout and not the layout it is computed in
+        (tensor_parallel.compute_specs), an all-gather a dim, innermost
+        first: by default at each use (JAX's step without a
+        pregather_spec), a block's parameters (layers.remat_units) once a
+        microbatch and once more where remat replays the block in the
+        backward, the others once a microbatch; with cfg.pregather (JAX's
+        TP-only pregather_spec) or cfg.zero1, once a step;
       - each microbatch's gradient, in the parameter's dtype and the
         computed layout, summed over the data axes into the moments'
         layout (a reduce-scatter over a dim that shards it, else an
@@ -259,18 +270,24 @@ def train_plan(cfg: ArchConfig, micro: int, mesh, B: int,
     dp = dp_axes(mesh)
     out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0,
            "all-to-all": 0.0}
+    at_use = not (cfg.pregather or cfg.zero1)
+    blocks = {f"{prefix}.{n}" for prefix, blk in
+              L.remat_units(model).items() for n, _ in blk.named_parameters()}
 
-    def gathers(shape, pspec, itemsize, to=None):
+    def gathers(shape, pspec, itemsize, to=None, times=1):
         n = math.prod(shd.local_shape(shape, pspec, mesh)) * itemsize
         keep = set(shd._sharded(to, mesh)) if to is not None else set()
         for i, axis, d in reversed(shd._sharded(pspec, mesh)):
             if (i, axis, d) not in keep:
                 n *= mesh.shape[i]
-                out["all-gather"] += n
+                out["all-gather"] += n * times
 
     for name, p in model.named_parameters():
         size = p.element_size()
-        gathers(p.shape, spec.params[name], size, to=cspec[name])
+        uses = (micro * (2 if cfg.remat and name in blocks else 1)
+                if at_use else 1)
+        gathers(p.shape, spec.params[name], size, to=cspec[name],
+                times=uses)
         grad = spec.opt["m"][name]
         n = math.prod(shd.local_shape(p.shape, cspec[name], mesh)) * size
         dims = {axis: d for _, axis, d in shd._sharded(grad, mesh)}
@@ -330,7 +347,6 @@ def _block(out: Dict[str, float], X: int, tp: int, sharded: bool,
 def _tp_plan(cfg: ArchConfig, model, cspec, b: int, S: int, groups: int,
              tp: int) -> Dict[str, float]:
     """One microbatch's tensor-parallel collectives (train_plan)."""
-    from repro_torch.models import layers as L
     from repro_torch.models.rglru import RGLRUBlock
     from repro_torch.models.rwkv6 import RWKVBlock, _LORA
     from repro_torch.models.whisper import CrossAttention
@@ -478,7 +494,6 @@ def serve_plan(cfg: ArchConfig, kind: str, mesh, B: int,
     (b, S_q / tp, d); the lookup's a reduce-scatter; the last position
     all-gathered from the ranks' last rows, (b, tp, d); and whisper's
     encoder output all-gathered over its frames where they were cut."""
-    from repro_torch.models import layers as L
     from repro_torch.models.rglru import RGLRUBlock
     from repro_torch.models.rwkv6 import RWKVBlock
     from repro_torch.models.whisper import CrossAttention
@@ -580,11 +595,26 @@ def held_bytes(cfg: ArchConfig, kind: str, B: int, S: int,
     return {"params": params, "cache": cache}
 
 
+def block_bytes(cfg: ArchConfig, mesh) -> Dict[str, int]:
+    """{prefix: bytes} of each block's parameters (layers.remat_units) in
+    the layout a rank computes them in (tensor_parallel.compute_specs):
+    what the gather at each use brings in for the block (no world
+    needed: `mesh` may be a sharding.MeshShape)."""
+    _, tp = _sizes(mesh)
+    model = get_api(cfg).init(cfg, tp, device="meta")
+    spec = TP.compute_specs(model, mesh)
+    return {prefix: sum(
+        math.prod(shd.local_shape(p.shape, spec[f"{prefix}.{n}"], mesh))
+        * p.element_size() for n, p in blk.named_parameters())
+        for prefix, blk in L.remat_units(model).items()}
+
+
 def measure(cfg: ArchConfig, kind: str, B: int, S: int, mesh) -> dict:
     """Build rank 0's fake state and inputs for one cell on `mesh` (a
     make_dryrun_mesh world), run its step under op_analysis and return
-    the cell's record (module docstring) and, under "analysis", the
-    analysis in bytes."""
+    the cell's record (module docstring; a train cell's param_gather is
+    "at each use" unless cfg.pregather or cfg.zero1 make it "once a
+    step") and, under "analysis", the analysis in bytes."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     api = get_api(cfg)
     _, tp = _sizes(mesh)
@@ -628,8 +658,10 @@ def measure(cfg: ArchConfig, kind: str, B: int, S: int, mesh) -> dict:
         del res["result"], args
     mem = res["memory"]
     rules = rules_bytes(cfg, kind, B, S, mesh)
+    gather = ({"param_gather": "once a step" if cfg.pregather or cfg.zero1
+               else "at each use"} if kind == "train" else {})
     return {
-        "status": "ok",
+        "status": "ok", **gather,
         "lower_s": round(t_build, 1), "compile_s": round(t_run, 1),
         "n_devices": int(math.prod(mesh.shape)),
         "memory": {"argument_mb": _mb(mem["argument"]),
@@ -701,7 +733,9 @@ def main(argv=None) -> int:
                    overrides)
     print(json.dumps(res, indent=1))
     if res["status"] == "ok":
-        print(f"\nOK {args.arch} x {args.shape} [{res['mesh']}] "
+        gather = (f" params gathered {res['param_gather']}"
+                  if "param_gather" in res else "")
+        print(f"\nOK {args.arch} x {args.shape} [{res['mesh']}]{gather} "
               f"peak={res['memory']['peak_mb']} MiB/rank "
               f"rules={res['rules_mb']['total']} MiB "
               f"flops={res['hlo_flops']:.3e} "

@@ -13,8 +13,10 @@ train/steps.py on the mesh (cfg.microbatches, cfg.remat, AdamW at --lr,
 JAX's groups = --data), a CheckpointManager
 under --ckpt-dir saving every --ckpt-every steps and restoring the newest
 checkpoint first, the same printed lines and the assertion that the loss
-fell. A line before them gives the bytes of parameters a rank holds while
-it computes (each parameter in the layout it is computed in). A further
+fell. As JAX's launcher, it passes the step no pregather_spec: the step
+gathers each parameter over "data" at its use. A line before them gives
+the bytes of the parameters in the layouts they are computed in, which a
+rank holds a block at a time. A further
 line gives the warm step time (the steps after the
 first), tokens/s, on the card the peak device memory, and with
 --sketch-grads the transform's time a step.
@@ -253,7 +255,8 @@ def _train(args: argparse.Namespace, mesh) -> dict:
                     for n, p in state.params.named_parameters())
         print(f"parameters held a rank while computing: "
               f"{out['compute_param_bytes']} bytes of {whole} "
-              f"(--data {args.data} --model {args.model})", flush=True)
+              f"(--data {args.data} --model {args.model}; gathered at "
+              f"each use, a block at a time)", flush=True)
     losses, gnorms, step_s = [], [], []
     t0 = time.time()
     for step in range(start, args.steps):

@@ -20,7 +20,10 @@ The port of repro/models/layers.py, function for function:
   routing of layers.py:213;
 - `Block`: the pre-norm attention + MLP block;
 - `remat`: a block run under activation checkpointing when cfg.remat is
-  set and autograd records (JAX's `jax.checkpoint` of its scan body).
+  set and autograd records (JAX's `jax.checkpoint` of its scan body),
+  and on its parameters gathered at their use inside the sharded step's
+  sharding.gather_at_use; `remat_units`, the blocks a model runs
+  through it.
 
 Weight layout: every projection keeps the JAX package's (in, out) layout
 and computes x @ W as JAX does; the MoE experts are (E, d, f) and
@@ -76,6 +79,12 @@ def tp_ops():
     distributed package imports the models)."""
     from repro_torch.distributed import tensor_parallel
     return tensor_parallel
+
+
+def sharding_ops():
+    """distributed/sharding.py, imported on first use (as tp_ops)."""
+    from repro_torch.distributed import sharding
+    return sharding
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
@@ -140,13 +149,36 @@ def empty_param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
+def remat_units(model: nn.Module) -> dict:
+    """{prefix: module} of the units a model runs through `remat`, one a
+    layer: the entries of its nn.ModuleLists (`layers`; whisper's
+    `enc_layers` and `dec_layers`)."""
+    return {f"{name}.{i}": blk for name, child in model.named_children()
+            if isinstance(child, nn.ModuleList)
+            for i, blk in enumerate(child)}
+
+
 def remat(cfg: ArchConfig, fn, *args, **kwargs):
     """fn(*args, **kwargs), under torch.utils.checkpoint when cfg.remat is
     set and autograd is recording: only the inputs are kept and the
     backward recomputes the rest, as JAX's jax.checkpoint of a scan body
     does. The recompute runs the same operations, so no number changes;
     serving (no_grad) runs fn as it is. Inside a cut stream region
-    (tensor_parallel's `stream`) the recompute re-enters it."""
+    (tensor_parallel's `stream`) the recompute re-enters it.
+
+    Inside the sharded step's gather at each use (sharding.gather_at_use)
+    the unit, fn itself or the first module among its arguments, runs on
+    its parameters gathered from their shards (sharding.call_gathered),
+    the gather inside the checkpointed function: the backward's recompute
+    replays it, as JAX's jax.checkpoint of the scan body does, and the
+    gathered copies live while the unit runs. Without remat autograd
+    keeps the gathered weights that the unit's products save until the
+    backward has passed them."""
+    shd = sharding_ops()
+    if shd.at_use() is not None:
+        unit = fn if isinstance(fn, nn.Module) else next(
+            a for a in args if isinstance(a, nn.Module))
+        fn, args, kwargs = shd.call_gathered, (unit, fn, args, kwargs), {}
     if cfg.remat and torch.is_grad_enabled():
         axis = tp_ops().stream_axis()
         if axis is not None:

@@ -130,10 +130,13 @@ class CrossAttention(nn.Module):
 
     def tp_axis(self):
         """The model axis where this module computes tensor-parallel on the
-        train step's shards, else None (whole, or held for serving)."""
+        train step's shards, else None (whole, or held for serving). wq's
+        width in its computed layout: Whisper.encode asks outside the
+        block, where the gather at each use has not yet run."""
         axis = L.tp_ops().active()
+        width = L.sharding_ops().compute_shape(self.wq)[1]
         if axis is not None and self.serve_heads is None and \
-                self.wq.shape[1] != self.cfg.n_heads * self.cfg.head_dim:
+                width != self.cfg.n_heads * self.cfg.head_dim:
             return axis
         return None
 

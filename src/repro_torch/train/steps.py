@@ -15,11 +15,22 @@ meanings, across the ranks of a torch DeviceMesh ("data", "model", and
 "pod" where present; every rank calls the step with the same global
 batch):
   - each parameter and both moments are stored as this rank's shard under
-    distributed/sharding.py's state_pspecs; the step gathers each
-    parameter over the data axes once at entry (JAX's pregather_spec: once
-    per step, not per microbatch; a mesh dim of size 1 gathers without a
-    copy) to the layout it is computed in, and puts the shards back before
-    the update;
+    distributed/sharding.py's state_pspecs, and stay so through the step;
+    each parameter is all-gathered over the data axes to the layout it is
+    computed in at its use, as JAX's step without a pregather_spec lets
+    GSPMD gather each weight where the scanned layer body uses it: a
+    block's (each unit models/layers.py's remat runs) when the block runs,
+    inside remat's checkpoint when cfg.remat is set, so the backward's
+    recompute gathers it again; the others (the embedding, unembedding,
+    final norms) once a microbatch, those used after the blocks held to
+    the end of its backward (sharding.gather_at_use and call_gathered). A block's gathered copies
+    go when autograd lets them go: under remat when the block returns,
+    without remat when the backward has passed the products that saved
+    them. A mesh whose data
+    axes have size 1 gathers without a copy. With JAX's pregather_spec,
+    or with zero1 (the parameters stored TP-only), the step gathers every
+    parameter once at entry instead, holds the gathered copies to the end
+    of the backward and puts the shards back before the update;
   - over the model axis every family computes tensor-parallel
     (distributed/tensor_parallel.py: heads, MLP and expert ffn columns,
     the RG-LRU blocks' channels, the RWKV blocks' heads and channel-mix
@@ -36,7 +47,8 @@ batch):
   - each rank's loss is normalized by the microbatch's global label count
     (read from the global batch), so the sum over ranks is JAX's loss;
   - each microbatch's gradient is reduced over the data axes as autograd
-    produces it, into grad_spec's layout (the moments' by default): a
+    produces it (once a microbatch: a block's gather's backward, not its
+    replay, folds it), into grad_spec's layout (the moments' by default): a
     tensor-parallel weight's gradient is already its model-axis chunk,
     and a replicated parameter's is the same on every model rank, which
     keeps its chunk (no collective over "model"). A grad_transform
@@ -51,7 +63,7 @@ seq_shard_acts; the dry run enters it, the launcher does not) the
 models cut the residual stream over the model axis between blocks where
 S divides (distributed/tensor_parallel.py's `stream`): the step itself
 is unchanged, and every parameter's gradient is still whole or the
-rank's chunk when the hooks read it (a stream norm's and the MoE
+rank's chunk when the fold reads it (a stream norm's and the MoE
 router's are summed over the axis where they are computed). A world
 whose model axis has size 1 runs the same operations as before
 tensor-parallel compute, the switch on or off, and a world of one rank
@@ -65,12 +77,13 @@ Differences from JAX's step, by design:
     one card). `TrainState.params` is the model (an nn.Module), as the
     rest of the port passes the model where JAX passes (params, cfg);
   - each parameter's gradient is folded into its f32 accumulator as soon
-    as autograd has it (Tensor.register_post_accumulate_grad_hook) and
-    dropped, so a microbatch's gradients never live beside the sum: the
+    as autograd has it (Tensor.register_post_accumulate_grad_hook; on a
+    mesh gathering at each use, the gather's backward) and dropped, so a
+    microbatch's gradients never live beside the sum: the
     same arithmetic as JAX's scan;
-  - a step on a mesh gathers over the data axes once a step whether or
-    not pregather_spec is given (JAX gathers at each use without it);
-    the one pregather_spec taken is JAX's TP-only spec;
+  - the unit of a gather at use is one block, where GSPMD may place each
+    weight's gather anywhere in the scan body; the one pregather_spec
+    taken is JAX's TP-only spec;
   - the batch (B / M) must divide by dp, where JAX would replicate.
 
 No host sync runs inside the step: the metrics are tensors on the step's
@@ -86,6 +99,7 @@ rows of the global batch, and the logits come back whole.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -95,13 +109,15 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import tensor_parallel as TP
-from repro_torch.distributed.sharding import (P, gather, local_shape,
-                                              local_shard, owns,
-                                              param_pspecs, reduce_shard,
-                                              state_pspecs)
+from repro_torch.distributed.sharding import (AtUse, P, call_gathered,
+                                              gather, gather_at_use,
+                                              local_shape, local_shard,
+                                              owns, param_pspecs,
+                                              reduce_shard, state_pspecs)
 from repro_torch.launch.mesh import dp_axes, mesh_axis, tp_axis
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.convert import decayed_names
+from repro_torch.models.layers import remat_units
 from repro_torch.models.registry import ModelAPI
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
@@ -195,8 +211,9 @@ def make_train_step(cfg: ArchConfig, api: ModelAPI, groups: int = 1,
     mesh: run the sharded step (module docstring) on a state from
     shard_train_state; groups must divide by the data axes' size dp.
     pregather_spec ({name: spec}): JAX's pre-gather target, which must be
-    JAX's TP-only spec (param_pspecs(..., use_fsdp=False)); the step
-    gathers over the data axes once a step in any case.
+    JAX's TP-only spec (param_pspecs(..., use_fsdp=False)): the step then
+    gathers over the data axes once a step, not at each use (module
+    docstring).
     grad_spec ({name: spec}): the layout each microbatch's gradient is
     reduce-scattered into and summed in (the moments' by default); a
     gradient in another layout is moved to the moments' before AdamW.
@@ -319,10 +336,12 @@ def _make_mesh_step(cfg, api, groups, grad_transform, opt_cfg,
                     f"{pregather_spec.get(bad[0])}, not {want[bad[0]]}")
         return TP.compute_specs(model, mesh, lay.shapes)
 
-    def grads_of(model, params, batch, lay, gspec, cspec):
+    def grads_of(model, params, batch, lay, gspec, cspec, at_use):
         """(loss, {name: grad}): this rank's rows of each microbatch, the
         gradients reduced as autograd produces them (whole and unreduced
-        for a grad_transform), then the f32 mean for M > 1."""
+        for a grad_transform), then the f32 mean for M > 1. at_use: the
+        parameters are gathered at each use (sharding.gather_at_use),
+        else they were gathered at entry."""
         B = next(iter(batch.values())).shape[0]
         b = B // M // n_dp
         acc = {}
@@ -336,36 +355,61 @@ def _make_mesh_step(cfg, api, groups, grad_transform, opt_cfg,
         vocab_cut = (axis is not None and "unembed" in cspec
                      and tp in cspec["unembed"].names(1))
 
-        def fold(name):
-            def hook(p):
-                g = (gather(p.grad, cspec[name], mesh) if whole_grads
-                     else reduce_shard(p.grad, gspec[name], mesh, dp,
-                                       held=cspec[name]))
-                p.grad = None
-                if M == 1:
-                    acc[name] = g
-                else:
-                    acc[name].add_(g.float())
-            return hook
+        def fold(name, grad):
+            """One use's gradient in the computed layout, reduced (or
+            gathered whole for a grad_transform) and summed in."""
+            g = (gather(grad, cspec[name], mesh) if whole_grads
+                 else reduce_shard(grad, gspec[name], mesh, dp,
+                                   held=cspec[name]))
+            if M > 1:
+                acc[name].add_(g.float())
+            else:
+                acc[name] = acc[name] + g if name in acc else g
 
-        hooks = [p.register_post_accumulate_grad_hook(fold(name))
-                 for name, p in params.items()]
+        def hook(name):
+            def fold_grad(p):
+                fold(name, p.grad)
+                p.grad = None
+            return fold_grad
+
+        hooks, region = [], contextlib.nullcontext()
+        forward = api.forward
+        if at_use:
+            region = gather_at_use(AtUse(
+                mesh, lay.params, cspec, lay.shapes,
+                {id(p): name for name, p in params.items()}, fold))
+            blocks = {f"{prefix}.{n}" for prefix, blk in
+                      remat_units(model).items()
+                      for n, _ in blk.named_parameters()}
+            # The parameters outside the blocks, once a microbatch, those
+            # used after the blocks held (call_gathered); the token
+            # embedding's lookup keeps no copy, and its gradient comes
+            # last.
+            held = set(params) - blocks - {"embed"}
+
+            def forward(model, mb, g):
+                return call_gathered(model, api.forward, (model, mb, g),
+                                     skip=blocks, hold=held)
+        else:
+            hooks = [p.register_post_accumulate_grad_hook(hook(name))
+                     for name, p in params.items()]
         try:
             loss_sum = None
-            for i in range(M):
-                whole = {k: x.reshape(M, B // M, *x.shape[1:])[i]
-                         for k, x in batch.items()}
-                count = (whole["labels"] >= 0).sum()
-                mb = {k: x[rank * b:(rank + 1) * b]
-                      for k, x in whole.items()}
-                logits = api.forward(model, mb, groups // n_dp)
-                loss = (TP.cross_entropy(logits, mb["labels"], count, axis)
-                        if vocab_cut else
-                        cross_entropy(logits, mb["labels"], count))
-                del logits          # autograd keeps what it needs
-                loss.backward()
-                loss = loss.detach()
-                loss_sum = loss if loss_sum is None else loss_sum + loss
+            with region:
+                for i in range(M):
+                    whole = {k: x.reshape(M, B // M, *x.shape[1:])[i]
+                             for k, x in batch.items()}
+                    count = (whole["labels"] >= 0).sum()
+                    mb = {k: x[rank * b:(rank + 1) * b]
+                          for k, x in whole.items()}
+                    logits = forward(model, mb, groups // n_dp)
+                    loss = (TP.cross_entropy(logits, mb["labels"], count,
+                                             axis) if vocab_cut else
+                            cross_entropy(logits, mb["labels"], count))
+                    del logits          # autograd keeps what it needs
+                    loss.backward()
+                    loss = loss.detach()
+                    loss_sum = loss if loss_sum is None else loss_sum + loss
         finally:
             for h in hooks:
                 h.remove()
@@ -393,18 +437,24 @@ def _make_mesh_step(cfg, api, groups, grad_transform, opt_cfg,
         cspec = layouts(model, lay)
         params = dict(model.named_parameters())
         shards = {name: p.data for name, p in params.items()}
+        # zero1 stores the parameters TP-only: nothing to gather over the
+        # data axes at each use, so it keeps the entry gather.
+        at_use = pregather_spec is None and all(
+            tuple(lay.params[n]) == tuple(lay.moments[n]) for n in params)
         try:
             with torch.no_grad():
                 for name, p in params.items():
-                    p.data = gather(shards[name], lay.params[name], mesh,
-                                    to=cspec[name])
                     p.grad = None
+                    if not at_use:
+                        p.data = gather(shards[name], lay.params[name],
+                                        mesh, to=cspec[name])
             with TP.tensor_parallel(model_axis):
                 loss, grads = grads_of(model, params, batch, lay, gspec,
-                                       cspec)
+                                       cspec, at_use)
         finally:
-            for name, p in params.items():
-                p.data = shards[name]
+            if not at_use:
+                for name, p in params.items():
+                    p.data = shards[name]
         if whole_grads:
             if n_dp > 1:
                 for g in grads.values():

@@ -12,7 +12,10 @@ world of launch/mesh.py, against the JAX package on the CPU.
 - the dry run at smoke widths on the production mesh and on fake (2, 2)
   and (1, 4) meshes, tensor-parallel for every family: the argument
   bytes are rules_mb plus the global batch the step takes, and the
-  collective bytes by kind are train_plan's.
+  collective bytes by kind are train_plan's, the parameters gathered at
+  each use or, with pregather (or zero1), once a step; at (2, 2) with
+  remat, the peak gathering at use lies below the pregather peak by at
+  least all blocks but two (dryrun.block_bytes).
 - the serving cells (phi4-mini-3.8b x prefill_32k and decode_32k,
   mixtral-8x7b x long_500k; recurrentgemma-2b x prefill_32k at 3
   layers, rwkv6-1.6b x decode_32k at 2, whisper-large-v3 x prefill_32k
@@ -224,6 +227,43 @@ def test_tensor_parallel_cell_follows_the_plan(arch, cut, shape):
     assert plan["all-reduce"] > tokens * cfg.d_model * 4
     if shape[0] == 1:       # no data axis: the attention's gathers alone
         assert plan["all-gather"] and plan["reduce-scatter"]
+
+
+@pytest.mark.parametrize("layers", (4, 8), ids=("L4", "L8"))
+def test_gather_at_use_lowers_the_peak(layers):
+    """phi4's smoke config with remat at M 2 and L = 4 or 2L = 8 layers,
+    train_4k's batch of 256 at sequence 64 on a fake (2, 2) mesh, run
+    twice: gathering each parameter at its use (the default) and with
+    JAX's TP-only pregather_spec (every parameter gathered once a step
+    and held to the end of the backward). The bound: rank 0's peak
+    gathering at use sits below the pregather peak by at least the bytes
+    of all blocks but the two largest in their computed layout
+    (dryrun.block_bytes; L - 2 blocks here): pregather holds every block
+    at once, the gather at use one block's copies at a time and, in the
+    backward, the next block's beside them. Both cells move their plans'
+    collective bytes, and the record says how each gathered."""
+    base = dataclasses.replace(get_config("phi4-mini-3.8b", smoke=True),
+                               n_layers=layers, remat=True, microbatches=2)
+    B, S = specs.SHAPES["train_4k"]["batch"], 64
+    peaks = {}
+    mesh = make_dryrun_mesh(shape=(2, 2))
+    try:
+        for pregather in (False, True):
+            cfg = dataclasses.replace(base, pregather=pregather)
+            rec = dryrun.measure(cfg, "train", B, S, mesh)
+            plan = dryrun.train_plan(cfg, rec["microbatches"], mesh, B, S)
+            assert {k: v for k, v in rec["analysis"]["collective_bytes"]
+                    .items() if v} == {k: float(v) for k, v in plan.items()
+                                       if v}
+            assert rec["param_gather"] == ("once a step" if pregather
+                                           else "at each use")
+            peaks[pregather] = rec["analysis"]["memory"]["peak"]
+    finally:
+        destroy_dryrun_mesh(mesh)
+    blocks = sorted(dryrun.block_bytes(
+        base, MeshShape(("data", "model"), (2, 2))).values())
+    assert len(blocks) == layers
+    assert peaks[True] - peaks[False] >= sum(blocks[:-2]) > 0
 
 
 @pytest.mark.parametrize("shape", ((2, 2), (1, 4)), ids=("2x2", "1x4"))

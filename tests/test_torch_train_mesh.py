@@ -28,7 +28,13 @@ reaches only the MoE layers, so JAX runs once per case at groups 1 and
 again at 2 and 4 for mixtral, whose capacity routing sees the data ranks
 as JAX's routing groups. Over a model axis, each parameter's shape when
 its module runs (the worker's forward pre-hooks) is its local shape under
-JAX's TP-only spec.
+JAX's TP-only spec. The step gathers each parameter over the data axes
+at its use (JAX's step without a pregather_spec): at (2, 1), (2, 2) and
+(4, 1), while a block runs every other block's parameters are still the
+rank's stored fsdp x tp shards, each parameter is all-gathered once a
+microbatch and a block's once more under remat (phi4-m2), and each
+parameter's gradient is reduced once a microbatch (the worker counts
+both in the first step).
 
 Also: at (2, 2) phi4 with zero1 and a TP-only grad_spec, and phi4 with
 JAX's TP-only pregather_spec, against JAX (the latter's step with the
@@ -65,11 +71,13 @@ from repro.train import steps as jsteps
 from repro_torch.configs import get_config
 from repro_torch.distributed.checkpoint import CheckpointManager
 from repro_torch.distributed.compression import compression_ratio
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import (MeshShape, local_shape,
                                               param_pspecs)
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import get_api
+from repro_torch.models.layers import remat_units
 from repro_torch.train import (AdamWConfig, TrainState, adamw_init,
                                init_train_state, make_train_step,
                                shard_train_state)
@@ -291,6 +299,66 @@ def test_weights_have_their_compute_shape(runs, world, case):
         assert tuple(out[f"{case}/shape/{name}"]) == tuple(want), name
         cut += tuple(want) != tuple(p.shape)
     assert cut if pcfg.family in TP_FAMILIES else not cut
+
+
+AT_USE_PAIRS = tuple((w, c) for w, c in PAIRS
+                     if w in ((2, 1), (2, 2), (4, 1)))
+
+
+def _blocks(pcfg):
+    """The whole model on "meta" and {name: block prefix} of the
+    parameters of its blocks (layers.remat_units)."""
+    model = get_api(pcfg).init(pcfg, 1, device="meta")
+    return model, {f"{prefix}.{n}": prefix
+                   for prefix, blk in remat_units(model).items()
+                   for n, _ in blk.named_parameters()}
+
+
+@pytest.mark.parametrize("world,case", AT_USE_PAIRS, ids=_ids)
+def test_other_blocks_hold_their_shards(runs, world, case):
+    """Gathered at its use: while a block runs, every other block's
+    parameters are still this rank's stored fsdp x tp shards (the
+    worker's pre-hook on each block), and the data axis cuts some."""
+    pcfg = _configs(case)[1]
+    model, blocks = _blocks(pcfg)
+    mesh = MeshShape(("data", "model"), world)
+    spec = param_pspecs(model, mesh)
+    whole = dict(model.named_parameters())
+    out = runs["worlds"][world]
+    cut = 0
+    for running in set(blocks.values()):
+        for name, prefix in blocks.items():
+            if prefix == running:
+                continue
+            want = local_shape(whole[name].shape, spec[name], mesh)
+            got = out[f"{case}/held/{running}/{name}"]
+            assert tuple(got) == tuple(want), (running, name)
+            cut += tuple(want) != tuple(whole[name].shape)
+    assert cut
+
+
+@pytest.mark.parametrize("world,case", AT_USE_PAIRS, ids=_ids)
+def test_each_use_gathers_and_each_microbatch_reduces_once(runs, world,
+                                                           case):
+    """In the first step, each parameter whose stored shard is not its
+    computed layout was all-gathered once a microbatch, a block's once
+    more in remat's replay (phi4-m2: M 2, remat, so 4 a step), and each
+    parameter's gradient was reduced once a microbatch (the replay adds
+    no reduction)."""
+    pcfg = _configs(case)[1]
+    model, blocks = _blocks(pcfg)
+    mesh = MeshShape(("data", "model"), world)
+    stored = param_pspecs(model, mesh)
+    compute = TP.compute_specs(model, mesh)
+    out = runs["worlds"][world]
+    M = pcfg.microbatches
+    for name, p in model.named_parameters():
+        moves = (local_shape(p.shape, stored[name], mesh)
+                 != local_shape(p.shape, compute[name], mesh))
+        uses = M * (2 if pcfg.remat and name in blocks else 1)
+        assert int(out[f"{case}/gathers/{name}"]) == uses * moves, name
+    assert int(out[f"{case}/reductions"]) == M * len(dict(
+        model.named_parameters()))
 
 
 def test_zero1_with_a_grad_spec_matches_jax(runs):

@@ -11,12 +11,18 @@ world (2, 1) and (1, 2), runs the launcher (`launch.train.run`) as the
 test asks. Rank 0 writes the metrics and the
 whole state gathered after every step to `out.npz`, and, over a model
 axis, the shape each parameter has when its module runs in the first
-step (a forward pre-hook). A case with "seq" true steps inside
+step (a forward pre-hook). Where the step gathers each parameter at its
+use (no zero1, no pregather_spec) on a data axis of size > 1, rank 0
+also writes, for the first step, the shape of every other block's
+parameters when a block first runs (a forward pre-hook on each block),
+how many times each parameter's gather at use ran a collective, and
+how many gradient reductions the step made. A case with "seq" true steps inside
 sharding.activation_sharding(seq_axis="model", seq_div=MODEL), JAX's
 seq_shard_acts switch. With the optional last argument `cases` the rank
 runs the cases alone (no launcher, checkpoint or zero1 runs). No JAX
 runs here and no check asserts here: the test compares.
 """
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -28,12 +34,15 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config
+from repro_torch.distributed import sharding
 from repro_torch.distributed.checkpoint import CheckpointManager
 from repro_torch.distributed.sharding import (activation_sharding,
                                               param_pspecs)
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import dp_axes, make_debug_mesh
 from repro_torch.models import get_api
+from repro_torch.models.layers import remat_units
+from repro_torch.train import steps as train_steps
 from repro_torch.train import (AdamWConfig, TrainState, adamw_init,
                                init_train_state, make_train_step,
                                shard_train_state)
@@ -70,6 +79,62 @@ def record_shapes(model, res, key):
         for prefix, mod in model.named_modules()]
 
 
+def record_held(model, res, key):
+    """Forward pre-hooks on each block (layers.remat_units) that record,
+    when it first runs, the shape every other block's parameters have
+    then; returns the hooks' handles."""
+    units = remat_units(model)
+
+    def pre(prefix):
+        def hook(_mod, _args):
+            for other, blk in units.items():
+                if other == prefix:
+                    continue
+                for pname, p in blk.named_parameters():
+                    res.setdefault(f"{key}/held/{prefix}/{other}.{pname}",
+                                   np.asarray(p.shape))
+        return hook
+    return [blk.register_forward_pre_hook(pre(prefix))
+            for prefix, blk in units.items()]
+
+
+class CountUses:
+    """Within it, per parameter, the gathers at use that ran a collective
+    (sharding.gather called on the parameter itself returning another
+    tensor), and the gradient reductions of the step (its reduce_shard)
+    into res under key."""
+
+    def __init__(self, model, res, key):
+        self.names = {id(p): n for n, p in model.named_parameters()}
+        self.res, self.key = res, key
+        self.gathers = dict.fromkeys(self.names.values(), 0)
+        self.reductions = 0
+
+    def __enter__(self):
+        gather, reduce = sharding.gather, train_steps.reduce_shard
+
+        def counted_gather(t, *args, **kwargs):
+            out = gather(t, *args, **kwargs)
+            if id(t) in self.names and out is not t:
+                self.gathers[self.names[id(t)]] += 1
+            return out
+
+        def counted_reduce(*args, **kwargs):
+            self.reductions += 1
+            return reduce(*args, **kwargs)
+
+        self.saved = gather, reduce
+        sharding.gather = counted_gather
+        train_steps.reduce_shard = counted_reduce
+        return self
+
+    def __exit__(self, *exc):
+        sharding.gather, train_steps.reduce_shard = self.saved
+        for name, n in self.gathers.items():
+            self.res[f"{self.key}/gathers/{name}"] = np.asarray(n)
+        self.res[f"{self.key}/reductions"] = np.asarray(self.reductions)
+
+
 def train_case(mesh, data, tp, inp, case, res, zero1=False,
                pregather=False):
     """STEPS sharded steps of `case`; with zero1, the parameters stored
@@ -96,11 +161,16 @@ def train_case(mesh, data, tp, inp, case, res, zero1=False,
                            mesh=mesh)
     key = (f"{name}-zero1" if zero1 else
            f"{name}-pregather" if pregather else name)
+    at_use = data > 1 and not (zero1 or pregather)
     hooks = (record_shapes(model, res, key)
              if tp > 1 and not (zero1 or pregather) else [])
+    if at_use:
+        hooks += record_held(model, res, key)
     seq = "model" if case.get("seq") else None
     for i in range(1, STEPS + 1):
-        with activation_sharding(dp_axes(mesh), seq_axis=seq, seq_div=tp):
+        with activation_sharding(dp_axes(mesh), seq_axis=seq, seq_div=tp), \
+                (CountUses(model, res, key) if at_use and i == 1
+                 else contextlib.nullcontext()):
             _, m = step(state, batch)
         for h in hooks:
             h.remove()
