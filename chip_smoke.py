@@ -297,6 +297,18 @@ Phases, each fatal on failure:
      use below the pregather peak by at least all blocks but two in
      their computed layout (dryrun.block_bytes); the card's
      total_memory printed; the phase within 120 s;
+  20. analysis (after 19, before 7): the port's static contract checker
+     (repro_torch.analysis): python -m repro_torch.analysis's run over
+     src/repro_torch with analysis_baseline_torch.toml must exit 0; every
+     registry case of the seven kernels and their main-path shapes
+     launched under one torch.profiler trace, each launch's kernel, grid,
+     block and shared memory (CUPTI's static + dynamic) in the trace equal
+     to the plan the CPU derivation walks (its dynamic shared memory plus
+     ptxas's static), each call's declared DRAM bytes equal to the
+     derived, the traced shared memory within the contract's budget and
+     the budget within the card's opt-in limit per block; the library's
+     own shared memory of extend_embed and fit_sketch equal to the plans';
+     at the main shapes the modelled bytes beside the bound's;
   7. device: times on the card alone from torch.profiler traces, taken
      last so that no phase runs after the profiler: kmeans_assign,
      embed_assign beside extend_embed and the unfused sequence, and the
@@ -309,6 +321,7 @@ without a CUDA card or without the repository around it.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import pathlib
@@ -808,34 +821,38 @@ def bound(ops: float, nbytes: float) -> dict:
 
 
 def gram_bound(p, n, w, kind, degree):
+    from repro_torch.kernels.gram.ops import gram_stripe_bytes
     return bound(n * w * (2 * p + kappa_ops(kind, degree)),
-                 4 * (p * n + p * w + n * w))
+                 gram_stripe_bytes(p, n, w))
 
 
 def assign_bound(n, r, k):
-    return bound(n * k * (2 * r + 3) + (n + k) * 2 * r,
-                 4 * (n * r + k * r) + 8 * n)
+    from repro_torch.kernels.kmeans_assign.ops import assign_bytes
+    return bound(n * k * (2 * r + 3) + (n + k) * 2 * r, assign_bytes(n, r, k))
 
 
 def embed_assign_bound(p, n, r, w, k, kind, degree):
     """extend_embed's work, then per query the assignment's 2r flops of
     |y|^2 and k (2r + 3) of the distances; its outputs are the labels and
     distances (the embedding it writes as scratch is not counted)."""
-    return tc_bound(4 * (p * n + r * n + p * w + k * r) + 8 * w,
+    from repro_torch.kernels.kmeans_assign.ops import embed_assign_bytes
+    return tc_bound(embed_assign_bytes(p, n, r, w, k),
                     n * w * (2 * p + 2 * r),
                     n * w * kappa_ops(kind, degree) + w * (2 * r
                                                            + k * (2 * r + 3)))
 
 
 def extend_bound(p, n, r, w, kind, degree):
+    from repro_torch.kernels.extend_embed.ops import extend_embed_bytes
     return bound(n * w * (2 * p + kappa_ops(kind, degree) + 2 * r),
-                 4 * (p * n + r * n + p * w + r * w))
+                 extend_embed_bytes(p, n, r, w))
 
 
 def fit_bytes(p, m, b, rp):
     """X, Omega, C, Ocross read once; new_rows, delta and the norms written
-    once (the main path passes no V)."""
-    return 4 * (p * m + m * rp + p * b + b * rp + b * rp + m * rp + m + b)
+    once (the main path passes no V): fit_sketch_bytes."""
+    from repro_torch.kernels.fit_sketch.ops import fit_sketch_bytes
+    return fit_sketch_bytes(p, m, b, rp)
 
 
 def fit_bound(p, m, b, rp, kind, degree):
@@ -871,22 +888,24 @@ def fit_tc_bound(p, m, b, rp, kind, degree):
 def extend_tc_bound(p, n, r, w, kind, degree):
     """extend_embed's two products take 2p + 2r flops per entry; kappa the
     rest."""
-    return tc_bound(4 * (p * n + r * n + p * w + r * w),
+    from repro_torch.kernels.extend_embed.ops import extend_embed_bytes
+    return tc_bound(extend_embed_bytes(p, n, r, w),
                     n * w * (2 * p + 2 * r), n * w * kappa_ops(kind, degree))
 
 
 def fwht_bound(n, c):
     """One read and one write of x; n c log2(n) adds."""
-    return bound(n * c * (n.bit_length() - 1), 8 * n * c)
+    from repro_torch.kernels.fwht.ops import fwht_bytes
+    return bound(n * c * (n.bit_length() - 1), fwht_bytes(n, c))
 
 
 def srht_t_bound(m, c, rows, n_pad):
     """One read of M's m rows and of the signs, one write of the (r', c)
     result; the adds of the blocks this sketch's plan runs (its sampled
     rows decide which)."""
-    from repro_torch.kernels.fwht.ops import srht_plan
+    from repro_torch.kernels.fwht.ops import srht_plan, srht_t_bytes
     adds = sum(len(p.bases) * (p.k << p.k) for p in srht_plan(rows, n_pad))
-    return bound(adds * c, 4 * (m * c + n_pad + len(rows) * c))
+    return bound(adds * c, srht_t_bytes(m, c, len(rows), n_pad))
 
 
 # -- phases -------------------------------------------------------------------
@@ -1490,16 +1509,13 @@ def phase_build() -> dict:
 
     # ptxas's registers, shared memory and spills of each kernel, under
     # the kernel's name and template arguments (fwht_pass_kernel<3, 4>).
-    name, ptxas = "", {k: {} for k in TENSOR_CORE}
-    for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            name = kernel_label(line.split("'")[1])
-        elif "Used" in line or "spill" in line and "0 bytes spill" not in line:
-            msg = line.split(":", 1)[-1].strip()
-            log(f"[build] {name}: {msg}")
-            if family(name):
-                ptxas[family(name)][name] = (
-                    ptxas[family(name)].get(name, "") + " " + msg).strip()
+    ptxas = {k: {} for k in TENSOR_CORE}
+    for name, msg in ptxas_lines(
+            (lib_path.parent / "build.log").read_text()):
+        log(f"[build] {name}: {msg}")
+        if family(name):
+            ptxas[family(name)][name] = (
+                ptxas[family(name)].get(name, "") + " " + msg).strip()
     info = {k: {"ptxas": ptxas[k], "dynamic_smem_bytes": smem_bytes(lib, k)}
             for k in TENSOR_CORE}
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1523,6 +1539,28 @@ def phase_build() -> dict:
         log(f"[build] {k}: dynamic shared memory {v['dynamic_smem_bytes']} "
             f"bytes; HMMA instructions in the SASS {v['sass_hmma']}")
     return info
+
+
+def ptxas_lines(log_text: str):
+    """(kernel label, message) of each resource line ptxas reports in a
+    build log (-Xptxas -v): registers, shared memory, spills."""
+    name = ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            name = kernel_label(line.split("'")[1])
+        elif "Used" in line or "spill" in line and "0 bytes spill" not in line:
+            yield name, line.split(":", 1)[-1].strip()
+
+
+def ptxas_static_smem(log_text: str) -> dict:
+    """Static shared memory (bytes) of each kernel, by name (the largest
+    of its instantiations), from a build log's ptxas lines."""
+    out = {}
+    for label, msg in ptxas_lines(log_text):
+        name = label.split("<")[0]
+        found = re.search(r"(\d+) bytes smem", msg)
+        out[name] = max(out.get(name, 0), int(found[1]) if found else 0)
+    return out
 
 
 def smem_bytes(lib, name: str) -> int:
@@ -1657,7 +1695,8 @@ def same_bits(torch, name, first, again) -> None:
 def gram_tc_bound(p, n, w, kind, degree) -> dict:
     """gram's product takes 2p flops per entry on the tensor cores; kappa
     the rest."""
-    return tc_bound(4 * (p * n + p * w + n * w), n * w * 2 * p,
+    from repro_torch.kernels.gram.ops import gram_stripe_bytes
+    return tc_bound(gram_stripe_bytes(p, n, w), n * w * 2 * p,
                     n * w * kappa_ops(kind, degree))
 
 
@@ -5500,6 +5539,132 @@ def phase_dryrun(torch, smi, phase17) -> dict:
     return info
 
 
+# Passes of phase 20's calls traced before the pass it checks. A trace
+# taken after earlier profiler sessions of the process loses its first
+# kernel records (18 of 70 late in a whole run on an H100; device_ms sees
+# lost records too), so the checked pass is the last.
+TRACE_WARM_PASSES = 2
+
+
+def traced(torch, calls) -> list:
+    """Each call of `calls` run once on the card under a torch.profiler
+    (CUPTI) trace: the launches of the port's kernels that the trace
+    shows, in order (contracts.traced_launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis import contracts
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=BUILD) as work:
+        path = pathlib.Path(work) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    return contracts.traced_launches(events)
+
+
+def phase_analysis(torch, dev, X) -> dict:
+    """Phase 20: the port's static contract checker. The runner over
+    src/repro_torch with its baseline (exit 0); every registry case of
+    the seven kernels and their main-path shapes launched on the card
+    under one torch.profiler trace: the trace's kernel, grid, block and
+    shared memory (static + dynamic) of each launch equal to the plans
+    the CPU derivation walks, declared == derived, shared memory within
+    the budget and the budget within the card's opt-in limit. Returns
+    the phase's summary, with each kernel's contract at its main shapes
+    (modelled bytes, not measured ones)."""
+    import contextlib
+    import io
+    from repro_torch.analysis import contracts, runner
+    from repro_torch.kernels import _build, registry
+    from repro_torch.kernels.extend_embed.ops import EXTEND_SMEM
+    from repro_torch.kernels.fit_sketch.ops import FIT_SMEM
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.chdir(ROOT):
+        rc = runner.run(runner.DEFAULT_PATHS, out=buf)
+    log("[analysis] " + buf.getvalue().strip().replace("\n", "\n[analysis] "))
+    if rc:
+        raise AssertionError(f"python -m repro_torch.analysis exited {rc}")
+    lib = _build.library()
+    sizes = {"extend_embed": (lib.rt_extend_embed_smem_bytes(), EXTEND_SMEM),
+             "fit_sketch": (lib.rt_fit_sketch_smem_bytes(), FIT_SMEM)}
+    if any(a != b for a, b in sizes.values()):
+        raise AssertionError(f"shared memory of the library against the "
+                             f"plans: {sizes}")
+    static = ptxas_static_smem(
+        (_build.build().parent / "build.log").read_text())
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    main = main_shape_inputs(torch, dev, X)
+    calls = []                       # (contract, op, args, kw, what)
+    for entry in registry.kernel_entries():
+        contract = registry.get_contract(entry.name)
+        for i, case in enumerate(entry.cases):
+            args, kw = entry.build(np.random.default_rng(200 + i), case)
+            calls.append((contract, entry.op,
+                          [torch.from_numpy(a).to(dev) for a in args], kw,
+                          f"case {case}"))
+        calls += [(contract, entry.op, args, kw, f"main shape {j}")
+                  for j, (args, kw) in enumerate(main[entry.name])]
+    one = [lambda c=c: c[1](*c[2], **c[3]) for c in calls]
+    got = traced(torch, one * (1 + TRACE_WARM_PASSES))
+    planned = sum(len(c[0].plan(*c[2], **c[3]).launches) for c in calls)
+    lost = (1 + TRACE_WARM_PASSES) * planned - len(got)
+    if not 0 <= lost <= TRACE_WARM_PASSES * planned:
+        raise AssertionError(
+            f"the trace shows {len(got)} launches of the port's kernels, "
+            f"{1 + TRACE_WARM_PASSES} passes of the plans {planned} each: by "
+            f"kernel {collections.Counter(g[0] for g in got)}")
+    got = got[-planned:]
+    facts, at = {}, 0
+    for contract, _, args, kw, what in calls:
+        plan = contract.plan(*args, **kw)
+        want = [contracts.planned_launch(ln, static.get(ln.kernel, 0))
+                for ln in plan.launches]
+        seen, at = got[at:at + len(want)], at + len(want)
+        if seen != want:
+            raise AssertionError(f"{contract.name} {what}: the trace shows "
+                                 f"{seen}, the plan {want}")
+        declared, derived = contract.declared(plan), contracts.derive(plan)
+        if declared != derived:
+            raise AssertionError(f"{contract.name} {what}: declared "
+                                 f"{declared}, the plan implies {derived}")
+        smem = max(ln[3] for ln in seen)
+        if not smem <= contract.smem_budget <= optin:
+            raise AssertionError(f"{contract.name} {what}: {smem} B of "
+                                 f"shared memory, budget "
+                                 f"{contract.smem_budget}, the card's "
+                                 f"opt-in limit {optin}")
+        if what.startswith("main"):
+            facts.setdefault(contract.name, []).append({
+                "modelled_dram_bytes": declared["dram_bytes"],
+                "bound_bytes": contract.bound_bytes(plan.shapes),
+                "traced_smem_bytes": smem, "launches": len(seen)})
+    for name, shapes in sorted(facts.items()):
+        one = shapes[0]
+        log(f"[analysis] {name}: every registry case and {len(shapes)} main "
+            f"shapes launched as planned (trace); at the main shape the "
+            f"modelled DRAM bytes {one['modelled_dram_bytes']} (declared == "
+            f"derived), the bound's {one['bound_bytes']} "
+            f"({one['modelled_dram_bytes'] / one['bound_bytes']:.4f}x), "
+            f"shared memory {one['traced_smem_bytes']} B (trace) of "
+            f"{registry.get_contract(name).smem_budget}")
+    info = {"runner_rc": rc, "calls": len(calls), "traced_launches": len(got),
+            "warm_pass_launches_lost": lost,
+            "static_smem": static, "smem_optin": optin,
+            "smem_budget": {n: registry.get_contract(n).smem_budget
+                            for n in facts},
+            "kernels": facts, "phase_s": time.perf_counter() - t0}
+    log(f"[analysis] phase 20: {len(calls)} calls, {len(got)} traced "
+        f"launches of the last of {1 + TRACE_WARM_PASSES} passes equal to "
+        f"the plans ({lost} launches of the warm-up passes missing from "
+        f"the trace); the card's opt-in shared memory "
+        f"{optin} B a block; static shared memory {static}; "
+        f"{info['phase_s']:.1f} s")
+    return info
+
+
 def phase_device(torch, kernels, inputs, model, Xq) -> dict:
     """Card time alone, from torch.profiler traces, taken last so that no
     earlier phase runs after the profiler: kmeans_assign at its main shape
@@ -5604,6 +5769,7 @@ def main() -> int:
     mesh_launches, summary["train_mesh"] = phase_train_mesh(
         torch, smi, summary["train"])
     summary["dryrun"] = phase_dryrun(torch, smi, summary["train"])
+    summary["analysis"] = phase_analysis(torch, dev, X)
     ident = summary["train_mesh"]["identities"]
     kernels["fwht"]["sketch_shape"] = {
         k: ident[k] for k in ("n_pad", "fwht_ms", "fwht_plain_ms",

@@ -86,7 +86,7 @@ def gram_matrix(kernel: KernelFn, X: torch.Tensor) -> torch.Tensor:
 
 
 def gram_stripe(kernel: KernelFn, lhs: torch.Tensor, X: torch.Tensor,
-                start: int, block: int) -> torch.Tensor:
+                start: int, block: int) -> torch.Tensor:  # hot-path
     """Stripe kappa(lhs, X[:, start:start+block]) of the rectangular gram."""
     return kernel(lhs, X[:, start:start + block])
 

@@ -72,7 +72,7 @@ def _update(Y: torch.Tensor, C: torch.Tensor, labels: torch.Tensor
 
 
 def _lloyd(Y: torch.Tensor, init: torch.Tensor, max_iter: int,
-           tol: float) -> KMeansResult:
+           tol: float) -> KMeansResult:  # hot-path
     """Lloyd from `init` ((k, r), or (R, k, r) for R restarts at once)."""
     single = init.dim() == 2
     C = init[None] if single else init
@@ -105,7 +105,7 @@ def _lloyd(Y: torch.Tensor, init: torch.Tensor, max_iter: int,
 
 def kmeans(Y: torch.Tensor, k: int, n_restarts: int = 10, max_iter: int = 20,
            tol: float = 1e-6, generator: Optional[torch.Generator] = None,
-           init: Optional[torch.Tensor] = None) -> KMeansResult:
+           init: Optional[torch.Tensor] = None) -> KMeansResult:  # hot-path
     """K-means with `n_restarts` k-means++ seeded Lloyd runs; best kept.
 
     Y: (n, r) data (rows = samples, the paper's Y^T). init: optional
@@ -118,8 +118,6 @@ def kmeans(Y: torch.Tensor, k: int, n_restarts: int = 10, max_iter: int = 20,
             raise ValueError("kmeans needs a generator or init centroids")
         init = kmeans_plus_plus(Y, k, generator, n_restarts)
     res = _lloyd(Y, init.to(Y.dtype), max_iter, tol)
-    best = int(torch.argmin(res.objective))
-    return KMeansResult(labels=res.labels[best],
-                        centroids=res.centroids[best],
-                        objective=res.objective[best],
-                        n_iter=res.n_iter[best])
+    # The best restart gathered on the device: no host read of its index.
+    best = torch.argmin(res.objective).reshape(1)
+    return KMeansResult(*(torch.index_select(t, 0, best)[0] for t in res))

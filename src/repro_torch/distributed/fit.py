@@ -145,7 +145,7 @@ class ShardedFitEngine:
     # -- the block update --------------------------------------------------
 
     def apply(self, X: torch.Tensor, W: torch.Tensor, rn: torch.Tensor,
-              q: int, b: int) -> None:
+              q: int, b: int) -> None:  # hot-path
         """Fold columns [q, q + b) of X (the accumulator's (p, capacity)
         buffer) into this rank's slabs W (L, r') and rn (L,), in place.
         Collective: every rank calls it with the same q and b."""
@@ -173,7 +173,7 @@ class ShardedFitEngine:
         """Omega[q:q+b], the block's own sketch rows."""
         return self.omega()[q:q + b]
 
-    def _default(self, X, C, m: int, q: int, b: int):
+    def _default(self, X, C, m: int, q: int, b: int):  # hot-path
         lo = self.lo
         Kl = self.kernel(X[:, lo:lo + m], C)                  # (m, b)
         if self._is_srht:
@@ -191,7 +191,7 @@ class ShardedFitEngine:
             part, torch.sum(Kl * Kl, dim=0))
         return new_rows, colsum, Kl
 
-    def _fused(self, X, C, m: int, q: int, b: int):
+    def _fused(self, X, C, m: int, q: int, b: int):  # hot-path
         kind, gamma, degree = self.kernel_statics
         rp = int(self.sketch.rows.shape[0] if self._is_srht
                  else self.sketch.omega.shape[1])

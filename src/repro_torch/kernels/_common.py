@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,6 +33,47 @@ GRAM_SMS = 132
 GRAM_SMEM_MAX = 232_448
 GRAM_WARPS = 16
 GRAM_KGROUP = 32
+# The fixed-order second pass of the split reductions (csrc/common.cuh,
+# sum_splits_kernel) and the assigning blocks (csrc/assign.cuh).
+SUM_THREADS = 256
+ASSIGN_THREADS = 128
+
+
+class Launch(NamedTuple):
+    """One CUDA launch as its plan schedules it: the __global__ function
+    of csrc/, its grid, threads per block, dynamic shared memory per block
+    (bytes), and the tile parameters the launch passes."""
+    kernel: str
+    grid: Tuple[int, ...]
+    threads: int
+    smem: int
+    tiles: Tuple[int, ...] = ()
+
+
+class LaunchPlan(NamedTuple):
+    """The launches a wrapper makes for one call, planned from the call's
+    shapes alone (srht_t's also from its sampled rows): the shapes, the
+    launches in order, and the kernel's own plan (GramPlan, the SRHT
+    passes, ...) that the traffic model reads."""
+    shapes: Dict[str, int]
+    launches: Tuple[Launch, ...]
+    detail: object = None
+
+
+def sum_splits_launch(nsplit: int, length: int) -> Tuple[Launch, ...]:
+    """The summing launch of a split reduction: `length` outputs, each
+    the sum of `nsplit` partials (none when length is 0)."""
+    if length <= 0:
+        return ()
+    return (Launch("sum_splits_kernel", (-(-length // SUM_THREADS),),
+                   SUM_THREADS, 0, (nsplit, length)),)
+
+
+def assign_smem(k: int, r: int) -> int:
+    """Dynamic shared memory of an assigning block: the centroids (k, r)
+    and their k norms (csrc/assign.cuh, assign_smem)."""
+    return 4 * k * (r + 1)
+
 
 def kind_code(kind: str, degree: int) -> int:
     if kind not in KINDS:

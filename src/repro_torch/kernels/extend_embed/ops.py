@@ -10,7 +10,7 @@ from repro_torch.kernels.extend_embed.ref import extend_embed_ref
 
 def extend_embed_op(X: torch.Tensor, P: torch.Tensor, Xb: torch.Tensor,
                     kind: str = "polynomial", gamma: float = 0.0,
-                    degree: int = 2) -> torch.Tensor:
+                    degree: int = 2) -> torch.Tensor:  # hot-path
     """Fused serving stripe P @ kappa(X, Xb) -> (r, w).
 
     X (p, n) training data, P (r, n) projection Sigma^{-1/2} U^T, Xb (p, w)
@@ -67,6 +67,69 @@ def launch(what: str, X: torch.Tensor, P: torch.Tensor, Xb: torch.Tensor,
         cm.stream(X))
     _build.check(rc, what)
     return out
+
+
+# Dynamic shared memory of one kernel block: two Buf (csrc/extend_embed.cu),
+# each a unit's X and P^T as B fragments (16 x 3 and 16 slots of 32
+# float4) and the squared norms of its 128 training points.
+EXTEND_SMEM = 2 * (16 * 3 * 32 * 16 + 16 * 32 * 16 + 128 * 4)
+
+
+def extend_plan(n: int, w: int, p: int, r: int, k: int = 0,
+                rbf: bool = False) -> cm.LaunchPlan:
+    """The launches of one stripe, from the helpers launch() uses (detail:
+    training points per range, ranges, query tiles per warp): the kernel over
+    (ranges, query groups) unless n = 0, then the summing launch, or with
+    k centroids the summing launch that assigns."""
+    per, ranges = cm.extend_split(n) if n else (0, 0)
+    tiles = cm.extend_query_tiles(w)
+    shapes = {"p": p, "n": n, "r": r, "w": w, "k": k, "rbf": rbf}
+    launches = ()
+    if ranges:
+        group = 16 * cm.EXTEND_WARPS * tiles
+        launches = (cm.Launch("extend_embed_kernel", (ranges, -(-w // group)),
+                              32 * cm.EXTEND_WARPS, EXTEND_SMEM,
+                              (tiles, per)),)
+    if k:
+        launches += (cm.Launch(
+            "sum_assign_kernel", (-(-w // cm.ASSIGN_THREADS),),
+            2 * cm.ASSIGN_THREADS, cm.assign_smem(k, r), (ranges, k)),)
+    else:
+        launches += cm.sum_splits_launch(ranges, r * w)
+    return cm.LaunchPlan(shapes, launches, (per, ranges, tiles))
+
+
+def extend_launch_plan(X, P, Xb, kind: str = "polynomial",
+                       gamma: float = 0.0, degree: int = 2) -> cm.LaunchPlan:
+    """The launches extend_embed_op makes for these arguments."""
+    return extend_plan(X.shape[1], Xb.shape[1], X.shape[0], P.shape[0], 0,
+                       kind == "rbf")
+
+
+def extend_contract(plan: cm.LaunchPlan) -> dict:
+    """The declared memory contract of one stripe, in its plan's
+    parameters (the summing launch's when the plan sums; the assigning
+    form adds its own, embed_assign_contract). The kernel reads X once per
+    pass of 8 rows of r, twice with the rbf norms, and P once, in every
+    query group; each block reads its queries once (p <= 24: held in
+    registers; else once per 16 training points of every pass) and once
+    more for the rbf norms, and writes its range's partial of r rows; the
+    summing launch reads the partials and writes the embedding."""
+    s = plan.shapes
+    p, n, r, w = s["p"], s["n"], s["r"], s["w"]
+    per, ranges, tiles = plan.detail
+    groups = -(-w // (16 * cm.EXTEND_WARPS * tiles))
+    passes = -(-r // 8)
+    lengths = [min(n, per * (i + 1)) - per * i for i in range(ranges)]
+    x = passes * p * n * groups * (2 if s["rbf"] else 1) + r * n * groups
+    if p <= 24:
+        q = ranges * p * w
+    else:
+        q = passes * p * w * sum(-(-length // 16) for length in lengths)
+    q += ranges * p * w if s["rbf"] else 0
+    summing = 0 if s["k"] else (ranges + 1) * r * w
+    return {"dram_bytes": 4 * (x + q + ranges * r * w + summing),
+            "smem_bytes": EXTEND_SMEM if ranges else 0}
 
 
 def extend_embed_bytes(p: int, n: int, r: int, w: int) -> int:

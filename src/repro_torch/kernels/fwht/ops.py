@@ -64,14 +64,50 @@ def _ints(values) -> ctypes.Array:
 
 
 @functools.lru_cache(maxsize=64)
+def fwht_passes(n: int, max_pass_bits: int = MAX_PASS_BITS) -> tuple:
+    """(stages, register stages per round) of each pass over n rows."""
+    bits = pass_bits(n, max_pass_bits) or [0]   # n == 1: one pass, no stages
+    return tuple((k, reg_bits(k)) for k in bits)
+
+
+@functools.lru_cache(maxsize=64)
 def _fwht_plan(n: int, max_pass_bits: int) -> tuple:
     """rt_fwht's plan arguments (stages and register bits per pass, and
     the number of passes), made once per length and pass size."""
-    bits = pass_bits(n, max_pass_bits) or [0]   # n == 1: one pass, no stages
-    return _ints(bits), _ints([reg_bits(k) for k in bits]), len(bits)
+    passes = fwht_passes(n, max_pass_bits)
+    return (_ints([k for k, _ in passes]), _ints([g for _, g in passes]),
+            len(passes))
 
 
-def fwht_op(x: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+def _pass_launch(kernel: str, blocks: int, c: int, k: int, g: int,
+                 vec: int, tiles: tuple) -> cm.Launch:
+    """One pass kernel's launch (csrc/fwht.cu fwht_launch / srht_launch):
+    `blocks` row tiles times the column tiles of 8 lanes x vec columns,
+    8 x 2^(k - g) threads, a tile of 2^k rows in shared memory."""
+    col_tiles = -(-c // (LANES * vec))
+    return cm.Launch(kernel, (blocks * col_tiles,), LANES << (k - g),
+                     (4 * LANES * vec) << k, tiles)
+
+
+def planned_vec(c: int) -> int:
+    """vec_width of 16-byte aligned tensors: 4 where c allows it."""
+    return 4 if c % 4 == 0 else 1
+
+
+def fwht_launch_plan(x, normalize: bool = True) -> cm.LaunchPlan:
+    """The launches fwht_op makes for x (n, c), its tensors 16-byte
+    aligned (fresh allocations are): one pass kernel a pass."""
+    n, c = x.shape
+    vec, launches, done = planned_vec(c), [], 0
+    for k, g in fwht_passes(n) if c else ():
+        launches.append(_pass_launch("fwht_pass_kernel", n >> k, c, k, g,
+                                     vec, (k, g, vec, done)))
+        done += k
+    return cm.LaunchPlan({"n": n, "c": c}, tuple(launches))
+
+
+def fwht_op(x: torch.Tensor,
+            normalize: bool = True) -> torch.Tensor:  # hot-path
     """Walsh-Hadamard transform along dim 0 of x (n, c), n = 2^m, float32.
 
     CPU tensors run the plain version; CUDA tensors launch the pass kernel
@@ -205,7 +241,7 @@ def _device_plan(rows: torch.Tensor, n_pad: int) -> List[_DevicePass]:
 
 
 def srht_t_op(M: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
-              n_pad: int, normalize: bool = True) -> torch.Tensor:
+              n_pad: int, normalize: bool = True) -> torch.Tensor:  # hot-path
     """Omega^T M = R^T H D M for M (m, c) float32, m <= n_pad -> (r', c).
 
     Rows m .. n_pad - 1 of M are taken as zero; signs (n_pad,) is D and
@@ -256,6 +292,60 @@ def srht_t_op(M: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
 
 
 srht_t_op.launches = 0
+
+
+def srht_launch_plan(M, signs, rows, n_pad: int,
+                     normalize: bool = True) -> cm.LaunchPlan:
+    """The launches srht_t_op makes for these arguments, its tensors
+    16-byte aligned: one pass kernel per pass of srht_plan, each over the
+    blocks its plan runs; the detail is the passes."""
+    m, c = M.shape
+    rows = (rows.cpu().numpy() if isinstance(rows, torch.Tensor)
+            else np.asarray(rows))
+    shapes = {"m": m, "c": c, "r": int(rows.shape[0]), "n_pad": n_pad}
+    if c == 0 or rows.shape[0] == 0:
+        return cm.LaunchPlan(shapes, ())
+    passes = srht_plan(rows, n_pad)
+    vec, m_src, launches = planned_vec(c), m, []
+    for i, p in enumerate(passes):
+        g = reg_bits(p.k)
+        launches.append(_pass_launch(
+            "srht_pass_kernel", len(p.bases), c, p.k, g, vec,
+            (p.k, g, vec, p.stride, m_src, int(i == len(passes) - 1))))
+        m_src = p.out_rows
+    return cm.LaunchPlan(shapes, tuple(launches), passes)
+
+
+def fwht_contract(plan: cm.LaunchPlan) -> dict:
+    """The declared memory contract of one transform: every pass reads and
+    writes all of x (n, c); shared memory holds a pass's widest tile."""
+    s = plan.shapes
+    return {"dram_bytes": 8 * s["n"] * s["c"] * len(plan.launches),
+            "smem_bytes": max((ln.smem for ln in plan.launches), default=0)}
+
+
+def srht_contract(plan: cm.LaunchPlan) -> dict:
+    """The declared memory contract of Omega^T M, in its passes' figures.
+    Every block of a column tile reads its base and write range (16
+    bytes), the source rows of its tile below m_src (the first pass also
+    their signs) and, per row it writes, its tile row and destination (12
+    bytes; a first-pass block past m writes zeros and reads only the
+    destinations); each pass reads its source once (M's m rows, then the
+    previous pass's rows) and writes out_rows rows."""
+    s = plan.shapes
+    m, c = s["m"], s["c"]
+    if not plan.launches:
+        return {"dram_bytes": 0, "smem_bytes": 0}
+    tiles = -(-c // (LANES * planned_vec(c)))
+    first = plan.detail[0]
+    zero = int(np.diff(first.wptr)[first.bases >= m].sum())
+    total, src = tiles * 4 * m - tiles * 4 * zero, m
+    for p in plan.detail:
+        total += (16 * len(p.bases) * tiles + 4 * c * (src + p.out_rows)
+                  + 12 * tiles * p.out_rows)
+        src = p.out_rows
+    return {"dram_bytes": total,
+            "smem_bytes": max(ln.smem for ln in plan.launches)}
 
 
 def fwht_bytes(n: int, c: int) -> int:

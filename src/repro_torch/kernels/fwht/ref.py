@@ -2,7 +2,8 @@
 import torch
 
 
-def fwht_ref(x: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+def fwht_ref(x: torch.Tensor,
+             normalize: bool = True) -> torch.Tensor:  # hot-path
     """Fast Walsh-Hadamard transform along dim 0. x: (n, ...), n = 2^m.
 
     Iterative radix-2 butterflies, log2(n) stages in the order h = 1, 2,

@@ -12,9 +12,15 @@ The registry itself keeps JAX's semantics (repro/kernels/registry.py:65,
 :82): `register_kernel` refuses an entry with no parity cases and
 replaces an entry of the same name, `registered_kernels` gives the names
 sorted, and `kernel_entries` the entries in that order. The port's
-entries below are registered when this module is imported. JAX's memory
-contracts (KernelContract, register_contract, get_contract) wait for the
-analysis slice (ROADMAP Queue A).
+entries below are registered when this module is imported.
+
+Each entry also registers its memory contract (KernelContract,
+register_contract, get_contract; repro/kernels/registry.py:44, :92, :99):
+the launches its wrapper makes for a call, planned from the call's shapes
+by the function the wrapper launches from, and closed forms of the DRAM
+bytes and shared memory in that plan's parameters, which
+repro_torch.analysis holds against the traffic the plan's grid implies
+(rules C001-C003).
 """
 from __future__ import annotations
 
@@ -23,15 +29,23 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.extend_embed.ops import extend_embed_op
+from repro_torch.kernels.extend_embed.ops import (
+    extend_contract, extend_embed_bytes, extend_embed_op, extend_launch_plan)
 from repro_torch.kernels.extend_embed.ref import extend_embed_ref
-from repro_torch.kernels.fit_sketch.ops import fit_sketch_op
+from repro_torch.kernels.fit_sketch.ops import (
+    fit_contract, fit_launch_plan, fit_sketch_bytes, fit_sketch_op)
 from repro_torch.kernels.fit_sketch.ref import fit_sketch_ref
-from repro_torch.kernels.fwht.ops import fwht_op, srht_t_op
+from repro_torch.kernels.fwht.ops import (
+    fwht_bytes, fwht_contract, fwht_launch_plan, fwht_op, srht_contract,
+    srht_launch_plan, srht_t_bytes, srht_t_op)
 from repro_torch.kernels.fwht.ref import fwht_ref, srht_t_ref
-from repro_torch.kernels.gram.ops import gram_stripe_op
+from repro_torch.kernels.gram.ops import (
+    gram_contract, gram_launch_plan, gram_stripe_bytes, gram_stripe_op)
 from repro_torch.kernels.gram.ref import gram_stripe_ref
-from repro_torch.kernels.kmeans_assign.ops import assign_op, embed_assign_op
+from repro_torch.kernels.kmeans_assign.ops import (
+    assign_bytes, assign_contract, assign_launch_plan, assign_op,
+    embed_assign_bytes, embed_assign_contract, embed_assign_launch_plan,
+    embed_assign_op)
 from repro_torch.kernels.kmeans_assign.ref import assign_ref, embed_assign_ref
 
 
@@ -261,6 +275,86 @@ def get_kernel(name: str) -> KernelEntry:
 
 for _entry in ENTRIES:
     register_kernel(_entry)
+
+
+# Hopper's opt-in limit of shared memory per block (227 KB).
+SMEM_BUDGET = 232_448
+
+
+class KernelContract(NamedTuple):
+    """One kernel's declared memory contract.
+
+    plan:     (*args, **kw) -> LaunchPlan (kernels/_common.py): the launches
+              the wrapper makes for the entry's positional arguments,
+              planned from their shapes alone by the function the wrapper
+              launches from (srht_t's also from its sampled rows).
+    declared: (plan) -> {"dram_bytes", "smem_bytes"}: closed forms in the
+              plan's shapes and parameters of the DRAM traffic its launches
+              schedule and their largest shared memory per block.
+              repro_torch.analysis derives both from the plan's grid at
+              every registered case (rule C001).
+    bound_bytes: (shapes) -> the bytes the kernel's bound counts (its
+              *_bytes: each input read once, each output written once),
+              which the declared traffic must not undercut.
+    smem_budget: dynamic shared memory per block the kernel must stay
+              under at every registered case (rule C002).
+    """
+    name: str
+    plan: Callable
+    declared: Callable
+    bound_bytes: Callable
+    smem_budget: int = SMEM_BUDGET
+
+
+CONTRACTS: Tuple[KernelContract, ...] = (
+    KernelContract(
+        name="extend_embed", plan=extend_launch_plan,
+        declared=extend_contract,
+        bound_bytes=lambda s: extend_embed_bytes(s["p"], s["n"], s["r"],
+                                                 s["w"])),
+    KernelContract(
+        name="fit_sketch", plan=fit_launch_plan, declared=fit_contract,
+        bound_bytes=lambda s: fit_sketch_bytes(s["p"], s["m"], s["b"],
+                                               s["rp"])),
+    KernelContract(
+        name="fwht", plan=fwht_launch_plan, declared=fwht_contract,
+        bound_bytes=lambda s: fwht_bytes(s["n"], s["c"])),
+    KernelContract(
+        name="gram_stripe", plan=gram_launch_plan, declared=gram_contract,
+        bound_bytes=lambda s: gram_stripe_bytes(s["p"], s["n"], s["w"])),
+    KernelContract(
+        name="kmeans_assign", plan=assign_launch_plan,
+        declared=assign_contract,
+        bound_bytes=lambda s: assign_bytes(s["n"], s["r"], s["k"])),
+    KernelContract(
+        name="srht_t", plan=srht_launch_plan, declared=srht_contract,
+        bound_bytes=lambda s: srht_t_bytes(s["m"], s["c"], s["r"],
+                                           s["n_pad"])),
+    KernelContract(
+        name="embed_assign", plan=embed_assign_launch_plan,
+        declared=embed_assign_contract,
+        bound_bytes=lambda s: embed_assign_bytes(s["p"], s["n"], s["r"],
+                                                 s["w"], s["k"])),
+)
+
+_CONTRACTS: Dict[str, KernelContract] = {}
+
+
+def register_contract(contract: KernelContract) -> KernelContract:
+    """Register one kernel's memory contract (re-registering a name
+    replaces it, as register_kernel does)."""
+    _CONTRACTS[contract.name] = contract
+    return contract
+
+
+def get_contract(name: str) -> Optional[KernelContract]:
+    """The declared contract for `name`, or None: repro_torch.analysis
+    reports a missing contract as C003 rather than raising here."""
+    return _CONTRACTS.get(name)
+
+
+for _contract in CONTRACTS:
+    register_contract(_contract)
 
 
 def compare(entry: KernelEntry, got, want, inputs=None) -> None:

@@ -85,7 +85,7 @@ def _queries(model: FittedModel, Xq) -> torch.Tensor:
     return Xq
 
 
-def _assign_plain(Yq: torch.Tensor, C: torch.Tensor):
+def _assign_plain(Yq: torch.Tensor, C: torch.Tensor):  # hot-path
     d2min, labels = torch.min(_sq_dists(Yq, C), dim=1)
     return labels.to(torch.int32), d2min
 
@@ -116,7 +116,8 @@ class Extender:
     def _queries(self, Xq) -> torch.Tensor:
         return _queries(self.model, Xq)
 
-    def embed(self, Xq, block: Optional[int] = None) -> torch.Tensor:
+    def embed(self, Xq,
+              block: Optional[int] = None) -> torch.Tensor:  # hot-path
         """Embed query points Xq (p, b) -> Y_q (r, b), streaming over
         columns in stripes of `block` (callers may narrow per bucket)."""
         model = self.model
@@ -167,7 +168,7 @@ class Extender:
         return _assign_plain(Yq, C)
 
     def _assign_stripes(self, Xq, C: torch.Tensor, block: Optional[int]
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:  # hot-path
         """Fused stripe and kernel assignment: one embed_assign_op per
         stripe, writing into the request's (b,) outputs."""
         Xq = self._queries(Xq)
@@ -237,7 +238,8 @@ class ShardedExtender:
             _projection(model)[:, lo:hi], pad).contiguous()
         ax.check("ShardedExtender", self._ref)
 
-    def embed(self, Xq, block: Optional[int] = None) -> torch.Tensor:
+    def embed(self, Xq,
+              block: Optional[int] = None) -> torch.Tensor:  # hot-path
         """Embed Xq (p, b) -> (r, b) in stripes of `block`: each stripe
         against this rank's slab, then one all_reduce of the partials."""
         Xq = _queries(self.model, Xq)

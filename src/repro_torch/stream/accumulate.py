@@ -243,7 +243,7 @@ class SketchAccumulator:
 
     # -- accumulation ----------------------------------------------------
 
-    def _store(self, X_chunk: torch.Tensor) -> None:
+    def _store(self, X_chunk: torch.Tensor) -> None:  # hot-path
         b = int(X_chunk.shape[1])
         if self._Xbuf is None:
             self._Xbuf = torch.zeros((X_chunk.shape[0], self.capacity),

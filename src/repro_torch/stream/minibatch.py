@@ -45,7 +45,7 @@ def minibatch_kmeans(Y: torch.Tensor, k: int, batch_size: int = 256,
                      n_steps: int = 50, *,
                      generator: Optional[torch.Generator] = None,
                      draws: Optional[MiniBatchDraws] = None
-                     ) -> MiniBatchResult:
+                     ) -> MiniBatchResult:  # hot-path
     """Sculley minibatch K-means on the rows of Y (n, r)."""
     if draws is None:
         if generator is None:

@@ -273,7 +273,7 @@ def make_train_step(cfg: ArchConfig, api: ModelAPI, groups: int = 1,
         return loss_sum / M, {name: a.div_(M) for name, a in acc.items()}
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState,
-                                                           Dict]:
+                                                           Dict]:  # hot-path
         model = state.params
         if getattr(model, "shard_layout", None) is not None:
             raise ValueError("a sharded train state needs the step's mesh")
@@ -422,7 +422,7 @@ def _make_mesh_step(cfg, api, groups, grad_transform, opt_cfg,
         return loss_sum / M, {name: acc[name] for name in params}
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState,
-                                                           Dict]:
+                                                           Dict]:  # hot-path
         model = state.params
         lay = getattr(model, "shard_layout", None)
         if lay is None or lay.mesh is not mesh:
@@ -555,7 +555,7 @@ def make_prefill_step(cfg: ArchConfig, api: ModelAPI, groups: int = 1, *,
     if mesh is not None:
         serving = _mesh_serving(mesh)
 
-        def mesh_prefill_step(model, batch, cache):
+        def mesh_prefill_step(model, batch, cache):  # hot-path
             B = next(iter(batch.values())).shape[0]
             rows, g, split = serving.rows(model, B, groups)
             with TP.tensor_parallel(serving.model_axis):
@@ -564,7 +564,7 @@ def make_prefill_step(cfg: ArchConfig, api: ModelAPI, groups: int = 1, *,
             return serving.gather(logits, split), cache
         return mesh_prefill_step
 
-    def prefill_step(model, batch, cache):
+    def prefill_step(model, batch, cache):  # hot-path
         _meshless(model)
         return api.prefill(model, batch, cache, groups)
     return prefill_step
@@ -577,7 +577,7 @@ def make_decode_step(cfg: ArchConfig, api: ModelAPI, groups: int = 1, *,
     (B,); the greedy tokens and logits of every row."""
     serving = _mesh_serving(mesh) if mesh is not None else None
 
-    def decode_step(model, tokens, cache):
+    def decode_step(model, tokens, cache):  # hot-path
         if serving is None:
             _meshless(model)
             logits, cache = api.decode(model, tokens, cache, groups)
