@@ -430,7 +430,7 @@ FIT_SCALING_NS = (25_000, 50_000, 100_000)
 # Phase 12: the serving launcher at n = 100,000 on its own data
 # (blob_ring, p = 2, k = 2, r = 2): the main run with every check and
 # every bench, a Nystrom run and a two-pass run in-process; the sharded
-# run under torchrun and the six examples as processes, all at once.
+# runs under torchrun and the six examples as processes, all at once.
 LAUNCHER_RUNS = {
     "main": ["--n", "100000", "--k", "2", "--r", "2", "--swap", "--stream",
              "--fleet", "--bench", "all", "--batch-sizes", "64,512,4096",
@@ -448,6 +448,10 @@ LAUNCHER_MUST = {"main": ("srht_t", "extend_embed", "embed_assign"),
 BENCH_SECTIONS = ("results", "async", "fused", "swap", "backends", "stream",
                   "fit_scaling", "fleet")
 LAUNCHER_SHARDED_N = 100_000
+# The sharded runs under torchrun: the sync bench, and the async bench
+# (through the rank-0 pump) with the lifecycle check --swap.
+LAUNCHER_SHARDED = {"sync": ["--bench", "sync"],
+                    "async": ["--bench", "async", "--swap"]}
 EXAMPLES = ("torch_quickstart", "torch_serve_async", "torch_stream_refit",
             "torch_cluster_embeddings", "torch_train_lm")
 TORCHRUN = ["-m", "torch.distributed.run", "--standalone",
@@ -1147,6 +1151,135 @@ def dist_checkpoint(torch, model, mesh) -> dict:
     return {"kept": kept, "restored_step": step, "round_trip_equal": True}
 
 
+def pumped_groups(torch, model, pol, reqs, groups) -> tuple:
+    """The requests of each pumped flush, drained through a warmed mesh
+    MicroBatcher, no pump: per request (labels, d2), and each drain's
+    ms (its results are on the host when it returns)."""
+    from repro_torch.serve import MicroBatcher
+    mb = MicroBatcher(model, policy=pol)
+    mb.warm([r.shape[1] for r in reqs])
+    out, ms, at = [], [], 0
+    for size in groups:
+        for r in reqs[at:at + size]:
+            mb.submit(r)
+        t0 = time.perf_counter()
+        out += mb.drain()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        at += size
+    return out, ms
+
+
+def dist_pump(torch, model, Xq, mesh, tally, smi) -> dict:
+    """11g: the rank-0 pump on the NCCL world of one rank. REQUESTS
+    through a pumped AsyncBatcher, its pump thread live and the main
+    thread as the client, equal to a mesh MicroBatcher drain of the same
+    flushes bit for bit; a registry row with a pumped scheduler swapped
+    under pending requests, 0 stranded. The launches of both runs are
+    counted (every pumped flush runs under the pump's sequencer, so one
+    thread launches at a time); the comparison drains are not."""
+    from repro_torch.serve import AsyncBatcher, ComputePolicy, ModelRegistry
+    from repro_torch.serve.pump import PUMP
+    pol = ComputePolicy(mesh=mesh)
+    offs = np.cumsum((0,) + REQUESTS)
+    reqs = [Xq[:, a:b].cpu().numpy() for a, b in zip(offs, offs[1:])]
+    ab = AsyncBatcher(model, max_wait_ms=2.0, policy=pol)
+    ab.batcher.warm(REQUESTS)                # first launches, off the count
+    flushes = []                             # (requests, seconds)
+    inner = ab._broadcast_flush
+
+    def timed_flush(batch):
+        t0 = time.perf_counter()
+        out = inner(batch)                   # numpy: the card is done
+        flushes.append((len(batch), time.perf_counter() - t0))
+        return out
+    ab._broadcast_flush = timed_flush
+
+    def served():
+        ab.start()
+        futs = [ab.submit(r) for r in reqs]
+        ab.stop()
+        return futs
+    before = dict(tally.launches)
+    PUMP.reset_counts()
+    futs = tally(served)
+    sent = PUMP.counts()
+    got = [f.result(timeout=0) for f in futs]
+    groups = [size for size, _ in flushes]
+    want, drain_ms = pumped_groups(torch, model, pol, reqs, groups)
+    same_answers("pumped AsyncBatcher against a mesh drain", got, want)
+    # The swap: four requests pending (max_wait 100 s), the centroid rows
+    # reversed in the new model; the same four after the swap.
+    small = reqs[:4]
+    reg = ModelRegistry()
+    reg.register("pump", model, version=1)
+    sched = reg.scheduler("pump", max_wait_ms=1e5, policy=pol)
+    sched.batcher.warm(REQUESTS[:4])
+    model_b = model._replace(centroids=torch.flip(model.centroids, [0]))
+
+    def swapped():
+        sched.start()
+        pending = [sched.submit(r) for r in small]
+        report = reg.swap("pump", model_b, version=2)
+        stranded = sum(not f.done() for f in pending)
+        new = reg.scheduler("pump")
+        after = [new.submit(r) for r in small]
+        new.flush()
+        reg.unregister("pump")
+        return pending, after, report, stranded
+    PUMP.reset_counts()
+    pending, after, report, stranded = tally(swapped)
+    swap_sent = PUMP.counts()
+    if stranded:
+        raise AssertionError(f"the pumped swap stranded {stranded} futures")
+    old = [f.result(timeout=0) for f in pending]
+    new = [f.result(timeout=0) for f in after]
+    same_answers("requests pending at the swap against the old model", old,
+                 pumped_groups(torch, model, pol, small, [len(small)])[0])
+    same_answers("requests after the swap against the new model", new,
+                 pumped_groups(torch, model_b, pol, small, [len(small)])[0])
+    flipped = sum(int((K - 1 - o[0] != n[0]).sum())
+                  for o, n in zip(old, new))
+    launches = {n: tally.launches[n] - before[n] for n in tally.launches}
+    idle = [n for n in ("extend_embed", "kmeans_assign") if not launches[n]]
+    if idle:
+        raise AssertionError(f"11g never launched {idle}")
+    ms = [sec * 1e3 for _, sec in flushes]
+    info = {"requests": len(reqs), "queries": int(sum(REQUESTS)),
+            "flushes": len(flushes), "flush_requests": groups,
+            "flush_ms": ms, "ms_per_flush": sum(ms) / len(ms),
+            "drain_ms": drain_ms,
+            "messages": sent["messages"], "broadcasts": sent["broadcasts"],
+            "bytes": sent["bytes"],
+            "bytes_per_flush": sent["bytes"] / len(flushes),
+            "equals_mesh_drain": True,
+            "swap": {"flip_ms": report.flip_ms, "warm_s": report.warm_s,
+                     "drain_s": report.drain_s,
+                     "drained_requests": report.drained_requests,
+                     "buckets_warmed": report.buckets_warmed,
+                     "stranded": stranded, "messages": swap_sent["messages"],
+                     "bytes": swap_sent["bytes"],
+                     "labels_not_permuted": flipped},
+            "launches": {n: launches[n] for n in ("extend_embed",
+                                                  "kmeans_assign")}}
+    log(f"[distributed] 11g rank-0 pump at world 1 over NCCL: {len(reqs)} "
+        f"requests ({info['queries']} queries) in {len(flushes)} flushes "
+        f"(requests {groups}) == a mesh MicroBatcher drain bit for bit; "
+        f"{sent['messages']} messages ({sent['broadcasts']} broadcasts, "
+        f"{sent['bytes']} bytes, {info['bytes_per_flush']:.0f} a flush), "
+        f"{info['ms_per_flush']:.3f} ms a flush (each: "
+        + ", ".join(f"{m:.3f}" for m in ms) + "; the same requests "
+        "through a warmed mesh MicroBatcher drain, no pump: "
+        + ", ".join(f"{m:.3f}" for m in drain_ms) + "); pumped swap under "
+        f"{report.drained_requests} pending requests: flip "
+        f"{report.flip_ms:.4f} ms, warm {report.warm_s:.3f} s, "
+        f"{swap_sent['messages']} messages ({swap_sent['bytes']} bytes), "
+        f"stranded 0, old model's answers before, the new's after "
+        f"({flipped} labels not permuted); launches extend_embed "
+        f"{launches['extend_embed']}, kmeans_assign "
+        f"{launches['kmeans_assign']} [{smi}]")
+    return info
+
+
 def dist_launcher(smi) -> dict:
     """11f: the launcher under torchrun, one process on the card."""
     import os
@@ -1171,7 +1304,8 @@ def dist_launcher(smi) -> dict:
 def phase_distributed(torch, est, X, y, Xq, smi) -> tuple:
     """Phase 11: the distributed package on a NCCL world of one rank that
     this phase makes and tears down: the sharded fit, sharded serving,
-    Alg. 1 on the mesh, benchmark_fit_scaling, checkpoints and the
+    Alg. 1 on the mesh, benchmark_fit_scaling, checkpoints, the rank-0
+    pump (sharded async serving and the swap of a sharded row) and the
     launcher under torchrun. Launches counted on the sharded paths."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
@@ -1206,6 +1340,7 @@ def phase_distributed(torch, est, X, y, Xq, smi) -> tuple:
                       for r in bench["rows"]) + f" [{smi}]")
     info["fit_scaling"] = scaling
     info["checkpoint"] = dist_checkpoint(torch, est.model_, mesh)
+    info["pump"] = dist_pump(torch, est.model_, Xq, mesh, tally, smi)
     if made:
         dist.destroy_process_group()
     info["launcher"] = dist_launcher(smi)
@@ -1382,21 +1517,22 @@ def bench_headlines(bench) -> dict:
 
 
 def launcher_processes(work, smi) -> dict:
-    """The launcher with --sharded under torchrun and the six examples
-    (the distributed one under torchrun), started together; each must
-    exit 0. Returns each one's seconds (they overlap) and its last
+    """The launcher with --sharded under torchrun (the sync bench, and
+    the async bench through the rank-0 pump with --swap) and the six
+    examples (the distributed one under torchrun), started together; each
+    must exit 0. Returns each one's seconds (they overlap) and its last
     lines."""
     import os
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     # "--" ends torchrun's options: it would read --n as an ambiguous
     # abbreviation of its own.
-    cmds = {"serve_cluster --sharded (torchrun)": TORCHRUN + [
-        "-m", "repro_torch.launch.serve_cluster", "--", "--sharded",
-        "--bench",
-        "sync", "--n", str(LAUNCHER_SHARDED_N), "--device", DEVICE,
-        "--artifact-dir",
-        str(work / "sharded" / "demo"), "--bench-out",
-        str(work / "bench_sharded.json")]}
+    cmds = {f"serve_cluster --sharded {' '.join(extra)} (torchrun)":
+            TORCHRUN + [
+                "-m", "repro_torch.launch.serve_cluster", "--", "--sharded",
+                *extra, "--n", str(LAUNCHER_SHARDED_N), "--device", DEVICE,
+                "--artifact-dir", str(work / f"sharded_{tag}" / "demo"),
+                "--bench-out", str(work / f"bench_sharded_{tag}.json")]
+            for tag, extra in LAUNCHER_SHARDED.items()}
     for name in EXAMPLES:
         cmds[name] = [str(ROOT / "examples" / f"{name}.py"), "--device",
                       DEVICE]

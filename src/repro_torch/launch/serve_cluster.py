@@ -36,11 +36,14 @@ onepass-srht | onepass-gaussian | nystrom | exact), on the card unless
 These are the JAX launcher's checks (repro.launch.serve_cluster), with
 the port's RNG: one torch.Generator per seed for the data and queries,
 the fit's draws derived from its seed. One card admits one NCCL rank, so
---sharded runs at world size 1 too (the JAX launcher needs two devices);
-at world size > 1 it refuses every mode a clock flushes (--swap,
---stream, --fleet and the async, swap, stream and fleet benches): each
-rank would flush at its own moment and the collectives of a sharded
-flush would not line up until a rank-0 pump drives them all.
+--sharded runs at world size 1 too (the JAX launcher needs two devices),
+and it runs every mode at any world size. Its async bench goes
+through the rank-0 pump (serve/pump.py): rank 0 takes every request and
+broadcasts each flush, which every rank then runs, so the collectives of
+a sharded flush line up. Over more than one rank the unsharded lifecycle
+checks (--swap, --stream, --fleet) and bench sections (swap, stream,
+fleet) run on rank 0 alone, as on JAX's one controller: run on every
+rank they would race on the shared *_versions stores.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_cluster --device cpu \
@@ -66,13 +69,6 @@ import numpy as np
 import torch
 
 from repro_torch.serve.bench import BENCH_MODES
-
-# The modes whose flushes a clock drives; at world size > 1 they wait for
-# a rank-0 pump.
-CLOCKED_BENCHES = ("async", "swap", "stream", "fleet")
-PUMP = ("a flush driven by a clock runs at its own moment on each rank, "
-        "so the collectives of a sharded flush would not line up; that "
-        "needs the rank-0 pump (ROADMAP Queue A), not yet ported")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -228,15 +224,6 @@ def main(argv=None) -> int:
     if world > 1 and not args.sharded:
         ap.error(f"a world of {world} ranks serves through --sharded; "
                  f"run one process otherwise")
-    if world > 1:
-        clocked = ([flag for flag, on in (("--swap", args.swap),
-                                          ("--stream", args.stream),
-                                          ("--fleet", args.fleet)) if on]
-                   + [f"--bench {m}" for m in modes
-                      if m in CLOCKED_BENCHES])
-        if clocked:
-            ap.error(f"--sharded over {world} ranks cannot run "
-                     f"{', '.join(clocked)}: {PUMP}")
 
     import torch.distributed as dist
 
@@ -399,9 +386,11 @@ def _run(args, backend, dev, modes, batch_sizes, world, rank) -> None:
             say(f"sharded fit ({pol.shards} shards) within 2e-3 of the "
                 f"single-host fit, labels agree on {agree:.4f}")
 
+    # Checks 5-7 run on the unsharded row, on rank 0 alone (see the
+    # module docstring).
     # Check 5 (--swap): publish versions, GC, warm hot-swap the live row
     # while async requests are pending.
-    if args.swap:
+    if args.swap and rank == 0:
         from repro_torch.serve import VersionStore
         store = VersionStore(args.artifact_dir + "_versions",
                              keep=args.gc_keep)
@@ -444,7 +433,7 @@ def _run(args, backend, dev, modes, batch_sizes, world, rank) -> None:
     # Check 6 (--stream): the living-service loop. Gated: exactly one
     # rollout, zero stranded futures, post-swap accuracy on the drifted
     # distribution beats the stale model.
-    if args.stream:
+    if args.stream and rank == 0:
         from repro_torch.core.metrics import clustering_accuracy
         from repro_torch.data import blobs_1d
         from repro_torch.serve import VersionStore
@@ -515,7 +504,7 @@ def _run(args, backend, dev, modes, batch_sizes, world, rank) -> None:
 
     # Check 7 (--fleet): replicas over ONE shared VersionStore behind the
     # routed, admission-controlled front door.
-    if args.fleet:
+    if args.fleet and rank == 0:
         from repro_torch.fleet import Fleet, ShedError
         from repro_torch.serve import VersionStore
         f_store = VersionStore(args.artifact_dir + "_fleet_versions")

@@ -7,6 +7,8 @@ and the lifecycle around them.
   policy.py     ComputePolicy: which compute paths run
   batcher.py    pow-2 bucketed MicroBatcher with a coalescing queue
   scheduler.py  AsyncBatcher: futures, deadline flush, SLO accounting
+  pump.py       the rank-0 pump: a mesh's async front door on rank 0,
+                its flushes and swaps broadcast to the other ranks
   latency.py    streaming latency histogram: p50/p95/p99, SLO violations
   versions.py   VersionStore: <root>/v_<N>/ publish, pins, keep-last-K GC
   registry.py   ModelRegistry: rows of models, warm hot-swap (SwapReport)

@@ -41,7 +41,9 @@ class MicroBatcher:
     kmeans_assign kernel, embed_fused: the extend_embed stripe; both on
     by default on the card). With policy.mesh every bucket is served
     through a ShardedExtender, and every call is collective: each rank
-    makes it with the same queries.
+    makes it with the same queries. That is the sync contract (every rank
+    calls); an AsyncBatcher on a mesh is driven by rank 0 instead (rank 0
+    owns the front door, serve/pump.py).
     """
 
     def __init__(self, model: FittedModel, block: Optional[int] = None,
@@ -142,6 +144,13 @@ class MicroBatcher:
         widths = [x.shape[1] for x in self._pending]
         big = np.concatenate(self._pending, axis=1)
         self._pending = []
+        return self.assign_requests(big, widths)
+
+    def assign_requests(self, big, widths
+                        ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Requests given side by side, big (p, sum(widths)), as one
+        coalesced bucketed batch: [(labels_i, d2_i)] in their order. The
+        path of drain(), and of every rank's pumped flush."""
         labels, d2 = self.assign_batch(big)
         out, off = [], 0
         for w in widths:

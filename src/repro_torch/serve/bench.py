@@ -154,7 +154,9 @@ def benchmark_assign(model: FittedModel,
     batcher = MicroBatcher(model, block=block, policy=policy,
                            max_bucket=max_bucket)
     # Each call of a batcher sharded over ranks is collective: every rank
-    # makes the same fixed `repeats` calls, uncalibrated.
+    # makes the same fixed `repeats` calls, uncalibrated. (That is the
+    # sync contract; the async bench is driven by rank 0 instead, which
+    # owns the front door: serve/pump.py.)
     collective = policy is not None and policy.shards > 1
     results = []
     for b in batch_sizes:
@@ -188,7 +190,7 @@ def benchmark_async(model: FittedModel,
                     slo_ms: float = 250.0,
                     seed: int = 0,
                     block: Optional[int] = None, policy=None,
-                    max_bucket: int = 1024) -> Dict:
+                    max_bucket: int = 1024) -> Optional[Dict]:
     """Request traffic through AsyncBatcher; returns latency percentiles.
 
     Submits n_requests of uniformly random widths in width_range, polling
@@ -196,6 +198,10 @@ def benchmark_async(model: FittedModel,
     event loop, so numbers are not polluted by pump-thread jitter), then
     flushes the tail. Every pow-2 bucket the traffic can hit is warmed
     first.
+
+    On a policy with a mesh the batcher is pumped (serve/pump.py): every
+    rank builds and warms it, rank 0 drives the traffic and stops it,
+    and every other rank follows; a follower returns None.
     """
     widths, queries = _traffic(model.spec.p, n_requests, width_range, seed)
     async_batcher = AsyncBatcher(model, max_wait_ms=max_wait_ms,
@@ -203,6 +209,9 @@ def benchmark_async(model: FittedModel,
                                  max_bucket=max_bucket)
     _warm_all_buckets(async_batcher.batcher)
     async_batcher.batcher.reset_stats()
+    if not async_batcher.leader:
+        async_batcher.follow()
+        return None
 
     futures = []
     off = 0
@@ -217,6 +226,7 @@ def benchmark_async(model: FittedModel,
         fut.result()                              # all resolved by flush
     _sync(model.device)
     wall = time.perf_counter() - t0
+    async_batcher.stop()                          # pumped: the STOP
     total_q = int(widths.sum())
     return {
         "mode": "async",
@@ -855,14 +865,22 @@ def run_benches(model: FittedModel, modes: Sequence[str] = ("sync", "async"),
     the JAX package's sections.
 
     `policy` (a ComputePolicy) picks the serving paths; its mesh shards
-    the sync and async benches (ShardedExtender), and fit_scaling runs on
-    it (on a world of every rank when it has none). The other modes run
-    unsharded, as the JAX package's do. `data=(X, labels)` enables the
-    "backends" mode; without it the section records that it was skipped.
+    the sync and async benches (ShardedExtender; the async one through
+    the rank-0 pump, serve/pump.py), and fit_scaling runs on it (on a
+    world of every rank when it has none). The other modes run
+    unsharded, as the JAX package's do; over more than one rank the
+    lifecycle sections (swap, stream, fleet) run on rank 0 alone, as on
+    JAX's one controller, and only rank 0's dict holds them and the async
+    section. `data=(X, labels)` enables the "backends" mode; without it
+    the section records that it was skipped.
     """
+    import torch.distributed as dist
+
     from repro_torch.serve.policy import ComputePolicy
     policy = policy if policy is not None else ComputePolicy()
     local = policy.replace(mesh=None)
+    rank0 = (policy.mesh is None or not dist.is_initialized()
+             or dist.get_rank() == 0)
     device = model.device
     bench: Dict = {
         "model": dataclasses.asdict(model.spec),
@@ -878,20 +896,22 @@ def run_benches(model: FittedModel, modes: Sequence[str] = ("sync", "async"),
             model, batch_sizes=batch_sizes, repeats=repeats, seed=seed,
             block=block, policy=policy, max_bucket=max_bucket))
     if "async" in modes:
-        bench["async"] = benchmark_async(
+        section = benchmark_async(
             model, n_requests=n_requests, max_wait_ms=max_wait_ms,
             slo_ms=slo_ms, seed=seed, block=block, policy=policy,
             max_bucket=max_bucket)
+        if section is not None:
+            bench["async"] = section
     if "fused" in modes:
         bench["fused"] = benchmark_fused(model, repeats=repeats, seed=seed,
                                          block=block,
                                          interpret=policy.interpret)
-    if "swap" in modes:
+    if "swap" in modes and rank0:
         bench["swap"] = benchmark_swap(
             model, n_requests=max(n_requests // 2, 32),
             max_wait_ms=max_wait_ms, slo_ms=slo_ms, seed=seed, block=block,
             policy=local, max_bucket=max_bucket)
-    if "stream" in modes:
+    if "stream" in modes and rank0:
         bench["stream"] = benchmark_stream(model, repeats=repeats,
                                            seed=seed, block=block,
                                            max_wait_ms=max_wait_ms)
@@ -901,7 +921,7 @@ def run_benches(model: FittedModel, modes: Sequence[str] = ("sync", "async"),
             policy=(ComputePolicy(mesh=policy.mesh,
                                   mesh_axis=policy.mesh_axis)
                     if policy.mesh is not None else None))
-    if "fleet" in modes:
+    if "fleet" in modes and rank0:
         # Imported here: repro_torch.fleet composes the serve layer.
         from repro_torch.fleet import benchmark_fleet
         bench["fleet"] = benchmark_fleet(

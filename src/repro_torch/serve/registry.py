@@ -33,16 +33,27 @@ live model.
 On the card the warm phase pays each bucket's first launch (and, for
 the first model of a process, the kernels' build) before the flip, so
 the swapped-in row serves its first request at steady-state speed.
+
+A row whose scheduler is pumped (a policy with a mesh; serve/pump.py)
+is swapped on rank 0 of the mesh axis, which broadcasts SWAP (the new
+model's spec and leaves, its version, the widths it warms) before it
+warms; every other rank serves the row through follow(name), which
+mirrors each step of the swap in the same order. Retiring a pumped row
+(unregister, register(overwrite=True)) stops its scheduler, whose STOP
+ends the followers' loop.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
 from typing import Dict, List, Optional
 
+from repro_torch.serve import pump
 from repro_torch.serve.artifact import FittedModel, load_model, save_model
 from repro_torch.serve.batcher import MicroBatcher
+from repro_torch.serve.pump import PUMP
 from repro_torch.serve.scheduler import AsyncBatcher
 from repro_torch.serve.versions import VersionStore
 
@@ -143,7 +154,8 @@ class ModelRegistry:
     @staticmethod
     def _retire(row: Optional[_Row]) -> None:
         """Stop + flush a dropped row's AsyncBatcher so no future is
-        orphaned; its stale handle rejects later submits."""
+        orphaned; its stale handle rejects later submits. A pumped one's
+        STOP ends the followers' follow()."""
         if row is not None and row.scheduler is not None:
             row.scheduler.stop()
 
@@ -265,26 +277,36 @@ class ModelRegistry:
              resolve against the version that accepted them) and retire
              it: submits on the stale handle now raise instead of
              stranding futures in a pump-less queue.
+
+        A pumped row swaps on rank 0 only: steps 1-2 run under the
+        pump's sequencer after a SWAP broadcast, and the drain of step 4
+        goes out as FLUSH and STOP messages of the old generation; the
+        followers mirror all of it in follow().
         """
         with self._lock:
             old = self._row(name)
             old_batcher, old_scheduler = old.batcher, old.scheduler
-        new = _Row(model=model, version=version)
+        pumped = old_scheduler is not None and old_scheduler.pumped
+        if pumped and not old_scheduler.leader:
+            raise RuntimeError(
+                f"swap({name!r}) of a pumped row runs on rank 0 of its mesh "
+                f"axis; the other ranks mirror it in follow({name!r})")
+        batcher_widths = (old_batcher.executables
+                          if old_batcher is not None else None)
+        scheduler_widths = (old_scheduler.batcher.executables
+                            if old_scheduler is not None else None)
         t0 = time.perf_counter()
-        warmed: List[int] = []
-        if old_batcher is not None:
-            new.batcher = MicroBatcher(model, **old.batcher_kwargs)
-            new.batcher_kwargs = dict(old.batcher_kwargs)
-            warmed += new.batcher.warm(old_batcher.executables)
-        resume_pump = False
-        if old_scheduler is not None:
-            kwargs = dict(old.scheduler_kwargs)
-            kwargs["latency"] = old_scheduler.latency   # survives the swap
-            new.scheduler = AsyncBatcher(model, **kwargs)
-            new.scheduler_kwargs = dict(old.scheduler_kwargs)
-            warmed += new.scheduler.batcher.warm(
-                old_scheduler.batcher.executables)
-            resume_pump = old_scheduler.running
+        with PUMP.lock if pumped else contextlib.nullcontext():
+            new = self._successor(old, old_batcher, old_scheduler, model,
+                                  version)
+            if pumped:
+                device = old_scheduler.batcher.model.device
+                meta, body = pump.pack_swap(model, version, batcher_widths,
+                                            scheduler_widths, device)
+                PUMP.send(old_scheduler.axis, device, pump.SWAP,
+                          new.scheduler.generation, meta, body)
+            warmed = self._warm(new, batcher_widths, scheduler_widths)
+        resume_pump = old_scheduler is not None and old_scheduler.running
         warm_s = time.perf_counter() - t0
         stats = old_scheduler.latency if old_scheduler is not None else None
         p95_before = (stats.total.percentile(95.0)
@@ -313,10 +335,103 @@ class ModelRegistry:
         drained = self._drain(old)
         return SwapReport(
             name=name, old_version=old.version, new_version=version,
-            buckets_warmed=sorted(set(warmed)), warm_s=warm_s,
+            buckets_warmed=warmed, warm_s=warm_s,
             flip_ms=flip_ms, drain_s=time.perf_counter() - t2,
             drained_requests=drained, requests_before=requests_before,
             p95_before_ms=p95_before)
+
+    @staticmethod
+    def _successor(old: _Row, old_batcher: Optional[MicroBatcher],
+                   old_scheduler: Optional[AsyncBatcher],
+                   model: FittedModel, version: Optional[int]) -> _Row:
+        """Step 1 of a swap: the new row's batchers, built with the old
+        row's recorded construction kwargs; the new AsyncBatcher takes
+        over the old one's LatencyStats."""
+        new = _Row(model=model, version=version)
+        if old_batcher is not None:
+            new.batcher = MicroBatcher(model, **old.batcher_kwargs)
+            new.batcher_kwargs = dict(old.batcher_kwargs)
+        if old_scheduler is not None:
+            kwargs = dict(old.scheduler_kwargs)
+            kwargs["latency"] = old_scheduler.latency   # survives the swap
+            new.scheduler = AsyncBatcher(model, **kwargs)
+            new.scheduler_kwargs = dict(old.scheduler_kwargs)
+        return new
+
+    @staticmethod
+    def _warm(new: _Row, batcher_widths, scheduler_widths) -> List[int]:
+        """Step 2 of a swap: the buckets the old row served, through the
+        new row's sync batcher and its scheduler's; the widths warmed."""
+        warmed: List[int] = []
+        if batcher_widths is not None:
+            warmed += new.batcher.warm(batcher_widths)
+        if scheduler_widths is not None:
+            warmed += new.scheduler.batcher.warm(scheduler_widths)
+        return sorted(set(warmed))
+
+    # -- the followers of a pumped row -----------------------------------
+
+    def follow(self, name: str) -> int:
+        """A follower's serving loop for the row `name`, whose scheduler
+        is pumped: run rank 0's flushes of the row's schedulers, mirror
+        its swaps, until the STOP of the scheduler the row serves through
+        (rank 0 retired the row). Returns the flushes run. The set-up
+        before it is SPMD: every rank registers the row and builds its
+        batchers with rank 0's kwargs."""
+        with self._lock:
+            row = self._row(name)
+        sched = row.scheduler
+        if sched is None or not sched.pumped:
+            raise ValueError(f"follow({name!r}): the row has no pumped "
+                             f"scheduler (a policy with a mesh)")
+        if sched.leader:
+            raise RuntimeError(f"follow({name!r}) runs on the followers; "
+                               f"rank 0 of the mesh axis is the front door")
+        live = {sched.generation: sched}
+        flushes = 0
+        while live:
+            msg = PUMP.receive(sched.axis, row.model.device)
+            if msg.kind == pump.NOP:
+                continue
+            if msg.kind == pump.SWAP:
+                new = self._follow_swap(name, msg)
+                live[new.generation] = new
+                continue
+            target = live.get(msg.gen)
+            if target is None:
+                raise RuntimeError(
+                    f"pump: rank 0 sent {pump.KINDS[msg.kind]} for batcher "
+                    f"generation {msg.gen}; row {name!r} here serves "
+                    f"generations {sorted(live)}")
+            if msg.kind == pump.FLUSH:
+                target.follow_flush(msg)
+                flushes += 1
+            else:
+                target.stop()
+                del live[msg.gen]
+        return flushes
+
+    def _follow_swap(self, name: str, msg: pump.Message) -> AsyncBatcher:
+        """A follower's side of swap(): the same row built from rank 0's
+        leaves and kwargs, warmed at rank 0's widths, flipped; returns the
+        new scheduler. The old one serves on until its STOP."""
+        with self._lock:
+            old = self._row(name)
+        model, version, batcher_widths, scheduler_widths = \
+            pump.unpack_swap(msg)
+        if (batcher_widths is None) != (old.batcher is None):
+            raise RuntimeError(f"swap({name!r}): rank 0's row and this "
+                               f"rank's differ in their sync batcher")
+        new = self._successor(old, old.batcher, old.scheduler, model,
+                              version)
+        if new.scheduler.generation != msg.gen:
+            raise RuntimeError(
+                f"pump: rank 0's new scheduler of {name!r} is generation "
+                f"{msg.gen}, this rank's {new.scheduler.generation}")
+        self._warm(new, batcher_widths, scheduler_widths)
+        with self._lock:
+            self._rows[name] = new
+        return new.scheduler
 
     @staticmethod
     def _drain(row: _Row) -> int:

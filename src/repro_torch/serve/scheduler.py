@@ -44,6 +44,14 @@ Futures hold numpy arrays only (`MicroBatcher.assign_batch` copies the
 results to the host), so no CUDA tensor outlives a flush in a client's
 hands. The compute paths follow `policy=ComputePolicy(...)`, forwarded
 with block/min_bucket/max_bucket to the inner MicroBatcher.
+
+With policy.mesh the batcher is pumped (serve/pump.py), at any world
+size: rank 0 of the mesh axis is the front door (submit, poll, flush,
+start and stop keep their meaning there) and broadcasts every flush
+before it runs it; every other rank calls follow(), which runs rank 0's
+flushes in order until its STOP. Unlike the sync path, where every rank
+makes each call, a follower has no front door: its submit, poll and
+start raise.
 """
 from __future__ import annotations
 
@@ -54,9 +62,11 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.serve import pump
 from repro_torch.serve.artifact import FittedModel
 from repro_torch.serve.batcher import MicroBatcher, bucket_size
 from repro_torch.serve.latency import LatencyStats
+from repro_torch.serve.pump import PUMP
 
 
 class _Pending(NamedTuple):
@@ -114,6 +124,33 @@ class AsyncBatcher:
         # surface.
         self.pump_errors = 0
         self.last_pump_error: Optional[BaseException] = None
+        # The rank-0 pump (serve/pump.py), when the policy has a mesh: the
+        # mesh axis the messages go over and this batcher's generation
+        # tag. A pumped flush takes PUMP.lock inside _flush_lock, never
+        # the other way round, and never while holding _lock.
+        self.axis = (self.batcher.extender.ax
+                     if self.batcher.policy.mesh is not None else None)
+        self.generation = PUMP.generation() if self.pumped else None
+        self._stop_sent = False               # guarded-by: _flush_lock
+        self._last_sent = time.monotonic()    # guarded-by: _flush_lock
+
+    @property
+    def pumped(self) -> bool:
+        """True when the policy has a mesh: flushes go through the pump."""
+        return self.axis is not None
+
+    @property
+    def leader(self) -> bool:
+        """True on rank 0 of the mesh axis (and whenever unpumped): the
+        rank that takes requests."""
+        return self.axis is None or self.axis.index == 0
+
+    def _front_door(self, what: str) -> None:
+        if not self.leader:
+            raise RuntimeError(
+                f"{what} on a follower: rank 0 of the mesh axis takes every "
+                f"request of a pumped AsyncBatcher and decides every flush; "
+                f"this rank runs follow()")
 
     # -- request side ----------------------------------------------------
 
@@ -124,6 +161,7 @@ class AsyncBatcher:
         the full-batch trigger — so a saturating client never waits on the
         deadline.
         """
+        self._front_door("submit()")
         Xq = self.batcher.validate_request(Xq)
         fut: Future = Future()
         with self._lock:
@@ -200,6 +238,7 @@ class AsyncBatcher:
         calls poll() at whatever cadence it likes; the pump thread is
         poll() in a loop.
         """
+        self._front_door("poll()")
         return self.flush() if self.due() else 0
 
     def flush(self) -> int:
@@ -208,7 +247,9 @@ class AsyncBatcher:
         The batch is handed to the inner MicroBatcher exactly as drain()
         would see it. Futures resolve in submission order; on compute
         failure every future in the batch carries the exception instead
-        of the batch dying silently.
+        of the batch dying silently. Pumped, the batch is first broadcast
+        as one FLUSH and every rank runs drain()'s coalesced path on the
+        payload it carried (_broadcast_flush).
         """
         with self._flush_lock:
             with self._lock:
@@ -217,9 +258,13 @@ class AsyncBatcher:
                 return 0
             flush_ts = self.clock()
             try:
-                for p in batch:
-                    self.batcher.submit(p.Xq)
-                results = self.batcher.drain()
+                if self.pumped:
+                    self._last_sent = time.monotonic()
+                    results = self._broadcast_flush(batch)
+                else:
+                    for p in batch:
+                        self.batcher.submit(p.Xq)
+                    results = self.batcher.drain()
             except Exception as exc:
                 for p in batch:
                     if p.future.set_running_or_notify_cancel():
@@ -261,6 +306,57 @@ class AsyncBatcher:
                 p.future.set_result(res)
         return len(batch)
 
+    def _broadcast_flush(self, batch: List[_Pending]) -> List:
+        """Rank 0's pumped flush: FLUSH, then the coalesced drain of the
+        payload it carried, both under the sequencer."""
+        widths = [p.Xq.shape[1] for p in batch]
+        body = pump.pack_flush(widths, np.concatenate(
+            [p.Xq for p in batch], axis=1), self.batcher.model.device)
+        with PUMP.lock:
+            PUMP.send(self.axis, self.batcher.model.device, pump.FLUSH,
+                      self.generation, len(widths), body)
+            return self.batcher.assign_requests(pump.flush_payload(
+                body, len(widths), self.batcher.model.spec.p), widths)
+
+    # -- the followers ---------------------------------------------------
+
+    def follow(self) -> int:
+        """A follower's serving loop: run each of rank 0's flushes of this
+        batcher, in order, until its STOP (rank 0's stop()); then retire.
+        Returns the flushes run. The set-up before it is SPMD: every rank
+        builds this batcher, and warms it, as rank 0 does."""
+        if self.leader:
+            raise RuntimeError("follow() runs on the followers; rank 0 of "
+                               "the mesh axis is the front door")
+        flushes = 0
+        while True:
+            msg = PUMP.receive(self.axis, self.batcher.model.device)
+            if msg.kind == pump.NOP:
+                continue
+            if msg.gen != self.generation:
+                raise RuntimeError(
+                    f"pump: rank 0 sent {pump.KINDS[msg.kind]} for batcher "
+                    f"generation {msg.gen}; this rank follows generation "
+                    f"{self.generation} (build pumped batchers in the same "
+                    f"order on every rank)")
+            if msg.kind == pump.FLUSH:
+                self.follow_flush(msg)
+                flushes += 1
+            elif msg.kind == pump.STOP:
+                self.stop()
+                return flushes
+            else:
+                raise RuntimeError(f"pump: a {pump.KINDS[msg.kind]} message "
+                                   f"reached AsyncBatcher.follow(); a "
+                                   f"registry row follows with "
+                                   f"ModelRegistry.follow()")
+
+    def follow_flush(self, msg: pump.Message) -> List:
+        """Run one FLUSH message through drain()'s coalesced path; the
+        per-request (labels, d2), as rank 0's futures receive them."""
+        widths, payload = pump.unpack_flush(msg, self.batcher.model.spec.p)
+        return self.batcher.assign_requests(payload, widths)
+
     # -- background pump -------------------------------------------------
 
     def _pump_period(self) -> float:
@@ -288,12 +384,15 @@ class AsyncBatcher:
         thread) so the pump's first flush does not pay the build.
         """
 
-        def pump():
+        self._front_door("start()")
+
+        def pump_loop():
             # Re-read the period every cycle: set_bucket_wait may shorten
             # a deadline below the constructor's.
             while not self._stop_event.wait(self._pump_period()):
                 try:
-                    self.poll()
+                    if not self.poll() and self.pumped:
+                        self._keep_alive()
                 except Exception as exc:   # batch futures carry the error
                     self.pump_errors += 1
                     self.last_pump_error = exc
@@ -304,11 +403,23 @@ class AsyncBatcher:
             if self._thread is not None:
                 raise RuntimeError("pump thread already running")
             self._stop_event.clear()
-            thread = threading.Thread(target=pump, daemon=True,
+            thread = threading.Thread(target=pump_loop, daemon=True,
                                       name="AsyncBatcher-pump")
             self._thread = thread
         thread.start()
         return self
+
+    def _keep_alive(self) -> None:
+        """An idle pump thread on rank 0: a NOP once KEEPALIVE_S has
+        passed since this batcher's last message, so that a follower's
+        wait stays inside the process group's timeout."""
+        with self._flush_lock:
+            if time.monotonic() - self._last_sent < pump.KEEPALIVE_S:
+                return
+            with PUMP.lock:
+                PUMP.send(self.axis, self.batcher.model.device, pump.NOP,
+                          self.generation)
+            self._last_sent = time.monotonic()
 
     def stop(self) -> int:
         """Retire this batcher: stop the pump, flush pending, reject
@@ -319,7 +430,9 @@ class AsyncBatcher:
         The thread handle is claimed under _lock (two concurrent stop()
         calls must not both join-and-clear it), but join() happens
         OUTSIDE: the pump's poll()->flush() takes _lock, so joining while
-        holding it would deadlock.
+        holding it would deadlock. Pumped, rank 0 then broadcasts STOP,
+        once, after the last FLUSH (under _flush_lock), and the followers
+        leave follow(); a follower's stop() retires it and sends nothing.
         """
         with self._lock:
             self._stopped = True
@@ -327,7 +440,15 @@ class AsyncBatcher:
         if thread is not None:
             self._stop_event.set()
             thread.join()
-        return self.flush()
+        flushed = self.flush()
+        if self.pumped and self.leader:
+            with self._flush_lock:
+                if not self._stop_sent:
+                    with PUMP.lock:
+                        PUMP.send(self.axis, self.batcher.model.device,
+                                  pump.STOP, self.generation)
+                    self._stop_sent = True
+        return flushed
 
     def __enter__(self) -> "AsyncBatcher":
         return self.start()

@@ -5,8 +5,9 @@ The launcher runs in-process with --device cpu --smoke at its smoke size
 each run prints `serve_cluster: OK` and writes exactly the sections the
 JAX package's run_benches writes for its modes (plus the port's
 `device`; tests/test_torch_serve_bench.py holds the keys against JAX's).
-Worlds of 2 gloo ranks run the launcher as two processes: --sharded
---bench sync passes there, and a clock-flushed mode is refused.
+Worlds of gloo ranks run the launcher as one process a rank: --sharded
+--bench sync over 2 ranks, every mode (--bench all --swap --stream
+--fleet) over 2 and the async bench, through the rank-0 pump, over 4.
 `run_world` here starts such a world for tests/test_torch_examples.py too.
 """
 import datetime
@@ -181,10 +182,34 @@ def test_sharded_sync_over_two_ranks(tmp_path):
     assert set(bench) == _sections(("sync",)) | PORT_ONLY
 
 
-@pytest.mark.parametrize("extra", [["--bench", "async"],
-                                   ["--swap", "--bench", "sync"]])
-def test_clocked_modes_are_refused_over_two_ranks(tmp_path, extra):
-    res = run_world(LAUNCHER + ["--sharded"] + extra, 2, tmp_path)
+def test_sharded_every_mode_over_two_ranks(tmp_path):
+    """--sharded --bench all --swap --stream --fleet: the async bench
+    through the rank-0 pump, the lifecycle checks and sections on rank 0
+    alone; every rank exits 0 and rank 0's bench file has every section
+    and the mesh."""
+    res = run_world(LAUNCHER + ["--sharded", "--bench", "all", "--swap",
+                                "--stream", "--fleet"], 2, tmp_path)
     for rc, out, err in res:
-        assert rc == 2, err[-3000:]
-        assert "rank-0 pump" in err and "serve_cluster: OK" not in out
+        assert rc == 0, err[-3000:]
+    out = res[0][1]
+    assert out.strip().splitlines()[-1] == "serve_cluster: OK"
+    for line in ("warm swap", "stream: drift", "breached canary rolled back",
+                 "sharded extension matches single-device over 2"):
+        assert line in out, line
+    bench = json.loads((tmp_path / "BENCH_serve_torch.json").read_text())
+    assert bench["sharded"] == {"shards": 2, "axis": "data"}
+    assert set(bench) == _sections(tuple(MODE_SECTIONS)) | PORT_ONLY
+    assert bench["async"]["n_requests"] == 32
+    assert bench["swap"]["stranded_futures"] == 0
+
+
+def test_sharded_async_over_four_ranks(tmp_path):
+    res = run_world(LAUNCHER + ["--sharded", "--bench", "async"], 4,
+                    tmp_path)
+    for rc, out, err in res:
+        assert rc == 0, err[-3000:]
+    assert res[0][1].strip().splitlines()[-1] == "serve_cluster: OK"
+    bench = json.loads((tmp_path / "BENCH_serve_torch.json").read_text())
+    assert bench["sharded"] == {"shards": 4, "axis": "data"}
+    assert set(bench) == _sections(("async",)) | PORT_ONLY
+    assert bench["async"]["latency"]["requests"] == 32
