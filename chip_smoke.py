@@ -138,8 +138,14 @@ Phases, each fatal on failure:
      and the bench's headline numbers printed; (c) --sharded --bench sync
      under torchrun (--standalone --nproc_per_node=1) and (d) the six
      examples (examples/torch_*.py; the distributed one under torchrun),
-     started together as processes, each of which must exit 0. While
-     (a) and (b) run, a stand-in beside each kernel wrapper keeps the
+     started together as processes, each of which must exit 0, and
+     beside them (e) a broken world: --sharded --bench async --smoke
+     under torchrun with rank 0's compute made to fail on its first
+     pumped flush (tests/torch_world_teardown_worker.py), which must end
+     through launch/mesh.py with the rank's code BROKEN_EXIT (70) in
+     torchrun's report, the injected error in its output, no abort
+     ("terminate called", a watchdog's) and within LAUNCHER_BROKEN_S.
+     While (a) and (b) run, a stand-in beside each kernel wrapper keeps the
      inputs of the first call of each distinct shape (the wrappers alone
      count launches); after each run, outside its counts, every kept call
      goes through the wrapper again on the card and through the plain
@@ -452,6 +458,17 @@ LAUNCHER_SHARDED_N = 100_000
 # (through the rank-0 pump) with the lifecycle check --swap.
 LAUNCHER_SHARDED = {"sync": ["--bench", "sync"],
                     "async": ["--bench", "async", "--swap"]}
+# The broken world, started with them: the launcher under torchrun with
+# rank 0's compute made to fail on its first pumped flush
+# (tests/torch_world_teardown_worker.py, a group timeout of
+# LAUNCHER_BROKEN_TIMEOUT s). launch/mesh.py must end it: the rank's own
+# BROKEN_EXIT (70) in torchrun's report, within LAUNCHER_BROKEN_S, and no
+# abort in its output.
+LAUNCHER_BROKEN = ["--sharded", "--bench", "async", "--smoke"]
+LAUNCHER_BROKEN_TIMEOUT = 20
+LAUNCHER_BROKEN_S = 120.0
+ABORT_MARKS = ("terminate called", "Watchdog caught", "SIGABRT",
+               "Signal 6", "Fatal Python error")
 EXAMPLES = ("torch_quickstart", "torch_serve_async", "torch_stream_refit",
             "torch_cluster_embeddings", "torch_train_lm")
 TORCHRUN = ["-m", "torch.distributed.run", "--standalone",
@@ -1307,42 +1324,41 @@ def phase_distributed(torch, est, X, y, Xq, smi) -> tuple:
     Alg. 1 on the mesh, benchmark_fit_scaling, checkpoints, the rank-0
     pump (sharded async serving and the swap of a sharded row) and the
     launcher under torchrun. Launches counted on the sharded paths."""
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.mesh import make_debug_mesh, open_world
     from repro_torch.serve import ComputePolicy, benchmark_fit_scaling
     t_phase = time.perf_counter()
     from repro_torch.api import KernelKMeans
-    made = not dist.is_initialized()
-    mesh = make_debug_mesh(device=DEVICE)
-    # First use of NCCL (the communicator is made at the first collective)
-    # and of each sharded route, on a small fit outside the counts and the
-    # clocks, as phase 4 warms cuBLAS.
-    for fused in (False, None):
-        KernelKMeans(**estimator_args(), policy=ComputePolicy(
-            fit_fused=fused, mesh=mesh)).fit(X[:, :4096], seed=1)
-    sync(torch)
-    tally = LaunchTally(torch)
-    BUILD.mkdir(parents=True, exist_ok=True)
-    info = {"fit": dist_fit(torch, X, y, est, mesh, tally, smi),
-            "serve": dist_serve(torch, est.model_, Xq, mesh, tally, smi),
-            "alg1": dist_alg1(torch, X, y, est, mesh, tally, smi)}
-    scaling = {}
-    for route, fused in (("canonical", False), ("fused", None)):
-        bench = benchmark_fit_scaling(
-            est.model_, ns=FIT_SCALING_NS, repeats=1, seed=SEED,
-            policy=ComputePolicy(fit_fused=fused, mesh=mesh))
-        scaling[route] = bench
-        log(f"[distributed] benchmark_fit_scaling, {route} route: " +
-            "; ".join(f"n={r['n']}: single {r['single_cols_per_sec']:.0f} "
-                      f"cols/s, sharded {r['sharded_cols_per_sec']:.0f} "
-                      f"cols/s, sharded_over_single "
-                      f"{r['sharded_over_single']:.3f}"
-                      for r in bench["rows"]) + f" [{smi}]")
-    info["fit_scaling"] = scaling
-    info["checkpoint"] = dist_checkpoint(torch, est.model_, mesh)
-    info["pump"] = dist_pump(torch, est.model_, Xq, mesh, tally, smi)
-    if made:
-        dist.destroy_process_group()
+    with open_world(DEVICE):
+        mesh = make_debug_mesh(device=DEVICE)
+        # First use of NCCL (the communicator is made at the first
+        # collective) and of each sharded route, on a small fit outside the
+        # counts and the clocks, as phase 4 warms cuBLAS.
+        for fused in (False, None):
+            KernelKMeans(**estimator_args(), policy=ComputePolicy(
+                fit_fused=fused, mesh=mesh)).fit(X[:, :4096], seed=1)
+        sync(torch)
+        tally = LaunchTally(torch)
+        BUILD.mkdir(parents=True, exist_ok=True)
+        info = {"fit": dist_fit(torch, X, y, est, mesh, tally, smi),
+                "serve": dist_serve(torch, est.model_, Xq, mesh, tally,
+                                    smi),
+                "alg1": dist_alg1(torch, X, y, est, mesh, tally, smi)}
+        scaling = {}
+        for route, fused in (("canonical", False), ("fused", None)):
+            bench = benchmark_fit_scaling(
+                est.model_, ns=FIT_SCALING_NS, repeats=1, seed=SEED,
+                policy=ComputePolicy(fit_fused=fused, mesh=mesh))
+            scaling[route] = bench
+            log(f"[distributed] benchmark_fit_scaling, {route} route: " +
+                "; ".join(f"n={r['n']}: single "
+                          f"{r['single_cols_per_sec']:.0f} cols/s, sharded "
+                          f"{r['sharded_cols_per_sec']:.0f} cols/s, "
+                          f"sharded_over_single "
+                          f"{r['sharded_over_single']:.3f}"
+                          for r in bench["rows"]) + f" [{smi}]")
+        info["fit_scaling"] = scaling
+        info["checkpoint"] = dist_checkpoint(torch, est.model_, mesh)
+        info["pump"] = dist_pump(torch, est.model_, Xq, mesh, tally, smi)
     info["launcher"] = dist_launcher(smi)
     idle = [n for n in ("fit_sketch", "fwht", "extend_embed",
                         "kmeans_assign") if tally.launches[n] == 0]
@@ -1518,9 +1534,10 @@ def bench_headlines(bench) -> dict:
 
 def launcher_processes(work, smi) -> dict:
     """The launcher with --sharded under torchrun (the sync bench, and
-    the async bench through the rank-0 pump with --swap) and the six
-    examples (the distributed one under torchrun), started together; each
-    must exit 0. Returns each one's seconds (they overlap) and its last
+    the async bench through the rank-0 pump with --swap), the six
+    examples (the distributed one under torchrun) and the broken world
+    (broken_world), started together; each but the broken world must
+    exit 0. Returns each one's seconds (they overlap) and its last
     lines."""
     import os
     env = {**os.environ, "PYTHONPATH": str(SRC)}
@@ -1539,6 +1556,12 @@ def launcher_processes(work, smi) -> dict:
     cmds["torch_distributed_clustering (torchrun)"] = TORCHRUN + [
         str(ROOT / "examples" / "torch_distributed_clustering.py"),
         "--device", DEVICE]
+    broken = "serve_cluster --sharded, rank 0's flush broken (torchrun)"
+    cmds[broken] = TORCHRUN + [
+        str(ROOT / "tests" / "torch_world_teardown_worker.py"), "launcher",
+        DEVICE, str(LAUNCHER_BROKEN_TIMEOUT), "--", *LAUNCHER_BROKEN,
+        "--device", DEVICE, "--artifact-dir", str(work / "broken" / "demo"),
+        "--bench-out", str(work / "bench_broken.json")]
     t0 = time.perf_counter()
     # Each in a session of its own, so that a kill reaches torchrun's
     # workers too.
@@ -1557,7 +1580,12 @@ def launcher_processes(work, smi) -> dict:
             log(f"[launcher] {name}: exit {proc.returncode} by "
                 f"{out[name]['seconds']:.1f} s (all started together) "
                 f"[{smi}]: " + " | ".join(lines[-4:]))
-            if proc.returncode != 0:
+            if name == broken:
+                out[name].update(broken_world(so, se, proc.returncode,
+                                              out[name]["seconds"], smi))
+                if not out[name]["ended"]:
+                    failed.append(name)
+            elif proc.returncode != 0:
                 failed.append(name)
                 log(f"[launcher] {name} stderr:\n{se[-3000:]}")
     finally:
@@ -1566,8 +1594,32 @@ def launcher_processes(work, smi) -> dict:
                 os.killpg(proc.pid, 9)
                 proc.wait()
     if failed:
-        raise AssertionError(f"phase 12: {failed} did not exit 0")
+        raise AssertionError(f"phase 12: {failed} did not end as they must")
     return out
+
+
+def broken_world(so: str, se: str, rc: int, seconds: float, smi) -> dict:
+    """The broken world's end, from torchrun's exit code and output: the
+    rank's code in torchrun's failure report (torchrun itself exits 1),
+    the injected error, and no abort."""
+    from repro_torch.launch.mesh import BROKEN_EXIT
+    text = so + se
+    codes = [int(c) for c in re.findall(r"exitcode\s*:\s*(-?\d+)", text)]
+    aborts = [m for m in ABORT_MARKS if m in text]
+    info = {"torchrun_rc": rc, "rank_codes": codes, "aborts": aborts,
+            "injected": "injected compute failure" in text,
+            "bound_s": LAUNCHER_BROKEN_S}
+    # torchrun prints its report twice (log and exception).
+    info["ended"] = (rc > 0 and set(codes) == {BROKEN_EXIT} and not aborts
+                     and info["injected"] and seconds <= LAUNCHER_BROKEN_S)
+    log(f"[launcher] broken world: torchrun exit {rc}, rank 0 exit "
+        f"{codes}, injected error {'seen' if info['injected'] else 'MISSING'}"
+        f", aborts {aborts or 'none'}, {seconds:.1f} s against "
+        f"{LAUNCHER_BROKEN_S:.0f} s: "
+        f"{'ended in order' if info['ended'] else 'FAILED'} [{smi}]")
+    if not info["ended"]:
+        log(f"[launcher] broken world output:\n{so[-2000:]}\n{se[-4000:]}")
+    return info
 
 
 def phase_launcher(torch, smi) -> tuple:
@@ -4348,9 +4400,8 @@ def lm_mesh_world_one(torch, smi, arch=LM_ARCH, tag="13d") -> dict:
     mesh=), serve_cache) on the same prompt (and whisper's frames): the
     prefill's logits, LM_MESH_STEPS greedy steps' tokens and logits, and
     every leaf of the f32 cache, bit for bit."""
-    import torch.distributed as dist
     from repro_torch.distributed import tensor_parallel as TP
-    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.mesh import make_debug_mesh, open_world
     from repro_torch.models import get_api
     from repro_torch.train import make_decode_step, make_prefill_step
     cfg = get_lm_config(arch)
@@ -4376,15 +4427,11 @@ def lm_mesh_world_one(torch, smi, arch=LM_ARCH, tag="13d") -> dict:
 
     plain, plain_cache, plain_s = serve(None, api.init_cache(
         cfg, LM_B, LM_MAX_SEQ, torch.float32, DEVICE))
-    made = not dist.is_initialized()
-    mesh = make_debug_mesh(device=DEVICE)
-    try:
+    with open_world(DEVICE):
+        mesh = make_debug_mesh(device=DEVICE)
         TP.shard_for_serving(model, mesh)
         meshed, mesh_cache, mesh_s = serve(mesh, TP.serve_cache(
             model, LM_B, LM_MAX_SEQ, torch.float32))
-    finally:
-        if made:
-            dist.destroy_process_group()
     leaves = [key for key, t in plain_cache.items() if torch.is_tensor(t)]
     differ = [i for i, (a, b) in enumerate(zip(plain, meshed))
               if not torch.equal(a, b)] + [
@@ -4885,7 +4932,6 @@ def train_mesh_worker(argv) -> int:
     use counted: the units run through sharding.call_gathered and the
     gathers of a parameter that ran a collective."""
     import torch
-    sys.path.insert(0, str(SRC))
     from repro_torch.distributed import sharding
     from repro_torch.launch import train as launch_train
     from repro_torch.train import steps
@@ -5242,19 +5288,17 @@ def seq_world_one(torch, smi) -> dict:
     SEQ_WORLD_ARCHS step MESH_STEPS times inside it bit for bit as the
     same mesh step outside it (losses, grad norms, every parameter and
     moment): a model axis of 1 never cuts the stream."""
-    import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import activation_sharding
     from repro_torch.launch import specs
-    from repro_torch.launch.mesh import dp_axes, make_debug_mesh
+    from repro_torch.launch.mesh import dp_axes, make_debug_mesh, open_world
     from repro_torch.models import get_api
     from repro_torch.train import (AdamWConfig, init_train_state,
                                    make_train_step, shard_train_state)
-    made = not dist.is_initialized()
-    mesh = make_debug_mesh(device=DEVICE)
     info, differ = {}, []
     t0 = time.perf_counter()
-    try:
+    with open_world(DEVICE):
+        mesh = make_debug_mesh(device=DEVICE)
         for arch in SEQ_WORLD_ARCHS:
             cfg = get_config(arch, smoke=True)
             api = get_api(cfg)
@@ -5291,9 +5335,6 @@ def seq_world_one(torch, smi) -> dict:
             info[arch] = {"losses": [float(x) for x in mb[0::2]],
                           "tensors_held": 2 * MESH_STEPS + 3 * len(pa)}
             del runs, sa, sb, pa, batch
-    finally:
-        if made:
-            dist.destroy_process_group()
     free(torch)
     info["seconds"] = time.perf_counter() - t0
     info["bitwise"] = not differ
@@ -5868,6 +5909,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # A phase whose world broke leaves through os._exit (launch/mesh.py).
+    from repro_torch.launch.mesh import run_process
+    run_process(smoke, torch)
+
+
+def smoke(torch) -> int:
+    """Every phase, then the kernels line and the last line."""
     dev = torch.device("cuda", 0)
     smi = phase_env(torch)
     build = phase_build()
@@ -5975,5 +6023,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-mesh-worker"]:
-        sys.exit(train_mesh_worker(sys.argv[2:]))
+        sys.path.insert(0, str(SRC))
+        from repro_torch.launch.mesh import run_process
+        run_process(train_mesh_worker, sys.argv[2:])
     sys.exit(main())

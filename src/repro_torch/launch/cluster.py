@@ -19,6 +19,7 @@ class count (seg: 7).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -61,14 +62,9 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    import torch.distributed as dist
-
-    from repro_torch.api import KernelKMeans
     from repro_torch.api.estimator import resolve_device
-    from repro_torch.core import (clustering_accuracy, make_kernel, nmi,
-                                  kernel_approx_error_streaming)
-    from repro_torch.core.sketch import next_pow2
     from repro_torch.data import blob_ring, gaussian_blobs, segmentation_proxy
+    from repro_torch.launch.mesh import open_world
 
     device = resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
@@ -82,23 +78,31 @@ def main(argv=None) -> int:
     else:
         k = args.k or 2
         X, labels = gaussian_blobs(rng, n=args.n, p=16, k=k)
-    k = args.k or k
-    X = X.to(device)
+    # A world made here ends with main (launch/mesh.py).
+    with open_world(device) if args.distributed else \
+            contextlib.nullcontext():
+        return _run(args, X.to(device), labels, args.k or k, device)
+
+
+def _run(args, X, labels, k, device) -> int:
+    import torch.distributed as dist
+
+    from repro_torch.api import KernelKMeans
+    from repro_torch.core import (clustering_accuracy, make_kernel, nmi,
+                                  kernel_approx_error_streaming)
+    from repro_torch.core.sketch import next_pow2
+
     kernel_params = ({"gamma": args.gamma, "degree": args.degree}
                      if args.kernel == "polynomial" else
                      {"gamma": args.gamma} if args.kernel == "rbf" else {})
     kern = make_kernel(args.kernel, **kernel_params)
     n = X.shape[1]
-
-    made_world = False
     t0 = time.perf_counter()
     if args.distributed:
         from repro_torch.distributed.cluster import \
             distributed_one_pass_kernel_kmeans
-        from repro_torch.launch.mesh import (init_world, make_debug_mesh,
-                                             mesh_axis)
-        made_world = not dist.is_initialized()
-        world = init_world(device)
+        from repro_torch.launch.mesh import make_debug_mesh, mesh_axis
+        world = dist.get_world_size()
         mesh = make_debug_mesh(data=world, device=device)
         n_pad = next_pow2(n)
         n_pad = max(n_pad, world * -(-n_pad // world))
@@ -137,10 +141,9 @@ def main(argv=None) -> int:
         print(f"nmi              {nmi(labels, pred):.4f}")
         print(f"sketch memory    {n * (args.r + args.l) * 4 / 2**20:.1f}"
               f" MiB (O(r'n); full K would be {n ** 2 * 4 / 2**30:.2f} GiB)")
-    if made_world:
-        dist.destroy_process_group()
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    from repro_torch.launch.mesh import run_process
+    run_process(main)

@@ -15,16 +15,36 @@ a production-sized world in one process, over torch's fake backend, whose
 collectives move nothing. Only a mesh that make_dryrun_mesh made accepts
 that backend (`make_mesh` and `mesh_axis` refuse it on any other).
 
+Ends of worlds. Every world of the port ends through close_world, most
+through open_world around the code that uses it: the holders of its
+groups are retired first (the pumped AsyncBatchers still running, the
+DEFAULT_REGISTRY rows that serve on a mesh, the meshes' own references),
+then the default group goes, so no group is left for the interpreter's
+shutdown to tear down. After a normal end the group is destroyed. After
+an exception the world counts as broken, since another rank may wait in
+a collective this one never joins. Its groups are then aborted: NCCL's
+communicators are aborted rather than destroyed, and a gloo abort closes
+the connections, so the peers fail at once instead of at the timeout.
+Under load a gloo rank that went through the interpreter's shutdown
+after a broken collective still died by SIGABRT ("terminate called
+without an active exception", about 1 exit in 50), so a process whose
+world broke does not go through that shutdown at all: run_process
+flushes its output and leaves through os._exit, with BROKEN_EXIT when an
+exception ended it.
+
 Functions only: importing this module touches no process group.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import os
+import sys
 import tempfile
+import traceback
 import weakref
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Iterator, NamedTuple, NoReturn, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -42,6 +62,14 @@ FAKE_BACKEND = "fake"       # registered by torch's fake_pg module
 # id -> mesh, held weakly: a DeviceMesh compares equal to any mesh of its
 # shape and names, so membership goes by identity.
 _DRYRUN_MESHES = weakref.WeakValueDictionary()
+# Every other mesh make_mesh made, by id, held weakly: close_world drops
+# their references to the groups.
+_MESHES = weakref.WeakValueDictionary()
+# The code of a process that leaves through run_process after an exception
+# ended its world: sysexits' EX_SOFTWARE. Never a signal's.
+BROKEN_EXIT = 70
+# Whether a world of this process ended broken (close_world(broken=True)).
+_ENDED = {"broken": False}
 
 
 def _device_type(device) -> str:
@@ -59,8 +87,10 @@ def _device_type(device) -> str:
     return kind
 
 
-def init_world(device=None, timeout: datetime.timedelta = TIMEOUT) -> int:
-    """The default process group, made when none exists: from the
+def init_world(device=None, timeout: datetime.timedelta = TIMEOUT, *,
+               store=None, rank: int = 0, size: int = 1) -> int:
+    """The default process group, made when none exists: through `store`
+    as rank `rank` of `size` when a store is given, else from the
     launcher's environment (RANK / WORLD_SIZE, as torchrun sets them), or
     else a world of one rank through a FileStore in a temporary file.
     Returns the world size."""
@@ -70,7 +100,10 @@ def init_world(device=None, timeout: datetime.timedelta = TIMEOUT) -> int:
         torch.cuda.set_device(local % torch.cuda.device_count())
     if not dist.is_initialized():
         backend = BACKENDS[kind]
-        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if store is not None:
+            dist.init_process_group(backend, store=store, rank=rank,
+                                    world_size=size, timeout=timeout)
+        elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
             dist.init_process_group(backend, timeout=timeout)
         else:
             fd, path = tempfile.mkstemp(prefix="repro_torch_store_")
@@ -79,6 +112,101 @@ def init_world(device=None, timeout: datetime.timedelta = TIMEOUT) -> int:
             dist.init_process_group(backend, store=dist.FileStore(path, 1),
                                     rank=0, world_size=1, timeout=timeout)
     return dist.get_world_size()
+
+
+@contextlib.contextmanager
+def open_world(device=None, timeout: datetime.timedelta = TIMEOUT,
+               **store) -> Iterator[int]:
+    """init_world for the block (`store`: its store, rank and size);
+    yields the world size. A world the block made is ended through
+    close_world when the block is left: in order after a normal end, as
+    broken when an exception leaves it. A world that existed before is
+    left to whoever made it, and so is its exception."""
+    made = not dist.is_initialized()
+    size = init_world(device, timeout, **store)
+    try:
+        yield size
+    except BaseException:
+        if made:
+            close_world(broken=True)
+        raise
+    if made:
+        close_world()
+
+
+def close_world(*, broken: bool = False) -> None:
+    """End this process's world, holders first: the pumped AsyncBatchers
+    still running (stop(), so rank 0 sends each one's STOP; after a broken
+    collective abandon(), which sends nothing), the DEFAULT_REGISTRY rows
+    that serve on a mesh, and every mesh's references to its groups
+    (`_pg_registry`). Then the default group: destroyed, or, broken,
+    aborted (every group, NCCL's communicators included; on a torch
+    whose gloo cannot abort, destroyed, which is what follows the abort
+    in any case). A holder that cannot retire in order makes the end
+    broken, and the group ends all the same. Idempotent; a process with
+    no group only retires the holders. Whether to end a world that some
+    caller made is that caller's choice (open_world ends only its
+    own)."""
+    try:
+        # A module never imported holds no batcher and no row.
+        pump = sys.modules.get("repro_torch.serve.pump")
+        if pump is not None:
+            pump.PUMP.retire(broken)
+        registry = sys.modules.get("repro_torch.serve.registry")
+        if registry is not None:
+            registry.DEFAULT_REGISTRY.unregister_meshed()
+    except BaseException:
+        broken = True        # a holder that could not retire in order
+        raise
+    finally:
+        for meshes in (_MESHES, _DRYRUN_MESHES):
+            for mesh in list(meshes.values()):
+                getattr(mesh, "_pg_registry", {}).clear()
+            meshes.clear()
+        _end_group(broken)
+
+
+def _end_group(broken: bool) -> None:
+    if broken:
+        _ENDED["broken"] = True
+        abort = getattr(dist.distributed_c10d, "_abort_process_group", None)
+        if abort is not None and dist.is_initialized():
+            try:
+                abort()
+            except RuntimeError as exc:      # a backend that cannot abort
+                print(f"close_world: abort failed ({exc}); destroying",
+                      file=sys.stderr, flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def world_broke() -> bool:
+    """True once a world of this process ended broken."""
+    return _ENDED["broken"]
+
+
+def run_process(main, *args) -> NoReturn:
+    """Run `main(*args)` as the whole of a process and leave with its
+    code (None is 0). When a world of this process ended broken, the
+    process prints what ended `main`, flushes its output and leaves
+    through os._exit, never through the interpreter's shutdown: with
+    BROKEN_EXIT when an exception ended `main`, else with its code. The
+    rank whose compute failed and the follower whose collective then
+    failed leave alike."""
+    try:
+        code = main(*args)
+    except SystemExit as exc:
+        code = exc.code
+    except BaseException:
+        if not world_broke():
+            raise
+        traceback.print_exc()
+        code = BROKEN_EXIT
+    if not world_broke():
+        raise SystemExit(code)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code if isinstance(code, int) else int(code is not None))
 
 
 def make_mesh(shape: Sequence[int], names: Sequence[str], device=None):
@@ -97,6 +225,7 @@ def make_mesh(shape: Sequence[int], names: Sequence[str], device=None):
                       mesh_dim_names=tuple(names))
     for name in names:
         _check_backend(mesh, mesh.get_group(name))
+    _MESHES[id(mesh)] = mesh
     return mesh
 
 
@@ -139,20 +268,18 @@ def make_dryrun_mesh(multi_pod: bool = False, *, shape=None):
         mesh = DeviceMesh(DRYRUN_DEVICE, torch.arange(world).reshape(shape),
                           mesh_dim_names=names)
     except BaseException:
-        dist.destroy_process_group()
+        close_world()
         raise
     _DRYRUN_MESHES[id(mesh)] = mesh
     return mesh
 
 
 def destroy_dryrun_mesh(mesh) -> None:
-    """Tear down the world make_dryrun_mesh made: every process group of
-    this process goes."""
+    """Tear down the world make_dryrun_mesh made through close_world:
+    every process group of this process goes."""
     if not _is_dryrun(mesh):
         raise ValueError("not a mesh of make_dryrun_mesh")
-    del _DRYRUN_MESHES[id(mesh)]
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    close_world()
 
 
 def _is_dryrun(mesh) -> bool:

@@ -58,6 +58,14 @@ Usage:
 
 Under torchrun, "--" ends its options: it reads --n, --r and --l as
 ambiguous abbreviations of its own and stops.
+
+Ends. A world that main() makes (for --sharded or check 4, when no
+process group exists yet) ends when main() does, through
+launch/mesh.py's open_world: in order after success; aborted when an
+exception leaves, say rank 0's compute failed after a FLUSH went out,
+or a follower's follow() raised on the collective that flush left half
+made. Run as a script (run_process), each such rank prints its
+exception and exits with BROKEN_EXIT (70).
 """
 from __future__ import annotations
 
@@ -225,23 +233,26 @@ def main(argv=None) -> int:
         ap.error(f"a world of {world} ranks serves through --sharded; "
                  f"run one process otherwise")
 
+    import contextlib
+
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import init_world
-    made_world = not dist.is_initialized()
-    if args.sharded:
-        init_world(dev)
-    rank = dist.get_rank() if dist.is_initialized() else 0
+    from repro_torch.launch.mesh import open_world
+    # --sharded serves on the world; check 4 fits on a mesh of it.
+    needs_world = args.sharded or backend.startswith("onepass-")
     try:
-        _run(args, backend, dev, modes, batch_sizes, world, rank)
-        if world > 1:
-            dist.barrier()    # no rank tears the world down under another
+        # A world this call makes ends with it (launch/mesh.py): in order,
+        # or aborted when an exception leaves, so that a follower whose
+        # follow() raised leaves too.
+        with open_world(dev) if needs_world else contextlib.nullcontext():
+            rank = dist.get_rank() if dist.is_initialized() else 0
+            _run(args, backend, dev, modes, batch_sizes, world, rank)
+            if world > 1:
+                dist.barrier()    # no rank tears the world down under another
     finally:
         from repro_torch.serve import DEFAULT_REGISTRY
         for name in ("demo", "stream-demo"):
             DEFAULT_REGISTRY.unregister(name)
-        if made_world and dist.is_initialized():
-            dist.destroy_process_group()
     return 0
 
 
@@ -352,7 +363,7 @@ def _run(args, backend, dev, modes, batch_sizes, world, rank) -> None:
         f"breakdown over buckets {sorted(sched.latency.by_bucket)})")
 
     # The mesh: every rank of the world under --sharded; check 4 alone
-    # makes a world of one rank when there is none (torn down on exit).
+    # uses a mesh of the world main opened (of one rank) otherwise.
     mesh = make_debug_mesh(data=world, device=dev) if args.sharded else None
 
     # Check 4: the mesh-sharded one-pass fit against the unsharded fit,
@@ -652,4 +663,5 @@ def _run(args, backend, dev, modes, batch_sizes, world, rank) -> None:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    from repro_torch.launch.mesh import run_process
+    run_process(main)

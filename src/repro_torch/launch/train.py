@@ -59,7 +59,6 @@ from __future__ import annotations
 import argparse
 import math
 import os
-import sys
 import time
 
 import torch
@@ -74,7 +73,7 @@ from repro_torch.distributed.compression import (compression_ratio,
 from repro_torch.distributed.sharding import gather, local_shard
 from repro_torch.distributed.tensor_parallel import compute_bytes
 from repro_torch.launch import specs
-from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.mesh import make_debug_mesh, open_world, run_process
 from repro_torch.launch.serve import set_matmul_precision
 from repro_torch.models.registry import get_api
 from repro_torch.train.optimizer import AdamWConfig
@@ -186,15 +185,12 @@ def run(args: argparse.Namespace) -> dict:
     shards), config, mesh, losses, grad norms, the first step run
     (`start`), each step's seconds, the warm numbers and, with
     --sketch-grads, the compression ratio and each transform's ms. A
-    process group that this call made is destroyed before it returns."""
-    made_world = not dist.is_initialized()
-    mesh = make_debug_mesh(args.data, args.model,
-                           device=torch.device(args.device).type)
-    try:
-        return _train(args, mesh)
-    finally:
-        if made_world:
-            dist.destroy_process_group()
+    process group that this call made ends before it returns
+    (launch/mesh.py open_world)."""
+    kind = torch.device(args.device).type
+    with open_world(kind):
+        return _train(args, make_debug_mesh(args.data, args.model,
+                                            device=kind))
 
 
 def _train(args: argparse.Namespace, mesh) -> dict:
@@ -328,4 +324,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    run_process(main)

@@ -49,18 +49,26 @@ way round.
 
 Failures. A request is checked before it enters the window. A compute
 failure on rank 0 after a header went out resolves that batch's futures
-with the exception, as an unsharded flush does. The collective it left
-half made then fails on the other ranks at the process group's timeout
-(launch/mesh.py TIMEOUT, or the timeout the world was made with): a
-follower raises out of follow() instead of waiting for ever. That is the
-path the pump takes; it sends no abort, since after a broken collective
-no message is sure to arrive.
+with the exception, as an unsharded flush does, and raises out of the
+flush. The pump sends no abort message, since after a broken collective
+no message is sure to arrive. The world ends instead (launch/mesh.py):
+the exception leaves rank 0's world block, whose close_world abandons
+every pumped batcher (no STOP) and aborts the groups. The collective
+that rank 0 left half made then fails on the other ranks at once (the
+connection closed) or at the latest at the group's timeout (mesh.py
+TIMEOUT, or the one the world was made with). A follower raises out of
+follow(), never waits for ever, and does no more with the pump: the
+exception leaves its own world block, which abandons its batchers and
+aborts its groups in turn. Each rank, run through mesh.run_process,
+then prints the exception and leaves through os._exit with BROKEN_EXIT
+(70): a code of its own, never a signal.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import threading
+import weakref
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -95,12 +103,35 @@ class Pump:
         self.broadcasts = 0        # guarded-by: lock
         self.bytes = 0             # guarded-by: lock
         self._generations = 0      # guarded-by: lock
+        # The pumped batchers built, held weakly, for retire(). A lock of
+        # its own: a flush stuck in a broken collective holds self.lock.
+        self._live_lock = threading.Lock()
+        self._live = weakref.WeakSet()    # guarded-by: _live_lock
 
     def generation(self) -> int:
         """The next generation tag of this process."""
         with self.lock:
             self._generations += 1
             return self._generations
+
+    def enlist(self, batcher) -> None:
+        """Record a pumped AsyncBatcher for retire()."""
+        with self._live_lock:
+            self._live.add(batcher)
+
+    def retire(self, broken: bool = False) -> None:
+        """Retire every pumped batcher of this process not yet stopped, as
+        its world ends: stop() (rank 0's sends its STOP; a follower's sends
+        nothing), or abandon() (no message on any rank) after a broken
+        collective and for a batcher whose group is gone already (a world
+        that ended without close_world)."""
+        with self._live_lock:
+            live = [ab for ab in self._live if not ab.stopped]
+        for ab in live:
+            if broken or not _in_world(ab.axis.group):
+                ab.abandon()
+            else:
+                ab.stop()
 
     def reset_counts(self) -> None:
         with self.lock:
@@ -147,6 +178,17 @@ class Pump:
 
 
 PUMP = Pump()
+
+
+def _in_world(group) -> bool:
+    """Whether `group` belongs to the world this process holds now."""
+    if not dist.is_initialized():
+        return False
+    try:
+        dist.get_process_group_ranks(group)
+    except KeyError:
+        return False
+    return True
 
 
 def _padded(n: int) -> int:

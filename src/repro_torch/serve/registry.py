@@ -142,6 +142,18 @@ class ModelRegistry:
             old = self._rows.pop(name, None)
         self._retire(old)
 
+    def unregister_meshed(self) -> None:
+        """Unregister every row that serves on a mesh (its batcher's or
+        its scheduler's policy has one), as the world ends: their
+        batchers hold the mesh's groups."""
+        with self._lock:
+            names = [name for name, row in self._rows.items()
+                     if any(b is not None and b.policy.mesh is not None
+                            for b in (row.batcher, row.scheduler and
+                                      row.scheduler.batcher))]
+        for name in names:
+            self.unregister(name)
+
     def names(self) -> List[str]:
         return sorted(self._rows)
 

@@ -133,6 +133,9 @@ class AsyncBatcher:
         self.generation = PUMP.generation() if self.pumped else None
         self._stop_sent = False               # guarded-by: _flush_lock
         self._last_sent = time.monotonic()    # guarded-by: _flush_lock
+        self._abandoned = False               # guarded-by: _lock
+        if self.pumped:
+            PUMP.enlist(self)
 
     @property
     def pumped(self) -> bool:
@@ -437,6 +440,9 @@ class AsyncBatcher:
         with self._lock:
             self._stopped = True
             thread, self._thread = self._thread, None
+            abandoned = self._abandoned
+        if abandoned:
+            return 0
         if thread is not None:
             self._stop_event.set()
             thread.join()
@@ -449,6 +455,26 @@ class AsyncBatcher:
                                   pump.STOP, self.generation)
                     self._stop_sent = True
         return flushed
+
+    def abandon(self) -> int:
+        """Retire this batcher without a collective, as a world whose
+        collective broke ends (launch/mesh.py close_world): later submits
+        raise, the pump thread is told to stop and not waited for (it may
+        sit in the broken collective until the group goes), the pending
+        requests' futures carry an error, and no STOP goes out: after a
+        broken collective no message is sure to arrive. A later stop()
+        does nothing. Returns the requests failed."""
+        with self._lock:
+            self._stopped = self._abandoned = True
+            self._thread = None
+            batch, self._queue = self._queue, []
+        self._stop_event.set()
+        exc = RuntimeError("AsyncBatcher abandoned: its world ended after "
+                           "a broken collective")
+        for p in batch:
+            if p.future.set_running_or_notify_cancel():
+                p.future.set_exception(exc)
+        return len(batch)
 
     def __enter__(self) -> "AsyncBatcher":
         return self.start()

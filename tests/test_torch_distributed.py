@@ -25,9 +25,7 @@ each replicated result.
 import contextlib
 import dataclasses
 import io
-import os
 import pathlib
-import subprocess
 import sys
 import time
 import types
@@ -76,6 +74,7 @@ from repro_torch.serve.artifact import from_reference
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "tests"))
 import torch_dist_worker as worker  # noqa: E402
+import torch_worlds  # noqa: E402
 
 N, NQ = 250, 101
 TOL = 2e-3
@@ -219,41 +218,17 @@ def refs(tmp_path_factory):
 
 def _spawn(work: pathlib.Path, world: int):
     wdir = work / f"world{world}"
-    wdir.mkdir()
-    for item in work.iterdir():
-        if item.name != wdir.name and not item.name.startswith("world"):
-            (wdir / item.name).symlink_to(item)
-    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
-           "OMP_NUM_THREADS": "1"}
-    logs = [open(wdir / f"log_{r}.txt", "w") for r in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, str(REPO / "tests" / "torch_dist_worker.py"),
-         str(r), str(world), str(wdir)], env=env, stdout=logs[r],
-        stderr=subprocess.STDOUT) for r in range(world)]
-    return wdir, procs, logs
+    torch_worlds.link(work, wdir, [item.name for item in work.iterdir()
+                                   if not item.name.startswith("world")])
+    return torch_worlds.start(wdir, "torch_dist_worker.py",
+                              [[r, world, wdir] for r in range(world)],
+                              f"of {world}")
 
 
-def _join(wdir, procs, logs, deadline):
-    try:
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        text = (wdir / f"log_{bad[0]}.txt").read_text()[-4000:]
-        raise AssertionError(f"ranks {bad} of a world of {len(procs)} "
-                             f"failed (rc {[p.returncode for p in procs]}):"
-                             f"\n{text}")
-    return [dict(np.load(wdir / f"out_{r}.npz"))
-            for r in range(len(procs))]
+def _join(world, deadline):
+    torch_worlds.join(world, deadline)
+    return [dict(np.load(world.wdir / f"out_{r}.npz"))
+            for r in range(len(world.procs))]
 
 
 @pytest.fixture(scope="module")
@@ -261,7 +236,7 @@ def worlds(refs):
     """Both worlds at once; each rank's results by world size."""
     deadline = time.monotonic() + WORLD_DEADLINE
     started = {w: _spawn(refs["work"], w) for w in WORLDS}
-    return {w: _join(*started[w], deadline) for w in WORLDS}
+    return {w: _join(started[w], deadline) for w in WORLDS}
 
 
 # -- the mesh helpers ---------------------------------------------------------

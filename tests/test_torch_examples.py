@@ -7,7 +7,8 @@ import sys
 
 import pytest
 
-from test_torch_serve_cluster import REPO, run_world
+from torch_worlds import REPO
+from torch_worlds import run_env_world as run_world
 
 EXAMPLES = ("torch_quickstart", "torch_serve_async", "torch_stream_refit",
             "torch_distributed_clustering", "torch_cluster_embeddings",

@@ -49,10 +49,6 @@ training step and prefill, on the CPU over gloo worlds.
 import contextlib
 import dataclasses
 import json
-import os
-import pathlib
-import subprocess
-import sys
 import threading
 import time
 
@@ -79,8 +75,8 @@ from test_torch_serve_mesh_families import _hold_cache, _jax_serve
 from test_torch_train import LR
 from test_torch_train_mesh import STEPS, _hold_case, _jax_steps, _small_masks
 from torch_lm_common import jax_and_port, port_of
+import torch_worlds
 
-REPO = pathlib.Path(__file__).resolve().parents[1]
 WORLDS = ((1, 2), (2, 2), (1, 4))
 SERVE_WORLDS = ((1, 2), (1, 4))
 WORLD_DEADLINE = 240.0       # seconds for all five worlds, start to join
@@ -141,36 +137,11 @@ def _batch(jcfg, S):
 def _spawn(work, worker, data, tp, deadline, *extra):
     """One world of `worker`'s ranks, started together and joined; the
     world's directory."""
-    world = data * tp
     wdir = work / f"{worker}_{data}x{tp}"
-    wdir.mkdir()
-    for item in ("inputs.npz", "cases.json"):
-        (wdir / item).symlink_to(work / worker / item)
-    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
-           "OMP_NUM_THREADS": "1"}
-    logs = [open(wdir / f"log_{r}.txt", "w") for r in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, str(REPO / "tests" / f"torch_{worker}_worker.py"),
-         str(r), str(data), str(tp), str(wdir), *extra], env=env,
-        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
-    try:
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        text = (wdir / f"log_{bad[0]}.txt").read_text()[-4000:]
-        raise AssertionError(f"ranks {bad} of {worker} world ({data}, {tp}) "
-                             f"failed (rc {[p.returncode for p in procs]}):"
-                             f"\n{text}")
+    torch_worlds.link(work / worker, wdir, ("inputs.npz", "cases.json"))
+    torch_worlds.run(wdir, f"torch_{worker}_worker.py",
+                     [[r, data, tp, wdir, *extra] for r in range(data * tp)],
+                     f"{worker} ({data}, {tp})", deadline)
     return wdir
 
 

@@ -8,22 +8,15 @@ JAX package's run_benches writes for its modes (plus the port's
 Worlds of gloo ranks run the launcher as one process a rank: --sharded
 --bench sync over 2 ranks, every mode (--bench all --swap --stream
 --fleet) over 2 and the async bench, through the rank-0 pump, over 4.
-`run_world` here starts such a world for tests/test_torch_examples.py too.
+Such worlds start through tests/torch_worlds.py's run_env_world.
 """
-import datetime
 import json
-import os
-import pathlib
-import subprocess
-import sys
 
 import pytest
 import torch
-import torch.distributed as dist
 
 from repro_torch.launch import serve_cluster
-
-REPO = pathlib.Path(__file__).resolve().parents[1]
+from torch_worlds import run_env_world as run_world
 
 SMALL = ["--device", "cpu", "--smoke", "--queries", "128", "--repeats", "1",
          "--bench-passes", "1", "--batch-sizes", "8,64",
@@ -47,40 +40,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-def run_world(cmd, world, cwd, timeout=240):
-    """`cmd` (python's arguments) as each rank of a world of `world`
-    processes, run in `cwd`, with the environment torchrun gives its
-    ranks; returns [(returncode, stdout, stderr)] by rank. As torchrun's
-    agent does, this process holds the ranks' store, on a port the system
-    picks (TORCHELASTIC_USE_AGENT_STORE: every rank is a client), so no
-    port is chosen and then taken by another. A rank still running at
-    `timeout` seconds is killed."""
-    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
-                          wait_for_workers=False,
-                          timeout=datetime.timedelta(seconds=timeout))
-    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
-           "OMP_NUM_THREADS": "1", "WORLD_SIZE": str(world),
-           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(store.port),
-           "TORCHELASTIC_USE_AGENT_STORE": "True"}
-    procs = [subprocess.Popen(
-        [sys.executable] + list(cmd), cwd=cwd,
-        env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)]
-    out = []
-    try:
-        for p in procs:
-            o, e = p.communicate(timeout=timeout)
-            out.append((p.returncode, o, e))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    del store
-    return out
 
 
 def _sections(modes):

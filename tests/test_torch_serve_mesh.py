@@ -35,10 +35,6 @@ tests/test_torch_serve_mesh_families.py).
 """
 import dataclasses
 import json
-import os
-import pathlib
-import subprocess
-import sys
 import threading
 import time
 
@@ -59,8 +55,8 @@ from repro_torch.models import get_api
 from repro_torch.train import make_decode_step, make_prefill_step
 from test_torch_lm import CACHE_TOL, LOGIT_TOL
 from torch_lm_common import SERVED, cache_keys, jax_and_port
+import torch_worlds
 
-REPO = pathlib.Path(__file__).resolve().parents[1]
 STEPS = 4
 # case: (arch, config cut, batch, prompt, cache positions)
 CASES = {
@@ -130,33 +126,10 @@ def _run_world(work, data, tp, deadline):
     out_RANK.npz."""
     world = data * tp
     wdir = work / f"world{data}x{tp}"
-    wdir.mkdir()
-    for item in ("inputs.npz", "cases.json"):
-        (wdir / item).symlink_to(work / item)
-    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
-           "OMP_NUM_THREADS": "1"}
-    logs = [open(wdir / f"log_{r}.txt", "w") for r in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, str(REPO / "tests" / "torch_serve_mesh_worker.py"),
-         str(r), str(data), str(tp), str(wdir)], env=env, stdout=logs[r],
-        stderr=subprocess.STDOUT) for r in range(world)]
-    try:
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        text = (wdir / f"log_{bad[0]}.txt").read_text()[-4000:]
-        raise AssertionError(f"ranks {bad} of world ({data}, {tp}) failed "
-                             f"(rc {[p.returncode for p in procs]}):\n{text}")
+    torch_worlds.link(work, wdir, ("inputs.npz", "cases.json"))
+    torch_worlds.run(wdir, "torch_serve_mesh_worker.py",
+                     [[r, data, tp, wdir] for r in range(world)],
+                     f"({data}, {tp})", deadline)
     return [dict(np.load(wdir / f"out_{r}.npz")) for r in range(world)]
 
 

@@ -22,10 +22,6 @@ within rtol = atol = 2e-3. The JAX mesh's axis is of the Auto type, the
 one JAX's serving path is written for (newer JAX makes Explicit axes by
 default, which its sharded extension does not take).
 """
-import os
-import pathlib
-import subprocess
-import sys
 import threading
 import time
 
@@ -42,8 +38,8 @@ from repro_torch.data import segmentation_proxy
 from repro_torch.kernels.registry import near_tie_compare, sq_distances
 from repro_torch.serve import (AsyncBatcher, ComputePolicy, Extender,
                                load_model, pump)
+import torch_worlds
 
-REPO = pathlib.Path(__file__).resolve().parents[1]
 N, NQ, P, K, R, BLOCK = 300, 400, 19, 7, 2, 64
 N_REQUESTS, MAX_WIDTH, MAX_STEP_MS = 40, 64, 2.5
 MAX_BUCKET, MAX_WAIT_MS = 128, 5.0       # the worker's
@@ -72,33 +68,10 @@ def _run_world(work, name, world, part, timeout, deadline):
     """One world's ranks started together and joined; each rank's
     out_RANK.npz."""
     wdir = work / name
-    wdir.mkdir()
-    for item in ("inputs.npz", "model"):
-        (wdir / item).symlink_to(work / item)
-    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
-           "OMP_NUM_THREADS": "1"}
-    logs = [open(wdir / f"log_{r}.txt", "w") for r in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, str(REPO / "tests" / "torch_serve_pump_worker.py"),
-         str(r), str(world), str(wdir), part, str(timeout)], env=env,
-        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
-    try:
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        text = (wdir / f"log_{bad[0]}.txt").read_text()[-4000:]
-        raise AssertionError(f"ranks {bad} of world {name} failed "
-                             f"(rc {[p.returncode for p in procs]}):\n{text}")
+    torch_worlds.link(work, wdir, ("inputs.npz", "model"))
+    torch_worlds.run(wdir, "torch_serve_pump_worker.py",
+                     [[r, world, wdir, part, timeout] for r in range(world)],
+                     name, deadline)
     return [dict(np.load(wdir / f"out_{r}.npz")) for r in range(world)]
 
 

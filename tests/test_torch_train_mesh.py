@@ -49,10 +49,6 @@ it to step 4 end as the uninterrupted (2, 1) run.
 """
 import dataclasses
 import json
-import os
-import pathlib
-import subprocess
-import sys
 import threading
 import time
 
@@ -83,8 +79,8 @@ from repro_torch.train import (AdamWConfig, TrainState, adamw_init,
                                shard_train_state)
 from test_torch_train import F32, LR, _hold
 from torch_lm_common import jax_and_port, params_of, port_of
+import torch_worlds
 
-REPO = pathlib.Path(__file__).resolve().parents[1]
 S, STEPS = 16, 3
 CASES = {"phi4": ("phi4-mini-3.8b", {}),
          "phi4-m2": ("phi4-mini-3.8b", {"microbatches": 2, "remat": True}),
@@ -124,35 +120,11 @@ def _batch(jcfg):
 def _run_world(work, data, tp, deadline):
     """One world, its ranks started together and joined; rank 0's
     out.npz."""
-    world = data * tp
     wdir = work / f"world{data}x{tp}"
-    wdir.mkdir()
-    for item in ("inputs.npz", "cases.json", "ckpt"):
-        (wdir / item).symlink_to(work / item)
-    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
-           "OMP_NUM_THREADS": "1"}
-    logs = [open(wdir / f"log_{r}.txt", "w") for r in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, str(REPO / "tests" / "torch_train_mesh_worker.py"),
-         str(r), str(data), str(tp), str(wdir)], env=env, stdout=logs[r],
-        stderr=subprocess.STDOUT) for r in range(world)]
-    try:
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        text = (wdir / f"log_{bad[0]}.txt").read_text()[-4000:]
-        raise AssertionError(f"ranks {bad} of world ({data}, {tp}) failed "
-                             f"(rc {[p.returncode for p in procs]}):\n{text}")
+    torch_worlds.link(work, wdir, ("inputs.npz", "cases.json", "ckpt"))
+    torch_worlds.run(wdir, "torch_train_mesh_worker.py",
+                     [[r, data, tp, wdir] for r in range(data * tp)],
+                     f"({data}, {tp})", deadline)
     return dict(np.load(wdir / "out.npz"))
 
 

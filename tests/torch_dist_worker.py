@@ -22,7 +22,8 @@ from repro_torch.core.sketch import SRHT, GaussianSketch, next_pow2
 from repro_torch.distributed.checkpoint import restore_checkpoint
 from repro_torch.distributed.cluster import distributed_one_pass_kernel_kmeans
 from repro_torch.distributed.dfwht import distributed_fwht
-from repro_torch.launch.mesh import make_debug_mesh, make_mesh, mesh_axis
+from repro_torch.launch.mesh import (make_debug_mesh, make_mesh, mesh_axis,
+                                     open_world, run_process)
 from repro_torch.serve import (ComputePolicy, MicroBatcher, ShardedExtender,
                                embed_sharded, load_model)
 
@@ -168,23 +169,22 @@ def check_checkpoint(inp, res, workdir, world):
 def main():
     rank, world, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     torch.set_num_threads(1)
-    dist.init_process_group(
-        "gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
-        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
-    inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
-    res = {}
-    mesh = make_debug_mesh(data=world, device="cpu")
-    check_fwht(mesh, inp, res)
-    if world == 4:
-        check_fwht_2d(inp, res)
-    check_fit(mesh, inp, res, workdir, rank)
-    check_extend(mesh, inp, res, workdir)
-    check_cluster(mesh, inp, res)
-    check_checkpoint(inp, res, workdir, world)
-    np.savez(os.path.join(workdir, f"out_{rank}.npz"), **res)
-    dist.barrier()
-    dist.destroy_process_group()
+    with open_world("cpu", datetime.timedelta(seconds=120),
+                    store=dist.FileStore(os.path.join(workdir, "store"),
+                                         world), rank=rank, size=world):
+        inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
+        res = {}
+        mesh = make_debug_mesh(data=world, device="cpu")
+        check_fwht(mesh, inp, res)
+        if world == 4:
+            check_fwht_2d(inp, res)
+        check_fit(mesh, inp, res, workdir, rank)
+        check_extend(mesh, inp, res, workdir)
+        check_cluster(mesh, inp, res)
+        check_checkpoint(inp, res, workdir, world)
+        np.savez(os.path.join(workdir, f"out_{rank}.npz"), **res)
+        dist.barrier()
 
 
 if __name__ == "__main__":
-    main()
+    run_process(main)

@@ -31,7 +31,8 @@ import torch.distributed as dist
 from repro_torch.configs import get_config
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import activation_sharding
-from repro_torch.launch.mesh import dp_axes, make_debug_mesh
+from repro_torch.launch.mesh import (dp_axes, make_debug_mesh, open_world,
+                                     run_process)
 from repro_torch.models import get_api
 from repro_torch.train import make_decode_step, make_prefill_step
 
@@ -88,23 +89,21 @@ def main():
     rank, data, tp, workdir = (int(sys.argv[1]), int(sys.argv[2]),
                                int(sys.argv[3]), sys.argv[4])
     torch.set_num_threads(1)
-    dist.init_process_group(
-        "gloo", store=dist.FileStore(os.path.join(workdir, "store"),
-                                     data * tp),
-        rank=rank, world_size=data * tp,
-        timeout=datetime.timedelta(seconds=120))
-    inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
-    with open(os.path.join(workdir, "cases.json")) as f:
-        cases = json.load(f)
-    mesh = make_debug_mesh(data, tp, device="cpu")
-    res = {}
-    for case in cases:
-        if [data, tp] in case["worlds"]:
-            serve_case(mesh, data, inp, case, res)
-    np.savez(os.path.join(workdir, f"out_{rank}.npz"), **res)
-    dist.barrier()
-    dist.destroy_process_group()
+    with open_world("cpu", datetime.timedelta(seconds=120),
+                    store=dist.FileStore(os.path.join(workdir, "store"),
+                                         data * tp), rank=rank,
+                    size=data * tp):
+        inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
+        with open(os.path.join(workdir, "cases.json")) as f:
+            cases = json.load(f)
+        mesh = make_debug_mesh(data, tp, device="cpu")
+        res = {}
+        for case in cases:
+            if [data, tp] in case["worlds"]:
+                serve_case(mesh, data, inp, case, res)
+        np.savez(os.path.join(workdir, f"out_{rank}.npz"), **res)
+        dist.barrier()
 
 
 if __name__ == "__main__":
-    main()
+    run_process(main)

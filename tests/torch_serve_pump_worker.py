@@ -7,7 +7,8 @@ package wrote) and `inputs.npz` (the requests side by side, their
 widths, the fake clock's steps between them). Every scenario serves on
 ComputePolicy(mesh=(WORLD, 1) mesh, the kernel paths through their plain
 versions) and runs its pumped batchers on every rank, built in the same
-order; the process group's timeout is TIMEOUT seconds. PART "all" runs,
+order; the process group's timeout is TIMEOUT seconds, counted once
+every rank is up (tests/torch_worlds.py rendezvous). PART "all" runs,
 in order:
 
   refuse  a pumped AsyncBatcher: a follower's submit, poll and start
@@ -31,9 +32,11 @@ for 1.6 timeouts with the keep-alive at a fifth of one, then serves one
 request and stops: its NOPs keep the followers' waits alive. Then rank
 0's first flush of a new batcher raises after its FLUSH went out: rank
 0's futures carry the error and each follower's follow() raises (the
-seconds it took are written). Each rank writes out_RANK.npz: every
-flush's results as its batcher saw them, and the drains'. No check
-asserts here; the test compares.
+seconds it took are written). Then each rank ends the world as broken
+(launch/mesh.py close_world) and leaves through run_process's os._exit
+with code 0. Each rank writes out_RANK.npz: every flush's results as
+its batcher saw them, and the drains'. No check asserts here; the test
+compares.
 """
 import datetime
 import os
@@ -45,11 +48,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.mesh import (close_world, make_debug_mesh, open_world,
+                                     run_process)
 from repro_torch.serve import (AsyncBatcher, ComputePolicy, MicroBatcher,
                                ModelRegistry, load_model)
 from repro_torch.serve import pump
 from repro_torch.serve.pump import PUMP
+from torch_worlds import rendezvous
 
 MAX_BUCKET = 128
 MAX_WAIT_MS = 5.0
@@ -262,10 +267,14 @@ def main():
         int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
         float(sys.argv[5]))
     torch.set_num_threads(1)
-    dist.init_process_group(
-        "gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
-        rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=timeout))
+    store = dist.FileStore(os.path.join(workdir, "store"), world)
+    rendezvous(store, rank, world)
+    with open_world("cpu", datetime.timedelta(seconds=timeout),
+                    store=store, rank=rank, size=world):
+        run(rank, world, workdir, part, timeout)
+
+
+def run(rank, world, workdir, part, timeout):
     inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
     offs = np.cumsum(np.concatenate([[0], inp["widths"]]))
     reqs = [np.ascontiguousarray(inp["queries"][:, a:b])
@@ -280,6 +289,8 @@ def main():
         keep_alive(rank, model, pol, reqs, res, timeout)
         fail(rank, model, pol, reqs, res)
         np.savez(out, **res)
+        # The collective rank 0 left half made broke the world.
+        close_world(broken=True)
         return
     PUMP.reset_counts()
     refuse(rank, model, pol, reqs, res)
@@ -290,8 +301,7 @@ def main():
         res[f"pump/{key}"] = val
     np.savez(out, **res)
     dist.barrier()
-    dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    main()
+    run_process(main)

@@ -39,7 +39,8 @@ from repro_torch.distributed.checkpoint import CheckpointManager
 from repro_torch.distributed.sharding import (activation_sharding,
                                               param_pspecs)
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.mesh import dp_axes, make_debug_mesh
+from repro_torch.launch.mesh import (dp_axes, make_debug_mesh, open_world,
+                                     run_process)
 from repro_torch.models import get_api
 from repro_torch.models.layers import remat_units
 from repro_torch.train import steps as train_steps
@@ -226,9 +227,13 @@ def main():
                                int(sys.argv[3]), sys.argv[4])
     world = data * tp
     torch.set_num_threads(1)
-    dist.init_process_group(
-        "gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
-        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
+    with open_world("cpu", datetime.timedelta(seconds=120),
+                    store=dist.FileStore(os.path.join(workdir, "store"),
+                                         world), rank=rank, size=world):
+        run(rank, data, tp, workdir)
+
+
+def run(rank, data, tp, workdir):
     inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
     with open(os.path.join(workdir, "cases.json")) as f:
         cases = json.load(f)
@@ -256,8 +261,7 @@ def main():
     if rank == 0:
         np.savez(os.path.join(workdir, "out.npz"), **res)
     dist.barrier()
-    dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    main()
+    run_process(main)
