@@ -22,7 +22,10 @@ Phases, each fatal on failure:
      summing launch) at the main shape and the serving widths equals the
      unfused extend_embed -> transpose -> kmeans_assign sequence bit for
      bit, timed beside it and beside extend_embed alone; kmeans_assign
-     also back to back and at its registry case (513, 16, 100);
+     also back to back and at its registry case (513, 16, 100); fwht at
+     one column (FWHT_COLUMN_N, 1), the row pass and passes over its
+     view, equal to fwht_ref bit for bit, timed one call and back to back
+     beside its bound;
   4. fit: KernelKMeans on n = 100,000 points of the segmentation proxy
      (p = 19, K = 7, r = 2, l = 5, polynomial d = 2, onepass-srht,
      block 512) through the fused fit_sketch kernel, its eigensolve through
@@ -265,7 +268,9 @@ Phases, each fatal on failure:
      step (counted); on the first step's gradient the projection's
      identities (|g_hat| = |s| and <g_hat, e'> ~ 0 over the padded
      vectors, v = g_hat + e' to e''s rounding) and fwht_op at (2^31, 1)
-     against fwht_ref, the same bits, timed beside its bound; (c)
+     (the one-column plan) against fwht_ref, the same bits, timed beside
+     its bound, the transform's ms a warm step beside the pass kernel's
+     alone (SKETCH_TRANSFORM_BEFORE_MS); (c)
      compress / decompress at the ten smoke configs' n, the card
      against the CPU's plain path within 2e-4;
   19. dryrun (after 18, before 7): the dry run (launch/dryrun.py: rank 0
@@ -306,8 +311,9 @@ Phases, each fatal on failure:
   20. analysis (after 19, before 7): the port's static contract checker
      (repro_torch.analysis): python -m repro_torch.analysis's run over
      src/repro_torch with analysis_baseline_torch.toml must exit 0; every
-     registry case of the seven kernels and their main-path shapes
-     launched under one torch.profiler trace, each launch's kernel, grid,
+     registry case of the seven kernels, their main-path shapes and fwht
+     at one column (FWHT_COLUMN_N, 1) launched under one torch.profiler
+     trace, each launch's kernel, grid,
      block and shared memory (CUPTI's static + dynamic) in the trace equal
      to the plan the CPU derivation walks (its dynamic shared memory plus
      ptxas's static), each call's declared DRAM bytes equal to the
@@ -368,6 +374,10 @@ TOL = 2e-3           # registry tolerance of the fused kernels
 STREAM_CHUNK = 10_000                          # partial_fit chunk width
 SAVED_AGREEMENT = 0.95   # tests/test_stream.py::test_int8_artifact_serves
 LIBRARY_FWHT_N = 8192    # rows of the materialized H timed as torch.mm
+# One column (c = 1) timed in phase 3 and traced in phase 20: the row pass
+# and two passes over its (2^11, 2^13) view, a mid-size stand-in for the
+# sketched gradient's (2^31, 1), which 18b times.
+FWHT_COLUMN_N = 1 << 24
 
 # Kernels the main path launches. No path of the JAX package calls gram
 # (its drift monitor takes kappa in plain jnp); the port's drift monitor
@@ -655,6 +665,11 @@ SKETCH_RUN = ["--no-smoke", "--arch", SKETCH_ARCH, "--batch", str(TRAIN_B),
               "--seq", str(TRAIN_S), "--steps", str(SKETCH_STEPS), "--lr",
               str(TRAIN_LR), "--sketch-grads", str(SKETCH_R)]
 SKETCH_PEAK_GB = 75.0
+# The transform's ms a warm step and fwht_op's ms at (2^31, 1) when one
+# column ran through the pass kernel alone (one lane of eight live),
+# printed beside this run's: chip_smoke, H100 80GB HBM3, 700.00 W.
+SKETCH_TRANSFORM_BEFORE_MS = (707.4, 732.1)
+FWHT_COLUMN_BEFORE_MS = 267.7
 SKETCH_SMOKE_R = 4096
 FWHT_TOL = 2e-4                          # fwht's registry tolerance
 # 18d: the switch of sequence parallelism around the sharded step on a
@@ -2205,6 +2220,37 @@ def fwht_extra(torch, dev, entry, main) -> dict:
         f"{out['eig_bound_ms']:.5f} ms; at ({n}, {BLOCK}) kernel "
         f"{out['ms_at_library_shape']:.4f} ms vs torch.mm with a "
         f"materialized H {out['library_ms_at_library_shape']:.4f} ms")
+    out.update(fwht_column(torch, dev, entry))
+    return out
+
+
+def fwht_column(torch, dev, entry) -> dict:
+    """fwht at one column (FWHT_COLUMN_N, 1): the row pass, then the pass
+    kernel over the (n / 2^s, 2^s) view, as fwht_launch_plan plans it;
+    equal to fwht_ref bit for bit, one call and back to back beside its
+    bound and the plain version."""
+    from repro_torch.kernels.fwht.ops import fwht_launch_plan
+    n = FWHT_COLUMN_N
+    x = torch.randn((n, 1), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    got = entry.op(x)
+    torch.cuda.synchronize()
+    exact(torch, entry.name, got, entry.ref(x))
+    same_bits(torch, entry.name, got, entry.op(x))
+    plan = [(ln.kernel, ln.tiles[0]) for ln in fwht_launch_plan(x).launches]
+    out = {"column_shape": [n, 1], "column_plan": plan,
+           "column_ms": cuda_ms(torch, lambda: entry.op(x)),
+           "column_ms_back_to_back": cuda_ms_back_to_back(
+               torch, lambda: entry.op(x)),
+           "column_plain_ms": cuda_ms(torch, lambda: entry.ref(x)),
+           "column_bound_ms": fwht_bound(n, 1)["bound_ms"],
+           "column_bound_by": fwht_bound(n, 1)["bound_by"]}
+    log(f"[kernels] fwht at one column ({n}, 1), launches {plan} (kernel, "
+        f"stages): kernel {out['column_ms']:.4f} ms, back to back "
+        f"{out['column_ms_back_to_back']:.4f} ms, plain "
+        f"{out['column_plain_ms']:.4f} ms, bound "
+        f"{out['column_bound_ms']:.4f} ms ({out['column_bound_by']}); "
+        f"fwht_ref's bits")
     return out
 
 
@@ -5186,10 +5232,11 @@ def sketch_identities(torch, smi) -> dict:
         f"[{smi}]: |g_hat| / |s| - 1 = {info['norm_ratio_minus_1']:.3e}, "
         f"cos(g_hat, e') = {info['cos_g_e']:.3e}; the transform's g_hat "
         f"is decompress(s) in each parameter's dtype bit for bit and its "
-        f"ef' is v - g_hat to one f32 rounding; fwht_op at ({n_pad}, 1) {info['fwht_ms']:.3f} ms "
-        f"(bound {info['bound_ms']:.3f} ms by {info['bound_by']}, "
-        f"{info['fwht_ms'] / info['bound_ms']:.1f}x), fwht_ref "
-        f"{info['fwht_plain_ms']:.3f} ms, the same bits")
+        f"ef' is v - g_hat to one f32 rounding; fwht_op at ({n_pad}, 1) "
+        f"{info['fwht_ms']:.3f} ms (bound {info['bound_ms']:.3f} ms by "
+        f"{info['bound_by']}, {info['fwht_ms'] / info['bound_ms']:.1f}x; "
+        f"{FWHT_COLUMN_BEFORE_MS} ms through the pass kernel alone), "
+        f"fwht_ref {info['fwht_plain_ms']:.3f} ms, the same bits")
     return info
 
 
@@ -5240,7 +5287,9 @@ def sketch_launcher(torch, smi) -> dict:
         f"parameters) with sketched gradients r' {SKETCH_R:,} [{smi}]: loss "
         f"{info['losses'][0]} -> {info['losses'][-1]}; ratio "
         f"{info['ratio']:.4f} = n / r'; transform {statistics.mean(warm):.1f}"
-        f" ms a warm step ({info['transform_ms']}); warm step "
+        f" ms a warm step ({info['transform_ms']}; through the pass kernel "
+        f"alone {SKETCH_TRANSFORM_BEFORE_MS[0]}-"
+        f"{SKETCH_TRANSFORM_BEFORE_MS[1]}); warm step "
         f"{info['warm_ms']:.1f} ms, {info['tokens_per_s']:.1f} tokens/s; "
         f"peak {peak:.3f} GB (gate {SKETCH_PEAK_GB}); launches {launches}")
     return info
@@ -5784,6 +5833,10 @@ def phase_analysis(torch, dev, X) -> dict:
                           f"case {case}"))
         calls += [(contract, entry.op, args, kw, f"main shape {j}")
                   for j, (args, kw) in enumerate(main[entry.name])]
+        if entry.name == "fwht":
+            column = torch.randn((FWHT_COLUMN_N, 1), device=dev)
+            calls.append((contract, entry.op, [column], {},
+                          f"column ({FWHT_COLUMN_N}, 1)"))
     one = [lambda c=c: c[1](*c[2], **c[3]) for c in calls]
     got = traced(torch, one * (1 + TRACE_WARM_PASSES))
     planned = sum(len(c[0].plan(*c[2], **c[3]).launches) for c in calls)

@@ -157,12 +157,19 @@ def _fit(plan, i, launch, block) -> int:
 
 def _fwht_pass(plan, i, launch, block) -> int:
     """csrc/fwht.cu fwht_pass_kernel: a tile of 2^k rows by 8 lanes x vec
-    columns, read and written once."""
-    c = plan.shapes["c"]
-    k, _, vec, _ = launch.tiles
+    columns of the c-column matrix the pass runs on, read and written
+    once."""
+    k, _, vec, _, c = launch.tiles
     width = 8 * vec
     cols = min(width, c - (block[0] % _cdiv(c, width)) * width)
     return 8 * (1 << k) * cols
+
+
+def _fwht_rows(plan, i, launch, block) -> int:
+    """csrc/fwht.cu fwht_rows_kernel: a contiguous segment of 2^s floats,
+    read and written once."""
+    s, _ = launch.tiles
+    return 8 * (1 << s)
 
 
 def _srht_pass(plan, i, launch, block) -> int:
@@ -195,6 +202,7 @@ SCHEDULES: Dict[str, Callable] = {
     "sum_assign_kernel": _sum_assign,
     "fit_sketch_kernel": _fit,
     "fwht_pass_kernel": _fwht_pass,
+    "fwht_rows_kernel": _fwht_rows,
     "srht_pass_kernel": _srht_pass,
 }
 

@@ -47,6 +47,7 @@ SIGNATURES = {
                       _I, _I, _I, _P, _P, _P, _P),
     "rt_fit_sketch_smem_bytes": (),
     "rt_fwht": (_P, _P, _LL, _I, _P, _P, _I, _I, _F, _P),
+    "rt_fwht_rows": (_P, _P, _LL, _I, _I, _F, _P),
     "rt_srht_t_pass": (_P, _LL, _P, _P, _I, _LL, _P, _P, _P, _P, _I, _I,
                        _I, _I, _F, _I, _P),
 }

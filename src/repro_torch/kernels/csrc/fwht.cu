@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/fwht/fwht.py
 // (_fwht_kernel, :28 / fwht_1level, :42) and its two-sweep wrapper
-// src/repro/kernels/fwht/ops.py:54 (fwht_pallas); the SRHT form replaces
+// src/repro/kernels/fwht/ops.py:54 (fwht_pallas), whose factorization
+// the one-column plan below keeps; the SRHT form replaces
 // the pad / sign / transform / gather composition around it,
 // src/repro/core/sketch.py:104 (srht_apply_t).
 //
@@ -29,6 +30,18 @@
 // intermediate could stay in L2, did not pay on the H100 (the column
 // segments it reads are short, and a pass is bound by loads in flight,
 // not by HBM traffic).
+// One column (c = 1; the sketched gradient's (2^31, 1), 17.18 GB read and
+// written, 5.13 ms at 3.35 TB/s) would leave 7 of a tile row's 8 lanes
+// idle and, past the first pass, read one 4-byte word per 32-byte sector.
+// Its plan reads the column row-major as an (n / 2^L, 2^L) matrix,
+// H_n = (H_{n/2^L} (x) I)(I (x) H_{2^L}), as the JAX wrapper's two sweeps
+// do: fwht_rows_kernel transforms each contiguous segment of 2^L floats
+// (stage bits 0 .. L - 1; a segment is a tile of 2^(L-5) rows of 32
+// floats, each 8-lane row loading one 128-byte line; bits 0 .. 4 inside a
+// row by registers and warp shuffles, the rest as a pass runs them), then
+// fwht_pass_kernel runs bits L .. m - 1 in place on the view, 2^L columns
+// at 16-byte loads. At n = 2^31, L = 13: three passes over x, each
+// coalesced, against four (8 + 8 + 8 + 7) of one live lane in eight.
 // srht_t reads only the rows of M below m, scales them by the signs in
 // its first pass (rows past m are zero; a block past m reads nothing and
 // writes zeros), and every pass writes only the rows whose transformed
@@ -222,6 +235,70 @@ __global__ void __launch_bounds__(launch_bound(G))
   }
 }
 
+// Stage bits 0 .. 4 of a tile row's 32 floats: bits 0 and 1 inside each
+// thread's 4 columns, bits 2 .. 4 across the row's 8 lanes by warp
+// shuffles (a lane whose bit is 0 keeps a + b, its partner a - b, as the
+// plain version pairs them). `mask` names the warp's threads.
+template <int G>
+__device__ __forceinline__ void row_stages(Vec<4> (&v)[1 << G], int lane,
+                                           unsigned mask) {
+#pragma unroll
+  for (int i = 0; i < (1 << G); ++i) {
+    float* e = v[i].e;
+#pragma unroll
+    for (int h = 1; h <= 2; h *= 2) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (q & h) continue;
+        const float a = e[q], b = e[q | h];
+        e[q] = a + b;
+        e[q | h] = a - b;
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 1; h < kLanes; h *= 2) {
+    const bool upper = lane & h;
+#pragma unroll
+    for (int i = 0; i < (1 << G); ++i) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float mine = v[i].e[q];
+        const float other = __shfl_xor_sync(mask, mine, h);
+        v[i].e[q] = upper ? other - mine : mine + other;
+      }
+    }
+  }
+}
+
+// The row pass of one column (c = 1): block b transforms the contiguous
+// segment x[b 2^s .. (b + 1) 2^s), s = k + 5, in place of stage bits
+// 0 .. s - 1. The segment is a tile of 2^k rows of 32 floats (8 lanes x
+// 4): stage bits 0 .. 4 run inside a row (row_stages), bits 5 .. s - 1
+// down the tile's rows as a pass kernel runs them. out may alias x.
+template <int G>
+__global__ void __launch_bounds__(launch_bound(G))
+    fwht_rows_kernel(const float* x, float* out, int k, float divisor,
+                     int last) {
+  extern __shared__ float sm[];
+  constexpr int tc = kLanes * 4;
+  const int lane = threadIdx.x % kLanes, group = threadIdx.x / kLanes;
+  const long long seg = (long long)blockIdx.x << (k + 5);
+  const unsigned mask =
+      blockDim.x >= 32 ? 0xffffffffu : (1u << blockDim.x) - 1u;
+  Vec<4> v[1 << G];
+#pragma unroll
+  for (int i = 0; i < (1 << G); ++i)
+    v[i] = load<4>(x + seg + tile_row<G>(i, group, 0) * tc + lane * 4, true);
+  row_stages<G>(v, lane, mask);
+  run_pass<G, 4>(sm, v, k, group, lane);
+  const int w = window<G>(rounds<G>(k) - 1, k);
+#pragma unroll
+  for (int i = 0; i < (1 << G); ++i)
+    store<4>(out + seg + tile_row<G>(i, group, w) * tc + lane * 4,
+             last ? divide<4>(v[i], divisor) : v[i], last);
+}
+
 // One srht_t pass. Block b owns the rows bases[b] + j * stride of src
 // (j < 2^k); in the first pass (signs != null) rows >= m_src are zero and
 // the rest are scaled by signs[row]. After the k stages the block writes
@@ -328,6 +405,19 @@ cudaError_t fwht_dispatch(int g, const float* x, float* out, long long n,
   }
 }
 
+template <int G>
+cudaError_t rows_launch(const float* x, float* out, long long n, int k,
+                        float divisor, int last, cudaStream_t stream) {
+  const size_t smem = tile_smem(k, 4);
+  cudaError_t err = raise_smem(fwht_rows_kernel<G>, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = n >> (k + 5);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  fwht_rows_kernel<G><<<(unsigned)blocks, kLanes << (k - G), smem,
+                        stream>>>(x, out, k, divisor, last);
+  return cudaGetLastError();
+}
+
 template <int G, int VEC>
 cudaError_t srht_launch(const float* src, long long m_src, const float* signs,
                         const long long* bases, int nblocks, long long stride,
@@ -365,11 +455,12 @@ cudaError_t srht_dispatch(int g, const float* src, long long m_src,
 
 }  // namespace
 
-// The whole transform of x (n, c) into out (not aliasing x), as the
-// wrapper plans it: bits[0 .. npass) stages per pass (host array),
-// reg_bits[p] register stages per round of pass p, vec columns per thread
-// (4 needs c % 4 == 0 and 16-byte aligned x and out). divisor (sqrt(n),
-// or 1) divides on the last pass.
+// The whole transform of x (n, c) into out, as the wrapper plans it (out
+// may alias x: a pass's blocks read their whole tile before writing):
+// bits[0 .. npass) stages per pass (host array), reg_bits[p] register
+// stages per round of pass p, vec columns per thread (4 needs c % 4 == 0
+// and 16-byte aligned x and out). divisor (sqrt(n), or 1) divides on the
+// last pass.
 extern "C" int rt_fwht(const float* x, float* out, long long n, int c,
                        const int* bits, const int* reg_bits, int npass,
                        int vec, float divisor, void* stream) {
@@ -396,6 +487,32 @@ extern "C" int rt_fwht(const float* x, float* out, long long n, int c,
     done += bits[p];
   }
   return (int)cudaSuccess;
+}
+
+// The row pass of one column x (n, 1) into out (which may alias x): stage
+// bits 0 .. row_bits - 1 of each contiguous segment of 2^row_bits floats
+// (row_bits >= 5; reg_bits register stages per round down the segment's
+// 2^(row_bits - 5) tile rows). x and out 16-byte aligned. Where n ==
+// 2^row_bits it is the whole transform and divides by divisor; else
+// rt_fwht on the (n / 2^row_bits, 2^row_bits) view of out, handed out as
+// x, runs the remaining bits.
+extern "C" int rt_fwht_rows(const float* x, float* out, long long n,
+                            int row_bits, int reg_bits, float divisor,
+                            void* stream) {
+  const int k = row_bits - 5;
+  if (k < 0 || !valid_pass(k, reg_bits, 4) || n < (1LL << row_bits) ||
+      n % (1LL << row_bits) || reinterpret_cast<size_t>(x) % 16 ||
+      reinterpret_cast<size_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int last = n == (1LL << row_bits);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (reg_bits) {
+    case 0: return (int)rows_launch<0>(x, out, n, k, divisor, last, st);
+    case 1: return (int)rows_launch<1>(x, out, n, k, divisor, last, st);
+    case 2: return (int)rows_launch<2>(x, out, n, k, divisor, last, st);
+    case 3: return (int)rows_launch<3>(x, out, n, k, divisor, last, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // One pass of the SRHT form (see srht_pass_kernel): src rows of c columns

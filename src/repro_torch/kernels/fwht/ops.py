@@ -2,8 +2,9 @@
 
 The plan of every launch is made here, where the CPU tests reach it:
 `pass_bits` splits the stages into passes, `reg_bits` each pass into
-register rounds, and `srht_plan` the blocks and rows each pass of the
-SRHT form runs and writes.
+register rounds, `column_bits` one column's transform into a row pass and
+the passes over its (n / 2^L, 2^L) view, and `srht_plan` the blocks and
+rows each pass of the SRHT form runs and writes.
 """
 from __future__ import annotations
 
@@ -32,6 +33,13 @@ MAX_REG_BITS = 3
 # block may have.
 LANES = 8
 MAX_THREADS = 1024
+# One column (c = 1) runs as a row pass over contiguous segments of 2^L
+# floats, then passes over the (n / 2^L, 2^L) view. A segment is a tile of
+# 2^(L - 5) rows of 32 floats (8 lanes x 4), so L >= 5; L = 13 holds a
+# segment in 32 KB of shared memory and leaves 18 bits at n = 2^31, two
+# passes of 9 (PERF.md: 11 and 12 were tried beside it).
+ROW_BITS = 13
+MIN_ROW_BITS = 5
 
 
 def pass_bits(n: int, max_bits: Optional[int] = None) -> List[int]:
@@ -52,11 +60,23 @@ def reg_bits(k: int) -> int:
     return min(MAX_REG_BITS, k)
 
 
+def aligned(*tensors: torch.Tensor) -> bool:
+    """Every tensor starts 16-byte aligned (fresh allocations do)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def vec_width(c: int, *tensors: torch.Tensor) -> int:
     """Columns per thread: 4 (16-byte loads and stores) when every row
     starts 16-byte aligned, else 1."""
-    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
-    return 4 if c % 4 == 0 and aligned else 1
+    return 4 if c % 4 == 0 and aligned(*tensors) else 1
+
+
+def column_bits(n: int, c: int) -> int:
+    """Stage bits of the row pass for x (n, c): min(log2(n), ROW_BITS) for
+    one column of at least 2^MIN_ROW_BITS rows, else 0 (no row pass: the
+    pass kernel runs every stage, as at every c != 1)."""
+    m = n.bit_length() - 1
+    return min(m, ROW_BITS) if c == 1 and m >= MIN_ROW_BITS else 0
 
 
 def _ints(values) -> ctypes.Array:
@@ -94,14 +114,35 @@ def planned_vec(c: int) -> int:
     return 4 if c % 4 == 0 else 1
 
 
+def _rows_launch(n: int, s: int) -> cm.Launch:
+    """The row pass's launch (csrc/fwht.cu rows_launch): a block per
+    segment of 2^s floats, 8 x 2^(k - g) threads, a tile of 2^k rows of
+    32 floats in shared memory (k = s - 5)."""
+    k = s - MIN_ROW_BITS
+    g = reg_bits(k)
+    return cm.Launch("fwht_rows_kernel", (n >> s,), LANES << (k - g),
+                     (4 * LANES * 4) << k, (s, g))
+
+
 def fwht_launch_plan(x, normalize: bool = True) -> cm.LaunchPlan:
     """The launches fwht_op makes for x (n, c), its tensors 16-byte
-    aligned (fresh allocations are): one pass kernel a pass."""
+    aligned (fresh allocations are): for one column, the row pass and
+    then one pass kernel a pass over the (n / 2^s, 2^s) view; else one
+    pass kernel a pass over x. A pass launch's tiles are (stages,
+    register stages, vec, stages done, columns of the matrix it runs
+    on)."""
     n, c = x.shape
-    vec, launches, done = planned_vec(c), [], 0
-    for k, g in fwht_passes(n) if c else ():
-        launches.append(_pass_launch("fwht_pass_kernel", n >> k, c, k, g,
-                                     vec, (k, g, vec, done)))
+    s = column_bits(n, c)
+    launches, rows, cols = [], n, c
+    if s:
+        launches.append(_rows_launch(n, s))
+        rows, cols = n >> s, 1 << s
+    # Without a row pass, n == 1 still runs one pass of no stages.
+    passes = fwht_passes(rows) if c and (rows > 1 or not s) else ()
+    vec, done = planned_vec(cols), s
+    for k, g in passes:
+        launches.append(_pass_launch("fwht_pass_kernel", rows >> k, cols, k,
+                                     g, vec, (k, g, vec, done, cols)))
         done += k
     return cm.LaunchPlan({"n": n, "c": c}, tuple(launches))
 
@@ -111,9 +152,14 @@ def fwht_op(x: torch.Tensor,
     """Walsh-Hadamard transform along dim 0 of x (n, c), n = 2^m, float32.
 
     CPU tensors run the plain version; CUDA tensors launch the pass kernel
-    once per pass (pass_bits), which runs the stages in the plain version's
-    order and divides by the same f32 sqrt(n), so the two agree bit for
-    bit. `launches` counts transforms, one per call that ran the kernel.
+    once per pass (pass_bits). One column of at least 32 rows (c == 1, the
+    sketched gradient's) runs the row pass over contiguous segments of
+    2^s floats (column_bits) and then the pass kernel over the (n / 2^s,
+    2^s) view of the output, in place; a column that does not start
+    16-byte aligned takes the pass kernel alone, as every c != 1 does.
+    Either way the stages run in the plain version's order and the last
+    launch divides by the same f32 sqrt(n), so the two agree bit for bit.
+    `launches` counts transforms, one per call that ran the kernel.
     """
     what = "fwht"
     # Checked on both paths, so a CPU run catches what the kernel refuses.
@@ -126,11 +172,23 @@ def fwht_op(x: torch.Tensor,
     out = torch.empty_like(x)
     if c == 0:
         return out
-    rc = _build.library().rt_fwht(
-        x.data_ptr(), out.data_ptr(), n, c,
-        *_fwht_plan(n, MAX_PASS_BITS), vec_width(c, x, out),
-        _sqrt(n) if normalize else 1.0, cm.stream(x))
-    _build.check(rc, what)
+    lib, st = _build.library(), cm.stream(x)
+    divisor = _sqrt(n) if normalize else 1.0
+    s = column_bits(n, c) if aligned(x, out) else 0
+    if s:
+        rows = n >> s
+        _build.check(lib.rt_fwht_rows(
+            x.data_ptr(), out.data_ptr(), n, s, reg_bits(s - MIN_ROW_BITS),
+            divisor, st), what)
+        if rows > 1:
+            _build.check(lib.rt_fwht(
+                out.data_ptr(), out.data_ptr(), rows, 1 << s,
+                *_fwht_plan(rows, MAX_PASS_BITS), 4, divisor, st), what)
+    else:
+        _build.check(lib.rt_fwht(
+            x.data_ptr(), out.data_ptr(), n, c,
+            *_fwht_plan(n, MAX_PASS_BITS), vec_width(c, x, out), divisor,
+            st), what)
     fwht_op.launches += 1
     return out
 
@@ -317,8 +375,9 @@ def srht_launch_plan(M, signs, rows, n_pad: int,
 
 
 def fwht_contract(plan: cm.LaunchPlan) -> dict:
-    """The declared memory contract of one transform: every pass reads and
-    writes all of x (n, c); shared memory holds a pass's widest tile."""
+    """The declared memory contract of one transform: every launch (the
+    row pass and each pass) reads and writes all of x (n, c); shared
+    memory holds a launch's widest tile."""
     s = plan.shapes
     return {"dram_bytes": 8 * s["n"] * s["c"] * len(plan.launches),
             "smem_bytes": max((ln.smem for ln in plan.launches), default=0)}

@@ -623,9 +623,23 @@ _PASSED = {
     "rt_extend_embed": lambda a: (a[13], a[14], a[15], a[19], bool(a[20])),
     "rt_fit_sketch": lambda a: (a[14], a[15]),
     "rt_fwht": lambda a: (_ints(a[4], a[6]), _ints(a[5], a[6]), a[7]),
+    "rt_fwht_rows": lambda a: (a[3], a[4]),
     "rt_srht_t_pass": lambda a: (a[11], a[12], a[13], a[5], a[1], a[15],
                                  a[4]),
 }
+
+
+def _fwht_calls(plan):
+    """One column's row pass as rt_fwht_rows, then every pass in one
+    rt_fwht call."""
+    rows = [("rt_fwht_rows", ln.tiles) for ln in plan.launches
+            if ln.kernel == "fwht_rows_kernel"]
+    passes = [ln.tiles for ln in plan.launches
+              if ln.kernel == "fwht_pass_kernel"]
+    if not passes:
+        return rows
+    return rows + [("rt_fwht", (tuple(t[0] for t in passes),
+                                tuple(t[1] for t in passes), passes[0][2]))]
 
 
 def _extend_calls(plan):
@@ -644,10 +658,7 @@ _PLANNED = {
     "extend_embed": _extend_calls,
     "embed_assign": _extend_calls,
     "fit_sketch": lambda plan: [("rt_fit_sketch", plan.detail)],
-    "fwht": lambda plan: [("rt_fwht", (
-        tuple(ln.tiles[0] for ln in plan.launches),
-        tuple(ln.tiles[1] for ln in plan.launches),
-        plan.launches[0].tiles[2]))],
+    "fwht": _fwht_calls,
     "srht_t": lambda plan: [("rt_srht_t_pass", (*ln.tiles, len(ps.bases)))
                             for ln, ps in zip(plan.launches, plan.detail)],
 }
@@ -714,7 +725,9 @@ def test_traced_launches_read_a_profiler_trace():
 # Shapes past the registry's cases, where the plans take their other
 # branches: gram walking p in chunks (p > 312) and in 8 column chunks,
 # extend_embed and fit_sketch past 24 rows of p, fit_sketch past 512
-# block columns, points wider than 16 values, an SRHT with blocks past m.
+# block columns, points wider than 16 values, an SRHT with blocks past m,
+# one column past one segment (the row pass, then passes over its view)
+# and below 32 rows (the pass kernel alone).
 _BRANCHES = [
     ("gram_stripe", ((400, 1000), (400, 64)), {"kind": "rbf"}),
     ("gram_stripe", ((19, 3000), (19, 4096)), {}),
@@ -723,6 +736,8 @@ _BRANCHES = [
     ("fit_sketch", ((50, 900), (900, 11), (50, 1100), (1100, 11), (900,)),
      {"kind": "rbf"}),
     ("kmeans_assign", ((300, 20), (9, 20)), {}),
+    ("fwht", ((1 << 24, 1),), {}),
+    ("fwht", ((16, 1),), {}),
 ]
 
 

@@ -315,6 +315,35 @@ def test_fwht_is_deterministic_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("row_bits", [13, 12, 11])
+def test_fwht_column_equals_plain_and_repeats_on_card(monkeypatch, row_bits):
+    """One column (c = 1: the row pass, then the pass kernel over the
+    (n / 2^L, 2^L) view) at n = 2^1 .. 2^26 for each L tried: fwht_ref's
+    bits, normalized and not, and the same bits on two launches. A column
+    that does not start 16-byte aligned takes the pass kernel alone, with
+    the same bits."""
+    from repro_torch.kernels.fwht import ops
+    dev = _card()
+    monkeypatch.setattr(ops, "ROW_BITS", row_bits)
+    g = torch.Generator(device=dev).manual_seed(row_bits)
+    for m in range(1, 27):
+        buf = torch.randn(((1 << m) + 1,), generator=g, device=dev)
+        x = buf[:1 << m].view(-1, 1)
+        for normalize in (True, False):
+            first = ops.fwht_op(x, normalize)
+            again = ops.fwht_op(x, normalize)
+            want = ops.fwht_ref(x, normalize)
+            assert torch.equal(first.view(torch.int32),
+                               again.view(torch.int32)), (m, normalize)
+            assert torch.equal(first.view(torch.int32),
+                               want.view(torch.int32)), (m, normalize)
+        shifted = buf[1:].view(-1, 1)
+        assert not ops.aligned(shifted)
+        assert torch.equal(ops.fwht_op(shifted).view(torch.int32),
+                           ops.fwht_ref(shifted).view(torch.int32)), m
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("max_bits", [10, 6])
 @pytest.mark.parametrize("c", [512, 7, 36])
 def test_fwht_and_srht_t_equal_plain_and_repeat_on_card(monkeypatch,
